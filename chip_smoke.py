@@ -10,23 +10,33 @@ error:
 1. environment: the card's name and power limit, torch/CUDA versions;
    TF32 is switched off for matmul and cuDNN so f32 runs are IEEE f32;
 2. build: nvcc compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a;
-3. kernels: the four paged attention kernels (mixed and decode,
-   disaggregated and base-only) at Llama3-8B's head geometry, in f32 and
-   bf16, against their plain PyTorch versions on the same inputs, with
-   times, the card's bound for the same work, and for the base-only
-   kernels ``scaled_dot_product_attention`` as a yardstick;
+3. kernels: the six paged attention kernels (mixed, decode and chunked
+   prefill, each disaggregated and base-only) at Llama3-8B's head
+   geometry, in f32 and bf16, against their plain PyTorch versions on the
+   same inputs, with times, the card's bound for the same work, and for
+   the base-only kernels ``scaled_dot_product_attention`` as a yardstick;
+   the prefill cases hold a chunk starting mid-page, padded chunks and a
+   padding row with n_valid = 0, and run with and without a window that
+   straddles pages;
 4. a small f32 model served on the card and on the CPU: identical greedy
-   tokens in forkkv and prefix mode;
+   tokens in forkkv and prefix mode, under the mixed and the
+   phase-separated loop (``mixed_batching=False``), with broadcast fork
+   and on the gather path (``use_paged_kernel=False``), whose tokens must
+   also equal the paged path's on the card;
 5. Llama3-8B at full width and depth (random bf16 weights from seed 0)
    serving one 2048-token session with 8 staggered forks over 4 LoRA
-   adapters in forkkv mode, then 6. the same in prefix mode; the launch
-   counters show each path went through its kernels and never through a
-   plain version, and every launch's geometry is recorded;
-7. the kernels again, at every launch geometry the serve of 5./6. gave
+   adapters, in forkkv and prefix mode under the mixed loop, then under
+   the phase-separated loop, then a broadcast fan-out (three forks under
+   adapters 1-3 with one shared instruction, submitted together, sharing
+   one base-trajectory prefill pass); the launch counters, zeroed before
+   each serve and read after it, show each path went through its kernels
+   and never through a plain version, and every launch's geometry is
+   recorded;
+6. the kernels again, at every launch geometry the serves of 5. gave
    them (batch, query width, table width, per-row start and q_len), in
-   f32 and bf16 against their plain versions; the heaviest one, in bf16,
-   is timed and its numbers make the kernels line;
-8. the kernels line, the card line and the result line.
+   f32 and bf16 against their plain versions; each is timed in bf16, and
+   the heaviest one's numbers make the kernels line;
+7. the kernels line, the card line and the result line.
 """
 import json
 import subprocess
@@ -94,6 +104,10 @@ def time_ms(fn, reps=10, warmup=2):
 # ------------------------------------------------------- kernel inputs
 _KVL = [2048, 1500, 1023, 777, 512, 300, 129, 64]
 FIXED = {
+    # a 512-wide chunk: full from mid-page 1000, padded (300 valid from
+    # 0), 8 valid at 2040, and a padding row with n_valid = 0
+    "prefill": dict(start=[1000, 0, 2040, 0], qlen=[512, 300, 8, 0],
+                    sq=512, width=128),
     # 8 decode rows, ragged kv_len up to 2048
     "decode": dict(start=[k - 1 for k in _KVL], qlen=[1] * 8, sq=1,
                    width=128),
@@ -135,6 +149,7 @@ def make_case(kind, dtype, window, seed, start, qlen, sq, width,
         bt_r=perm().reshape(bsz, width).to(torch.int32).contiguous(),
         start=i32(start), q_len=i32(qlen),
         kv_len=i32([s + n for s, n in zip(start, qlen)]))
+    # a chunked prefill row's kv_len is start + n_valid (its q_len here)
     c["q"] = rn(bsz, g["hq"], g["d"]) if kind == "decode" else \
         rn(bsz, sq, g["hq"], g["d"])
     c.update(kind=kind, window=window, scale=g["d"] ** -0.5, dtype=dtype,
@@ -153,10 +168,18 @@ def kernel_call(pra, name, c):
         return lambda: pra.paged_residual_attention_decode(
             c["q"], c["kb"], c["vb"], c["kr"], c["vr"], c["b_k"], c["b_v"],
             c["bt_b"], c["bt_r"], c["kv_len"], **kw)
+    if name == "paged_residual_attention_prefill":
+        return lambda: pra.paged_residual_attention_prefill(
+            c["q"], c["kb"], c["vb"], c["kr"], c["vr"], c["b_k"], c["b_v"],
+            c["bt_b"], c["bt_r"], c["start"], c["kv_len"], **kw)
     if name == "paged_attention_mixed_base":
         return lambda: pra.paged_attention_mixed_base(
             c["q"], c["kb"], c["vb"], c["bt_b"], c["start"], c["q_len"],
             c["kv_len"], **kw)
+    if name == "paged_attention_prefill_base":
+        return lambda: pra.paged_attention_prefill_base(
+            c["q"], c["kb"], c["vb"], c["bt_b"], c["start"], c["kv_len"],
+            **kw)
     return lambda: pra.paged_attention_decode_base(
         c["q"], c["kb"], c["vb"], c["bt_b"], c["kv_len"], **kw)
 
@@ -168,7 +191,7 @@ def plain_call(ref, name, c):
     res = "residual" in name
     kw = dict(scale=c["scale"], window=c["window"])
     bsz = c["bt_b"].shape[0]
-    sq = c["q"].shape[1] if c["kind"] == "mixed" else 1
+    sq = 1 if c["kind"] == "decode" else c["q"].shape[1]
     sk = c["bt_b"].shape[1] * LLAMA_GEOM["page"]
     step = max(1, PLAIN_SCORE_BYTES // (LLAMA_GEOM["hq"] * sq * sk * 4))
 
@@ -179,6 +202,9 @@ def plain_call(ref, name, c):
         if c["kind"] == "mixed":
             return ref.paged_residual_attention_mixed_ref(
                 *args, c["start"][sl], c["q_len"][sl], c["kv_len"][sl], **kw)
+        if c["kind"] == "prefill":
+            return ref.paged_residual_attention_prefill_ref(
+                *args, c["start"][sl], c["kv_len"][sl], **kw)
         return ref.paged_residual_attention_ref(*args, c["kv_len"][sl], **kw)
 
     if step >= bsz:
@@ -202,9 +228,9 @@ def library_call(c):
         return x.repeat_interleave(rep, dim=1).contiguous()
 
     k, v = lay(c["kb"]), lay(c["vb"])
-    q = c["q"][:, :, None] if c["kind"] == "decode" else c["q"]
-    q = q.transpose(1, 2).contiguous() if c["kind"] == "mixed" else \
-        q.contiguous()
+    q = c["q"][:, :, None] if c["kind"] == "decode" else \
+        c["q"].transpose(1, 2)
+    q = q.contiguous()
     sq = q.shape[2]
     dev = c["q"].device
     qpos = c["start"][:, None] + torch.arange(sq, device=dev)[None]
@@ -264,16 +290,16 @@ KERNELS = {
         "mixed", "src/repro/kernels/paged_residual_attention.py:764"),
     "paged_residual_attention_decode": (
         "decode", "src/repro/kernels/paged_residual_attention.py:206"),
+    "paged_residual_attention_prefill": (
+        "prefill", "src/repro/kernels/paged_residual_attention.py:488"),
     "paged_attention_mixed_base": (
         "mixed", "src/repro/kernels/paged_residual_attention.py:910"),
     "paged_attention_decode_base": (
         "decode", "src/repro/kernels/paged_residual_attention.py:345"),
+    "paged_attention_prefill_base": (
+        "prefill", "src/repro/kernels/paged_residual_attention.py:633"),
 }
 TODO = [
-    ("paged_residual_attention_prefill",
-     "src/repro/kernels/paged_residual_attention.py:488"),
-    ("paged_attention_prefill_base",
-     "src/repro/kernels/paged_residual_attention.py:633"),
     ("residual_attention_prefill",
      "src/repro/kernels/residual_attention.py:111"),
     ("residual_attention_decode",
@@ -287,18 +313,26 @@ DTYPES = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_RTOL))
 
 def compare(pra, ref, name, c, tol, case):
     """The kernel against its plain version on ``c``; raises on a
-    non-zero q_len=0 row or an error past ``tol`` (f32: absolute; bf16: a
-    share of the plain version's max |value|).  Returns the record to log."""
+    non-zero row at or past q_len or an error past ``tol`` (f32: absolute;
+    bf16: a share of the plain version's max |value|).  A chunked
+    prefill's rows at or past n_valid are padding its caller ignores, which
+    the plain version computes and the kernel zeroes: only the rows below
+    n_valid are compared.  Returns the record to log."""
     got = kernel_call(pra, name, c)()
     want = plain_call(ref, name, c)()
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name} {case}: non-finite output")
+    if c["kind"] != "decode":
+        sq = got.shape[1]
+        rows = torch.arange(sq, device=got.device)[None] < \
+            torch.tensor(c["qlen_l"], device=got.device)[:, None]
+        pad = got[~rows]
+        if pad.numel() and pad.abs().max().item() != 0.0:
+            raise AssertionError(f"{name} {case}: a row past q_len is "
+                                 f"not 0")
+        got, want = got[rows], want[rows]
     err = (got.float() - want.float()).abs().max().item()
-    if c["kind"] == "mixed":
-        pad = [b for b, ql in enumerate(c["qlen_l"]) if ql == 0]
-        if pad and got[pad].abs().max().item() != 0.0:
-            raise AssertionError(f"{name} {case}: q_len=0 row not 0")
     ref_max = want.float().abs().max().item()
     limit = tol * ref_max if c["dtype"] == torch.bfloat16 else tol
     rec = dict(kernel=name, dtype=str(c["dtype"]).split(".")[1], case=case,
@@ -340,14 +374,14 @@ def check_kernels(pra, ref):
 
 
 def check_serving_shapes(pra, ref, recorded):
-    """Phase 7: each kernel at every distinct launch geometry of the
-    serve, f32 and bf16, on random inputs.  Of launches with the same
+    """Phase 6: each kernel at every distinct launch geometry of the
+    serves, f32 and bf16, on random inputs.  Of launches with the same
     (batch, query width, table width, window) the one with the most
-    (query, key) pairs stands for them.  The heaviest overall is timed in
-    bf16, what the server runs; returns those records per kernel."""
+    (query, key) pairs stands for them.  Each is timed in bf16, what the
+    server runs; returns the record of the heaviest per kernel."""
     results = {}
     for name, launches in recorded.items():
-        kind = "decode" if "decode" in name else "mixed"
+        kind = KERNELS[name][0]
         best = {}
         for launch in launches:
             bsz, sq, width, window, start, qlen = launch
@@ -363,8 +397,10 @@ def check_serving_shapes(pra, ref, recorded):
                               qlen=list(qlen), sq=sq, width=width)
                 rec = compare(pra, ref, name, c, tol, case)
                 rec.update(start=list(start), q_len=list(qlen))
-                if launch is heaviest and dtype == torch.bfloat16:
-                    results[name] = measure(pra, ref, name, c, rec)
+                if dtype == torch.bfloat16:
+                    measure(pra, ref, name, c, rec)
+                    if launch is heaviest:
+                        results[name] = rec
                 log("kernel", **rec, ok=True)
                 del c
                 torch.cuda.empty_cache()
@@ -396,6 +432,33 @@ def serve(server, vocab, ctx_len, n_forks, n_adapters, instr_len, max_new,
         handles += [sess.fork(i % n_adapters, instrs[i], sp)
                     for i in range(half, n_forks)]
         outs = server.wait(handles)
+    return (outs,) + drained_metrics(server, t0)
+
+
+def serve_fanout(server, vocab, ctx_len, adapters, instr_len, max_new, seed,
+                 sampling_cls):
+    """The map step of a MapReduce fan-out: one pinned session of
+    ``ctx_len`` tokens (adapter 0), then one greedy fork per adapter in
+    ``adapters`` with the SAME instruction, all submitted before the next
+    poll.  Under adapters other than the session's, each fork misses its
+    rCache and re-prefills the whole prompt from position 0, so all of them
+    stand at the same position of one identical chunk.  Returns (outputs,
+    metrics, seconds)."""
+    rng = np.random.default_rng(seed)
+    ctx = [int(t) for t in rng.integers(0, vocab, ctx_len)]
+    instr = [int(t) for t in rng.integers(0, vocab, instr_len)]
+    sp = sampling_cls(max_new_tokens=max_new)
+    t0 = time.perf_counter()
+    with server.session(ctx, adapter_id=0) as sess:
+        handles = [sess.fork(a, instr, sp) for a in adapters]
+        outs = server.wait(handles)
+    return (outs,) + drained_metrics(server, t0)
+
+
+def drained_metrics(server, t0):
+    """(metrics, seconds since ``t0``) once the device is idle, with the
+    pool's free pages after every tree page is evicted."""
+    eng = server.engine
     if eng.executor.device.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -407,18 +470,24 @@ def serve(server, vocab, ctx_len, n_forks, n_adapters, instr_len, max_new,
     m["drained_free_res"] = eng.res_pool.free_pages
     m["total_base"] = eng.base_pool.num_pages
     m["total_res"] = eng.res_pool.num_pages
-    return outs, m, seconds
+    return m, seconds
 
 
-def check_serving(outs, m, max_new):
+def check_serving(outs, m, max_new, mixed=True, gather=False):
+    """Every fork ran to length, nothing failed, no page leaked; a staggered
+    serve under the mixed loop (``mixed``) ran at least one mixed plan; the
+    gather path (``gather``) and only it counted gather calls."""
     for o in outs:
         if o.finish_reason != "length" or len(o.tokens) != max_new:
             raise AssertionError(f"request {o.rid}: {o.finish_reason} "
                                  f"{len(o.tokens)} tokens {o.error}")
-    for key in ("exec_errors", "quarantined", "fallback_gather_calls"):
+    for key in ("exec_errors", "quarantined"):
         if m[key] != 0:
             raise AssertionError(f"{key} = {m[key]}")
-    if m["mixed_steps"] < 1:
+    if (m["fallback_gather_calls"] > 0) != gather:
+        raise AssertionError(f"fallback_gather_calls = "
+                             f"{m['fallback_gather_calls']}")
+    if mixed and m["mixed_steps"] < 1:
         raise AssertionError("no mixed plan ran")
     if m["drained_free_base"] != m["total_base"] - 1 or \
             m["drained_free_res"] != m["total_res"] - 1:
@@ -426,9 +495,13 @@ def check_serving(outs, m, max_new):
 
 
 def check_counts(pra, ref, expect_kernels):
-    ran = {k: v for k, v in pra.LAUNCHES.items() if k in expect_kernels}
-    if not all(v > 0 for v in ran.values()):
-        raise AssertionError(f"kernels not launched: {ran}")
+    """The launches of the serve just run (the counts were zeroed before
+    it): every kernel in ``expect_kernels`` launched, no plain version ran.
+    Returns every kernel's non-zero count."""
+    ran = {k: v for k, v in pra.LAUNCHES.items() if v}
+    missing = [k for k in expect_kernels if k not in ran]
+    if missing:
+        raise AssertionError(f"kernels not launched: {missing}; ran {ran}")
     if any(ref.LAUNCHES.values()):
         raise AssertionError(f"plain versions ran on the card: "
                              f"{ref.LAUNCHES}")
@@ -456,11 +529,12 @@ class LaunchShapes:
             setattr(self.pra, name, fn)
 
     def _wrap(self, name, fn):
-        res, decode = "residual" in name, "decode" in name
+        res, decode = "residual" in name, KERNELS[name][0] == "decode"
 
         def call(*args, **kw):
             q, bt = args[0], args[7 if res else 3]
-            i = 9 if res else 4                  # kv_len, or start, q_len
+            # decode: kv_len; mixed: start, q_len; prefill: start, kv_len
+            i = 9 if res else 4
             rows = (args[i].clone(),) if decode else \
                 (args[i].clone(), args[i + 1].clone())
             self.raw.append((name, q.shape[0], 1 if decode else q.shape[1],
@@ -470,12 +544,18 @@ class LaunchShapes:
 
     def launches(self):
         """{kernel: [(bsz, sq, width, window, start, qlen), ...]},
-        distinct launches in order."""
+        distinct launches in order; a chunked prefill row's qlen is its
+        n_valid, clamp(kv_len - start, 0, sq)."""
         out = {}
         for name, bsz, sq, width, window, rows in self.raw:
-            if len(rows) == 1:
+            kind = KERNELS[name][0]
+            if kind == "decode":
                 kv = rows[0].tolist()
                 start, qlen = tuple(k - 1 for k in kv), (1,) * len(kv)
+            elif kind == "prefill":
+                start = tuple(rows[0].tolist())
+                qlen = tuple(max(0, min(sq, k - st))
+                             for st, k in zip(start, rows[1].tolist()))
             else:
                 start, qlen = tuple(rows[0].tolist()), tuple(rows[1].tolist())
             key = (bsz, sq, width, window, start, qlen)
@@ -484,26 +564,76 @@ class LaunchShapes:
         return out
 
 
+# (label, mode, ServeConfig settings, kernels that must launch) of the
+# staggered Llama3-8B serves
+LLAMA_SERVES = (
+    ("forkkv", "forkkv", {}, ("paged_residual_attention_mixed",
+                              "paged_residual_attention_decode")),
+    ("prefix", "prefix", {}, ("paged_attention_mixed_base",
+                              "paged_attention_decode_base")),
+    ("forkkv phase-separated", "forkkv", dict(mixed_batching=False),
+     ("paged_residual_attention_prefill",
+      "paged_residual_attention_decode")),
+    ("prefix phase-separated", "prefix", dict(mixed_batching=False),
+     ("paged_attention_prefill_base", "paged_attention_decode_base")),
+)
+# adapters of the fan-out's forks: not the session's adapter 0, so every
+# fork re-prefills the whole prompt from position 0
+FANOUT = (1, 2, 3)
+
+
+def check_broadcast(exact, kernel_launches, n_layers, prompt_len, page):
+    """The fan-out ran ONE shared base-trajectory pass: it covers the
+    prompt's whole pages but the last (whose logits give the first token),
+    it is credited to its writer, each fork prefills only its own tail, and
+    the base-only prefill kernel ran once per layer."""
+    shared = prompt_len // page * page
+    if shared >= prompt_len:
+        shared -= page
+    tail = prompt_len - shared
+    want = sorted([tail] * (len(FANOUT) - 1) + [shared + tail])
+    if exact != want:
+        raise AssertionError(f"broadcast prefilled_tokens {exact} != {want}")
+    n = kernel_launches["paged_attention_prefill_base"]
+    if n != n_layers:
+        raise AssertionError(f"broadcast pass launched the base prefill "
+                             f"{n} times, not once per layer ({n_layers})")
+
+
 def reset_counts(*mods):
     for mod in mods:
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
 
 
+# (mode, ServeConfig settings) of the small model's card-vs-CPU serves
+SMALL_SERVES = (
+    ("forkkv", {}),
+    ("prefix", {}),
+    ("forkkv", dict(mixed_batching=False)),
+    ("prefix", dict(mixed_batching=False)),
+    ("forkkv", dict(broadcast_fork=True)),
+    ("forkkv", dict(use_paged_kernel=False)),
+)
+
+
 def small_model_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig,
                             SamplingParams):
     """Phase 4: a 2-layer f32 model (head_dim 64) served on the card and
-    on the CPU from the same weights must give the same greedy tokens."""
+    on the CPU from the same weights must give the same greedy tokens, in
+    every setting of ``SMALL_SERVES``; on the card the gather path's tokens
+    must equal the paged path's."""
     cfg = tiny(rank=16, num_layers=2, d_model=256, num_heads=4,
                num_kv_heads=2, vocab_size=512)
     params = tfm.init_params(cfg, 0, device="cpu")
     lora = tfm.init_lora_stacks(cfg, 1, 4, device="cpu")
     to_cuda = lambda t: {k: to_cuda(v) if isinstance(v, dict)  # noqa
                          else v.cuda() for k, v in t.items()}
-    for mode in ("forkkv", "prefix"):
+    card = {}
+    for mode, extra in SMALL_SERVES:
         sc = ServeConfig(page_size=16, max_pages=128, max_batch=8,
                          max_prefill_tokens=64, max_pages_per_req=16,
-                         mode=mode)
+                         mode=mode, **extra)
         toks = {}
         for dev in ("cuda", "cpu"):
             p, lo = (to_cuda(params), to_cuda(lora)) if dev == "cuda" \
@@ -511,12 +641,18 @@ def small_model_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig,
             srv = ForkServer(cfg, p, lo, sc, device=dev)
             outs, m, _ = serve(srv, cfg.vocab_size, 72, 4, 4, 9, 6, 3,
                                SamplingParams)
-            check_serving(outs, m, 6)
+            check_serving(outs, m, 6, mixed=sc.mixed_batching,
+                          gather=not sc.use_paged_kernel)
             toks[dev] = [o.tokens for o in outs]
         if toks["cuda"] != toks["cpu"]:
-            raise AssertionError(f"{mode}: card {toks['cuda']} != CPU "
-                                 f"{toks['cpu']}")
-        log("small_model", mode=mode, tokens=toks["cuda"], ok=True)
+            raise AssertionError(f"{mode} {extra}: card {toks['cuda']} != "
+                                 f"CPU {toks['cpu']}")
+        card[(mode, tuple(extra))] = toks["cuda"]
+        log("small_model", mode=mode, **extra, tokens=toks["cuda"], ok=True)
+    paged = card[("forkkv", ())]
+    gather = card[("forkkv", ("use_paged_kernel",))]
+    if gather != paged:
+        raise AssertionError(f"gather path {gather} != paged path {paged}")
 
 
 def main() -> int:
@@ -561,7 +697,7 @@ def main() -> int:
     small_model_card_vs_cpu(tiny_serving_model, tfm, ForkServer,
                             ServeConfig, SamplingParams)
 
-    # 5./6. Llama3-8B, full width and depth, bf16, random weights
+    # 5. Llama3-8B, full width and depth, bf16, random weights
     cfg = LLAMA3_8B
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, 0)
@@ -572,32 +708,33 @@ def main() -> int:
         param_gib=sum(t.numel() * t.element_size()
                       for t in list(params["layers"].values()) +
                       [params["embed"], params["unembed"]]) / 2 ** 30)
-    launches = {}
+    launches = dict.fromkeys(KERNELS, 0)
     peaks = {}
     shapes = LaunchShapes(pra)
-    for mode, kernels in (
-            ("forkkv", ("paged_residual_attention_mixed",
-                        "paged_residual_attention_decode")),
-            ("prefix", ("paged_attention_mixed_base",
-                        "paged_attention_decode_base"))):
-        sc = ServeConfig(mode=mode, max_pages=2048, max_pages_per_req=256)
+
+    def run(label, sc, drive, expect):
+        """One serve with the counts zeroed just before it and read just
+        after; returns its outputs and metrics."""
         server = ForkServer(cfg, params, lora, sc)
         torch.cuda.reset_peak_memory_stats()
         reset_counts(pra, ref)
         with shapes:
-            outs, m, seconds = serve(server, cfg.vocab_size, 2048, 8, 4, 64,
-                                     16, seed=11, sampling_cls=SamplingParams)
-        ran = check_counts(pra, ref, kernels)
-        launches.update(ran)
-        check_serving(outs, m, 16)
+            outs, m, seconds = drive(server)
+        ran = check_counts(pra, ref, expect)
+        for k, v in ran.items():
+            launches[k] += v
         gen = sum(len(o.tokens) for o in outs)
-        peaks[mode] = (m["peak_base_pages"], m["peak_res_pages"])
-        log("serve", mode=mode, model=cfg.name, forks=len(outs),
+        peaks[label] = (m["peak_base_pages"], m["peak_res_pages"])
+        log("serve", label=label, mode=sc.mode, model=cfg.name,
+            mixed_batching=sc.mixed_batching,
+            broadcast_fork=sc.broadcast_fork, forks=len(outs),
             context=2048, instr=64, new_tokens=16, seconds=seconds,
             tokens_per_s=gen / seconds, ttft_p50_ms=m["ttft_p50_ms"],
             tpot_p50_ms=m["tpot_p50_ms"], steps=m["steps"],
             mixed_steps=m["mixed_steps"], decode_steps=m["decode_steps"],
             avg_decode_batch=m["avg_decode_batch"],
+            prefill_ms=m["prefill_ms"], decode_ms=m["decode_ms"],
+            sync_ms=m["sync_ms"], prefilled_tokens=m["prefilled_tokens"],
             peak_base_pages=m["peak_base_pages"],
             peak_res_pages=m["peak_res_pages"],
             peak_cache_bytes=m["peak_cache_bytes"],
@@ -606,19 +743,50 @@ def main() -> int:
             tokens=[o.tokens for o in outs[:2]], ok=True)
         del server
         torch.cuda.empty_cache()
+        return outs, m
+
+    def staggered(server):
+        return serve(server, cfg.vocab_size, 2048, 8, 4, 64, 16, seed=11,
+                     sampling_cls=SamplingParams)
+
+    def fanout(server):
+        return serve_fanout(server, cfg.vocab_size, 2048, FANOUT, 64, 16,
+                            seed=12, sampling_cls=SamplingParams)
+
+    big = dict(max_pages=2048, max_pages_per_req=256)
+    for label, mode, extra, expect in LLAMA_SERVES:
+        sc = ServeConfig(mode=mode, **big, **extra)
+        outs, m = run(label, sc, staggered, expect)
+        check_serving(outs, m, 16, mixed=sc.mixed_batching)
     log("memory_effect", forkkv_peak_base_pages=peaks["forkkv"][0],
         forkkv_peak_res_pages=peaks["forkkv"][1],
         prefix_peak_base_pages=peaks["prefix"][0])
+
+    # the fan-out, without and with broadcast fork
+    for broadcast in (False, True):
+        label = "fan-out broadcast" if broadcast else "fan-out"
+        sc = ServeConfig(mode="forkkv", broadcast_fork=broadcast, **big)
+        outs, m = run(label, sc, fanout,
+                      ("paged_attention_prefill_base",) if broadcast
+                      else ("paged_residual_attention_mixed",))
+        check_serving(outs, m, 16, mixed=False)
+        exact = sorted(int(o.metrics["prefilled_tokens"]) for o in outs)
+        if broadcast:
+            check_broadcast(exact, pra.LAUNCHES, cfg.num_layers,
+                            2048 + 64, sc.page_size)
+        log("fanout_prefill", label=label, prefilled_tokens=exact,
+            peak_base_pages=m["peak_base_pages"],
+            peak_res_pages=m["peak_res_pages"], ok=True)
     del params, lora
     torch.cuda.empty_cache()
 
-    # 7. kernels at the serve's launch geometries
+    # 6. kernels at the serves' launch geometries
     recorded = shapes.launches()
     log("serve_launches", geometries={
         n: sorted({k[:4] for k in v}) for n, v in recorded.items()})
     measured = check_serving_shapes(pra, ref, recorded)
 
-    # 8. kernels line, card line, result line
+    # 7. kernels line, card line, result line
     kernels = []
     for name, (_, replaces) in KERNELS.items():
         rec = measured[name]

@@ -1,16 +1,22 @@
 // Paged ResidualAttention for NVIDIA Hopper (sm_90a).
 //
-// Hand-written CUDA port of the four Pallas kernels of the unified
-// prefill/decode grid in repro/kernels/paged_residual_attention.py:
-//   paged_residual_attention_mixed   (_kernel_mixed,      disaggregated)
-//   paged_residual_attention_decode  (_kernel,            disaggregated)
-//   paged_attention_mixed_base       (_kernel_mixed_base, base only)
-//   paged_attention_decode_base      (_kernel_base,       base only)
+// Hand-written CUDA port of the six paged Pallas kernels in
+// repro/kernels/paged_residual_attention.py:
+//   paged_residual_attention_mixed   (_kernel_mixed,        disaggregated)
+//   paged_residual_attention_decode  (_kernel,              disaggregated)
+//   paged_residual_attention_prefill (_kernel_prefill,      disaggregated)
+//   paged_attention_mixed_base       (_kernel_mixed_base,   base only)
+//   paged_attention_decode_base      (_kernel_base,         base only)
+//   paged_attention_prefill_base     (_kernel_prefill_base, base only)
 //
-// One kernel template covers all four.  Decode is the mixed kernel with
+// One kernel template covers all six.  Decode is the mixed kernel with
 // Sq = 1, start = kv_len - 1 and q_len = 1 (the launchers pass null start /
-// q_len pointers), and the base-only twins drop the residual stream at
-// compile time (HAS_RES = false).
+// q_len pointers).  The phase-separated chunked prefill is the mixed kernel
+// with a null q_len pointer: each row's query length is
+// clamp(kv_len - start, 0, Sq), so rows at or past it (the padding the
+// caller ignores) come back as zeros and their tiles cost nothing.  The
+// base-only twins drop the residual stream at compile time
+// (HAS_RES = false).
 //
 // What it computes, per request row b and kv head h (G = Hq / Hkv query
 // heads share that kv head):
@@ -65,7 +71,8 @@ struct Args {
   const int* bt_b;     // (B, W)
   const int* bt_r;     // (B, W)              HAS_RES only
   const int* start;    // (B,) or null: decode, start = kv_len - 1
-  const int* q_len;    // (B,) or null: decode, q_len = 1
+  const int* q_len;    // (B,) or null: decode, q_len = 1; prefill (start
+                       // given), q_len = clamp(kv_len - start, 0, Sq)
   const int* kv_len;   // (B,)
   void* out;           // (B, Sq, Hq, D)
   int sq, hq, hkv, d, r, page, w, tq;
@@ -121,7 +128,9 @@ paged_attention_kernel(Args a) {
 
   const int kvlen = a.kv_len[b];
   const int start = a.start ? a.start[b] : kvlen - 1;
-  const int qlen = a.q_len ? a.q_len[b] : 1;
+  const int qlen = a.q_len   ? a.q_len[b]
+                   : a.start ? max(0, min(a.sq, kvlen - start))
+                             : 1;
   const int q0 = tile * a.tq;                       // first position
   const int npos = min(a.tq, a.sq - q0);            // positions in tile
   const int nq = max(0, min(npos, qlen - q0));      // valid positions
@@ -368,6 +377,21 @@ extern "C" int paged_residual_attention_decode(
   return dispatch(dtype, true, a, bsz, stream);
 }
 
+extern "C" int paged_residual_attention_prefill(
+    int dtype, const void* q, const void* kb, const void* vb, const void* kr,
+    const void* vr, const void* bk, const void* bv, const void* bt_b,
+    const void* bt_r, const void* start, const void* kv_len, void* out,
+    int bsz, int sq, int hq, int hkv, int d, int r, int page, int w, int tq,
+    float scale, int window, float rope_theta, int use_rope, void* stream) {
+  const Args a{q, kb, vb, kr, vr, bk, bv,
+               static_cast<const int*>(bt_b), static_cast<const int*>(bt_r),
+               static_cast<const int*>(start), nullptr,
+               static_cast<const int*>(kv_len), out,
+               sq, hq, hkv, d, r, page, w, tq, scale, window, rope_theta,
+               use_rope};
+  return dispatch(dtype, true, a, bsz, stream);
+}
+
 extern "C" int paged_attention_mixed_base(
     int dtype, const void* q, const void* kb, const void* vb,
     const void* bt_b, const void* start, const void* q_len,
@@ -390,5 +414,18 @@ extern "C" int paged_attention_decode_base(
                static_cast<const int*>(bt_b), nullptr, nullptr, nullptr,
                static_cast<const int*>(kv_len), out,
                1, hq, hkv, d, 0, page, w, 1, scale, window, 0.f, 0};
+  return dispatch(dtype, false, a, bsz, stream);
+}
+
+extern "C" int paged_attention_prefill_base(
+    int dtype, const void* q, const void* kb, const void* vb,
+    const void* bt_b, const void* start, const void* kv_len, void* out,
+    int bsz, int sq, int hq, int hkv, int d, int page, int w, int tq,
+    float scale, int window, void* stream) {
+  const Args a{q, kb, vb, nullptr, nullptr, nullptr, nullptr,
+               static_cast<const int*>(bt_b), nullptr,
+               static_cast<const int*>(start), nullptr,
+               static_cast<const int*>(kv_len), out,
+               sq, hq, hkv, d, 0, page, w, tq, scale, window, 0.f, 0};
   return dispatch(dtype, false, a, bsz, stream);
 }

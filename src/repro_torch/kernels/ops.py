@@ -55,6 +55,39 @@ def paged_residual_attention(q, kb_pool, vb_pool, kr_pool, vr_pool, b_k,
         use_rope=use_rope, kb_scale=kb_scale, vb_scale=vb_scale)
 
 
+def paged_residual_attention_prefill(q, kb_pool, vb_pool, kr_pool, vr_pool,
+                                     b_k, b_v, bt_b, bt_r, start, kv_len, *,
+                                     scale: Optional[float] = None,
+                                     window: int = 0,
+                                     rope_theta: float = 10_000.0,
+                                     use_rope: bool = True,
+                                     kb_scale=None, vb_scale=None
+                                     ) -> torch.Tensor:
+    """Chunked-prefill attention over paged pools + block tables.  q is a
+    (B, chunk, Hq, D) tile whose K/V is ALREADY written into the pools;
+    ``start`` (B,) is the position of each row's first query and
+    ``kv_len`` (B,) counts valid tokens including the chunk's writes.
+    Rows at or past ``kv_len - start`` are padding the caller ignores (the
+    plain version computes them, the kernels zero them).  Returns
+    (B, chunk, Hq, D)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _on_cpu(q):
+        return ref_mod.paged_residual_attention_prefill_ref(
+            q, kb_pool, vb_pool, kr_pool, vr_pool, b_k, b_v, bt_b, bt_r,
+            start, kv_len, scale=scale, window=window,
+            rope_theta=rope_theta, use_rope=use_rope, kb_scale=kb_scale,
+            vb_scale=vb_scale)
+    if kr_pool is None:
+        return pra.paged_attention_prefill_base(
+            q, kb_pool, vb_pool, bt_b, start, kv_len, scale=scale,
+            window=window, kb_scale=kb_scale, vb_scale=vb_scale)
+    return pra.paged_residual_attention_prefill(
+        q, kb_pool, vb_pool, kr_pool, vr_pool, b_k, b_v, bt_b, bt_r,
+        start, kv_len, scale=scale, window=window, rope_theta=rope_theta,
+        use_rope=use_rope, kb_scale=kb_scale, vb_scale=vb_scale)
+
+
 def paged_residual_attention_mixed(q, kb_pool, vb_pool, kr_pool, vr_pool,
                                    b_k, b_v, bt_b, bt_r, start, q_len,
                                    kv_len, *, scale: Optional[float] = None,

@@ -1,8 +1,10 @@
 """Paged ResidualAttention on the card: wrappers over the hand-written CUDA
 kernels in ``csrc/paged_residual_attention.cu``.
 
-These replace the Pallas kernels of ``repro/kernels/paged_residual_attention.py``
-that carry the serving path's unified prefill/decode grid.  Each wrapper
+These replace the six Pallas kernels of
+``repro/kernels/paged_residual_attention.py``: the unified prefill/decode
+grid (mixed and decode) and the phase-separated chunked prefill, each
+disaggregated and base-only.  Each wrapper
 checks device, dtype, contiguity and shapes, raises on anything the kernel
 does not take, allocates the output, launches on PyTorch's current stream
 and raises if the launch failed.  It never falls back to the plain version;
@@ -19,6 +21,11 @@ prefill row does ~4·tq·G·D flops per token of each page it reads and is
 bound by operations; this first design runs them as f32 FMAs on the CUDA
 cores (67 TFLOP/s peak) instead of bf16 tensor-core MMAs, so it stays far
 from the 989 TFLOP/s bound (later work: wgmma, TMA, split-K over pages).
+The chunked prefill is the same: operations for long chunks, bytes for
+short ones.  Unlike the Pallas prefill, which holds all G·chunk query rows
+of a (row, kv head) in VMEM (16 MB of accumulator at chunk 8192, G 4), it
+tiles query positions like the mixed grid and skips the tiles at or past
+a row's valid count, so a padded chunk costs only its valid rows.
 """
 from __future__ import annotations
 
@@ -35,8 +42,10 @@ from repro_torch.kernels import _build
 LAUNCHES: Dict[str, int] = {
     "paged_residual_attention_mixed": 0,
     "paged_residual_attention_decode": 0,
+    "paged_residual_attention_prefill": 0,
     "paged_attention_mixed_base": 0,
     "paged_attention_decode_base": 0,
+    "paged_attention_prefill_base": 0,
 }
 
 SOURCE = "paged_residual_attention"
@@ -51,10 +60,14 @@ _SIGNATURES = {
         [_I] + [_P] * 13 + [_I] * 9 + [_F, _I, _F, _I, _P],
     "paged_residual_attention_decode":
         [_I] + [_P] * 11 + [_I] * 7 + [_F, _I, _F, _I, _P],
+    "paged_residual_attention_prefill":
+        [_I] + [_P] * 12 + [_I] * 9 + [_F, _I, _F, _I, _P],
     "paged_attention_mixed_base":
         [_I] + [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     "paged_attention_decode_base":
         [_I] + [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    "paged_attention_prefill_base":
+        [_I] + [_P] * 7 + [_I] * 8 + [_F, _I, _P],
 }
 
 
@@ -98,7 +111,7 @@ def _geometry(q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, window,
     if kb_scale is not None:
         raise NotImplementedError(
             "int8 bCache pages are not ported to the CUDA kernels yet "
-            "(ROADMAP Queue 2, int8 variant of kernels 1-4)")
+            "(ROADMAP Queue 2, int8 variant of kernels 1-6)")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     dev, dt = q.device, q.dtype
@@ -156,10 +169,15 @@ def _check_residual(q, kr_pool, vr_pool, b_k, b_v, bt_r, bsz, hkv, d, page,
 
 
 def _check_rows(start, q_len, bsz, dev):
+    """``q_len=None``: the chunked prefill, whose q-lengths the kernel
+    derives from ``kv_len - start``."""
     _check("start", start, dev, torch.int32, 1)
-    _check("q_len", q_len, dev, torch.int32, 1)
-    if start.shape[0] != bsz or q_len.shape[0] != bsz:
-        raise ValueError("start / q_len batch differs from q's")
+    if start.shape[0] != bsz:
+        raise ValueError("start batch differs from q's")
+    if q_len is not None:
+        _check("q_len", q_len, dev, torch.int32, 1)
+        if q_len.shape[0] != bsz:
+            raise ValueError("q_len batch differs from q's")
 
 
 def _run(name: str, *args) -> None:
@@ -233,6 +251,40 @@ def paged_residual_attention_decode(q, kb_pool, vb_pool, kr_pool, vr_pool,
     return out
 
 
+def paged_residual_attention_prefill(q, kb_pool, vb_pool, kr_pool, vr_pool,
+                                     b_k, b_v, bt_b, bt_r, start, kv_len, *,
+                                     scale: float, window: int = 0,
+                                     rope_theta: float = 10_000.0,
+                                     use_rope: bool = True, kb_scale=None,
+                                     vb_scale=None) -> torch.Tensor:
+    """Phase-separated chunked prefill over paged disaggregated pools; the
+    chunk's own K/V is already written into them.  Replaces
+    ``paged_residual_attention_prefill``
+    (repro/kernels/paged_residual_attention.py:488).  The mixed kernel
+    with each row's q-length clamp(kv_len - start, 0, chunk) computed in
+    the kernel.
+
+    q: (B, chunk, Hq, D); pools, tables and B_k/B_v as the mixed kernel;
+    start: (B,) int32 position of each row's first query; kv_len: (B,)
+    int32 = start + n_valid.  Rows at or past n_valid are rows the caller
+    ignores: they come back as zeros and their tiles are skipped.  Returns
+    (B, chunk, Hq, D).  Bound: operations for long chunks, bytes for short
+    ones (module docstring)."""
+    bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
+        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, window, decode=False)
+    r = _check_residual(q, kr_pool, vr_pool, b_k, b_v, bt_r, bsz, hkv, d,
+                        page, w)
+    _check_rows(start, None, bsz, q.device)
+    tq = max(1, min(sq, MAX_ROWS // g))
+    out = torch.empty_like(q)
+    _run("paged_residual_attention_prefill", code, _ptr(q), _ptr(kb_pool),
+         _ptr(vb_pool), _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
+         _ptr(bt_b), _ptr(bt_r), _ptr(start), _ptr(kv_len), _ptr(out), bsz,
+         sq, hq, hkv, d, r, page, w, tq, float(scale), int(window),
+         float(rope_theta), int(use_rope), _stream(q))
+    return out
+
+
 def paged_attention_mixed_base(q, kb_pool, vb_pool, bt_b, start, q_len,
                                kv_len, *, scale: float, window: int = 0,
                                kb_scale=None, vb_scale=None) -> torch.Tensor:
@@ -267,4 +319,26 @@ def paged_attention_decode_base(q, kb_pool, vb_pool, bt_b, kv_len, *,
     _run("paged_attention_decode_base", code, _ptr(q), _ptr(kb_pool),
          _ptr(vb_pool), _ptr(bt_b), _ptr(kv_len), _ptr(out), bsz, hq, hkv,
          d, page, w, float(scale), int(window), _stream(q))
+    return out
+
+
+def paged_attention_prefill_base(q, kb_pool, vb_pool, bt_b, start, kv_len,
+                                 *, scale: float, window: int = 0,
+                                 kb_scale=None, vb_scale=None
+                                 ) -> torch.Tensor:
+    """Base-only chunked prefill: the prefix and full_reuse baselines'
+    phase-separated prefill and the broadcast-fork base trajectory
+    (B = 1).  Replaces ``paged_attention_prefill_base``
+    (repro/kernels/paged_residual_attention.py:633).  Shapes as
+    :func:`paged_residual_attention_prefill` minus the residual stream.
+    Bound: operations for long chunks, bytes for short ones."""
+    bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
+        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, window, decode=False)
+    _check_rows(start, None, bsz, q.device)
+    tq = max(1, min(sq, MAX_ROWS // g))
+    out = torch.empty_like(q)
+    _run("paged_attention_prefill_base", code, _ptr(q), _ptr(kb_pool),
+         _ptr(vb_pool), _ptr(bt_b), _ptr(start), _ptr(kv_len), _ptr(out),
+         bsz, sq, hq, hkv, d, page, w, tq, float(scale), int(window),
+         _stream(q))
     return out

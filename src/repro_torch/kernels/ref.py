@@ -21,8 +21,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core import rope as rope_lib
-
-NEG_INF = -1e30
+from repro_torch.core.attention import NEG_INF, _gqa_out, _gqa_scores
 
 # Calls of each plain version; the serving path on the card must leave
 # these at 0.
@@ -31,27 +30,6 @@ LAUNCHES: Dict[str, int] = {
     "paged_residual_attention_mixed_ref": 0,
     "paged_residual_attention_prefill_ref": 0,
 }
-
-
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q: (B, Sq, Hq, D), k: (B, Sk, Hkv, D) -> (B, Hq, Sq, Sk)."""
-    b, sq, hq, d = q.shape
-    hkv = k.shape[2]
-    group = hq // hkv
-    qg = q.reshape(b, sq, hkv, group, d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
-                     k.to(torch.float32))
-    return s.reshape(b, hq, sq, k.shape[1])
-
-
-def _gqa_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """p: (B, Hq, Sq, Sk), v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
-    b, hq, sq, sk = p.shape
-    hkv = v.shape[2]
-    group = hq // hkv
-    pg = p.reshape(b, hkv, group, sq, sk)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", pg, v.to(torch.float32))
-    return o.reshape(b, sq, hq, v.shape[-1])
 
 
 def reconstruct(k_base, v_base, k_res, v_res, b_k, b_v, sin, cos):

@@ -4,7 +4,8 @@
 Only what :class:`~repro_torch.serving.executor.PagedExecutor` calls is
 here: parameter and LoRA-stack init for the dense SiLU family, the
 projections with per-row (BGMV-style) LoRA, the MLP, embedding and
-unembedding.  Parameters keep the reference's layout: layer-stacked with a
+unembedding, and the masked attention over contiguous K/V that the
+executor's gather path (``use_paged_kernel=False``) runs.  Parameters keep the reference's layout: layer-stacked with a
 leading L axis, weights ``(d_in, d_out)`` used as ``x @ W``; LoRA stacks are
 ``(L, N, d, r)`` / ``(L, N, r, out)`` with ``scaling`` ``(L, N)``.  The
 matrix products stay ``torch.matmul``/``einsum``, as the reference left them
@@ -18,9 +19,11 @@ from typing import Any, Dict, Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import attention as attn_lib
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels import ref as ref_mod
 from repro_torch.models import base
 
 Params = Dict[str, Any]
@@ -148,6 +151,76 @@ def _qkv(p_l, x, cfg, lora, adapter_ids, positions):
         cos = torch.ones(positions.shape + (hd // 2,), dtype=torch.float32,
                          device=x.device)
     return q, sin.to(x.dtype), cos.to(x.dtype)
+
+
+def _attend(q, k, v, k_res, v_res, bk_rows, bv_rows, kmask_pos, valid_len,
+            qpos, window, scale, cfg, use_disagg):
+    """Masked attention over contiguous K/V (the gather path).
+
+    q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D); k_res/v_res: (B, Sk, R) and
+    bk_rows/bv_rows: (B, R, Hkv*D) when ``use_disagg``; kmask_pos: (B, Sk)
+    key positions; valid_len: (B,) or None; qpos: (B, Sq).  Long sequences
+    take the blocked :func:`~repro_torch.core.attention.flash_attention`.
+    """
+    hd = cfg.resolved_head_dim
+    if valid_len is not None:
+        in_range = torch.arange(k.shape[1], device=k.device)[None] < \
+            valid_len[:, None]
+        kmask_pos_f = torch.where(in_range, kmask_pos, attn_lib.EMPTY_POS)
+    else:
+        kmask_pos_f = kmask_pos
+    if q.shape[1] >= attn_lib.FLASH_THRESHOLD and \
+            k.shape[1] >= attn_lib.FLASH_THRESHOLD:
+        return attn_lib.flash_attention(
+            q, k, v, qpos=qpos, kpos=kmask_pos_f, window=window, causal=True,
+            scale=scale,
+            k_res=k_res if use_disagg else None,
+            v_res=v_res if use_disagg else None,
+            b_k=bk_rows, b_v=bv_rows, rope_theta=cfg.rope_theta,
+            use_rope=cfg.use_rope)
+    if use_disagg:
+        if cfg.use_rope:
+            sin_k, cos_k = rope_lib.rope_sincos(
+                torch.where(kmask_pos >= attn_lib.EMPTY_POS, 0, kmask_pos),
+                hd, cfg.rope_theta)
+        else:
+            sin_k = torch.zeros(kmask_pos.shape + (hd // 2,),
+                                dtype=torch.float32, device=q.device)
+            cos_k = torch.ones(kmask_pos.shape + (hd // 2,),
+                               dtype=torch.float32, device=q.device)
+        return _masked_residual_attention(
+            q, k, v, k_res, v_res, bk_rows, bv_rows,
+            sin_k.to(q.dtype), cos_k.to(q.dtype), qpos, kmask_pos,
+            valid_len, window, scale)
+    return _masked_mha(q, k, v, qpos, kmask_pos, valid_len, window, scale)
+
+
+def _build_mask(qpos, kmask_pos, valid_len, window):
+    qp = qpos[:, :, None]                          # (B, Sq, 1)
+    kp = kmask_pos[:, None, :]                     # (B, 1, Sk)
+    mask = kp <= qp
+    if window > 0:
+        mask = mask & (kp > qp - window)
+    if valid_len is not None:
+        mask = mask & (kp < valid_len[:, None, None])
+    return mask[:, None]                           # (B, 1, Sq, Sk)
+
+
+def _masked_mha(q, k, v, qpos, kmask_pos, valid_len, window, scale):
+    s = attn_lib._gqa_scores(q, k) * scale
+    mask = _build_mask(qpos, kmask_pos, valid_len, window)
+    s = torch.where(mask, s, torch.full_like(s, attn_lib.NEG_INF))
+    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-20)
+    return attn_lib._gqa_out(p, v).to(q.dtype)
+
+
+def _masked_residual_attention(q, k_base, v_base, k_res, v_res, b_k, b_v,
+                               sin, cos, qpos, kmask_pos, valid_len, window,
+                               scale):
+    k, v = ref_mod.reconstruct(k_base, v_base, k_res, v_res, b_k, b_v,
+                               sin, cos)
+    return _masked_mha(q, k, v, qpos, kmask_pos, valid_len, window, scale)
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig) -> torch.Tensor:

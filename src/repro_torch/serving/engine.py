@@ -9,18 +9,21 @@ Three cache-sharing policies (paper §7.1):
   * ``full_reuse`` — one unified cache shared across adapters (lossy
                      baseline; first computer wins)
 
-Iteration-level continuous batching: each step asks
+Iteration-level continuous batching (the default): each step asks
 :class:`~repro_torch.serving.scheduler.IterationScheduler` for ONE
 token-budget batch plan — every runnable decode row first (q=1 each), then
 chunked-prefill rows filling the remaining budget — and runs the whole plan
 as a single mixed executor call, reading its results back to the host once.
-Pools are refcounted; under pressure the decoupled LRU eviction frees tree
-leaves; requests that cannot allocate are queued (admission control) or
-preempted.
+``ServeConfig.mixed_batching=False`` keeps the phase-separated loop
+instead: one batched prefill call, then one decode call per step.  Under
+either loop, ``broadcast_fork=True`` first runs ONE shared base-trajectory
+prefill for forkkv agents standing at the same position of an identical
+chunk.  Pools are refcounted; under pressure the decoupled LRU eviction
+frees tree leaves; requests that cannot allocate are queued (admission
+control) or preempted.
 
-The reference's other serving paths (the phase-separated loop, the gather
-path, broadcast fork, int8 bCache pages, and the host/disk tiers with
-persist/restore) are not ported yet: their ``ServeConfig`` settings raise
+The reference's int8 bCache pages and host/disk tiers with
+persist/restore are not ported yet: their settings raise
 ``NotImplementedError`` at construction instead of running silently.
 
 Clients should not drive this class directly: the session/fork API
@@ -146,12 +149,6 @@ def _refuse_unported(cfg: ModelConfig, sc: ServeConfig) -> None:
     """Raise for every setting whose serving path the port lacks, naming
     the ROADMAP item that ports it, so none of them can run silently."""
     unported = []
-    if not sc.mixed_batching:
-        unported.append(("mixed_batching=False", 8))
-    if not sc.use_paged_kernel:
-        unported.append(("use_paged_kernel=False", 8))
-    if sc.broadcast_fork:
-        unported.append(("broadcast_fork=True", 8))
     if cfg.kv_quant == "int8":
         unported.append(('kv_quant="int8"', 7))
     if sc.host_tier_bytes or sc.disk_tier_bytes or sc.persist_dir:
@@ -458,6 +455,102 @@ class Engine:
             return p
         return self.dump_b if kind == "base" else self.dump_r
 
+    def _prefill_batch(self) -> bool:
+        """Batched multi-request prefill (the phase-separated loop): pack
+        co-resident chunks from every request in the ``prefill`` state into
+        ONE padded ``(B, chunk)`` executor call, splitting the
+        ``max_prefill_tokens`` budget across the power-of-two-padded batch.
+        One host read per step — and only when some row finished its prompt
+        and needs its first token on the host."""
+        group = [r for r in self.running if r.state == "prefill"]
+        if not group:
+            return False
+        cap = self.sc.max_prefill_batch or len(group)
+        group = group[:max(1, min(cap, self.sc.max_prefill_tokens))]
+        # the executor owns the shape policy: one plan drives both the
+        # prompt slicing here and the batch padding inside prefill_batch
+        _, chunk = self.executor.prefill_plan(len(group))
+        chunks, starts, aids, btsb, btsr, wbs, wrs, ends, plens = \
+            [], [], [], [], [], [], [], [], []
+        temps, tks, tps, seeds, spos = [], [], [], [], []
+        for r in group:
+            toks = r.ptoks
+            plens.append(len(toks))
+            start = r.prefill_pos
+            end = min(len(toks), start + chunk)
+            ends.append(end)
+            chunks.append(toks[start:end])
+            starts.append(start)
+            aids.append(r.adapter_id)
+            btsb.append(list(r.base_pages))
+            btsr.append(list(r.res_pages) if self.mode == "forkkv" else [])
+            wbs.append([self._write_page_for(r, p, "base")
+                        for p in range(start, end)])
+            wrs.append([self._write_page_for(r, p, "res")
+                        for p in range(start, end)]
+                       if self.mode == "forkkv"
+                       else [self.dump_r] * (end - start))
+            sp = r.params
+            temps.append(sp.temperature)
+            tks.append(sp.top_k)
+            tps.append(sp.top_p)
+            seeds.append(sp.seed)
+            spos.append(len(r.output))
+        poison = [1 if self.faults.fire("nan_logits", key=r.rid) else 0
+                  for r in group] if self.faults.active else None
+        t0 = time.perf_counter()
+        next_toks, _, row_ok = self.executor.prefill_batch(
+            chunks, starts, aids, btsb, btsr, wbs, wrs, chunk,
+            temps=temps, top_ks=tks, top_ps=tps, seeds=seeds, spos=spos,
+            poison=poison)
+        self.prefill_ms += (time.perf_counter() - t0) * 1e3
+        host_toks = host_ok = None
+        for i, r in enumerate(group):
+            r.prefill_pos = ends[i]
+            r.kv_len = ends[i]
+            n = len(chunks[i])
+            r.prefilled_tokens += n
+            r.prefill_share += n
+            if ends[i] < plens[i]:
+                continue
+            if r.max_new_tokens == 0:
+                # context-only request (session prefill): the cache is the
+                # product — commit it and finish without generating
+                self._finish(r, reason="length")
+                continue
+            if host_toks is None:       # single blocking D2H for the step
+                t0 = time.perf_counter()
+                host_toks = next_toks.cpu().numpy()
+                host_ok = row_ok.cpu().numpy()
+                self.sync_ms += (time.perf_counter() - t0) * 1e3
+            if not bool(host_ok[i]):
+                # quarantine (DESIGN.md §17): non-finite logits fail THIS
+                # row; co-batched requests proceed untouched
+                self._quarantine(r)
+                continue
+            r.state = "decode"
+            if r.output:
+                # restored request: its last pre-preemption token was
+                # never consumed — the next decode step takes it as
+                # input; no new token is emitted here (greedy parity)
+                continue
+            tok = int(host_toks[i])
+            if r.first_token_at == 0.0:
+                r.first_token_at = time.time()
+            r.output.append(tok)
+            r.token_times.append(time.time())
+            # the sampled token's KV is not cached yet; it will be written
+            # when the decode step consumes it
+            if tok in r.params.stop_token_ids:
+                self._finish(r, reason="stop")
+        return True
+
+    def _bt(self, pages: Sequence[int]) -> List[int]:
+        """A block table padded with the dump page to
+        ``max_pages_per_req`` entries."""
+        bt = list(pages)[:self.max_pages_per_req]
+        return bt + [self.dump_b] * (self.max_pages_per_req - len(bt))
+
     def _note_decode_batch(self, n: int) -> None:
         """Record one decode iteration's batch size: bounded window for
         diagnostics + exact running aggregates for the metrics."""
@@ -499,6 +592,70 @@ class Engine:
             return ()
         draft = self.proposer.propose(req.prompt + req.output, k)
         return tuple(draft[:k])
+
+    # ------------------------------------------------------------- decode
+    def _decode_all(self) -> bool:
+        """One decode call over every decoding request (the
+        phase-separated loop), with one host read."""
+        batch = [r for r in self.running if r.state == "decode"
+                 and len(r.output) < r.max_new_tokens + 1]
+        batch = batch[:self.sc.max_batch]
+        if not batch:
+            return False
+        self._note_decode_batch(len(batch))
+        page = self.sc.page_size
+        toks, kvl, ids, btb, btr, wpb, wpr, woff = [], [], [], [], [], [], \
+            [], []
+        temps, tks, tps, seeds, spos = [], [], [], [], []
+        for r in batch:
+            last = r.output[-1] if r.output else r.prompt[-1]
+            toks.append(last)
+            kvl.append(r.kv_len)
+            ids.append(r.adapter_id)
+            # RAW page lists: the executor owns batch/width bucketing
+            btb.append(list(r.base_pages))
+            btr.append(list(r.res_pages) if self.mode == "forkkv" else [])
+            wpb.append(self._write_page_for(r, r.kv_len, "base"))
+            wpr.append(self._write_page_for(r, r.kv_len, "res")
+                       if self.mode == "forkkv" else self.dump_r)
+            woff.append(r.kv_len % page)
+            sp = r.params
+            temps.append(sp.temperature)
+            tks.append(sp.top_k)
+            tps.append(sp.top_p)
+            seeds.append(sp.seed)
+            spos.append(len(r.output))
+        poison = [1 if self.faults.fire("nan_logits", key=r.rid) else 0
+                  for r in batch] if self.faults.active else None
+        t0 = time.perf_counter()
+        next_toks, _, row_ok = self.executor.decode(
+            toks, kvl, ids, btb, btr, wpb, wpr, woff, temps=temps,
+            top_ks=tks, top_ps=tps, seeds=seeds, spos=spos, poison=poison)
+        self.decode_ms += (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        host_toks = next_toks.cpu().numpy()   # ONE blocking D2H per step
+        host_ok = row_ok.cpu().numpy()        # quarantine guard rides it
+        self.sync_ms += (time.perf_counter() - t0) * 1e3
+        for i, r in enumerate(batch):
+            if not bool(host_ok[i]):
+                # quarantine (DESIGN.md §17): this row's logits went
+                # non-finite — fail it alone; its kv_len is NOT advanced,
+                # so the poisoned write at position kv_len stays
+                # uncommitted garbage
+                self._quarantine(r)
+                continue
+            r.kv_len += 1
+            tok = int(host_toks[i])
+            if r.first_token_at == 0.0:   # fully-cached admission: the
+                r.first_token_at = time.time()  # first token is a decode
+            r.output.append(tok)
+            r.token_times.append(time.time())
+            if tok in r.params.stop_token_ids:
+                self._finish(r, reason="stop")
+            elif len(r.output) >= r.max_new_tokens + 1 or \
+                    r.kv_len + 1 >= self.max_pages_per_req * page:
+                self._finish(r, reason="length")
+        return True
 
     # ------------------------------------------------------------- finish
     def _commit_cache(self, req: Request) -> None:
@@ -642,6 +799,71 @@ class Engine:
     def drained(self) -> bool:
         """True once a draining engine holds no in-flight work."""
         return self.draining and not self.running and not self.waiting
+
+    # ------------------------------------------------- broadcast fork
+    def _try_broadcast(self) -> bool:
+        """Broadcast fork (DESIGN.md §9): when several forkkv agents are at
+        the SAME position of an identical upcoming chunk (MapReduce-style
+        parallel forks), run ONE base-trajectory prefill emitting all their
+        rCaches, and share the writer's new bCache pages (CoW incref)."""
+        if self.mode != "forkkv" or not self.sc.broadcast_fork:
+            return False
+        page = self.sc.page_size
+        groups: Dict = {}
+        for r in self.running:
+            if r.state != "prefill":
+                continue
+            toks = r.ptoks
+            end = min(len(toks),
+                      r.prefill_pos + self.sc.max_prefill_tokens)
+            end = (end // page) * page
+            if end >= len(toks):
+                # leave the final tokens to an ordinary per-request prefill:
+                # the broadcast pass emits no logits, so the request's first
+                # output token must come from a real chunk ending at the
+                # prompt's last token — not from an empty follow-up chunk
+                end -= page
+            if end <= r.prefill_pos:
+                continue
+            key = (r.prefill_pos, tuple(toks[r.prefill_pos:end]))
+            groups.setdefault(key, []).append(r)
+        key, group = max(groups.items(), key=lambda kv: len(kv[1]),
+                         default=(None, []))
+        if len(group) < 2:
+            return False
+        start = key[0]
+        chunk = list(key[1])
+        end = start + len(chunk)
+        writer = group[0]
+        p0, p1 = start // page, end // page
+        for r in group[1:]:
+            for i in range(p0, p1):
+                wp = writer.base_pages[i]
+                old = r.base_pages[i]
+                if old == wp:
+                    continue
+                if old in r.owned_base:
+                    r.owned_base.remove(old)
+                    self.base_pool.decref([old])
+                r.base_pages[i] = wp
+                self.base_pool.incref([wp])
+                r.coowned_base.append(wp)
+        wb = [self._write_page_for(writer, p, "base")
+              for p in range(start, end)]
+        wr_list = [[self._write_page_for(r, p, "res")
+                    for p in range(start, end)] for r in group]
+        self.executor.prefill_broadcast(
+            chunk, start, [r.adapter_id for r in group],
+            self._bt(writer.base_pages), wb, wr_list,
+            self.sc.max_prefill_tokens)
+        for r in group:
+            r.prefill_pos = end
+            r.kv_len = end
+            # amortized share for metrics; the EXACT int counter attributes
+            # the single shared pass to its writer
+            r.prefill_share += len(chunk) / len(group)
+        writer.prefilled_tokens += len(chunk)
+        return True
 
     # -------------------------------------------------- mixed iteration
     def _run_mixed(self, plan: BatchPlan) -> bool:
@@ -936,12 +1158,25 @@ class Engine:
             self._no_admit = 0
         try:
             self.faults.io("executor")    # injected step failure (§17)
-            # iteration-level continuous batching (§14): one token-budget
-            # plan — all runnable decode rows + budget-filling prefill
-            # chunks — runs as one call
-            if self._run_mixed(self.scheduler.plan(
-                    self.running, propose=self._propose)):
+            # broadcast-fork groups go first, under either loop: ONE
+            # shared base-trajectory pass
+            broadcast = self._try_broadcast()
+            if broadcast:
                 progress = True
+            if self.sc.mixed_batching:
+                # iteration-level continuous batching (§14): one
+                # token-budget plan — all runnable decode rows + budget-
+                # filling prefill chunks — runs as one call
+                if self._run_mixed(self.scheduler.plan(
+                        self.running, propose=self._propose)):
+                    progress = True
+            else:
+                # phase-separated loop: one batched prefill call (unless a
+                # broadcast pass ran), then one decode call
+                if not broadcast and self._prefill_batch():
+                    progress = True
+                if self._decode_all():
+                    progress = True
         except Exception as e:
             # executor isolation (§17): the step call died — fail the
             # affected requests terminally, keep the pump alive

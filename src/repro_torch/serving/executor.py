@@ -6,15 +6,20 @@ address them through block tables.  In ForkKV mode two pools exist — the
 shared bCache pool and the per-agent rCache pool — and attention runs over
 the disaggregated layout.
 
-Decode and the unified mixed prefill/decode step are page-native: each
-layer hands the pools and per-request block tables straight to the
-dispatchers in :mod:`repro_torch.kernels.ops`, which launch the CUDA
-kernels on the card and the plain versions on the CPU.  Shapes are
-bucketed exactly as in the reference — batches pad to powers of two, block
-tables to the power-of-two bucket of the batch's live page count — so the
-number of distinct shapes stays logarithmic (one CUDA graph per bucket is
-later work).  Executor methods return DEVICE tensors; the engine reads
-them back once per step.
+Decode, the unified mixed prefill/decode step, the phase-separated batched
+prefill and the broadcast-fork base trajectory are page-native: each layer
+hands the pools and per-request block tables straight to the dispatchers
+in :mod:`repro_torch.kernels.ops`, which launch the CUDA kernels on the
+card and the plain versions on the CPU.  ``ServeConfig.use_paged_kernel =
+False`` keeps the reference's gather-to-contiguous path instead (every
+request's pages gathered into a ``max_pages_per_req``-wide view and
+attended by :func:`repro_torch.models.transformer._attend`); each executor
+call that takes it increments ``fallback_gather_calls``.  Shapes are
+bucketed exactly as in the reference — batches pad to powers of two, paged
+block tables to the power-of-two bucket of the batch's live page count —
+so the number of distinct shapes stays logarithmic (one CUDA graph per
+bucket is later work).  Executor methods return DEVICE tensors; the engine
+reads them back once per step.
 
 Pool writes are in place (``index_put_`` through advanced-index
 assignment) where the reference donated the pools to ``.at[].set``.
@@ -84,15 +89,12 @@ def pool_bytes(pools: Pools) -> Dict[str, int]:
 
 
 class PagedExecutor:
-    """Paged decode and mixed prefill/decode for llama-family models."""
+    """Paged decode, prefill and mixed prefill/decode for llama-family
+    models."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
                  lora: Optional[Params], serve_cfg: ServeConfig,
                  disagg: bool, max_pages_per_req: int, device=None):
-        if not serve_cfg.use_paged_kernel:
-            raise NotImplementedError(
-                "use_paged_kernel=False (the gather-to-contiguous path) is "
-                "not ported (ROADMAP Queue 1, item 8)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -101,9 +103,12 @@ class PagedExecutor:
         self.disagg = disagg and lora is not None
         self.page = serve_cfg.page_size
         self.max_pages_per_req = max_pages_per_req
+        # page-native attention (pools + block tables into the kernels), or
+        # the gather-to-contiguous path kept for parity testing
+        self.use_paged = serve_cfg.use_paged_kernel
         self.min_table_pages = serve_cfg.min_table_pages
-        # executor calls that took a gather-to-contiguous path; the port has
-        # none, so this stays 0 (surfaced via Engine.metrics())
+        # executor calls that took the gather-to-contiguous path (0 whenever
+        # use_paged_kernel=True; surfaced via Engine.metrics())
         self.fallback_gather_calls = 0
         res_factor = max(1, cfg.kv_dim // max(cfg.lora.rank, 1)) \
             if self.disagg else 1
@@ -159,6 +164,23 @@ class PagedExecutor:
             v_base = v_base + v_off
         return k_base, v_base, None, None, None, None
 
+    def _gather(self, li, bt_b, bt_r=None, bk=None, bv=None):
+        """The gather path: layer ``li``'s pages of every row copied into
+        contiguous (B, W·page, ...) views.  Returns (k, v, k_res, v_res,
+        b_k, b_v); the residual parts are None when ``bt_r`` is."""
+        cfg, pools = self.cfg, self.pools
+        bsz, w = bt_b.shape[0], bt_b.shape[1] * self.page
+        btb = bt_b.long()
+        kc = pools.kb[li][btb].reshape(bsz, w, cfg.num_kv_heads, -1)
+        vc = pools.vb[li][btb].reshape(bsz, w, cfg.num_kv_heads, -1)
+        if bt_r is None:
+            return kc, vc, None, None, None, None
+        btr = bt_r.long()
+        krc = pools.kr[li][btr].reshape(bsz, w, -1)
+        vrc = pools.vr[li][btr].reshape(bsz, w, -1)
+        return kc, vc, krc, vrc, bk.reshape(bsz, cfg.lora.rank, -1), \
+            bv.reshape(bsz, cfg.lora.rank, -1)
+
     def _pad_table(self, pages: Sequence[int], width: int,
                    dump: int) -> List[int]:
         """Crop/pad one block table to ``width`` entries."""
@@ -172,6 +194,15 @@ class PagedExecutor:
         return min(self.max_pages_per_req,
                    max(min(self.min_table_pages, self.max_pages_per_req),
                        _pow2(need)))
+
+    def _table_width(self, need: int) -> int:
+        """Block-table width of one call: the bucketed live width on the
+        paged path; ``max_pages_per_req`` on the gather path, which counts
+        the call in ``fallback_gather_calls``."""
+        if self.use_paged:
+            return self._bucket_width(need)
+        self.fallback_gather_calls += 1
+        return self.max_pages_per_req
 
     def _select(self, logits, poison, temps, top_ks, top_ps, seeds, spos,
                 sampled: bool):
@@ -207,6 +238,9 @@ class PagedExecutor:
         bsz = tokens.shape[0]
         wpb, wpr, wof = wpage_b.long(), wpage_r.long(), woff.long()
         x = self.params["embed"][tokens.long()][:, None]
+        bt_r = bt_r if self.disagg else None
+        kmask_pos = torch.arange(bt_b.shape[1] * self.page,
+                                 device=self.device).expand(bsz, -1)
         for li in range(cfg.num_layers):
             p_l = self._layer_params(li)
             lora_l = self._lora_layer(li)
@@ -223,16 +257,22 @@ class PagedExecutor:
                 krp, vrp = pools.kr[li], pools.vr[li]
                 krp[wpr, wof] = kr_[:, 0]
                 vrp[wpr, wof] = vr_[:, 0]
-            attn = kernel_ops.paged_residual_attention(
-                q[:, 0], kbp, vbp,
-                krp if self.disagg else None,
-                vrp if self.disagg else None,
-                bk if self.disagg else None,
-                bv if self.disagg else None,
-                bt_b, bt_r if self.disagg else None, kv_len + 1,
-                scale=cfg.resolved_head_dim ** -0.5,
-                window=cfg.sliding_window,
-                rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
+            if self.use_paged:
+                attn = kernel_ops.paged_residual_attention(
+                    q[:, 0], kbp, vbp,
+                    krp if self.disagg else None,
+                    vrp if self.disagg else None,
+                    bk if self.disagg else None,
+                    bv if self.disagg else None,
+                    bt_b, bt_r, kv_len + 1,
+                    scale=cfg.resolved_head_dim ** -0.5,
+                    window=cfg.sliding_window,
+                    rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
+            else:
+                attn = tfm._attend(
+                    q, *self._gather(li, bt_b, bt_r, bk, bv), kmask_pos,
+                    kv_len + 1, kv_len[:, None], cfg.sliding_window,
+                    cfg.resolved_head_dim ** -0.5, cfg, self.disagg)
             x = x + attn.reshape(bsz, 1, -1) @ p_l["wo"]
             h = base.rms_norm(x, p_l["ln2"], cfg.norm_eps)
             x = x + tfm.ffn(p_l, h, cfg)
@@ -249,16 +289,17 @@ class PagedExecutor:
         ``base_tables``/``res_tables`` are RAW per-request page lists; this
         method owns the shape policy: the batch pads to the next power of
         two (<= ``max_batch``) and block tables crop/pad to the bucketed
-        live width.  Returns DEVICE tensors ``(next_tok, logits, row_ok)``;
-        rows past the live count are padding.
+        live width (the gather path: to ``max_pages_per_req``).  Returns
+        DEVICE tensors ``(next_tok, logits, row_ok)``; rows past the live
+        count are padding.
         """
         bsz = len(tokens)
         if bsz > self.sc.max_batch:
             raise ValueError(f"decode batch {bsz} > max_batch "
                              f"{self.sc.max_batch}")
         bpad = min(_pow2(bsz), self.sc.max_batch)
-        width = self._bucket_width(max(kvl // self.page + 1
-                                       for kvl in kv_len))
+        width = self._table_width(max(kvl // self.page + 1
+                                      for kvl in kv_len))
         bt_b = [self._pad_table(p, width, self.dump_page)
                 for p in base_tables]
         bt_r = [self._pad_table(p, width, self.dump_page_r)
@@ -300,22 +341,27 @@ class PagedExecutor:
         graphs a per-bucket capture would hold)."""
         return len(self._decode_shapes)
 
-    # ------------------------------------------------------ mixed prefill
+    # ------------------------------------------------------------ prefill
     @torch.no_grad()
     def _prefill_fn(self, tokens, start, n_valid, adapter_ids, bt_b, bt_r,
                     wpages_b, wpages_r, temps, top_ks, top_ps, seeds, spos,
-                    poison, *, chunk, sampled, verify=False):
-        """Unified mixed prefill/decode step for a PADDED batch (the
-        reference's ``_prefill_fn(unified=True)``).
+                    poison, *, chunk, sampled, unified=False, verify=False):
+        """Chunked prefill for a PADDED batch of requests.
 
         tokens: (B, chunk) padded; start: (B,) absolute position of each
-        row's tokens[0]; n_valid: (B,) real tokens per row (its q-length;
-        0 for padding rows); wpages_*: (B, chunk) page to write each token
-        into (dump page where the cache is inherited — CoW: shared pages
-        are never written).  Each row's ``n_valid`` rides into the
-        attention as its q-length, so decode rows padded to the chunk width
-        and full prefill chunks share one launch, with padding rows
-        exact-zeroed.
+        row's tokens[0]; n_valid: (B,) real tokens per row (0 for padding
+        rows); wpages_*: (B, chunk) page to write each token into (dump
+        page where the cache is inherited — CoW: shared pages are never
+        written).  Each layer writes the chunk's K/V into the pools before
+        attending, so the causal mask inside the chunk is pure masking.
+
+        ``unified`` routes the paged attention through the mixed
+        prefill/decode grid: each row's ``n_valid`` rides into the kernel
+        as its q-length, so decode rows padded to the chunk width and full
+        prefill chunks share one launch, with padding rows exact-zeroed.
+        The phase-separated prefill grid instead leaves rows past
+        ``n_valid`` as rows the caller ignores; both take their logits at
+        row ``n_valid - 1``, so outputs agree.
 
         ``verify`` additionally unembeds EVERY row position and reduces the
         longest greedy-accepted draft prefix on the device: draft
@@ -335,6 +381,12 @@ class PagedExecutor:
         wp_b = torch.where(valid, wpages_b, self.dump_page).long()
         wp_r = torch.where(valid, wpages_r, self.dump_page_r).long()
         kv_len = start + n_valid
+        bt_r = bt_r if self.disagg else None
+        kmask_pos = torch.arange(bt_b.shape[1] * self.page,
+                                 device=self.device).expand(bsz, -1)
+        kw = dict(scale=cfg.resolved_head_dim ** -0.5,
+                  window=cfg.sliding_window, rope_theta=cfg.rope_theta,
+                  use_rope=cfg.use_rope)
         for li in range(cfg.num_layers):
             p_l = self._layer_params(li)
             lora_l = self._lora_layer(li)
@@ -346,20 +398,24 @@ class PagedExecutor:
             kbp, vbp = pools.kb[li], pools.vb[li]
             kbp[wp_b, woff] = kb_
             vbp[wp_b, woff] = vb_
+            krp = vrp = None
             if self.disagg:
                 krp, vrp = pools.kr[li], pools.vr[li]
                 krp[wp_r, woff] = kr_
                 vrp[wp_r, woff] = vr_
-            attn = kernel_ops.paged_residual_attention_mixed(
-                q, kbp, vbp,
-                krp if self.disagg else None,
-                vrp if self.disagg else None,
-                bk if self.disagg else None,
-                bv if self.disagg else None,
-                bt_b, bt_r if self.disagg else None, start, n_valid, kv_len,
-                scale=cfg.resolved_head_dim ** -0.5,
-                window=cfg.sliding_window, rope_theta=cfg.rope_theta,
-                use_rope=cfg.use_rope)
+            # bk/bv are None unless disaggregated (_project_kv)
+            paged = (q, kbp, vbp, krp, vrp, bk, bv, bt_b, bt_r, start)
+            if self.use_paged and unified:
+                attn = kernel_ops.paged_residual_attention_mixed(
+                    *paged, n_valid, kv_len, **kw)
+            elif self.use_paged:
+                attn = kernel_ops.paged_residual_attention_prefill(
+                    *paged, kv_len, **kw)
+            else:
+                attn = tfm._attend(
+                    q, *self._gather(li, bt_b, bt_r, bk, bv), kmask_pos,
+                    kv_len, positions, cfg.sliding_window,
+                    cfg.resolved_head_dim ** -0.5, cfg, self.disagg)
             x = x + attn.reshape(bsz, chunk, -1) @ p_l["wo"]
             h = base.rms_norm(x, p_l["ln2"], cfg.norm_eps)
             x = x + tfm.ffn(p_l, h, cfg)
@@ -381,6 +437,82 @@ class PagedExecutor:
         if verify:
             return next_tok, logits, greedy_all, n_acc, row_ok
         return next_tok, logits, row_ok
+
+    def _padded_prefill(self, chunks, starts, adapter_ids, base_tables,
+                        res_tables, wpages_b, wpages_r, temps, top_ks,
+                        top_ps, seeds, spos, poison, *, bpad, qpad, width,
+                        **kw):
+        """Pad ``len(chunks)`` rows to ``bpad`` rows of ``qpad`` tokens and
+        block tables to ``width`` pages, then run :meth:`_prefill_fn`.
+        Padding rows have no valid token and write only to the dump
+        pages."""
+        bsz = len(chunks)
+        pad = bpad - bsz
+        toks, nvalid, wb, wr, btb, btr = [], [], [], [], [], []
+        for i in range(bsz):
+            row = list(chunks[i])
+            n_pad = qpad - len(row)
+            toks.append(row + [0] * n_pad)
+            nvalid.append(len(row))
+            wb.append(list(wpages_b[i]) + [self.dump_page] * n_pad)
+            wr.append(list(wpages_r[i]) + [self.dump_page_r] * n_pad)
+            btb.append(self._pad_table(base_tables[i], width,
+                                       self.dump_page))
+            btr.append(self._pad_table(res_tables[i], width,
+                                       self.dump_page_r))
+        toks += [[0] * qpad] * pad
+        nvalid += [0] * pad
+        wb += [[self.dump_page] * qpad] * pad
+        wr += [[self.dump_page_r] * qpad] * pad
+        btb += [[self.dump_page] * width] * pad
+        btr += [[self.dump_page_r] * width] * pad
+
+        def fill(vals, default):
+            vals = list(vals) if vals is not None else [default] * bsz
+            return vals + [default] * pad
+        temps = fill(temps, 0.0)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return self._prefill_fn(
+            self._i32(toks), self._i32(fill(starts, 0)), self._i32(nvalid),
+            self._i32(fill(adapter_ids, 0)), self._i32(btb),
+            self._i32(btr), self._i32(wb), self._i32(wr),
+            torch.tensor(temps, **f32), self._i32(fill(top_ks, 0)),
+            torch.tensor(fill(top_ps, 1.0), **f32),
+            self._i32(fill(seeds, 0)), self._i32(fill(spos, 0)),
+            self._i32(fill(poison, 0)), chunk=qpad,
+            sampled=any(t > 0 for t in temps), **kw)
+
+    def _live_width(self, chunks, starts) -> int:
+        """Table width covering every row's post-chunk kv extent."""
+        return self._table_width(max(-(-(st + len(c)) // self.page)
+                                     for c, st in zip(chunks, starts)))
+
+    # --------------------------------------------- phase-separated prefill
+    def prefill_plan(self, n_rows: int):
+        """Shape policy for a batched prefill of ``n_rows`` requests:
+        returns ``(bpad, chunk)`` — the power-of-two padded batch and the
+        per-row token budget (``max_prefill_tokens`` split across the
+        PADDED batch, so shapes stay logarithmic and B=1 degenerates to a
+        single-request chunk).  The engine slices prompts with this BEFORE
+        calling :meth:`prefill_batch`, which pads with the same plan."""
+        bpad = _pow2(max(1, n_rows))
+        return bpad, max(1, self.sc.max_prefill_tokens // bpad)
+
+    def prefill_batch(self, chunks, starts, adapter_ids, base_tables,
+                      res_tables, wpages_b, wpages_r, chunk_size,
+                      temps=None, top_ks=None, top_ps=None, seeds=None,
+                      spos=None, poison=None):
+        """Batched chunked prefill (the phase-separated loop):
+        ``len(chunks)`` rows padded per :meth:`prefill_plan`, each row
+        padded to ``chunk_size`` tokens.  Block tables arrive as RAW page
+        lists and cover the batch's largest post-chunk kv extent, bucketed
+        like decode widths.  Returns DEVICE tensors ``(next_tok, logits,
+        row_ok)`` — the engine reads them once per step, not per chunk."""
+        return self._padded_prefill(
+            chunks, starts, adapter_ids, base_tables, res_tables, wpages_b,
+            wpages_r, temps, top_ks, top_ps, seeds, spos, poison,
+            bpad=self.prefill_plan(len(chunks))[0], qpad=chunk_size,
+            width=self._live_width(chunks, starts))
 
     # ------------------------------------------------------- mixed batch
     def mixed_step(self, chunks, starts, adapter_ids, base_tables,
@@ -417,51 +549,92 @@ class PagedExecutor:
         # so the schedule's timing cannot spray one shape per combination
         qfloor = qfloor if qfloor > 0 else min(self.sc.max_prefill_tokens,
                                                32)
-        qpad = _pow2(max(qmax, qfloor))
-        bpad = _pow2(max(bsz, min(self.sc.max_batch, 4)))
-        temps = list(temps) if temps is not None else [0.0] * bsz
-        top_ks = list(top_ks) if top_ks is not None else [0] * bsz
-        top_ps = list(top_ps) if top_ps is not None else [1.0] * bsz
-        seeds = list(seeds) if seeds is not None else [0] * bsz
-        spos = list(spos) if spos is not None else [0] * bsz
-        poison = list(poison) if poison is not None else [0] * bsz
-        w = self._bucket_width(max(
-            -(-(starts[i] + len(chunks[i])) // self.page)
-            for i in range(bsz)))
-        toks, nvalid, wb, wr, btb, btr = [], [], [], [], [], []
-        for i in range(bpad):
-            if i < bsz:
-                row = list(chunks[i])
-                pad = qpad - len(row)
-                toks.append(row + [0] * pad)
-                nvalid.append(len(row))
-                wb.append(list(wpages_b[i]) + [self.dump_page] * pad)
-                wr.append(list(wpages_r[i]) + [self.dump_page_r] * pad)
-                btb.append(self._pad_table(base_tables[i], w,
-                                           self.dump_page))
-                btr.append(self._pad_table(res_tables[i], w,
-                                           self.dump_page_r))
-            else:               # padding row: q_len 0, writes to the dump
-                toks.append([0] * qpad)
-                nvalid.append(0)
-                wb.append([self.dump_page] * qpad)
-                wr.append([self.dump_page_r] * qpad)
-                btb.append([self.dump_page] * w)
-                btr.append([self.dump_page_r] * w)
-        pad = bpad - bsz
-        starts = list(starts) + [0] * pad
-        adapter_ids = list(adapter_ids) + [0] * pad
-        temps += [0.0] * pad
-        top_ks += [0] * pad
-        top_ps += [1.0] * pad
-        seeds += [0] * pad
-        spos += [0] * pad
-        poison += [0] * pad
-        f32 = dict(dtype=torch.float32, device=self.device)
-        return self._prefill_fn(
-            self._i32(toks), self._i32(starts), self._i32(nvalid),
-            self._i32(adapter_ids), self._i32(btb), self._i32(btr),
-            self._i32(wb), self._i32(wr), torch.tensor(temps, **f32),
-            self._i32(top_ks), torch.tensor(top_ps, **f32),
-            self._i32(seeds), self._i32(spos), self._i32(poison),
-            chunk=qpad, sampled=any(t > 0 for t in temps), verify=verify)
+        return self._padded_prefill(
+            chunks, starts, adapter_ids, base_tables, res_tables, wpages_b,
+            wpages_r, temps, top_ks, top_ps, seeds, spos, poison,
+            bpad=_pow2(max(bsz, min(self.sc.max_batch, 4))),
+            qpad=_pow2(max(qmax, qfloor)),
+            width=self._live_width(chunks, starts), unified=True,
+            verify=verify)
+
+    # ------------------------------------------------- broadcast fork
+    @torch.no_grad()
+    def _prefill_broadcast_fn(self, tokens, start, n_valid, adapter_ids,
+                              bt_b, wpages_b, wpages_r, *, chunk):
+        """Broadcast fork: ONE base-trajectory pass over a shared chunk
+        computes the rCaches of ``n_agents`` adapters at once (the
+        residuals are rank-r projections of the same x).
+
+        tokens: (chunk,); start/n_valid: (1,); adapter_ids: (n_agents,);
+        bt_b: (W,); wpages_b: (chunk,); wpages_r: (n_agents, chunk).
+        Attention runs over the base cache only (the approximation); the
+        bCache is written once, via ``wpages_b``.
+        """
+        cfg = self.cfg
+        pools = self.pools
+        hd = cfg.resolved_head_dim
+        ar = torch.arange(chunk, device=self.device)
+        positions = start + ar                                 # (chunk,)
+        x = self.params["embed"][tokens.long()][None]          # (1, chunk, d)
+        woff = (positions % self.page).long()
+        valid = ar < n_valid
+        wp_b = torch.where(valid, wpages_b, self.dump_page).long()
+        wp_r = torch.where(valid[None], wpages_r, self.dump_page_r).long()
+        ids = adapter_ids.long()
+        kv_len = start + n_valid
+        for li in range(cfg.num_layers):
+            p_l = self._layer_params(li)
+            lora_l = self._lora_layer(li)
+            h = base.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+            # base trajectory: no q-LoRA
+            q, sin, cos = tfm._qkv(p_l, h, cfg, None, None, positions[None])
+            kb_ = (h @ p_l["wk"]).reshape(1, chunk, cfg.num_kv_heads, hd)
+            vb_ = (h @ p_l["wv"]).reshape(1, chunk, cfg.num_kv_heads, hd)
+            if cfg.use_rope:
+                kb_ = rope_lib.apply_rope(kb_, sin, cos)
+            # every agent's residuals from the SAME x: (n_agents, chunk, r)
+            sc = lora_l["scaling"][ids].to(x.dtype)[:, None, None]
+            kr_ = torch.einsum("sd,kdr->ksr", h[0],
+                               lora_l["a_k"][ids].to(x.dtype)) * sc
+            vr_ = torch.einsum("sd,kdr->ksr", h[0],
+                               lora_l["a_v"][ids].to(x.dtype)) * sc
+            kbp, vbp = pools.kb[li], pools.vb[li]
+            kbp[wp_b, woff] = kb_[0]
+            vbp[wp_b, woff] = vb_[0]
+            pools.kr[li][wp_r, woff[None]] = kr_
+            pools.vr[li][wp_r, woff[None]] = vr_
+            if self.use_paged:
+                attn = kernel_ops.paged_residual_attention_prefill(
+                    q, kbp, vbp, None, None, None, None, bt_b[None], None,
+                    start, kv_len, scale=hd ** -0.5,
+                    window=cfg.sliding_window, rope_theta=cfg.rope_theta,
+                    use_rope=cfg.use_rope)
+            else:
+                kc, vc, *_ = self._gather(li, bt_b[None])
+                kmask_pos = torch.arange(kc.shape[1], device=self.device)
+                attn = tfm._attend(q, kc, vc, None, None, None, None,
+                                   kmask_pos[None], kv_len, positions[None],
+                                   cfg.sliding_window, hd ** -0.5, cfg,
+                                   False)
+            x = x + attn.reshape(1, chunk, -1) @ p_l["wo"]
+            h = base.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+            x = x + tfm.ffn(p_l, h, cfg)
+
+    def prefill_broadcast(self, tokens, start, adapter_ids, bt_b, wpages_b,
+                          wpages_r_list, chunk_size):
+        """One broadcast-fork pass: ``tokens`` at ``start`` prefilled once
+        on the base trajectory, padded to ``chunk_size``, writing the bCache
+        through ``wpages_b`` and each agent's rCache through its row of
+        ``wpages_r_list``.  ``bt_b`` is the writer's block table, cropped or
+        padded to the call's table width.  Emits no logits."""
+        n = len(tokens)
+        pad = chunk_size - n
+        bt_b = self._pad_table(bt_b, self._table_width(
+            -(-(start + n) // self.page)), self.dump_page)
+        self._prefill_broadcast_fn(
+            self._i32(list(tokens) + [0] * pad), self._i32([start]),
+            self._i32([n]), self._i32(list(adapter_ids)), self._i32(bt_b),
+            self._i32(list(wpages_b) + [self.dump_page] * pad),
+            self._i32([list(w) + [self.dump_page_r] * pad
+                       for w in wpages_r_list]),
+            chunk=chunk_size)

@@ -3,8 +3,10 @@
 Both executors get the same bridged f32 weights and the same page tables,
 and run the same plan: a prefill step, a truly mixed step (a decode row, a
 chunk continuing mid-page, a fresh prefill), a decode step and, in forkkv
-mode, a speculative verify step.  After every step the logits agree to
-1e-4, the pool contents to 1e-5 and the greedy tokens exactly.  The dump
+mode, a speculative verify step; then the phase-separated batched prefill
+and a broadcast-fork pass, each on the paged and on the gather path.
+After every step the logits agree to 1e-4, the pool contents to 1e-5 and
+the greedy tokens exactly.  The dump
 pages are left out of the pool comparison: padding rows and CoW-inherited
 positions all write there, and which duplicate write lands is unspecified
 on both sides.
@@ -58,14 +60,17 @@ def weights():
     return get
 
 
-def make_pair(w, mode):
-    """Fresh JAX and port executors (empty pools) on the same weights."""
+def make_pair(w, mode, **extra):
+    """Fresh JAX and port executors (empty pools) on the same weights;
+    ``extra`` sets more ``ServeConfig`` fields."""
     jcfg, jparams, jlora, tcfg, tparams, tlora = w
     disagg = mode == "forkkv"
-    jex = JExecutor(jcfg, jparams, jlora, JServeConfig(mode=mode, **SC),
-                    disagg, SC["max_pages_per_req"])
-    tex = TExecutor(tcfg, tparams, tlora, TServeConfig(mode=mode, **SC),
-                    disagg, SC["max_pages_per_req"], device="cpu")
+    jex = JExecutor(jcfg, jparams, jlora,
+                    JServeConfig(mode=mode, **SC, **extra), disagg,
+                    SC["max_pages_per_req"])
+    tex = TExecutor(tcfg, tparams, tlora,
+                    TServeConfig(mode=mode, **SC, **extra), disagg,
+                    SC["max_pages_per_req"], device="cpu")
     return jex, tex
 
 
@@ -152,3 +157,59 @@ def test_verify_step_matches_jax(weights):
     assert tout[2].numpy().tolist() == np.asarray(jout[2]).tolist()
     assert tout[3].numpy().tolist() == np.asarray(jout[3]).tolist()
     assert_pools_match(jex, tex)
+
+
+@pytest.mark.parametrize("paged,mode", [(True, "forkkv"), (True, "prefix"),
+                                        (False, "forkkv"), (False, "prefix")])
+def test_prefill_batch_steps_match_jax(weights, paged, mode):
+    """The phase-separated batched prefill (paged: Pallas #5/#6's plain
+    version; gather: contiguous views), then a decode step, with the same
+    count of gather calls as the reference."""
+    jex, tex = make_pair(weights("gqa"), mode, use_paged_kernel=paged)
+    disagg = mode == "forkkv"
+    rng = np.random.default_rng(5)
+    tokens = {rid: [int(t) for t in rng.integers(0, 512, 32)]
+              for rid in REQS}
+    for rows in ([(0, 0, 20), (1, 0, 7)],
+                 [(0, 20, 12), (1, 7, 5), (2, 0, 12)]):
+        args = plan_rows(jex, rows, tokens, disagg)
+        plan = jex.prefill_plan(len(rows))
+        assert tex.prefill_plan(len(rows)) == plan
+        assert_step_matches(jex.prefill_batch(*args, plan[1]),
+                            tex.prefill_batch(*args, plan[1]))
+        assert_pools_match(jex, tex)
+    args = plan_rows(jex, [(1, 12, 1), (2, 12, 1)], tokens, disagg)
+    assert_step_matches(jex.mixed_step(*args), tex.mixed_step(*args))
+    assert_pools_match(jex, tex)
+    assert tex.fallback_gather_calls == jex.fallback_gather_calls == \
+        (0 if paged else 3)
+
+
+# broadcast: three agents share a 32-token chunk; the writer owns base
+# pages 0-1, the others share them and own only their tail page
+BCAST_BASE = ([0, 1, 2], [0, 1, 3], [0, 1, 4])
+BCAST_RES = ([10, 11, 16], [12, 14, 17], [13, 15, 18])
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_prefill_broadcast_step_matches_jax(weights, paged):
+    """One broadcast-fork pass (a base-trajectory prefill writing one
+    bCache and three rCaches), then each agent's own 8-token tail."""
+    jex, tex = make_pair(weights("gqa"), "forkkv", use_paged_kernel=paged)
+    rng = np.random.default_rng(6)
+    toks = [int(t) for t in rng.integers(0, 512, 40)]
+    width = SC["max_pages_per_req"]
+    bt_b = BCAST_BASE[0] + [jex.dump_page] * (width - 3)
+    wb = [BCAST_BASE[0][p // PAGE] for p in range(32)]
+    wr = [[res[p // PAGE] for p in range(32)] for res in BCAST_RES]
+    for ex in (jex, tex):
+        ex.prefill_broadcast(toks[:32], 0, [1, 2, 3], bt_b, wb, wr,
+                             SC["max_prefill_tokens"])
+    assert_pools_match(jex, tex)
+    args = ([toks[32:]] * 3, [32] * 3, [1, 2, 3], list(BCAST_BASE),
+            list(BCAST_RES), [[b[2]] * 8 for b in BCAST_BASE],
+            [[r[2]] * 8 for r in BCAST_RES], 8)
+    assert_step_matches(jex.prefill_batch(*args), tex.prefill_batch(*args))
+    assert_pools_match(jex, tex)
+    assert tex.fallback_gather_calls == jex.fallback_gather_calls == \
+        (0 if paged else 2)

@@ -75,9 +75,6 @@ def test_entry_points_refuse_to_run_on_cpu_without_being_asked():
 
 
 @pytest.mark.parametrize("change", [
-    dict(mixed_batching=False),
-    dict(use_paged_kernel=False),
-    dict(broadcast_fork=True),
     dict(host_tier_bytes=1 << 20),
     dict(disk_tier_bytes=1 << 20),
     dict(persist_dir="unused"),

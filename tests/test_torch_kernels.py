@@ -13,6 +13,9 @@ versions) and through
 
 Covers MHA, GQA and MQA, a window that straddles a page, ragged kv_len,
 mid-page chunk starts, and q_len=0 rows, which must be exact zeros.  The
+phase-separated chunked prefill (Pallas #5 and #6) takes the mixed rows'
+(start, q_len) as (start, n_valid) of a padded chunk; only rows below
+n_valid are compared, since the rest are padding the caller ignores.  The
 CUDA kernels themselves run only on the card (``chip_smoke.py``).
 """
 import numpy as np
@@ -138,19 +141,48 @@ def test_plain_matches_pallas_interpret(variant, arch):
 @pytest.mark.parametrize("arch", list(ARCHS))
 @pytest.mark.parametrize("base", [False, True])
 def test_prefill_plain_matches_jax_ref(base, arch):
-    """The phase-separated prefill's plain version (its kernel, Pallas #5 /
-    #6, is ported later) against ``repro.kernels.ref``."""
+    """The phase-separated prefill's plain version against
+    ``repro.kernels.ref``."""
     inp, window, scale = make_inputs(arch)
-
-    def args(to):
-        a = _args(inp, "mixed_base" if base else "mixed", to)
-        return a[:-2] + [a[-1]]           # (..., start, kv_len): no q_len
-
     got = tref.paged_residual_attention_prefill_ref(
-        *args(torch.from_numpy), scale=scale, window=window).numpy()
+        *_prefill_args(inp, base, torch.from_numpy), scale=scale,
+        window=window).numpy()
     want = np.asarray(jref.paged_residual_attention_prefill_ref(
-        *args(np.asarray), scale=scale, window=window))
+        *_prefill_args(inp, base, np.asarray), scale=scale, window=window))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _prefill_args(inp, base, to):
+    """The mixed rows as a chunked prefill: (..., start, kv_len), no q_len
+    (each row's n_valid is its q_len, kv_len = start + n_valid)."""
+    a = _args(inp, "mixed_base" if base else "mixed", to)
+    return a[:-2] + [a[-1]]
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+@pytest.mark.parametrize("base", [False, True])
+def test_prefill_dispatch_matches_pallas_interpret(base, arch):
+    """The prefill dispatcher (#5, or #6 with ``kr_pool=None``) on the CPU
+    against the Pallas kernels in interpret mode, atol 1e-4 on the rows
+    below n_valid: a chunk starting mid-page, a padded chunk, a padding
+    row with n_valid = 0, a full chunk; the window straddles a page."""
+    inp, window, scale = make_inputs(arch)
+    got = tops.paged_residual_attention_prefill(
+        *_prefill_args(inp, base, torch.from_numpy), scale=scale,
+        window=window).numpy()
+    q, kb, vb, kr, vr, b_k, b_v, bt_b, bt_r, start, kv_len = \
+        _prefill_args(inp, base, np.asarray)
+    kw = dict(scale=scale, window=window, interpret=True)
+    if base:
+        want = pallas.paged_attention_prefill_base(q, kb, vb, bt_b, start,
+                                                   kv_len, **kw)
+    else:
+        want = pallas.paged_residual_attention_prefill(
+            q, kb, vb, kr, vr, b_k, b_v, bt_b, bt_r, start, kv_len, **kw)
+    want = np.asarray(want)
+    for b, n_valid in enumerate(MIXED_QLEN):
+        np.testing.assert_allclose(got[b, :n_valid], want[b, :n_valid],
+                                   atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("variant", ["mixed", "mixed_base"])
@@ -182,4 +214,23 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     before = dict(tpra.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         tpra.paged_residual_attention_mixed(*args, scale=scale)
+    assert tpra.LAUNCHES == before
+
+
+@pytest.mark.parametrize("base", [False, True])
+def test_prefill_kernel_wrappers_refuse_cpu_tensors(base):
+    """The chunked-prefill kernels' wrappers (#5, #6) raise on CPU tensors
+    instead of falling back, and count no launch."""
+    inp, window, scale = make_inputs("gqa")
+    q, kb, vb, kr, vr, b_k, b_v, bt_b, bt_r, start, kv_len = \
+        _prefill_args(inp, base, torch.from_numpy)
+    before = dict(tpra.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        if base:
+            tpra.paged_attention_prefill_base(q, kb, vb, bt_b, start, kv_len,
+                                              scale=scale)
+        else:
+            tpra.paged_residual_attention_prefill(
+                q, kb, vb, kr, vr, b_k, b_v, bt_b, bt_r, start, kv_len,
+                scale=scale)
     assert tpra.LAUNCHES == before

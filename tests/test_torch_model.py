@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.configs import paper_models as jpm
+from repro.core import attention as jattn
 from repro.core import config as jconfig
 from repro.core import rope as jrope
 from repro.models import base as jbase
@@ -22,6 +23,7 @@ from repro.models import transformer as jtfm
 from repro.serving import sampling as jsampling
 from repro_torch import bridge
 from repro_torch.configs import paper_models as tpm
+from repro_torch.core import attention as tattn
 from repro_torch.core import config as tconfig
 from repro_torch.core import rope as trope
 from repro_torch.models import base as tbase
@@ -219,3 +221,67 @@ def test_sampling_seeded_rows_are_deterministic_and_in_top_k():
     assert a[1] == a[2]                    # same (seed, position)
     top5 = torch.topk(logits[1], 5).indices.tolist()
     assert int(a[1]) in top5
+
+
+def _attention_inputs(bsz, sq, sk, seed):
+    """GQA q/k/v (Hq 8, Hkv 2, D 16) with rank-8 residuals, their
+    up-projections, and positions: queries at the end of the keys, the
+    last three key slots of row 0 empty."""
+    hq, hkv, d, r = 8, 2, 16, 8
+    inp = dict(q=_x((bsz, sq, hq, d), seed), k=_x((bsz, sk, hkv, d), seed + 1),
+               v=_x((bsz, sk, hkv, d), seed + 2),
+               k_res=_x((bsz, sk, r), seed + 3) * 0.3,
+               v_res=_x((bsz, sk, r), seed + 4) * 0.3,
+               b_k=_x((bsz, r, hkv * d), seed + 5) * 0.3,
+               b_v=_x((bsz, r, hkv * d), seed + 6) * 0.3)
+    kpos = np.broadcast_to(np.arange(sk), (bsz, sk)).copy()
+    kpos[0, -3:] = 1 << 30
+    inp["kpos"] = kpos
+    inp["qpos"] = np.broadcast_to(sk - sq + np.arange(sq), (bsz, sq)).copy()
+    return inp
+
+
+@pytest.mark.parametrize("disagg", [False, True])
+@pytest.mark.parametrize("window", [0, 13])
+def test_flash_attention_matches_jax(disagg, window):
+    """Ragged q and kv blocks (40 queries in blocks of 16, 48 keys in
+    blocks of 32), empty key slots, optional residual rebuild.  atol 1e-5:
+    both sides run the same online softmax in f32."""
+    inp = _attention_inputs(2, 40, 48, seed=11)
+    res = ("k_res", "v_res", "b_k", "b_v")
+    kw = dict(window=window, q_block=16, kv_block=32)
+
+    def run(to, fn):
+        extra = {k: to(inp[k]) for k in res} if disagg else {}
+        return fn(to(inp["q"]), to(inp["k"]), to(inp["v"]),
+                  qpos=to(inp["qpos"]), kpos=to(inp["kpos"]), **kw, **extra)
+
+    got = run(torch.from_numpy, tattn.flash_attention).numpy()
+    want = np.asarray(run(jnp.asarray, jattn.flash_attention))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("disagg", [False, True])
+@pytest.mark.parametrize("sq,sk", [(5, 48), (1024, 1040)])
+def test_attend_matches_jax(model, disagg, sq, sk):
+    """The gather path's masked attention: the one-shot masked softmax for
+    short queries, the blocked flash path at 1024 queries and keys; a
+    sliding window of 24 and ragged valid lengths."""
+    cfg, tcfg = model[0], model[1]
+    cfg = dataclasses.replace(cfg, sliding_window=24)
+    tcfg = dataclasses.replace(tcfg, sliding_window=24)
+    inp = _attention_inputs(2, sq, sk, seed=21)
+    valid = np.asarray([sk - 3, sk - 1], np.int32)
+    inp["kpos"] = np.broadcast_to(np.arange(sk), (2, sk)).copy()
+    inp["qpos"] = np.minimum(inp["qpos"], valid[:, None] - 1)
+
+    def run(to, fn, c):
+        res = [to(inp[k]) for k in ("k_res", "v_res", "b_k", "b_v")] \
+            if disagg else [None] * 4
+        return fn(to(inp["q"]), to(inp["k"]), to(inp["v"]), *res,
+                  to(inp["kpos"]), to(valid), to(inp["qpos"]), 24,
+                  c.resolved_head_dim ** -0.5, c, disagg)
+
+    got = run(torch.from_numpy, ttfm._attend, tcfg).numpy()
+    want = np.asarray(run(jnp.asarray, jtfm._attend, cfg))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
