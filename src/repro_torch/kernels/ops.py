@@ -1,11 +1,13 @@
-"""Dispatchers for paged ResidualAttention (port of ``repro/kernels/ops.py``).
+"""Dispatchers for ResidualAttention (port of ``repro/kernels/ops.py``).
 
-The serving executor calls these with the reference's signatures.  They
-dispatch by the tensors' device and by nothing else:
+The dense model and the serving executor call these with the reference's
+signatures.  They dispatch by the tensors' device and by nothing else:
 
 * CPU tensors go to the plain PyTorch versions (:mod:`.ref`);
 * CUDA tensors go to the hand-written kernels
-  (:mod:`.paged_residual_attention`), which launch or raise.
+  (:mod:`.residual_attention` over contiguous caches,
+  :mod:`.paged_residual_attention` over paged pools), which launch or
+  raise.
 
 Pass ``kr_pool=None`` (with ``vr_pool``/``b_k``/``b_v``/``bt_r`` also None)
 for the base-only variants used by the unified-cache baselines.
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.kernels import paged_residual_attention as pra
 from repro_torch.kernels import ref as ref_mod
+from repro_torch.kernels import residual_attention as ra
 
 
 def _on_cpu(q: torch.Tensor) -> bool:
@@ -25,7 +28,36 @@ def _on_cpu(q: torch.Tensor) -> bool:
         return True
     if q.device.type == "cuda":
         return False
-    raise ValueError(f"no paged attention for device {q.device}")
+    raise ValueError(f"no attention kernel for device {q.device}")
+
+
+def residual_attention(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos,
+                       *, qpos, kv_len=None, window: int = 0,
+                       causal: bool = True,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over a contiguous disaggregated cache (shapes as in
+    :func:`repro_torch.kernels.ref.residual_attention_ref`).  On the card,
+    Sq = 1 takes the decode kernel, whose query sits at ``kv_len - 1``
+    (``qpos`` and ``causal`` are not read, as in the reference), and any
+    other Sq the prefill kernel.  ``kv_len=None`` means all of Sk is valid,
+    the reference's own meaning on its plain path.  Returns
+    (B, Sq, Hq, D)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _on_cpu(q):
+        return ref_mod.residual_attention_ref(
+            q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, qpos=qpos,
+            kv_len=kv_len, window=window, causal=causal, scale=scale)
+    if kv_len is not None:
+        kv_len = kv_len.to(torch.int32)
+    if q.shape[1] == 1:
+        return ra.residual_attention_decode(
+            q[:, 0], k_base, v_base, k_res, v_res, b_k, b_v, sin, cos,
+            kv_len, scale=scale, window=window)[:, None]
+    return ra.residual_attention_prefill(
+        q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos,
+        qpos.to(torch.int32).contiguous(), kv_len, scale=scale,
+        causal=causal, window=window)
 
 
 def paged_residual_attention(q, kb_pool, vb_pool, kr_pool, vr_pool, b_k,

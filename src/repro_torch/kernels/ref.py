@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the paged ResidualAttention kernels (port of
-``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the ResidualAttention kernels, paged and
+dense (port of ``repro/kernels/ref.py``).
 
 Computes attention over a *disaggregated* KV cache:
 
@@ -7,10 +7,10 @@ Computes attention over a *disaggregated* KV cache:
     V = V_base + V_res @ B_v
     O = softmax(Q K^T / sqrt(d)) V
 
-The CUDA kernels rebuild K/V one page at a time on chip with two
-accumulators; these versions gather the block-table pages into contiguous
-views and materialise everything, which makes them the correctness
-reference.  They run on any device.  The dispatchers in
+The CUDA kernels rebuild K/V one page (or key block) at a time on chip
+with two accumulators; these versions gather the block-table pages into
+contiguous views and materialise everything, which makes them the
+correctness reference.  They run on any device.  The dispatchers in
 :mod:`repro_torch.kernels.ops` send CPU tensors here; on the card they are
 called only to check the kernels.
 """
@@ -29,6 +29,7 @@ LAUNCHES: Dict[str, int] = {
     "paged_residual_attention_ref": 0,
     "paged_residual_attention_mixed_ref": 0,
     "paged_residual_attention_prefill_ref": 0,
+    "residual_attention_ref": 0,
 }
 
 
@@ -48,6 +49,38 @@ def reconstruct(k_base, v_base, k_res, v_res, b_k, b_v, sin, cos):
     k = k_base.to(torch.float32) + k_lora
     v = v_base.to(torch.float32) + v_lora
     return k.to(k_base.dtype), v.to(v_base.dtype)
+
+
+def residual_attention_ref(q, k_base, v_base, k_res, v_res, b_k, b_v,
+                           sin, cos, *, qpos: torch.Tensor,
+                           kv_len: Optional[torch.Tensor] = None,
+                           window: int = 0, causal: bool = True,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over a contiguous disaggregated cache.
+
+    q: (B, Sq, Hq, D), RoPE already applied (queries are computed fresh).
+    qpos: (B, Sq) absolute positions of the query rows.
+    kv_len: (B,) valid cache lengths (<= Sk), or None for all Sk.
+    Returns (B, Sq, Hq, D).
+    """
+    LAUNCHES["residual_attention_ref"] += 1
+    k, v = reconstruct(k_base, v_base, k_res, v_res, b_k, b_v, sin, cos)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _gqa_scores(q, k) * scale                   # (B, Hq, Sq, Sk)
+    kpos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    qp = qpos.to(q.device)[:, None, :, None]
+    mask = torch.ones(s.shape, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qp)
+    if window > 0:
+        mask = mask & (kpos > qp - window)
+    if kv_len is not None:
+        mask = mask & (kpos < kv_len.to(q.device)[:, None, None, None])
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    p = p / torch.sum(p, dim=-1, keepdim=True)
+    return _gqa_out(p, v).to(q.dtype)
 
 
 def _gather_paged_kv(q, kb_pool, vb_pool, kr_pool, vr_pool, b_k, b_v,

@@ -1,0 +1,203 @@
+"""Dense ResidualAttention on the card: wrappers over the hand-written CUDA
+kernels in ``csrc/residual_attention.cu``.
+
+These replace the two Pallas kernels of
+``repro/kernels/residual_attention.py``: the prefill kernel (any number of
+query rows at given positions) and the decode kernel (one query row per
+request, at ``kv_len - 1``), both over a disaggregated KV cache laid out
+contiguously per request, which is what the dense model's ``forward``
+hands them.  Each wrapper checks device, dtype, contiguity and shapes,
+raises on anything the kernel does not take, allocates the output,
+launches on PyTorch's current stream and raises if the launch failed.  It
+never falls back to the plain version; that lives in
+:mod:`repro_torch.kernels.ref` and is chosen only for CPU tensors, by
+:mod:`repro_torch.kernels.ops`.
+
+Bound on an H100.  A long causal prefill does ~4·G·D flops per (query,
+key) pair and kv head over keys it reads once per query tile: bound by
+operations (989 TFLOP/s bf16).  This first design runs f32 FMAs on the
+CUDA cores (67 TFLOP/s peak), so it stays far above that bound (later
+work: tensor-core tiles).  Decode does a few flops per byte of K/V: bound
+by bytes (3.35 TB/s); one CTA per (kv head, row) walks the whole cache, so
+a short batch leaves most SMs idle (later work: split-K over keys).
+Unlike the Pallas prefill, which pads Sq and Sk to multiples of 128 with
+copies, the kernel takes any Sq and Sk and masks the ragged edge itself.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+# Launches of each kernel.  ``chip_smoke.py`` zeroes these before it drives
+# the dense model and reads them after, to show the path went through them.
+LAUNCHES: Dict[str, int] = {
+    "residual_attention_prefill": 0,
+    "residual_attention_decode": 0,
+}
+
+SOURCE = "residual_attention"
+MAX_ROWS = 64          # query rows (positions x group heads) per CTA
+MAX_RANK = 32
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "residual_attention_prefill":
+        [_I] + [_P] * 12 + [_I] * 8 + [_F, _I, _I, _P],
+    "residual_attention_decode":
+        [_I] + [_P] * 11 + [_I] * 6 + [_F, _I, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build() -> None:
+    """Compile and load the kernels now (they are built at first use
+    otherwise)."""
+    _lib()
+
+
+def _check(name: str, t: Optional[torch.Tensor], device: torch.device,
+           dtype: torch.dtype, shape) -> None:
+    if t is None:
+        raise ValueError(f"{name} is required")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _geometry(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len,
+              window, decode: bool):
+    """Shared checks; returns (bsz, sq, sk, hq, hkv, d, r, dtype code)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
+                         f"{q.device}")
+    for name, t in (("k_base", k_base), ("v_base", v_base), ("k_res", k_res),
+                    ("v_res", v_res), ("b_k", b_k), ("b_v", b_v),
+                    ("sin", sin), ("cos", cos)):
+        if t is None:
+            raise ValueError(f"{name} is required")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != (3 if decode else 4) or k_base.dim() != 4 or \
+            k_res.dim() != 3:
+        raise ValueError("q must be (B, Hq, D) for decode and (B, Sq, Hq, D) "
+                         "for prefill; k_base (B, Sk, Hkv, D); k_res "
+                         "(B, Sk, R)")
+    dev, dt = q.device, q.dtype
+    bsz, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
+    sq = 1 if decode else q.shape[1]
+    sk, hkv = k_base.shape[1], k_base.shape[2]
+    r = k_res.shape[2]
+    if d not in (64, 128):
+        raise ValueError(f"head_dim {d} not supported (64 or 128)")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if hq // hkv > MAX_ROWS:
+        raise ValueError(f"group size {hq // hkv} > {MAX_ROWS}")
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"rank {r} not in [1, {MAX_RANK}]")
+    if sk < 1:
+        raise ValueError("the cache holds no key")
+    if window < 0:
+        raise ValueError("window must be >= 0")
+    if bsz > 65535:
+        raise ValueError("batch above 65535 rows")
+    _check("q", q, dev, dt, q.shape)
+    _check("k_base", k_base, dev, dt, (bsz, sk, hkv, d))
+    _check("v_base", v_base, dev, dt, (bsz, sk, hkv, d))
+    _check("k_res", k_res, dev, dt, (bsz, sk, r))
+    _check("v_res", v_res, dev, dt, (bsz, sk, r))
+    _check("b_k", b_k, dev, dt, (bsz, r, hkv * d))
+    _check("b_v", b_v, dev, dt, (bsz, r, hkv * d))
+    _check("sin", sin, dev, dt, (bsz, sk, d // 2))
+    _check("cos", cos, dev, dt, (bsz, sk, d // 2))
+    if kv_len is not None:
+        _check("kv_len", kv_len, dev, torch.int32, (bsz,))
+    return bsz, sq, sk, hq, hkv, d, r, _DTYPES[dt]
+
+
+def _run(name: str, *args) -> None:
+    err = getattr(_lib(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def residual_attention_prefill(q, k_base, v_base, k_res, v_res, b_k, b_v,
+                               sin, cos, qpos, kv_len=None, *, scale: float,
+                               causal: bool = True, window: int = 0
+                               ) -> torch.Tensor:
+    """Attention of query rows at given positions over a contiguous
+    disaggregated cache.  Replaces ``residual_attention_prefill``
+    (repro/kernels/residual_attention.py:111).
+
+    q: (B, Sq, Hq, D) RoPE'd; k_base/v_base: (B, Sk, Hkv, D), k_base RoPE'd;
+    k_res/v_res: (B, Sk, R) scaled residuals without RoPE; b_k/b_v:
+    (B, R, Hkv·D); sin/cos: (B, Sk, D/2) RoPE tables of the cache
+    positions; qpos: (B, Sq) int32 positions of the query rows; kv_len:
+    (B,) int32 valid keys, or None for all Sk.  Keys are masked to
+    kpos < kv_len, kpos <= qpos (``causal``) and kpos > qpos - window
+    (``window`` > 0).  A row that sees no key comes back as zeros.
+    Returns (B, Sq, Hq, D).  Bound: operations for long prefills (module
+    docstring)."""
+    bsz, sq, sk, hq, hkv, d, r, code = _geometry(
+        q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len, window,
+        decode=False)
+    _check("qpos", qpos, q.device, torch.int32, (bsz, sq))
+    tq = max(1, min(sq, MAX_ROWS // (hq // hkv)))
+    out = torch.empty_like(q)
+    _run("residual_attention_prefill", code, _ptr(q), _ptr(k_base),
+         _ptr(v_base), _ptr(k_res), _ptr(v_res), _ptr(b_k), _ptr(b_v),
+         _ptr(sin), _ptr(cos), _ptr(qpos), _ptr(kv_len), _ptr(out), bsz, sq,
+         sk, hq, hkv, d, r, tq, float(scale), int(causal), int(window),
+         _stream(q))
+    return out
+
+
+def residual_attention_decode(q, k_base, v_base, k_res, v_res, b_k, b_v,
+                              sin, cos, kv_len=None, *, scale: float,
+                              window: int = 0) -> torch.Tensor:
+    """One query row per request at position ``kv_len - 1`` (``Sk - 1``
+    with ``kv_len=None``) over a contiguous disaggregated cache.  Replaces
+    ``residual_attention_decode`` (repro/kernels/residual_attention.py:267).
+    The prefill kernel with Sq = 1.
+
+    q: (B, Hq, D); the cache as :func:`residual_attention_prefill`.
+    Returns (B, Hq, D).  Bound: bytes (module docstring)."""
+    bsz, _, sk, hq, hkv, d, r, code = _geometry(
+        q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len, window,
+        decode=True)
+    out = torch.empty_like(q)
+    _run("residual_attention_decode", code, _ptr(q), _ptr(k_base),
+         _ptr(v_base), _ptr(k_res), _ptr(v_res), _ptr(b_k), _ptr(b_v),
+         _ptr(sin), _ptr(cos), _ptr(kv_len), _ptr(out), bsz, sk, hq, hkv, d,
+         r, float(scale), int(window), _stream(q))
+    return out

@@ -1,0 +1,63 @@
+"""Uniform model API over the architecture families (port of
+``repro/models/registry.py``).
+
+``get_model(cfg)`` returns a :class:`ModelApi` with init_params / forward /
+init_cache / prefill / decode_step / init_lora_stacks, dispatched on
+``cfg.family``.  Only the dense family is ported; the others raise,
+naming their ROADMAP item.  The logical-axis trees that the reference's
+API also carries are for sharding, which goes with ROADMAP Queue 1,
+item 13.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.models import transformer as tfm
+
+# families of the reference's registry that are not ported yet, with the
+# ROADMAP Queue 1 item that ports each
+_UNPORTED = {
+    "moe": "item 11 (MoE)",
+    "vlm": "item 11 (the extra_embeds/VLM path)",
+    "ssm": "item 11 (ssm.py)",
+    "audio": "item 11 (encdec.py)",
+    "hybrid": "item 12 (hybrid.py with the rg_lru kernel)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    cfg: ModelConfig
+    init_params: Callable
+    forward: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_lora_stacks: Optional[Callable]
+    supports_forkkv: bool      # does the family have a LoRA'd KV cache?
+
+
+def get_model(cfg: ModelConfig) -> ModelApi:
+    fam = cfg.family
+    if fam == "dense":
+        return ModelApi(
+            cfg=cfg,
+            init_params=lambda seed=0, **kw: tfm.init_params(cfg, seed, **kw),
+            forward=lambda params, tokens, **kw: tfm.forward(
+                params, tokens, cfg, **kw),
+            init_cache=lambda batch, max_len, **kw: tfm.init_cache(
+                cfg, batch, max_len, **kw),
+            prefill=lambda params, tokens, cache, **kw: tfm.prefill(
+                params, tokens, cache, cfg, **kw),
+            decode_step=lambda params, tokens, cache, kv_len, **kw:
+                tfm.decode_step(params, tokens, cache, kv_len, cfg, **kw),
+            init_lora_stacks=lambda seed, n, **kw: tfm.init_lora_stacks(
+                cfg, seed, n, **kw),
+            supports_forkkv=True)
+    if fam in _UNPORTED:
+        raise NotImplementedError(
+            f"family {fam!r} is not ported yet (ROADMAP Queue 1, "
+            f"{_UNPORTED[fam]})")
+    raise ValueError(f"unknown family {fam!r}")

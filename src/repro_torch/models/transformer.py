@@ -1,15 +1,27 @@
-"""Llama-family transformer, the serving subset (port of
+"""Llama-family transformer, dense variant (port of
 ``repro/models/transformer.py``).
 
-Only what :class:`~repro_torch.serving.executor.PagedExecutor` calls is
-here: parameter and LoRA-stack init for the dense SiLU family, the
-projections with per-row (BGMV-style) LoRA, the MLP, embedding and
-unembedding, and the masked attention over contiguous K/V that the
-executor's gather path (``use_paged_kernel=False``) runs.  Parameters keep the reference's layout: layer-stacked with a
-leading L axis, weights ``(d_in, d_out)`` used as ``x @ W``; LoRA stacks are
-``(L, N, d, r)`` / ``(L, N, r, out)`` with ``scaling`` ``(L, N)``.  The
-matrix products stay ``torch.matmul``/``einsum``, as the reference left them
-to XLA.
+Parameter and LoRA-stack init for the dense SiLU family, the projections
+with per-row (BGMV-style) LoRA, the MLP, embedding and unembedding, one
+attention layer over unified or disaggregated caches, and the model API:
+
+  * ``forward``      — full causal pass (training / teacher-forcing)
+  * ``init_cache``   — contiguous per-request caches, ring buffers for SWA
+  * ``prefill``      — populate a cache (unified or disaggregated)
+  * ``decode_step``  — one token per request against the cache
+
+The serving executor (:class:`~repro_torch.serving.executor.PagedExecutor`)
+calls the blocks, and ``_attend`` on its gather path.  Parameters keep the
+reference's layout: layer-stacked with a leading L axis, weights
+``(d_in, d_out)`` used as ``x @ W``; LoRA stacks are ``(L, N, d, r)`` /
+``(L, N, r, out)`` with ``scaling`` ``(L, N)``; caches are ``(L, B, Smax,
+...)``.  The matrix products stay ``torch.matmul``/``einsum``, as the
+reference left them to XLA; ``forward`` with ``disagg=True`` reaches the
+dense ResidualAttention kernels through :mod:`repro_torch.kernels.ops`.
+Unlike the reference, whose arrays are immutable, ``prefill`` and
+``decode_step`` write the cache in place (and return it), so a step holds
+one cache and not two.  MoE layers, ``extra_embeds`` (VLM) and int8 caches
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ from repro_torch.core import attention as attn_lib
 from repro_torch.core import rope as rope_lib
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.models import base
 
@@ -153,6 +166,174 @@ def _qkv(p_l, x, cfg, lora, adapter_ids, positions):
     return q, sin.to(x.dtype), cos.to(x.dtype)
 
 
+def _ring_kpos(kv_len: torch.Tensor, window: int) -> torch.Tensor:
+    """Absolute positions held by each slot of a ring buffer. (B, W).
+
+    Slot s holds the largest position p < n with p ≡ s (mod W); empty slots
+    (p < 0, i.e. cache not yet wrapped) get a sentinel that fails every
+    causal mask.
+    """
+    slots = torch.arange(window, device=kv_len.device)[None, :]
+    n = kv_len[:, None]
+    p = (n - 1) - torch.remainder(n - 1 - slots, window)
+    return torch.where(p >= 0, p, attn_lib.EMPTY_POS)
+
+
+def _no_int8(cfg: ModelConfig) -> None:
+    if cfg.kv_quant == "int8":
+        raise NotImplementedError(
+            "int8 KV caches are not ported yet (ROADMAP Queue 1, item 7)")
+
+
+def attention(p_l, x, cfg: ModelConfig, *, positions, mode: str,
+              cache=None, kv_len=None, lora=None, adapter_ids=None,
+              disagg: bool = False, window: int = 0, chunk_start=None):
+    """One attention layer.  Returns (out, cache).
+
+    mode: "full"    — no cache, causal over x (training)
+          "prefill" — write the cache at ``positions``, causal
+          "decode"  — x is (B, 1, d); write the cache at ``kv_len``
+    cache: dict with "k", "v" [, "k_res", "v_res"] (layer slice, no L dim),
+    written in place.
+    """
+    bsz, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    scale = hd ** -0.5
+    if positions.dim() == 1:
+        positions = positions[:, None]            # decode: (B,) -> (B, 1)
+    q, sin, cos = _qkv(p_l, x, cfg, lora, adapter_ids, positions)
+
+    k_base = (x @ p_l["wk"]).reshape(bsz, s, cfg.num_kv_heads, hd)
+    v_base = (x @ p_l["wv"]).reshape(bsz, s, cfg.num_kv_heads, hd)
+    if cfg.use_rope:
+        k_base = rope_lib.apply_rope(k_base, sin, cos)
+
+    use_dis = disagg and lora is not None
+    if use_dis:
+        k_res = _bgmv_down(x, lora["a_k"], lora["scaling"], adapter_ids)
+        v_res = _bgmv_down(x, lora["a_v"], lora["scaling"], adapter_ids)
+        bk_rows = lora["b_k"][adapter_ids].reshape(bsz, cfg.lora.rank, -1)
+        bv_rows = lora["b_v"][adapter_ids].reshape(bsz, cfg.lora.rank, -1)
+    else:
+        if lora is not None:   # unified: fold LoRA into cached K/V exactly
+            k_off = _bgmv(x, lora["a_k"], lora["b_k"], lora["scaling"],
+                          adapter_ids).reshape(bsz, s, cfg.num_kv_heads, hd)
+            v_off = _bgmv(x, lora["a_v"], lora["b_v"], lora["scaling"],
+                          adapter_ids).reshape(bsz, s, cfg.num_kv_heads, hd)
+            if cfg.use_rope:
+                k_off = rope_lib.apply_rope(k_off, sin, cos)
+            k_base = k_base + k_off
+            v_base = v_base + v_off
+        k_res = v_res = bk_rows = bv_rows = None
+
+    if mode == "full":
+        if not use_dis:
+            out = attn_lib.mha(q, k_base, v_base, causal=True, window=window,
+                               scale=scale)
+        elif s >= attn_lib.FLASH_THRESHOLD and window > 0:
+            out = attn_lib.banded_window_attention(
+                q, k_base, v_base, window=window, scale=scale, k_res=k_res,
+                v_res=v_res, b_k=bk_rows, b_v=bv_rows,
+                rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
+        elif s >= attn_lib.FLASH_THRESHOLD:
+            out = attn_lib.flash_attention(
+                q, k_base, v_base, qpos=positions, kpos=positions,
+                window=window, causal=True, scale=scale, k_res=k_res,
+                v_res=v_res, b_k=bk_rows, b_v=bv_rows,
+                rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
+        else:
+            # attention over reconstructed K/V: train/serve parity.  The
+            # reference passes kv_len=None, which means all of Sk is valid
+            out = kernel_ops.residual_attention(
+                q, k_base, v_base, k_res, v_res, bk_rows, bv_rows, sin, cos,
+                qpos=positions, kv_len=None, window=window, causal=True,
+                scale=scale)
+        return out, None
+
+    if cache is None:
+        raise ValueError(f"mode {mode!r} needs a cache")
+    _no_int8(cfg)
+    smax = cache["k"].shape[1]
+    is_ring = window > 0 and smax == window
+    dt = cache["k"].dtype
+
+    def write(slot, *pairs):
+        """Scatter (B, n, ...) rows into cache slots (B, n), in place."""
+        bidx = torch.arange(bsz, device=x.device)[:, None]
+        for name, t in pairs:
+            cache[name][bidx, slot.long()] = t.to(dt)
+
+    if mode == "prefill":
+        new_len = positions[:, -1] + 1
+        banded = is_ring and chunk_start == 0 and \
+            s >= attn_lib.FLASH_THRESHOLD and s >= window
+        if is_ring and not banded:
+            # a chunk may overwrite ring slots its own earlier queries still
+            # need: attend over [old cache ‖ fresh chunk], concatenated
+            # before the writes below
+            old_kpos = _ring_kpos(positions[:, 0], window)   # state@start
+            k_all = torch.cat([cache["k"], k_base.to(dt)], dim=1)
+            v_all = torch.cat([cache["v"], v_base.to(dt)], dim=1)
+            kpos_all = torch.cat([old_kpos, positions], dim=1)
+            kr_all = vr_all = None
+            if use_dis:
+                kr_all = torch.cat([cache["k_res"], k_res.to(dt)], dim=1)
+                vr_all = torch.cat([cache["v_res"], v_res.to(dt)], dim=1)
+        if is_ring and s >= window:
+            # only the last `window` chunk tokens survive: write exactly one
+            # token per ring slot (duplicate scatter indices are undefined)
+            slot = positions[:, -window:] % window
+            last = slice(s - window, s)
+        else:
+            slot = (positions % window) if is_ring else positions
+            last = slice(0, s)
+        write(slot, ("k", k_base[:, last]), ("v", v_base[:, last]))
+        if k_res is not None:
+            write(slot, ("k_res", k_res[:, last]), ("v_res", v_res[:, last]))
+        if banded:
+            # first chunk fills the whole ring: banded self-attention over
+            # the fresh chunk (no old cache to attend to)
+            out = attn_lib.banded_window_attention(
+                q, k_base, v_base, window=window, scale=scale,
+                k_res=k_res, v_res=v_res, b_k=bk_rows, b_v=bv_rows,
+                rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
+        elif is_ring:
+            out = _attend(q, k_all, v_all, kr_all, vr_all, bk_rows, bv_rows,
+                          kpos_all, None, positions, window, scale, cfg,
+                          use_dis)
+        else:
+            # attention over the *updated* cache (covers chunked prefill)
+            out = _cached_attention(q, cache, positions, new_len, cfg,
+                                    bk_rows, bv_rows, window, is_ring, scale,
+                                    use_dis)
+        return out, cache
+
+    # decode: s == 1
+    slot = (kv_len % window) if is_ring else kv_len
+    write(slot[:, None], ("k", k_base), ("v", v_base))
+    if k_res is not None:
+        write(slot[:, None], ("k_res", k_res), ("v_res", v_res))
+    out = _cached_attention(q, cache, positions, kv_len + 1, cfg, bk_rows,
+                            bv_rows, window, is_ring, scale, use_dis)
+    return out, cache
+
+
+def _cached_attention(q, cache, qpos, kv_len, cfg, bk_rows, bv_rows,
+                      window, is_ring, scale, use_disagg):
+    """Attention of q against a (possibly ring) cache."""
+    k, v = cache["k"], cache["v"]
+    bsz, smax = k.shape[0], k.shape[1]
+    if is_ring:
+        kmask_pos = _ring_kpos(kv_len, smax)      # (B, W) absolute positions
+        valid_len = None
+    else:
+        kmask_pos = torch.arange(smax, device=k.device).expand(bsz, smax)
+        valid_len = kv_len
+    return _attend(q, k, v, cache.get("k_res"), cache.get("v_res"),
+                   bk_rows, bv_rows, kmask_pos, valid_len, qpos, window,
+                   scale, cfg, use_disagg)
+
+
 def _attend(q, k, v, k_res, v_res, bk_rows, bv_rows, kmask_pos, valid_len,
             qpos, window, scale, cfg, use_disagg):
     """Masked attention over contiguous K/V (the gather path).
@@ -223,7 +404,20 @@ def _masked_residual_attention(q, k_base, v_base, k_res, v_res, b_k, b_v,
     return _masked_mha(q, k, v, qpos, kmask_pos, valid_len, window, scale)
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig) -> torch.Tensor:
+# --------------------------------------------------------------------------
+# Full model
+# --------------------------------------------------------------------------
+def _layer_window(cfg: ModelConfig) -> int:
+    return cfg.sliding_window
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig,
+                 extra_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    if extra_embeds is not None:
+        raise NotImplementedError(
+            "extra_embeds (the VLM path) is not ported yet (ROADMAP Queue 1, "
+            "item 11)")
     return params["embed"][tokens]
 
 
@@ -232,3 +426,101 @@ def unembed(params, x, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return x @ params["unembed"]
+
+
+def _layer_fn(x, p_l, cfg, *, positions, mode, cache_l, kv_len, lora_l,
+              adapter_ids, disagg, chunk_start=None):
+    h = base.rms_norm(x, p_l["ln1"], cfg.norm_eps)
+    attn_out, new_cache = attention(
+        p_l, h, cfg, positions=positions, mode=mode, cache=cache_l,
+        kv_len=kv_len, lora=lora_l, adapter_ids=adapter_ids, disagg=disagg,
+        window=_layer_window(cfg), chunk_start=chunk_start)
+    x = x + attn_out.reshape(x.shape[0], x.shape[1], -1) @ p_l["wo"]
+    h = base.rms_norm(x, p_l["ln2"], cfg.norm_eps)
+    x = x + ffn(p_l, h, cfg)
+    return x, new_cache
+
+
+def apply_layers(params, x, cfg: ModelConfig, *, positions, mode: str,
+                 cache=None, kv_len=None, lora=None, adapter_ids=None,
+                 disagg: bool = False, chunk_start=None):
+    """The layer stack as a plain loop (the reference scans it, with remat
+    when training; running eagerly needs neither).  cache/lora leaves carry
+    a leading L dim; each layer writes its slice of the cache in place.
+    Returns (x, cache)."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE layers (moe_ffn, moe_interleave) are not ported yet "
+            "(ROADMAP Queue 1, item 11)")
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        p_l = {k: t[i] for k, t in layers.items()}
+        c_l = {k: t[i] for k, t in cache.items()} \
+            if cache is not None else None
+        l_l = {k: t[i] for k, t in lora.items()} if lora is not None else None
+        x, _ = _layer_fn(x, p_l, cfg, positions=positions, mode=mode,
+                         cache_l=c_l, kv_len=kv_len, lora_l=l_l,
+                         adapter_ids=adapter_ids, disagg=disagg,
+                         chunk_start=chunk_start)
+    return x, cache
+
+
+def forward(params, tokens, cfg: ModelConfig, *, extra_embeds=None,
+            lora=None, adapter_ids=None, disagg: bool = False
+            ) -> torch.Tensor:
+    """Full causal pass -> logits (B, S, V)."""
+    x = embed_tokens(params, tokens, cfg, extra_embeds)
+    bsz, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(bsz, s)
+    x, _ = apply_layers(params, x, cfg, positions=positions, mode="full",
+                        lora=lora, adapter_ids=adapter_ids, disagg=disagg)
+    return unembed(params, x, cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               disagg: bool = False, dtype=None, *,
+               device: Optional[Union[str, torch.device]] = None) -> Params:
+    """Zeroed contiguous caches (L, batch, Smax, ...) on ``device`` (None:
+    the CUDA device); a sliding-window model keeps a ring of
+    ``min(max_len, window)`` slots."""
+    _no_int8(cfg)
+    dev = resolve_device(device)
+    dt = dtype or cfg.activation_dtype
+    hd = cfg.resolved_head_dim
+    L = cfg.num_layers
+    w = cfg.sliding_window
+    smax = min(max_len, w) if w else max_len
+    shape = (L, batch, smax, cfg.num_kv_heads, hd)
+    cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+    if disagg:
+        res = (L, batch, smax, cfg.lora.rank)
+        cache["k_res"] = torch.zeros(res, dtype=dt, device=dev)
+        cache["v_res"] = torch.zeros(res, dtype=dt, device=dev)
+    return cache
+
+
+def prefill(params, tokens, cache, cfg: ModelConfig, *, start: int = 0,
+            extra_embeds=None, lora=None, adapter_ids=None,
+            disagg: bool = False):
+    """Populate the cache with the prompt (in place); returns (last-token
+    logits (B, 1, V), cache)."""
+    x = embed_tokens(params, tokens, cfg, extra_embeds)
+    bsz, s, _ = x.shape
+    positions = torch.arange(start, start + s, device=x.device).expand(bsz, s)
+    x, cache = apply_layers(params, x, cfg, positions=positions,
+                            mode="prefill", cache=cache, lora=lora,
+                            adapter_ids=adapter_ids, disagg=disagg,
+                            chunk_start=start)
+    return unembed(params, x[:, -1:], cfg), cache
+
+
+def decode_step(params, tokens, cache, kv_len, cfg: ModelConfig, *,
+                lora=None, adapter_ids=None, disagg: bool = False):
+    """One decode step (cache written in place).  tokens: (B,), kv_len:
+    (B,) tokens already cached.  Returns (logits (B, V), cache)."""
+    x = params["embed"][tokens][:, None]          # (B, 1, d)
+    x, cache = apply_layers(params, x, cfg, positions=kv_len,
+                            mode="decode", cache=cache, kv_len=kv_len,
+                            lora=lora, adapter_ids=adapter_ids, disagg=disagg)
+    return unembed(params, x, cfg)[:, 0], cache
