@@ -19,16 +19,21 @@ error:
    the prefill cases hold a chunk starting mid-page, padded chunks and a
    padding row with n_valid = 0, and run with and without a window that
    straddles pages.  Then the two dense kernels (prefill and decode over
-   contiguous caches) at the CPU tests' cases with D 128 and R 16 (MHA,
-   GQA, MQA; window 0 and 5; a chunk at an offset; kv_len None; Sq and Sk
-   of 150) and a ragged decode over 2048 keys, f32 and bf16;
+   contiguous caches) at the CPU tests' cases with R 16 at D 128 (MHA,
+   GQA, MQA) and at D 256 (RecurrentGemma-9B's MQA with G 16, and GQA):
+   window 0 and 5; a chunk at an offset; kv_len None; Sq and Sk of 150;
+   and a ragged decode over 2048 keys, f32 and bf16.  Then the RG-LRU
+   scan kernel at tests/test_kernels.py's shapes (the ragged one as it
+   is), at S 1 and at W 200, f32 and bf16, h0 non-zero;
 4. a small f32 model served on the card and on the CPU: identical greedy
    tokens in forkkv and prefix mode, under the mixed and the
    phase-separated loop (``mixed_batching=False``), with broadcast fork
    and on the gather path (``use_paged_kernel=False``), whose tokens must
    also equal the paged path's on the card; then the same model's dense
    API: ``forward(disagg=True)`` logits card vs CPU, and greedy tokens
-   from ``prefill`` + ``decode_step`` identical;
+   from ``prefill`` + ``decode_step`` identical; then the same for a
+   6-layer f32 hybrid at head_dim 256 (the scan kernel and the dense
+   kernels at D 256), with a prompt that wraps the local ring;
 5. Llama3-8B at full width and depth (random bf16 weights from seed 0)
    serving one 2048-token session with 8 staggered forks over 4 LoRA
    adapters, in forkkv and prefix mode under the mixed loop, then under
@@ -48,13 +53,25 @@ error:
    at one token with position 0, and prefill/decode with ``forward`` at
    the same positions, within tests/test_models.py's rtol 3e-4 / atol
    5e-4; in bf16 these gaps are logged beside bf16's own floor (the
-   unified logits with the embedding one ulp off);
+   unified logits with the embedding one ulp off).  Then, with Llama3-8B
+   freed, RecurrentGemma-9B at full width and depth (38 layers: 26 RG-LRU,
+   12 local attention; random bf16 weights from seed 0, 4 adapters of
+   rank 16 on the local layers): ``forward(disagg=True)`` on 4 x 1000
+   tokens must launch the dense prefill kernel 12 times and the scan
+   kernel 26 times, ``forward`` on one token the dense decode kernel 12
+   times and the scan 26 times, and ``prefill`` of 2500 tokens into a
+   4096-slot cache (2048-slot local rings) + 16 ``decode_step`` s the scan
+   26 times and no plain version; timed in bf16 with a profiled decode
+   step, held in f32 (disaggregated vs unified, prefill/decode vs
+   ``forward``) within the same rtol 3e-4 / atol 5e-4;
 6. the kernels again, at every launch geometry the serves of 5. gave
    them (batch, query width, table width, per-row start and q_len), in
    f32 and bf16 against their plain versions; each is timed in bf16, and
    the heaviest one's numbers make the kernels line; the dense kernels on
-   the inputs of their first launch in 5. (bf16) and on random f32 inputs
-   of the same geometry;
+   the inputs of their first launch in 5. (bf16), for each model, and on
+   random f32 inputs of the same geometry; the scan kernel on the inputs
+   of its first launch at each shape of 5. (f32, timed) and on the same
+   inputs in bf16;
 7. the kernels line, the card line and the result line.
 """
 import dataclasses
@@ -320,11 +337,6 @@ KERNELS = {
     "paged_attention_prefill_base": (
         "prefill", "src/repro/kernels/paged_residual_attention.py:633"),
 }
-TODO = [
-    ("rg_lru_scan", "src/repro/kernels/rg_lru.py:48"),
-]
-
-
 DTYPES = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_RTOL))
 
 
@@ -433,24 +445,30 @@ DENSE_KERNELS = {
         "src/repro/kernels/residual_attention.py:267",
 }
 DENSE_SOURCE = "src/repro_torch/kernels/csrc/residual_attention.cu"
-DENSE_D, DENSE_R = 128, 16
-# (hq, hkv): the CPU tests' heads (tests/test_torch_dense_kernels.py) and
-# Llama3-8B's
-DENSE_HEADS = {"mha": (4, 4), "gqa": (8, 2), "mqa": (4, 1), "llama": (32, 8)}
+# (hq, hkv, d, r): the CPU tests' heads (tests/test_torch_dense_kernels.py)
+# at D 128 and R 16, Llama3-8B's, and RecurrentGemma-9B's local attention
+# (MQA, G 16, D 256) with a GQA variant at D 256
+DENSE_HEADS = {"mha": (4, 4, 128, 16), "gqa": (8, 2, 128, 16),
+               "mqa": (4, 1, 128, 16), "llama": (32, 8, 128, 16),
+               "rg mqa": (16, 1, 256, 16), "rg gqa": (16, 2, 256, 16)}
 _DKV = [2048, 1500, 777, 64]
-# (label, heads, sq, sk, start, kv_len): the CPU tests' cases at D 128 and
-# R 16 (a forward's positions 0..S-1 with kv_len None, a chunk at an
-# offset with kv_len < Sk, a ragged decode, Sq = Sk = 150), and a ragged
-# decode over 2048 keys at Llama3-8B's heads
+# (label, heads, sq, sk, start, kv_len): the CPU tests' cases (a forward's
+# positions 0..S-1 with kv_len None, a chunk at an offset with kv_len < Sk,
+# a ragged decode, Sq = Sk = 150) at D 128 and at D 256, and a ragged
+# decode over 2048 keys at Llama3-8B's and RecurrentGemma-9B's heads (the
+# "Sk=2048" cases are timed)
 DENSE_FIXED = [
     (f"{h} {label}", h, sq, sk, start, kvl)
-    for h in ("mha", "gqa", "mqa")
+    for h in ("mha", "gqa", "mqa", "rg mqa", "rg gqa")
     for label, sq, sk, start, kvl in (
         ("full", 12, 12, [0, 0], None),
         ("chunk", 5, 16, [7, 3], [12, 8]),
         ("decode", 1, 16, [2, 15, 8], [3, 16, 9]))
 ] + [("gqa Sq=Sk=150", "gqa", 150, 150, [0], [150]),
+     ("rg mqa Sq=Sk=150", "rg mqa", 150, 150, [0], [150]),
      ("llama decode Sk=2048", "llama", 1, 2048, [k - 1 for k in _DKV],
+      _DKV),
+     ("rg mqa decode Sk=2048", "rg mqa", 1, 2048, [k - 1 for k in _DKV],
       _DKV)]
 
 
@@ -466,11 +484,11 @@ def rope_tables(bsz, sk, d, dtype, device="cuda"):
 
 def make_dense_case(label, heads, sq, sk, start, kv_len, dtype, window,
                     seed):
-    """Random contiguous-cache inputs; ``heads`` names a head count of
-    ``DENSE_HEADS`` (D 128, R 16) or is (hq, hkv, d, r).  ``sq == 1`` with
-    a kv_len list is a decode case (the query at kv_len - 1)."""
+    """Random contiguous-cache inputs; ``heads`` names an entry of
+    ``DENSE_HEADS`` or is (hq, hkv, d, r).  ``sq == 1`` with a kv_len list
+    is a decode case (the query at kv_len - 1)."""
     hq, hkv, d, r = heads if isinstance(heads, tuple) else \
-        DENSE_HEADS[heads] + (DENSE_D, DENSE_R)
+        DENSE_HEADS[heads]
     bsz = len(start)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -614,15 +632,16 @@ def measure_dense(ra, ref, c, rec):
 
 def check_dense_kernels(ra, ref):
     """Phase 3, dense: both kernels against their plain version at the
-    fixed cases, f32 and bf16, window 0 and 5; the 2048-key decode is
-    timed."""
+    fixed cases, f32 and bf16, window 0 and 5; the 2048-key decodes are
+    timed in bf16."""
     for dtype, tol in DTYPES:
         for window in (0, 5):
             for i, case in enumerate(DENSE_FIXED):
                 c = make_dense_case(*case, dtype=dtype, window=window,
                                     seed=20 + i)
                 rec = compare_dense(ra, ref, c, tol)
-                if case[1] == "llama" and dtype == torch.bfloat16:
+                if case[0].endswith("Sk=2048") and \
+                        dtype == torch.bfloat16:
                     measure_dense(ra, ref, c, rec)
                 log("dense_kernel", **rec, ok=True)
                 del c
@@ -674,6 +693,148 @@ class FirstLaunch:
         return call
 
 
+# ------------------------------------------------------- RG-LRU scan
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/rg_lru.cu"
+SCAN_REPLACES = "src/repro/kernels/rg_lru.py:48"
+SCAN_F32_TOL = 1e-5   # f32 kernel vs plain version: one FMA against a
+                      # multiply and an add per step, in a contracting
+                      # recurrence
+# (label, B, S, W): tests/test_kernels.py's shapes (the ragged one as it
+# is, not padded), one step, and W not a multiple of the 128-lane CTA
+SCAN_FIXED = [
+    ("test_kernels 2x128x128", 2, 128, 128),
+    ("test_kernels ragged 1x200x96", 1, 200, 96),
+    ("S=1", 3, 1, 4096),
+    ("W=200", 2, 77, 200),
+]
+
+
+def make_scan_case(label, bsz, s, w, dtype, seed):
+    """a = sigmoid(N(0,1)) in (0, 1) as the gates give it, b = 0.2 N(0,1),
+    h0 = 0.5 N(0,1), drawn in f32 on the card and cast to ``dtype``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                    device="cuda")
+    return dict(label=label, dtype=dtype,
+                a=torch.sigmoid(rn(bsz, s, w)).to(dtype),
+                b=(rn(bsz, s, w) * 0.2).to(dtype),
+                h0=(rn(bsz, w) * 0.5).to(dtype))
+
+
+def compare_scan(rg, ref, c):
+    """The scan kernel against its plain version on ``c``: states within
+    ``SCAN_F32_TOL`` (f32) or ``BF16_RTOL`` of the plain version's max
+    |value| (bf16), and the last state equal to ``states[:, -1]``.
+    Returns the record to log."""
+    got, got_last = rg.rg_lru_scan(c["a"], c["b"], c["h0"])
+    want, want_last = ref.rg_lru_scan_ref(c["a"], c["b"], c["h0"])
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"rg_lru_scan {c['label']}: non-finite output")
+    if not torch.equal(got_last, got[:, -1]):
+        raise AssertionError(f"rg_lru_scan {c['label']}: the last state "
+                             f"is not states[:, -1]")
+    err = max((got.float() - want.float()).abs().max().item(),
+              (got_last.float() - want_last.float()).abs().max().item())
+    ref_max = want.float().abs().max().item()
+    limit = BF16_RTOL * ref_max if c["dtype"] == torch.bfloat16 else \
+        SCAN_F32_TOL
+    rec = dict(kernel="rg_lru_scan", dtype=str(c["dtype"]).split(".")[1],
+               case=c["label"], shape=list(c["a"].shape), max_abs_err=err,
+               ref_max_abs=ref_max, limit=limit)
+    del got, want
+    if err > limit:
+        log("scan_kernel", **rec, ok=False)
+        raise AssertionError(f"rg_lru_scan {c['label']} {c['dtype']}: max "
+                             f"abs err {err} > {limit}")
+    return rec
+
+
+def scan_work(c):
+    """Bytes and operations of the scan on these inputs: a, b and h0 read
+    once, the states and the last state written once; one FMA (2
+    operations, f32 on the CUDA cores whatever the input type) per
+    element."""
+    esize = c["a"].element_size()
+    bsz, s, w = c["a"].shape
+    nbytes = 3 * bsz * s * w * esize + 2 * bsz * w * esize
+    ops = 2 * bsz * s * w
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = ops / PEAK[torch.float32] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def measure_scan(rg, ref, c, rec):
+    """Adds the kernel's and the plain version's times and the bound.  No
+    single PyTorch call computes this recurrence (a cumprod/cumsum rewrite
+    divides by a running product that underflows): no library time."""
+    args = (c["a"], c["b"], c["h0"])
+    rec["kernel_ms"] = time_ms(lambda: rg.rg_lru_scan(*args))
+    rec["plain_ms"] = time_ms(lambda: ref.rg_lru_scan_ref(*args), reps=3,
+                              warmup=1)
+    rec["library_ms"] = None
+    (rec["bound_ms"], rec["bound_by"], rec["bytes"],
+     rec["ops"]) = scan_work(c)
+    return rec
+
+
+def check_scan_kernels(rg, ref):
+    """Phase 3, scan: the kernel against its plain version at the fixed
+    cases, f32 and bf16, h0 non-zero."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(SCAN_FIXED):
+            c = make_scan_case(*case, dtype=dtype, seed=40 + i)
+            log("scan_kernel", **compare_scan(rg, ref, c), ok=True)
+            del c
+    torch.cuda.empty_cache()
+
+
+class ScanLaunches:
+    """While entered, keeps a copy of the inputs of the first launch of the
+    scan kernel at each distinct shape, as cases for ``compare_scan`` /
+    ``measure_scan``.  It wraps the module's function and calls through,
+    so the launch counter is untouched."""
+
+    def __init__(self, rg):
+        self.rg, self.cases, self.orig = rg, {}, None
+
+    def __enter__(self):
+        self.orig = self.rg.rg_lru_scan
+        self.rg.rg_lru_scan = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.rg.rg_lru_scan = self.orig
+
+    def _call(self, a, b, h0):
+        if tuple(a.shape) not in self.cases:
+            self.cases[tuple(a.shape)] = dict(
+                label="main path B={} S={} W={}".format(*a.shape),
+                dtype=a.dtype, a=a.clone(), b=b.clone(), h0=h0.clone())
+        return self.orig(a, b, h0)
+
+
+def check_scan_main_path(rg, ref, cases):
+    """Phase 6, scan: the kernel on the inputs of its first launch at each
+    main-path shape, in f32 as the model runs it, and on the same inputs
+    cast to bf16, each timed with its bound.  Returns the f32 record of
+    the first shape recorded (the forward's launch)."""
+    first = None
+    for c in cases.values():
+        rec = compare_scan(rg, ref, c)
+        log("scan_kernel", **measure_scan(rg, ref, c, rec), ok=True)
+        first = first or rec
+        bf = dict(c, dtype=torch.bfloat16, **{
+            k: c[k].to(torch.bfloat16) for k in ("a", "b", "h0")})
+        rec = compare_scan(rg, ref, bf)
+        log("scan_kernel", **measure_scan(rg, ref, bf, rec), ok=True)
+        del bf
+    torch.cuda.empty_cache()
+    return first
+
+
 # f32 logits, held as tests/test_models.py holds the reference's
 MODEL_TOL = dict(rtol=3e-4, atol=5e-4)
 
@@ -696,15 +857,23 @@ def logit_gap(got, want):
                 within_model_tol=excess <= MODEL_TOL["atol"])
 
 
-def expect_launches(ra, ref, pra, want):
+def expect_launches(mods, want):
     """The run just made (counts zeroed before it) launched exactly
-    ``want`` of the dense kernels, no paged kernel and no plain version."""
-    if dict(ra.LAUNCHES) != {**dict.fromkeys(ra.LAUNCHES, 0), **want}:
-        raise AssertionError(f"dense launches {ra.LAUNCHES} != {want}")
-    if any(pra.LAUNCHES.values()) or any(ref.LAUNCHES.values()):
-        raise AssertionError(f"other launches: {pra.LAUNCHES} "
-                             f"{ref.LAUNCHES}")
+    ``want``: every other counter of ``mods`` (the kernel wrappers and the
+    plain versions) stayed at 0."""
+    counts = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    if counts != {**dict.fromkeys(counts, 0), **want}:
+        raise AssertionError(f"launches {counts} != {want}")
     return dict(want)
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 def greedy(tfm, cfg, params, tokens, n_new, prompt_len, max_len, **kw):
@@ -724,7 +893,7 @@ def greedy(tfm, cfg, params, tokens, n_new, prompt_len, max_len, **kw):
     return torch.stack(out, 1)
 
 
-def small_dense_card_vs_cpu(tiny, tfm, ra, ref, pra):
+def small_dense_card_vs_cpu(tiny, tfm, mods):
     """Phase 4, dense: the small f32 model's ``forward(disagg=True)`` on
     the card (the dense prefill kernel, once per layer) within 1e-4 of the
     CPU's (the plain version), and greedy tokens from ``prefill`` +
@@ -735,18 +904,16 @@ def small_dense_card_vs_cpu(tiny, tfm, ra, ref, pra):
     lora = tfm.init_lora_stacks(cfg, 1, 4, device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(7).integers(
         0, cfg.vocab_size, (4, 40)))
-    to = lambda t, dev: {k: to(v, dev) if isinstance(v, dict)  # noqa: E731
-                         else v.to(dev) for k, v in t.items()}
     out = {}
     for dev in ("cuda", "cpu"):
-        p, lo = to(params, dev), to(lora, dev)
+        p, lo = (tree_map(lambda t: t.to(dev), x) for x in (params, lora))
         kw = dict(lora=lo, adapter_ids=torch.arange(4, device=dev),
                   disagg=True)
-        reset_counts(pra, ref, ra)
+        reset_counts(*mods)
         logits = tfm.forward(p, tokens.to(dev), cfg, **kw)
         if dev == "cuda":
             torch.cuda.synchronize()
-            expect_launches(ra, ref, pra,
+            expect_launches(mods,
                             {"residual_attention_prefill": cfg.num_layers})
         toks = greedy(tfm, cfg, p, tokens.to(dev), 12, 24, 64, **kw)
         out[dev] = (logits.cpu(), toks.cpu())
@@ -759,6 +926,72 @@ def small_dense_card_vs_cpu(tiny, tfm, ra, ref, pra):
                              f"{out['cpu'][1].tolist()}")
     log("small_dense", forward_max_abs_err=err, limit=F32_TOL,
         tokens=out["cuda"][1].tolist(), ok=True)
+
+
+def small_hybrid_card_vs_cpu(hybrid, rg9b, mods):
+    """Phase 4, hybrid: a 6-layer f32 hybrid at head_dim 256 (4 RG-LRU
+    layers, 2 local-attention layers of window 16).  ``forward(disagg=True)``
+    on the card (the dense prefill kernel at D 256 once per local layer,
+    the scan kernel once per RG-LRU layer) must agree with the CPU's (the
+    plain versions) within ``MODEL_TOL``, and greedy tokens from ``prefill``
+    of 24 tokens (the 16-slot ring wraps) + ``decode_step`` must be equal
+    on card and CPU."""
+    cfg = dataclasses.replace(
+        rg9b, name="hybrid-small", num_layers=6, d_model=256, num_heads=2,
+        num_kv_heads=1, head_dim=256, d_ff=512, vocab_size=512,
+        local_window=16, lru_width=256, dtype="float32", remat=False)
+    n_local = hybrid.num_attention_layers(cfg)
+    params = hybrid.init_params(cfg, 0, device="cpu")
+    lora = hybrid.init_lora_stacks(cfg, 1, 4, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (4, 40)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p, lo = (tree_map(lambda t: t.to(dev), x) for x in (params, lora))
+        kw = dict(lora=lo, adapter_ids=torch.arange(4, device=dev),
+                  disagg=True)
+        reset_counts(*mods)
+        logits = hybrid.forward(p, tokens.to(dev), cfg, **kw)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            expect_launches(mods, {
+                "residual_attention_prefill": n_local,
+                "rg_lru_scan": cfg.num_layers - n_local})
+        toks = greedy(hybrid, cfg, p, tokens.to(dev), 12, 24, 64, **kw)
+        out[dev] = (logits.cpu(), toks.cpu())
+    gap = logit_gap(out["cuda"][0], out["cpu"][0])
+    if not gap["within_model_tol"]:
+        raise AssertionError(f"hybrid forward card vs CPU: {gap}")
+    if not torch.equal(out["cuda"][1], out["cpu"][1]):
+        raise AssertionError(f"hybrid greedy tokens: card "
+                             f"{out['cuda'][1].tolist()} != CPU "
+                             f"{out['cpu'][1].tolist()}")
+    log("small_hybrid", **gap, tol=MODEL_TOL,
+        tokens=out["cuda"][1].tolist(), ok=True)
+
+
+def prefill_decode(mod, cfg, params, tokens, prompt, steps, max_len, kw):
+    """``prefill`` of ``prompt`` tokens into a ``max_len``-slot cache, then
+    ``steps`` teacher-forced ``decode_step`` s; returns (logits at positions
+    prompt-1 .. prompt+steps-1 (B, steps+1, V), times in ms)."""
+    bsz = tokens.shape[0]
+    cache = mod.init_cache(cfg, bsz, max_len, disagg=True)
+    t0 = time.perf_counter()
+    lg, cache = mod.prefill(params, tokens[:, :prompt], cache, cfg,
+                            disagg=True, **kw)
+    torch.cuda.synchronize()
+    ms = {"prefill_ms": (time.perf_counter() - t0) * 1e3}
+    logits = [lg[:, 0]]
+    kv_len = torch.full((bsz,), prompt, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    for t in range(prompt, prompt + steps):
+        lg, cache = mod.decode_step(params, tokens[:, t], cache, kv_len, cfg,
+                                    disagg=True, **kw)
+        logits.append(lg)
+        kv_len = kv_len + 1
+    torch.cuda.synchronize()
+    ms["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / steps
+    return torch.stack(logits, 1), ms
 
 
 def dense_api(tfm, cfg, params, lora, tokens, counted, prompt, steps):
@@ -779,23 +1012,9 @@ def dense_api(tfm, cfg, params, lora, tokens, counted, prompt, steps):
     out["s1"], ms["forward_s1_ms"] = counted(
         lambda: tfm.forward(params, tokens[:, :1], cfg, disagg=True, **kw),
         {"residual_attention_decode": n})
-    cache = tfm.init_cache(cfg, bsz, 1024, disagg=True)
-    t0 = time.perf_counter()
-    lg, cache = tfm.prefill(params, tokens[:, :prompt], cache, cfg,
-                            disagg=True, **kw)
-    torch.cuda.synchronize()
-    ms["prefill_ms"] = (time.perf_counter() - t0) * 1e3
-    logits = [lg[:, 0]]
-    kv_len = torch.full((bsz,), prompt, dtype=torch.int32, device="cuda")
-    t0 = time.perf_counter()
-    for t in range(prompt, prompt + steps):
-        lg, cache = tfm.decode_step(params, tokens[:, t], cache, kv_len, cfg,
-                                    disagg=True, **kw)
-        logits.append(lg)
-        kv_len = kv_len + 1
-    torch.cuda.synchronize()
-    ms["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / steps
-    out["cache"] = torch.stack(logits, 1)   # positions prompt-1 .. +steps
+    out["cache"], times = prefill_decode(tfm, cfg, params, tokens, prompt,
+                                         steps, 1024, kw)
+    ms.update(times)
     return out, ms
 
 
@@ -809,9 +1028,10 @@ def dense_gaps(out, prompt, steps):
                 out["cache"], fwd[:, prompt - 1:prompt + steps])}
 
 
-def profile_decode(tfm, cfg, params, lora, tokens, prompt):
+def profile_decode(tfm, cfg, params, lora, tokens, prompt, max_len=1024):
     """Where a bf16 ``decode_step`` spends its time: after a prefill of
-    ``prompt`` tokens and two warm-up steps, three steps on the host clock,
+    ``prompt`` tokens into a ``max_len``-slot cache and two warm-up steps,
+    three steps on the host clock,
     then the same three under ``torch.profiler``, whose kernel events give
     the device's busy time and the launches per step.  Idle share = 1 -
     busy / host time of the unprofiled steps."""
@@ -821,7 +1041,7 @@ def profile_decode(tfm, cfg, params, lora, tokens, prompt):
     bsz = tokens.shape[0]
     kw = dict(lora=lora, adapter_ids=torch.arange(bsz, device="cuda"),
               disagg=True)
-    cache = tfm.init_cache(cfg, bsz, 1024, disagg=True)
+    cache = tfm.init_cache(cfg, bsz, max_len, disagg=True)
     _, cache = tfm.prefill(params, tokens[:, :prompt], cache, cfg, **kw)
 
     def steps(first, n):
@@ -851,7 +1071,7 @@ def profile_decode(tfm, cfg, params, lora, tokens, prompt):
                 device_idle_share=1 - busy_ms / host_ms)
 
 
-def llama_dense(cfg, params, lora, tfm, ra, ref, pra, first):
+def llama_dense(cfg, params, lora, tfm, mods, first):
     """Phase 5, dense: Llama3-8B's model API on 4 rows x 1000 tokens over
     adapters 0-3, first on the bf16 weights (the main path: launches
     counted, times taken, logits compared and logged), then on f32 copies
@@ -869,13 +1089,13 @@ def llama_dense(cfg, params, lora, tfm, ra, ref, pra, first):
     launches = {}
 
     def counted(fn, want, tally=None):
-        reset_counts(pra, ref, ra)
+        reset_counts(*mods)
         t0 = time.perf_counter()
         with first:
             out = fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        for k, v in expect_launches(ra, ref, pra, want).items():
+        for k, v in expect_launches(mods, want).items():
             if tally is not None:
                 tally[k] = tally.get(k, 0) + v
         return out, ms
@@ -898,8 +1118,7 @@ def llama_dense(cfg, params, lora, tfm, ra, ref, pra, first):
             tfm, cfg, params, lora, tokens[:, :prompt + 5], prompt),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, ok=True)
 
-    f32 = lambda t: {k: f32(v) if isinstance(v, dict)  # noqa: E731
-                     else v.float() for k, v in t.items()}
+    f32 = lambda t: tree_map(lambda x: x.float(), t)  # noqa: E731
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     out, ms = dense_api(tfm, cfg32, f32(params), f32(lora), tokens, counted,
                         prompt, steps)
@@ -910,6 +1129,125 @@ def llama_dense(cfg, params, lora, tfm, ra, ref, pra, first):
         if not g["within_model_tol"]:
             raise AssertionError(f"f32 {what}: {g} not within {MODEL_TOL}")
     del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_api(hybrid, cfg, params, lora, tokens, counted, fwd_len, prompt,
+               steps, max_len, floor):
+    """The hybrid model API over adapters 0..B-1: ``forward`` on
+    ``fwd_len`` tokens disaggregated (the dense prefill kernel once per
+    local layer, the scan kernel once per RG-LRU layer) and unified,
+    ``forward`` on the first token (the dense decode kernel and the scan
+    kernel), then ``prefill`` of ``prompt`` tokens into a ``max_len``-slot
+    cache and ``steps`` ``decode_step`` s (the scan kernel once per RG-LRU
+    layer, in the prefill), held against a disaggregated ``forward`` over
+    ``prompt + steps`` tokens.  ``floor`` adds the unified logits with the
+    embedding one ulp off.  Each gap is taken as soon as both sides exist,
+    and the logits are dropped.  Returns (gaps, times in ms)."""
+    bsz = tokens.shape[0]
+    n_local = hybrid.num_attention_layers(cfg)
+    n_rec = cfg.num_layers - n_local
+    kw = dict(lora=lora, adapter_ids=torch.arange(bsz, device="cuda"))
+    x = tokens[:, :fwd_len]
+    ms, gaps = {}, {}
+    fwd, ms["forward_ms"] = counted(
+        lambda: hybrid.forward(params, x, cfg, disagg=True, **kw),
+        {"residual_attention_prefill": n_local, "rg_lru_scan": n_rec})
+    uni = hybrid.forward(params, x, cfg, **kw)
+    gaps["disagg_vs_unified"] = logit_gap(fwd, uni)
+    s1, ms["forward_s1_ms"] = counted(
+        lambda: hybrid.forward(params, x[:, :1], cfg, disagg=True, **kw),
+        {"residual_attention_decode": n_local, "rg_lru_scan": n_rec})
+    gaps["s1_vs_forward"] = logit_gap(s1[:, 0], fwd[:, 0])
+    del fwd, s1
+    if floor:
+        nudged = dict(params, embed=params["embed"].clone())
+        nudged["embed"].view(torch.int16).add_(1)
+        gaps["one_ulp_embed_vs_unified"] = logit_gap(
+            hybrid.forward(nudged, x, cfg, **kw), uni)
+        del nudged
+    del uni
+    torch.cuda.empty_cache()
+    (cached, times), _ = counted(
+        lambda: prefill_decode(hybrid, cfg, params, tokens, prompt, steps,
+                               max_len, kw),
+        {"rg_lru_scan": n_rec})
+    ms.update(times)
+    long = hybrid.forward(params, tokens[:, :prompt + steps], cfg,
+                          disagg=True, **kw)
+    gaps["cache_vs_forward"] = logit_gap(
+        cached, long[:, prompt - 1:prompt + steps])
+    del cached, long
+    torch.cuda.empty_cache()
+    return gaps, ms
+
+
+def rg_hybrid(cfg, hybrid, mods, first, scans):
+    """Phase 5, hybrid: RecurrentGemma-9B's model API at full width and
+    depth over adapters 0-3, first on bf16 weights from seed 0 (the main
+    path: launches counted, times taken, a decode step profiled, gaps
+    logged beside bf16's own floor), then on f32 copies of the same
+    weights (the bf16 copy freed once they are made), where the logits
+    must agree within ``MODEL_TOL``: as for Llama3-8B, bf16 through 38
+    layers of random weights cannot be held to a tolerance at the output.
+    ``forward`` runs on 4 x 1000 tokens, ``prefill`` on 2500 into a
+    4096-slot cache (the 2048-slot local rings take the banded path, then
+    16 decode steps wrap them).  Returns the kernels' launches of the bf16
+    run."""
+    bsz, fwd_len, prompt, steps, max_len = 4, 1000, 2500, 16, 4096
+    t0 = time.perf_counter()
+    params = hybrid.init_params(cfg, 0)
+    lora = hybrid.init_lora_stacks(cfg, 1, bsz)
+    torch.cuda.synchronize()
+    leaves = []
+    tree_map(leaves.append, params)
+    log("init", model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        kinds={k: hybrid.layer_kinds(cfg).count(k)
+               for k in ("rglru", "local")},
+        seconds=time.perf_counter() - t0, params=cfg.num_params,
+        param_gib=sum(t.numel() * t.element_size() for t in leaves) / 2 ** 30)
+    del leaves
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (bsz, prompt + steps))).cuda()
+    launches = {}
+
+    def counted(fn, want, tally=None):
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        with first, scans:
+            out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for k, v in expect_launches(mods, want).items():
+            if tally is not None:
+                tally[k] = tally.get(k, 0) + v
+        return out, ms
+
+    torch.cuda.reset_peak_memory_stats()
+    gaps, ms = hybrid_api(hybrid, cfg, params, lora, tokens,
+                          lambda fn, want: counted(fn, want, launches),
+                          fwd_len, prompt, steps, max_len, floor=True)
+    log("rg_hybrid", model=cfg.name, dtype="bfloat16", batch=bsz,
+        forward_tokens=fwd_len, prefill_tokens=prompt, decode_steps=steps,
+        cache_slots=max_len, **ms, **gaps, launches=launches,
+        decode_profile=profile_decode(
+            hybrid, cfg, params, lora, tokens[:, :prompt + 5], prompt,
+            max_len),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, ok=True)
+
+    params = tree_map(lambda t: t.float(), params)
+    lora = tree_map(lambda t: t.float(), lora)
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gaps, ms = hybrid_api(hybrid, cfg32, params, lora, tokens, counted,
+                          fwd_len, prompt, steps, max_len, floor=False)
+    log("rg_hybrid", model=cfg.name, dtype="float32", **ms, **gaps,
+        tol=MODEL_TOL, ok=all(g["within_model_tol"] for g in gaps.values()))
+    for what, g in gaps.items():
+        if not g["within_model_tol"]:
+            raise AssertionError(f"f32 {what}: {g} not within {MODEL_TOL}")
+    del params, lora
     torch.cuda.empty_cache()
     return launches
 
@@ -1199,11 +1537,14 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.paper_models import (LLAMA3_8B,
                                                   tiny_serving_model)
+    from repro_torch.configs.recurrentgemma_9b import CONFIG as RG9B
     from repro_torch.core.config import ServeConfig
     from repro_torch.kernels import _build
     from repro_torch.kernels import paged_residual_attention as pra
     from repro_torch.kernels import ref
     from repro_torch.kernels import residual_attention as ra
+    from repro_torch.kernels import rg_lru as rg
+    from repro_torch.models import hybrid
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.api import ForkServer
     from repro_torch.serving.sampling import SamplingParams
@@ -1219,21 +1560,25 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(m.build) for m in (pra, ra)]:
+    sources = (pra, ra, rg)
+    mods = sources + (ref,)          # every launch counter
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for f in [pool.submit(m.build) for m in sources]:
             f.result()
     log("build", seconds=time.perf_counter() - t0,
         ptxas={m.SOURCE: _build.BUILD_LOGS.get(m.SOURCE, "(cached build)")
-               for m in (pra, ra)})
+               for m in sources})
 
     # 3. kernels against their plain versions
     check_kernels(pra, ref)
     check_dense_kernels(ra, ref)
+    check_scan_kernels(rg, ref)
 
-    # 4. small model: card vs CPU
+    # 4. small models: card vs CPU
     small_model_card_vs_cpu(tiny_serving_model, tfm, ForkServer,
                             ServeConfig, SamplingParams)
-    small_dense_card_vs_cpu(tiny_serving_model, tfm, ra, ref, pra)
+    small_dense_card_vs_cpu(tiny_serving_model, tfm, mods)
+    small_hybrid_card_vs_cpu(hybrid, RG9B, mods)
 
     # 5. Llama3-8B, full width and depth, bf16, random weights
     cfg = LLAMA3_8B
@@ -1255,7 +1600,7 @@ def main() -> int:
         after; returns its outputs and metrics."""
         server = ForkServer(cfg, params, lora, sc)
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(pra, ref, ra)
+        reset_counts(*mods)
         with shapes:
             outs, m, seconds = drive(server)
         ran = check_counts(pra, ref, expect)
@@ -1319,35 +1664,51 @@ def main() -> int:
     # the dense model API on the same weights
     torch.cuda.reset_peak_memory_stats()
     first = FirstLaunch(ra)
-    launches.update(llama_dense(cfg, params, lora, tfm, ra, ref, pra, first))
+    launches.update(llama_dense(cfg, params, lora, tfm, mods, first))
     del params, lora
     torch.cuda.empty_cache()
 
-    # 6. kernels at the serves' launch geometries
+    # RecurrentGemma-9B, full width and depth, once Llama3-8B is freed
+    rg_first, scans = FirstLaunch(ra), ScanLaunches(rg)
+    rg_launches = rg_hybrid(RG9B, hybrid, mods, rg_first, scans)
+
+    # 6. kernels at the main paths' launch geometries
     recorded = shapes.launches()
     log("serve_launches", geometries={
         n: sorted({k[:4] for k in v}) for n, v in recorded.items()})
     measured = check_serving_shapes(pra, ref, recorded)
     measured.update(check_dense_main_path(ra, ref, first.cases))
+    measured.update({f"{n}_d256": rec for n, rec in check_dense_main_path(
+        ra, ref, rg_first.cases).items()})
+    measured["rg_lru_scan"] = check_scan_main_path(rg, ref, scans.cases)
+    for name in DENSE_KERNELS:
+        launches[f"{name}_d256"] = rg_launches[name]
+    launches["rg_lru_scan"] = rg_launches["rg_lru_scan"]
 
-    # 7. kernels line, card line, result line
+    # 7. kernels line, card line, result line: the paged kernels at their
+    # heaviest serving launch, the dense kernels at Llama3-8B's (D 128) and
+    # at RecurrentGemma-9B's (D 256, "_d256") first main-path launch, the
+    # scan at the hybrid forward's
     kernels = []
-    sources = {**dict.fromkeys(
-        KERNELS, "src/repro_torch/kernels/csrc/paged_residual_attention.cu"),
-        **dict.fromkeys(DENSE_KERNELS, DENSE_SOURCE)}
-    replacing = {**{n: r for n, (_, r) in KERNELS.items()}, **DENSE_KERNELS}
-    for name, replaces in replacing.items():
+    entries = [(n, r, "src/repro_torch/kernels/csrc/"
+                "paged_residual_attention.cu", "llama3-8b")
+               for n, (_, r) in KERNELS.items()]
+    entries += [(n, r, DENSE_SOURCE, "llama3-8b")
+                for n, r in DENSE_KERNELS.items()]
+    entries += [(f"{n}_d256", r, DENSE_SOURCE, RG9B.name)
+                for n, r in DENSE_KERNELS.items()]
+    entries += [("rg_lru_scan", SCAN_REPLACES, SCAN_SOURCE, RG9B.name)]
+    for name, replaces, source, model in entries:
         rec = measured[name]
         kernels.append(dict(
-            name=name, status="ported", route="cuda",
-            source=sources[name], replaces=replaces, launches=launches[name],
+            name=name, status="ported", route="cuda", source=source,
+            replaces=replaces, model=model, launches=launches[name],
             max_abs_err=rec["max_abs_err"], ms=rec["kernel_ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
     log("done", seconds=time.perf_counter() - t_start)
     print(card_line())
-    print(json.dumps({"kernels": kernels, "todo": [
-        dict(name=n, status="todo", replaces=r) for n, r in TODO]}))
+    print(json.dumps({"kernels": kernels, "todo": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

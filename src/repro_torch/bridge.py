@@ -42,15 +42,21 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _convert(tree: Any, device: Device) -> Any:
+    """Dicts, lists and tuples keep their type (the hybrid family's
+    ``params["layers"]`` is a list of per-layer dicts); leaves become
+    tensors."""
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_convert(v, device) for v in tree)
     return tensor_from_numpy(np.asarray(tree), device)
 
 
 def params_from_jax(tree: Dict[str, Any], device: Device = None
                     ) -> Dict[str, Any]:
-    """Model parameters (``tfm.init_params``'s pytree as numpy arrays) ->
-    torch tensors with the same keys, layout and dtype."""
+    """Model parameters (``tfm.init_params``'s or ``hybrid.init_params``'s
+    pytree as numpy arrays) -> torch tensors with the same keys, layout and
+    dtype."""
     return _convert(tree, device)
 
 

@@ -26,9 +26,13 @@
 //
 // Design (simple first; speed is later work):
 //   * one CTA per (query tile, kv head, request row).  A query tile is `tq`
-//     query positions times the G heads of the group (tq*G <= 64 rows), so
-//     each key block of K/V is read once for all G heads, and a long prefill
-//     spreads over CTAs;
+//     query positions times the G heads of the group, so each key block of
+//     K/V is read once for all G heads, and a long prefill spreads over
+//     CTAs.  The wrapper sets tq from a row budget per head dim (tq*G <= 64
+//     rows at D <= 128, <= 32 at D 256) so that the shared-memory Layout
+//     below fits the 227 KB a CTA may use: at D 256, G 16 and R 16 a tile
+//     is 2 positions and needs 51,906 words (~203 KB); 64 rows would need
+//     ~280 KB.  Any D that is even works in the code itself;
 //   * B_k and B_v for head h (R x D) are loaded into shared memory once;
 //   * the key loop runs over blocks of 32 keys, from the first block inside
 //     the window of the tile's earliest query to the last block that is
@@ -86,9 +90,10 @@ struct Args {
   int causal, window;
 };
 
-// Shared-memory layout, in 4-byte words.  Rows of Q and of the rebuilt K
-// are padded by one float so the score loop (threads spread over rows of
-// K) hits distinct banks.
+// Shared-memory layout, in 4-byte words; launch() asks for Layout.total
+// words and returns the error if that is more than a CTA may have.  Rows
+// of Q and of the rebuilt K are padded by one float so the score loop
+// (threads spread over rows of K) hits distinct banks.
 struct Layout {
   int dp, sp;
   int q, acc, s, m, l, alpha, k, v, sn, cs, accr, kr, vr, bk, bv, qpos,

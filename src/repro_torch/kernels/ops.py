@@ -1,13 +1,15 @@
-"""Dispatchers for ResidualAttention (port of ``repro/kernels/ops.py``).
+"""Dispatchers for ResidualAttention (port of ``repro/kernels/ops.py``)
+and the RG-LRU scan.
 
-The dense model and the serving executor call these with the reference's
-signatures.  They dispatch by the tensors' device and by nothing else:
+The dense and hybrid models and the serving executor call these with the
+reference's signatures.  They dispatch by the tensors' device and by
+nothing else:
 
 * CPU tensors go to the plain PyTorch versions (:mod:`.ref`);
 * CUDA tensors go to the hand-written kernels
   (:mod:`.residual_attention` over contiguous caches,
-  :mod:`.paged_residual_attention` over paged pools), which launch or
-  raise.
+  :mod:`.paged_residual_attention` over paged pools, :mod:`.rg_lru` for
+  the scan), which launch or raise.
 
 Pass ``kr_pool=None`` (with ``vr_pool``/``b_k``/``b_v``/``bt_r`` also None)
 for the base-only variants used by the unified-cache baselines.
@@ -21,6 +23,7 @@ import torch
 from repro_torch.kernels import paged_residual_attention as pra
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.kernels import residual_attention as ra
+from repro_torch.kernels import rg_lru
 
 
 def _on_cpu(q: torch.Tensor) -> bool:
@@ -28,7 +31,7 @@ def _on_cpu(q: torch.Tensor) -> bool:
         return True
     if q.device.type == "cuda":
         return False
-    raise ValueError(f"no attention kernel for device {q.device}")
+    raise ValueError(f"no kernel for device {q.device}")
 
 
 def residual_attention(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos,
@@ -58,6 +61,15 @@ def residual_attention(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos,
         q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos,
         qpos.to(torch.int32).contiguous(), kv_len, scale=scale,
         causal=causal, window=window)
+
+
+def rg_lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """h_t = a_t * h_{t-1} + b_t with an f32 state; a, b: (B, S, W), h0:
+    (B, W).  Returns (states in a's dtype, states[:, -1])."""
+    if _on_cpu(a):
+        return ref_mod.rg_lru_scan_ref(a, b, h0)
+    return rg_lru.rg_lru_scan(a.contiguous(), b.contiguous(),
+                              h0.to(a.dtype).contiguous())
 
 
 def paged_residual_attention(q, kb_pool, vb_pool, kr_pool, vr_pool, b_k,

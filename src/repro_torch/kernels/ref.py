@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the ResidualAttention kernels, paged and
-dense (port of ``repro/kernels/ref.py``).
+dense (port of ``repro/kernels/ref.py``), and of the RG-LRU linear scan.
 
 Computes attention over a *disaggregated* KV cache:
 
@@ -30,6 +30,7 @@ LAUNCHES: Dict[str, int] = {
     "paged_residual_attention_mixed_ref": 0,
     "paged_residual_attention_prefill_ref": 0,
     "residual_attention_ref": 0,
+    "rg_lru_scan_ref": 0,
 }
 
 
@@ -230,3 +231,22 @@ def paged_residual_attention_mixed_ref(q, kb_pool, vb_pool, kr_pool,
     out = _masked_softmax_attention(q, k, v, mask, scale)
     return torch.where(rowvalid[:, :, None, None], out,
                        torch.zeros_like(out))
+
+
+def rg_lru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """The linear recurrence h_t = a_t * h_{t-1} + b_t, one step at a time
+    with an f32 state, as the Pallas kernel ``repro/kernels/rg_lru.py``
+    steps through its blocks.
+
+    a, b: (B, S, W); h0: (B, W).  Returns (states (B, S, W) in a's dtype,
+    states[:, -1]), as the Pallas entry returns them.
+    """
+    LAUNCHES["rg_lru_scan_ref"] += 1
+    af, bf = a.to(torch.float32), b.to(torch.float32)
+    h = h0.to(torch.float32)
+    states = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        states[:, t] = h
+    states = states.to(a.dtype)
+    return states, states[:, -1]

@@ -20,6 +20,10 @@ CUDA cores (67 TFLOP/s peak), so it stays far above that bound (later
 work: tensor-core tiles).  Decode does a few flops per byte of K/V: bound
 by bytes (3.35 TB/s); one CTA per (kv head, row) walks the whole cache, so
 a short batch leaves most SMs idle (later work: split-K over keys).
+Head dims 64, 128 and 256 are taken; a CTA holds 64 query rows at D <= 128
+and 32 at D 256 (``ROWS_BY_HEAD_DIM``), so its shared memory stays inside
+the card's 227 KB.  A rank too large for that budget at D 256 (above ~26)
+is refused by the launcher, and the wrapper raises.
 Unlike the Pallas prefill, which pads Sq and Sk to multiples of 128 with
 copies, the kernel takes any Sq and Sk and masks the ragged edge itself.
 """
@@ -41,7 +45,11 @@ LAUNCHES: Dict[str, int] = {
 }
 
 SOURCE = "residual_attention"
-MAX_ROWS = 64          # query rows (positions x group heads) per CTA
+# Query rows (positions x group heads) per CTA, by head_dim: the CTA holds
+# its Q tile, accumulator and a rebuilt key block in shared memory
+# (``Layout`` in the source), which at D 256 and 64 rows would need ~280 KB
+# of the H100's 227 KB; 32 rows need ~203 KB at R 16.
+ROWS_BY_HEAD_DIM = {64: 64, 128: 64, 256: 32}
 MAX_RANK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -85,9 +93,24 @@ def _check(name: str, t: Optional[torch.Tensor], device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
+def tile_rows(d: int, group: int) -> int:
+    """Query rows per CTA at head_dim ``d`` for ``group`` query heads per
+    kv head; raises for a head_dim the kernels do not take or a group
+    larger than the row budget."""
+    if d not in ROWS_BY_HEAD_DIM:
+        raise ValueError(f"head_dim {d} not supported "
+                         f"({', '.join(map(str, ROWS_BY_HEAD_DIM))})")
+    rows = ROWS_BY_HEAD_DIM[d]
+    if group > rows:
+        raise ValueError(f"group size {group} > {rows} query rows per CTA "
+                         f"at head_dim {d}")
+    return rows
+
+
 def _geometry(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len,
               window, decode: bool):
-    """Shared checks; returns (bsz, sq, sk, hq, hkv, d, r, dtype code)."""
+    """Shared checks; returns (bsz, sq, sk, hq, hkv, d, r, rows per CTA,
+    dtype code)."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{q.device}")
@@ -108,12 +131,9 @@ def _geometry(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len,
     sq = 1 if decode else q.shape[1]
     sk, hkv = k_base.shape[1], k_base.shape[2]
     r = k_res.shape[2]
-    if d not in (64, 128):
-        raise ValueError(f"head_dim {d} not supported (64 or 128)")
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    if hq // hkv > MAX_ROWS:
-        raise ValueError(f"group size {hq // hkv} > {MAX_ROWS}")
+    rows = tile_rows(d, hq // hkv)
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"rank {r} not in [1, {MAX_RANK}]")
     if sk < 1:
@@ -133,7 +153,7 @@ def _geometry(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len,
     _check("cos", cos, dev, dt, (bsz, sk, d // 2))
     if kv_len is not None:
         _check("kv_len", kv_len, dev, torch.int32, (bsz,))
-    return bsz, sq, sk, hq, hkv, d, r, _DTYPES[dt]
+    return bsz, sq, sk, hq, hkv, d, r, rows, _DTYPES[dt]
 
 
 def _run(name: str, *args) -> None:
@@ -168,11 +188,11 @@ def residual_attention_prefill(q, k_base, v_base, k_res, v_res, b_k, b_v,
     (``window`` > 0).  A row that sees no key comes back as zeros.
     Returns (B, Sq, Hq, D).  Bound: operations for long prefills (module
     docstring)."""
-    bsz, sq, sk, hq, hkv, d, r, code = _geometry(
+    bsz, sq, sk, hq, hkv, d, r, rows, code = _geometry(
         q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len, window,
         decode=False)
     _check("qpos", qpos, q.device, torch.int32, (bsz, sq))
-    tq = max(1, min(sq, MAX_ROWS // (hq // hkv)))
+    tq = max(1, min(sq, rows // (hq // hkv)))
     out = torch.empty_like(q)
     _run("residual_attention_prefill", code, _ptr(q), _ptr(k_base),
          _ptr(v_base), _ptr(k_res), _ptr(v_res), _ptr(b_k), _ptr(b_v),
@@ -192,7 +212,7 @@ def residual_attention_decode(q, k_base, v_base, k_res, v_res, b_k, b_v,
 
     q: (B, Hq, D); the cache as :func:`residual_attention_prefill`.
     Returns (B, Hq, D).  Bound: bytes (module docstring)."""
-    bsz, _, sk, hq, hkv, d, r, code = _geometry(
+    bsz, _, sk, hq, hkv, d, r, _, code = _geometry(
         q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len, window,
         decode=True)
     out = torch.empty_like(q)

@@ -3,10 +3,10 @@
 
 ``get_model(cfg)`` returns a :class:`ModelApi` with init_params / forward /
 init_cache / prefill / decode_step / init_lora_stacks, dispatched on
-``cfg.family``.  Only the dense family is ported; the others raise,
-naming their ROADMAP item.  The logical-axis trees that the reference's
-API also carries are for sharding, which goes with ROADMAP Queue 1,
-item 13.
+``cfg.family``.  The dense and hybrid families are ported; the others
+raise, naming their ROADMAP item.  The logical-axis trees that the
+reference's API also carries are for sharding, which goes with ROADMAP
+Queue 1, item 13.
 """
 from __future__ import annotations
 
@@ -14,7 +14,12 @@ import dataclasses
 from typing import Callable, Optional
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.models import hybrid
 from repro_torch.models import transformer as tfm
+
+# ported families: the module whose functions serve each (both take the
+# same arguments), as in the reference's registry
+_FAMILIES = {"dense": tfm, "hybrid": hybrid}
 
 # families of the reference's registry that are not ported yet, with the
 # ROADMAP Queue 1 item that ports each
@@ -23,7 +28,6 @@ _UNPORTED = {
     "vlm": "item 11 (the extra_embeds/VLM path)",
     "ssm": "item 11 (ssm.py)",
     "audio": "item 11 (encdec.py)",
-    "hybrid": "item 12 (hybrid.py with the rg_lru kernel)",
 }
 
 
@@ -41,19 +45,20 @@ class ModelApi:
 
 def get_model(cfg: ModelConfig) -> ModelApi:
     fam = cfg.family
-    if fam == "dense":
+    if fam in _FAMILIES:
+        mod = _FAMILIES[fam]
         return ModelApi(
             cfg=cfg,
-            init_params=lambda seed=0, **kw: tfm.init_params(cfg, seed, **kw),
-            forward=lambda params, tokens, **kw: tfm.forward(
+            init_params=lambda seed=0, **kw: mod.init_params(cfg, seed, **kw),
+            forward=lambda params, tokens, **kw: mod.forward(
                 params, tokens, cfg, **kw),
-            init_cache=lambda batch, max_len, **kw: tfm.init_cache(
+            init_cache=lambda batch, max_len, **kw: mod.init_cache(
                 cfg, batch, max_len, **kw),
-            prefill=lambda params, tokens, cache, **kw: tfm.prefill(
+            prefill=lambda params, tokens, cache, **kw: mod.prefill(
                 params, tokens, cache, cfg, **kw),
             decode_step=lambda params, tokens, cache, kv_len, **kw:
-                tfm.decode_step(params, tokens, cache, kv_len, cfg, **kw),
-            init_lora_stacks=lambda seed, n, **kw: tfm.init_lora_stacks(
+                mod.decode_step(params, tokens, cache, kv_len, cfg, **kw),
+            init_lora_stacks=lambda seed, n, **kw: mod.init_lora_stacks(
                 cfg, seed, n, **kw),
             supports_forkkv=True)
     if fam in _UNPORTED:

@@ -23,11 +23,15 @@ import torch
 
 from repro.core.config import LoRAConfig as JLoRAConfig
 from repro.core.config import ModelConfig as JModelConfig
+from repro.configs import recurrentgemma_9b as jrg
+from repro.models import hybrid as jhyb
 from repro.models import transformer as jtfm
 from repro_torch import bridge
 from repro_torch.core import attention as tattn
 from repro_torch.core.config import LoRAConfig, ModelConfig
 from repro_torch.kernels import ref as tref
+from repro_torch.configs import recurrentgemma_9b as trg
+from repro_torch.models import hybrid as thyb
 from repro_torch.models import registry
 from repro_torch.models import transformer as ttfm
 
@@ -262,11 +266,50 @@ def test_get_model_dense():
     assert lora["a_k"].shape == (2, 3, 64, 8)
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "ssm", "audio", "hybrid"])
+@pytest.mark.parametrize("family", ["moe", "vlm", "ssm", "audio"])
 def test_get_model_refuses_unported_families(family):
     _, cfg = _cfgs(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         registry.get_model(cfg)
+
+
+def test_get_model_serves_the_hybrid_family():
+    """``family="hybrid"`` is served by ``repro_torch.models.hybrid``: the
+    API's ``forward``, ``init_cache``, ``prefill`` and ``decode_step`` are
+    the module's, on weights bridged from the reference."""
+    jcfg, cfg = _cfgs(family="hybrid", num_layers=3, num_kv_heads=1,
+                      block_pattern=("rglru", "rglru", "local"),
+                      local_window=8, lru_width=64)
+    jparams = _np(jhyb.init_params(jcfg, jax.random.PRNGKey(0)))
+    jlora = _np(jhyb.init_lora_stacks(jcfg, jax.random.PRNGKey(1), 3))
+    params = bridge.params_from_jax(jparams, device="cpu")
+    lora = bridge.lora_from_jax(jlora, device="cpu")
+    api = registry.get_model(cfg)
+    assert api.supports_forkkv
+    tok = torch.from_numpy(_tokens((B, 10))).long()
+    kw = dict(lora=lora, adapter_ids=torch.tensor([2, 0]), disagg=True)
+    want = thyb.forward(params, tok, cfg, **kw)
+    assert torch.equal(api.forward(params, tok, **kw), want)
+    cache = api.init_cache(B, 16, disagg=True, device="cpu")
+    assert [sorted(c) for c in cache] == [["conv", "h"]] * 2 + \
+        [["k", "k_res", "v", "v_res"]]
+    lg, cache = api.prefill(params, tok[:, :9], cache, **kw)
+    _close(lg[:, 0], want[:, 8].numpy())
+    lg, _ = api.decode_step(params, tok[:, 9], cache, torch.full((B,), 9),
+                            **kw)
+    _close(lg, want[:, 9].numpy())
+    assert len(api.init_params(0, device="cpu")["layers"]) == 3
+    assert api.init_lora_stacks(1, 3, device="cpu")["a_k"].shape == \
+        (1, 3, 64, 8)
+
+
+def test_recurrentgemma_9b_config_matches_jax():
+    """The port's RecurrentGemma-9B configuration equals the reference's
+    field for field, at 9,189,720,064 parameters."""
+    assert dataclasses.asdict(trg.CONFIG) == dataclasses.asdict(jrg.CONFIG)
+    assert trg.CONFIG.num_params == jrg.CONFIG.num_params == 9_189_720_064
+    assert thyb.layer_kinds(trg.CONFIG).count("local") == 12
+    assert thyb.num_attention_layers(trg.CONFIG) == 12
 
 
 def test_moe_refused():
