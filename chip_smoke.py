@@ -12,13 +12,16 @@ error:
 2. build: nvcc compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
    one process per source, all started together;
 3. kernels: the six paged attention kernels (mixed, decode and chunked
-   prefill, each disaggregated and base-only) at Llama3-8B's head
-   geometry, in f32 and bf16, against their plain PyTorch versions on the
-   same inputs, with times, the card's bound for the same work, and for
-   the base-only kernels ``scaled_dot_product_attention`` as a yardstick;
-   the prefill cases hold a chunk starting mid-page, padded chunks and a
-   padding row with n_valid = 0, and run with and without a window that
-   straddles pages.  Then the two dense kernels (prefill and decode over
+   prefill, each disaggregated and base-only) and their six int8 variants
+   (int8 pages quantized by the port's ``quantize_kv``, with f32 scales)
+   at Llama3-8B's head geometry, q in f32 and bf16, against their plain
+   PyTorch versions on the same inputs, with times, the card's bound for
+   the same work, and for the base-only kernels
+   ``scaled_dot_product_attention`` (over dequantized K/V for int8) as a
+   yardstick; an int8 variant must also stay within 5% of the plain
+   version on the full-precision pages; the prefill cases hold a chunk
+   starting mid-page, padded chunks and a padding row with n_valid = 0,
+   and run with and without a window that straddles pages.  Then the two dense kernels (prefill and decode over
    contiguous caches) at the CPU tests' cases with R 16 at D 128 (MHA,
    GQA, MQA) and at D 256 (RecurrentGemma-9B's MQA with G 16, and GQA):
    window 0 and 5; a chunk at an offset; kv_len None; Sq and Sk of 150;
@@ -29,11 +32,20 @@ error:
    tokens in forkkv and prefix mode, under the mixed and the
    phase-separated loop (``mixed_batching=False``), with broadcast fork
    and on the gather path (``use_paged_kernel=False``), whose tokens must
-   also equal the paged path's on the card; then the same model's dense
-   API: ``forward(disagg=True)`` logits card vs CPU, and greedy tokens
-   from ``prefill`` + ``decode_step`` identical; then the same for a
-   6-layer f32 hybrid at head_dim 256 (the scan kernel and the dense
-   kernels at D 256), with a prompt that wraps the local ring;
+   also equal the paged path's on the card, all with full-precision and
+   again with int8 bCache pages (``kv_quant="int8"``: only int8 variants
+   launch); then the same model's dense API: ``forward(disagg=True)``
+   logits card vs CPU, and greedy tokens from ``prefill`` +
+   ``decode_step`` identical, over full-precision and over int8 caches;
+   then the same for a 6-layer f32 hybrid at head_dim 256 (the scan
+   kernel and the dense kernels at D 256), with a prompt that wraps the
+   local ring; then the tiers: tests/test_tiers.py's ReAct run of
+   ``serving/workflows.py`` under page pressure with the host tier on and
+   int8 pages, outputs and tier counters equal on card and CPU with tier
+   hits; an ``export_pages`` → ``import_pages`` round trip of bf16 and of
+   int8 pages (with scales) bit-identical on the card; and ``persist`` →
+   a fresh engine → ``restore`` serving the same greedy tokens as the
+   uninterrupted run, from tier hits;
 5. Llama3-8B at full width and depth (random bf16 weights from seed 0)
    serving one 2048-token session with 8 staggered forks over 4 LoRA
    adapters, in forkkv and prefix mode under the mixed loop, then under
@@ -42,7 +54,12 @@ error:
    one base-trajectory prefill pass); the launch counters, zeroed before
    each serve and read after it, show each path went through its kernels
    and never through a plain version, and every launch's geometry is
-   recorded.  Then the dense model API on the same weights:
+   recorded.  The four staggered serves again with int8 bCache pages
+   (only int8 variants may launch), with peak pages and bytes per page;
+   then the staggered serve in bf16 at ``max_pages`` 640 (between
+   forkkv's peak of 169 base pages and prefix's 937) with a 4 GiB host
+   tier, in both modes: every fork finishes, prefix demotes pages, tier
+   counters logged.  Then the dense model API on the same weights:
    ``forward(disagg=True)`` on 4 rows x 1000 tokens (adapters 0-3) must
    launch the dense prefill kernel once per layer, and ``forward`` on one
    token the dense decode kernel once per layer; both are timed, with
@@ -66,13 +83,15 @@ error:
    ``forward``) within the same rtol 3e-4 / atol 5e-4;
 6. the kernels again, at every launch geometry the serves of 5. gave
    them (batch, query width, table width, per-row start and q_len), in
-   f32 and bf16 against their plain versions; each is timed in bf16, and
-   the heaviest one's numbers make the kernels line; the dense kernels on
+   f32 and bf16 against their plain versions (int8 pages for the int8
+   variants, also held to 5% of full precision); each is timed in bf16,
+   and the heaviest one's numbers make the kernels line; the dense kernels on
    the inputs of their first launch in 5. (bf16), for each model, and on
    random f32 inputs of the same geometry; the scan kernel on the inputs
    of its first launch at each shape of 5. (f32, timed) and on the same
    inputs in bf16;
-7. the kernels line, the card line and the result line.
+7. the kernels line (#1–#6, their int8 variants, #7–#9), the card line
+   and the result line.
 """
 import dataclasses
 import json
@@ -157,11 +176,13 @@ FIXED = {
 
 
 def make_case(kind, dtype, window, seed, start, qlen, sq, width,
-              device="cuda"):
+              device="cuda", quantize=None):
     """Random inputs at Llama3-8B's head geometry for rows that start at
     ``start`` with ``qlen`` query positions each (decode: qlen 1, sq 1),
     padded to ``sq`` positions, over block tables ``width`` pages wide
-    drawn from a shuffled pool."""
+    drawn from a shuffled pool.  With ``quantize`` (the port's write-time
+    ``quantize_kv``) the base pools are int8 with their scales ``ks``/``vs``
+    and the full-precision pools stay as ``kb_fp``/``vb_fp``."""
     g = LLAMA_GEOM
     bsz = len(start)
     pool = bsz * width + 16
@@ -191,13 +212,20 @@ def make_case(kind, dtype, window, seed, start, qlen, sq, width,
     c["q"] = rn(bsz, g["hq"], g["d"]) if kind == "decode" else \
         rn(bsz, sq, g["hq"], g["d"])
     c.update(kind=kind, window=window, scale=g["d"] ** -0.5, dtype=dtype,
-             start_l=start, qlen_l=qlen)
+             start_l=start, qlen_l=qlen, ks=None, vs=None)
+    if quantize is not None:
+        c["kb_fp"], c["vb_fp"] = c["kb"], c["vb"]
+        c["kb"], c["ks"] = quantize(c["kb_fp"])
+        c["vb"], c["vs"] = quantize(c["vb_fp"])
     return c
 
 
 def kernel_call(pra, name, c):
-    """The kernel wrapper ``name`` on case ``c``."""
-    kw = dict(scale=c["scale"], window=c["window"])
+    """The kernel wrapper ``name`` (an int8 variant: its entry's wrapper
+    with the scales) on case ``c``."""
+    name = name.removesuffix("_int8")
+    kw = dict(scale=c["scale"], window=c["window"], kb_scale=c["ks"],
+              vb_scale=c["vs"])
     if name == "paged_residual_attention_mixed":
         return lambda: pra.paged_residual_attention_mixed(
             c["q"], c["kb"], c["vb"], c["kr"], c["vr"], c["b_k"], c["b_v"],
@@ -227,7 +255,8 @@ def plain_call(ref, name, c):
     (rows, Hq, Sq, Sk), so a case above ``PLAIN_SCORE_BYTES`` of scores runs
     as one call per slice of batch rows (rows are independent)."""
     res = "residual" in name
-    kw = dict(scale=c["scale"], window=c["window"])
+    kw = dict(scale=c["scale"], window=c["window"], kb_scale=c["ks"],
+              vb_scale=c["vs"])
     bsz = c["bt_b"].shape[0]
     sq = 1 if c["kind"] == "decode" else c["q"].shape[1]
     sk = c["bt_b"].shape[1] * LLAMA_GEOM["page"]
@@ -253,19 +282,23 @@ def plain_call(ref, name, c):
 
 def library_call(c):
     """``scaled_dot_product_attention`` over the same base K/V laid out
-    contiguously, GQA heads expanded and the paged masks as a boolean
-    mask: a yardstick for the base-only kernels, never used by the port."""
+    contiguously (int8 pages dequantized to q's type beforehand), GQA heads
+    expanded and the paged masks as a boolean mask: a yardstick for the
+    base-only kernels, never used by the port."""
     g = LLAMA_GEOM
     bsz, width, page = c["bt_b"].shape[0], c["bt_b"].shape[1], g["page"]
     sk = width * page
     rep = g["hq"] // g["hkv"]
     bt = c["bt_b"].long()
 
-    def lay(pool):
-        x = pool[bt].reshape(bsz, sk, g["hkv"], g["d"]).transpose(1, 2)
+    def lay(pool, scale):
+        x = pool[bt]
+        if scale is not None:
+            x = (x.float() * scale[bt][..., None]).to(c["dtype"])
+        x = x.reshape(bsz, sk, g["hkv"], g["d"]).transpose(1, 2)
         return x.repeat_interleave(rep, dim=1).contiguous()
 
-    k, v = lay(c["kb"]), lay(c["vb"])
+    k, v = lay(c["kb"], c["ks"]), lay(c["vb"], c["vs"])
     q = c["q"][:, :, None] if c["kind"] == "decode" else \
         c["q"].transpose(1, 2)
     q = q.contiguous()
@@ -284,8 +317,9 @@ def library_call(c):
 
 def work(name, c):
     """Bytes the function must move and operations it must do on these
-    inputs: live pages of each row (the kernel's page-loop bounds), the q
-    rows below q_len and B_k/B_v read once, all of out (padding rows are
+    inputs: live pages of each row (the kernel's page-loop bounds; int8
+    pages one byte per element plus an f32 scale per token and head), the
+    q rows below q_len and B_k/B_v read once, all of out (padding rows are
     zeroed) written once; one QK and one PV product per unmasked
     (query, key) pair and head, plus the rank-R reconstruction."""
     g = LLAMA_GEOM
@@ -307,7 +341,8 @@ def work(name, c):
         for qp in range(st, st + ql):
             first = max(0, qp - w + 1) if w else 0
             pairs += qp - first + 1
-    nbytes = len(pages) * page * hkv * d * esize * 2
+    page_token = hkv * (d + 4) if c["ks"] is not None else hkv * d * esize
+    nbytes = len(pages) * page * page_token * 2
     nbytes += rows * hq * d * esize                         # live q rows
     nbytes += c["q"].numel() * esize                        # all of out
     ops = pairs * hq * 4 * d
@@ -322,6 +357,7 @@ def work(name, c):
             else "operations", nbytes, ops)
 
 
+PALLAS = "src/repro/kernels/paged_residual_attention.py"
 KERNELS = {
     # name: (case kind, replaces)
     "paged_residual_attention_mixed": (
@@ -337,6 +373,15 @@ KERNELS = {
     "paged_attention_prefill_base": (
         "prefill", "src/repro/kernels/paged_residual_attention.py:633"),
 }
+# the int8 variants: each entry's ``quant = kb_scale is not None`` branch
+KERNELS_INT8 = {
+    f"{n}_int8": (kind, f"{PALLAS}:{line}")
+    for (n, (kind, _)), line in zip(KERNELS.items(),
+                                    (787, 231, 516, 922, 363, 645))}
+ALL_KERNELS = {**KERNELS, **KERNELS_INT8}
+QUANT_TOL = 0.05      # int8 vs full-precision pages, as a share of the
+                      # full-precision output's max |value| (the bound of
+                      # tests/test_kv_quant.py)
 DTYPES = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_RTOL))
 
 
@@ -346,9 +391,13 @@ def compare(pra, ref, name, c, tol, case):
     bf16: a share of the plain version's max |value|).  A chunked
     prefill's rows at or past n_valid are padding its caller ignores, which
     the plain version computes and the kernel zeroes: only the rows below
-    n_valid are compared.  Returns the record to log."""
+    n_valid are compared.  An int8 case also holds the kernel within
+    ``QUANT_TOL`` of the plain version on the full-precision pages.
+    Returns the record to log."""
     got = kernel_call(pra, name, c)()
     want = plain_call(ref, name, c)()
+    full = None if c["ks"] is None else plain_call(ref, name, dict(
+        c, kb=c["kb_fp"], vb=c["vb_fp"], ks=None, vs=None))()
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name} {case}: non-finite output")
@@ -361,13 +410,23 @@ def compare(pra, ref, name, c, tol, case):
             raise AssertionError(f"{name} {case}: a row past q_len is "
                                  f"not 0")
         got, want = got[rows], want[rows]
+        full = None if full is None else full[rows]
     err = (got.float() - want.float()).abs().max().item()
     ref_max = want.float().abs().max().item()
     limit = tol * ref_max if c["dtype"] == torch.bfloat16 else tol
     rec = dict(kernel=name, dtype=str(c["dtype"]).split(".")[1], case=case,
                window=c["window"], max_abs_err=err, ref_max_abs=ref_max,
                limit=limit)
-    del got, want
+    if full is not None:
+        rec["vs_full_precision"] = (got.float() - full.float()).abs().max(
+        ).item() / full.float().abs().max().item()
+        rec["vs_full_precision_limit"] = QUANT_TOL
+    del got, want, full
+    if rec.get("vs_full_precision", 0.0) > QUANT_TOL:
+        log("kernel", **rec, ok=False)
+        raise AssertionError(f"{name} {case} {c['dtype']}: int8 pages move "
+                             f"the output {rec['vs_full_precision']} of its "
+                             f"max, > {QUANT_TOL}")
     if err > limit:
         log("kernel", **rec, ok=False)
         raise AssertionError(f"{name} {case} {c['dtype']} window="
@@ -387,30 +446,37 @@ def measure(pra, ref, name, c, rec):
     return rec
 
 
-def check_kernels(pra, ref):
+def check_kernels(pra, ref, quantize, kernels=ALL_KERNELS):
     """Phase 3: every kernel against its plain version, f32 and bf16, at
-    the fixed cases, without and with a sliding window, each timed."""
+    the fixed cases, without and with a sliding window, each timed; the
+    int8 variants on the same cases with int8 pages (``quantize``)."""
     for dtype, tol in DTYPES:
         for window in (0, 300):
-            cases = {k: make_case(k, dtype, window, seed=1 + window,
-                                  **FIXED[k]) for k in FIXED}
-            for name, (kind, _) in KERNELS.items():
-                c = cases[kind]
-                rec = compare(pra, ref, name, c, tol, kind)
-                log("kernel", **measure(pra, ref, name, c, rec), ok=True)
-            del cases
-            torch.cuda.empty_cache()
+            for quant in (False, True):
+                cases = {k: make_case(k, dtype, window, seed=1 + window,
+                                      quantize=quantize if quant else None,
+                                      **FIXED[k]) for k in FIXED}
+                for name, (kind, _) in kernels.items():
+                    if name.endswith("_int8") != quant:
+                        continue
+                    c = cases[kind]
+                    rec = compare(pra, ref, name, c, tol, kind)
+                    log("kernel", **measure(pra, ref, name, c, rec), ok=True)
+                del cases
+                torch.cuda.empty_cache()
 
 
-def check_serving_shapes(pra, ref, recorded):
+def check_serving_shapes(pra, ref, recorded, quantize):
     """Phase 6: each kernel at every distinct launch geometry of the
-    serves, f32 and bf16, on random inputs.  Of launches with the same
+    serves, f32 and bf16, on random inputs (int8 pages for the int8
+    variants).  Of launches with the same
     (batch, query width, table width, window) the one with the most
     (query, key) pairs stands for them.  Each is timed in bf16, what the
     server runs; returns the record of the heaviest per kernel."""
     results = {}
     for name, launches in recorded.items():
-        kind = KERNELS[name][0]
+        kind = ALL_KERNELS[name][0]
+        quant = quantize if name.endswith("_int8") else None
         best = {}
         for launch in launches:
             bsz, sq, width, window, start, qlen = launch
@@ -423,7 +489,8 @@ def check_serving_shapes(pra, ref, recorded):
             case = f"serve B={bsz} Sq={sq} W={width}"
             for dtype, tol in DTYPES:
                 c = make_case(kind, dtype, window, seed=5, start=list(start),
-                              qlen=list(qlen), sq=sq, width=width)
+                              qlen=list(qlen), sq=sq, width=width,
+                              quantize=quant)
                 rec = compare(pra, ref, name, c, tol, case)
                 rec.update(start=list(start), q_len=list(qlen))
                 if dtype == torch.bfloat16:
@@ -924,8 +991,21 @@ def small_dense_card_vs_cpu(tiny, tfm, mods):
         raise AssertionError(f"dense greedy tokens: card "
                              f"{out['cuda'][1].tolist()} != CPU "
                              f"{out['cpu'][1].tolist()}")
+    # the same over int8 caches (quantized writes, dequantized reads)
+    cfg8 = dataclasses.replace(cfg, kv_quant="int8")
+    toks8 = {}
+    for dev in ("cuda", "cpu"):
+        p, lo = (tree_map(lambda t: t.to(dev), x) for x in (params, lora))
+        toks8[dev] = greedy(tfm, cfg8, p, tokens.to(dev), 12, 24, 64,
+                            lora=lo, adapter_ids=torch.arange(4, device=dev),
+                            disagg=True).cpu()
+    if not torch.equal(toks8["cuda"], toks8["cpu"]):
+        raise AssertionError(f"int8-cache greedy tokens: card "
+                             f"{toks8['cuda'].tolist()} != CPU "
+                             f"{toks8['cpu'].tolist()}")
     log("small_dense", forward_max_abs_err=err, limit=F32_TOL,
-        tokens=out["cuda"][1].tolist(), ok=True)
+        tokens=out["cuda"][1].tolist(), int8_cache_tokens=toks8[
+            "cuda"].tolist(), ok=True)
 
 
 def small_hybrid_card_vs_cpu(hybrid, rg9b, mods):
@@ -1380,8 +1460,9 @@ def check_counts(pra, ref, expect_kernels):
 
 class LaunchShapes:
     """Records the geometry of every launch of the kernel wrappers while
-    it is entered: batch, query width, table width, window, and each
-    row's start and q_len (kept as device copies and read afterwards, so
+    it is entered, under the kernel's name (an entry given scales: its
+    int8 variant): batch, query width, table width, window, and each row's
+    start and q_len (kept as device copies and read afterwards, so
     recording adds no host sync).  It wraps the module's functions and
     calls through, so the launch counters are untouched."""
 
@@ -1407,7 +1488,8 @@ class LaunchShapes:
             i = 9 if res else 4
             rows = (args[i].clone(),) if decode else \
                 (args[i].clone(), args[i + 1].clone())
-            self.raw.append((name, q.shape[0], 1 if decode else q.shape[1],
+            label = name if kw.get("kb_scale") is None else f"{name}_int8"
+            self.raw.append((label, q.shape[0], 1 if decode else q.shape[1],
                              bt.shape[1], kw.get("window", 0), rows))
             return fn(*args, **kw)
         return call
@@ -1418,7 +1500,7 @@ class LaunchShapes:
         n_valid, clamp(kv_len - start, 0, sq)."""
         out = {}
         for name, bsz, sq, width, window, rows in self.raw:
-            kind = KERNELS[name][0]
+            kind = ALL_KERNELS[name][0]
             if kind == "decode":
                 kv = rows[0].tolist()
                 start, qlen = tuple(k - 1 for k in kv), (1,) * len(kv)
@@ -1447,9 +1529,17 @@ LLAMA_SERVES = (
     ("prefix phase-separated", "prefix", dict(mixed_batching=False),
      ("paged_attention_prefill_base", "paged_attention_decode_base")),
 )
+# the same four serves with int8 bCache pages: only the int8 variants run
+LLAMA_INT8_SERVES = tuple(
+    (f"{label} int8", mode, extra, tuple(f"{k}_int8" for k in expect))
+    for label, mode, extra, expect in LLAMA_SERVES)
 # adapters of the fan-out's forks: not the session's adapter 0, so every
 # fork re-prefills the whole prompt from position 0
 FANOUT = (1, 2, 3)
+# the staggered serve under memory pressure: a device budget between
+# forkkv's peak (169 base pages) and prefix's (937), the host tier on
+PRESSURE = dict(max_pages=640, max_pages_per_req=256,
+                host_tier_bytes=4 << 30)
 
 
 def check_broadcast(exact, kernel_launches, n_layers, prompt_len, page):
@@ -1488,41 +1578,184 @@ SMALL_SERVES = (
 
 
 def small_model_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig,
-                            SamplingParams):
+                            SamplingParams, pra):
     """Phase 4: a 2-layer f32 model (head_dim 64) served on the card and
     on the CPU from the same weights must give the same greedy tokens, in
-    every setting of ``SMALL_SERVES``; on the card the gather path's tokens
-    must equal the paged path's."""
-    cfg = tiny(rank=16, num_layers=2, d_model=256, num_heads=4,
-               num_kv_heads=2, vocab_size=512)
-    params = tfm.init_params(cfg, 0, device="cpu")
-    lora = tfm.init_lora_stacks(cfg, 1, 4, device="cpu")
+    every setting of ``SMALL_SERVES``, with full-precision and with int8
+    bCache pages (on the card a paged int8 serve launches only int8
+    variants); on the card the gather path's tokens must equal the paged
+    path's."""
+    base = tiny(rank=16, num_layers=2, d_model=256, num_heads=4,
+                num_kv_heads=2, vocab_size=512)
+    params = tfm.init_params(base, 0, device="cpu")
+    lora = tfm.init_lora_stacks(base, 1, 4, device="cpu")
     to_cuda = lambda t: {k: to_cuda(v) if isinstance(v, dict)  # noqa
                          else v.cuda() for k, v in t.items()}
-    card = {}
-    for mode, extra in SMALL_SERVES:
-        sc = ServeConfig(page_size=16, max_pages=128, max_batch=8,
-                         max_prefill_tokens=64, max_pages_per_req=16,
-                         mode=mode, **extra)
-        toks = {}
-        for dev in ("cuda", "cpu"):
-            p, lo = (to_cuda(params), to_cuda(lora)) if dev == "cuda" \
-                else (params, lora)
-            srv = ForkServer(cfg, p, lo, sc, device=dev)
-            outs, m, _ = serve(srv, cfg.vocab_size, 72, 4, 4, 9, 6, 3,
-                               SamplingParams)
-            check_serving(outs, m, 6, mixed=sc.mixed_batching,
-                          gather=not sc.use_paged_kernel)
-            toks[dev] = [o.tokens for o in outs]
-        if toks["cuda"] != toks["cpu"]:
-            raise AssertionError(f"{mode} {extra}: card {toks['cuda']} != "
-                                 f"CPU {toks['cpu']}")
-        card[(mode, tuple(extra))] = toks["cuda"]
-        log("small_model", mode=mode, **extra, tokens=toks["cuda"], ok=True)
-    paged = card[("forkkv", ())]
-    gather = card[("forkkv", ("use_paged_kernel",))]
-    if gather != paged:
-        raise AssertionError(f"gather path {gather} != paged path {paged}")
+    for quant in ("none", "int8"):
+        cfg = dataclasses.replace(base, kv_quant=quant)
+        card = {}
+        for mode, extra in SMALL_SERVES:
+            sc = ServeConfig(page_size=16, max_pages=128, max_batch=8,
+                             max_prefill_tokens=64, max_pages_per_req=16,
+                             mode=mode, **extra)
+            toks = {}
+            for dev in ("cuda", "cpu"):
+                p, lo = (to_cuda(params), to_cuda(lora)) if dev == "cuda" \
+                    else (params, lora)
+                srv = ForkServer(cfg, p, lo, sc, device=dev)
+                reset_counts(pra)
+                outs, m, _ = serve(srv, cfg.vocab_size, 72, 4, 4, 9, 6, 3,
+                                   SamplingParams)
+                check_serving(outs, m, 6, mixed=sc.mixed_batching,
+                              gather=not sc.use_paged_kernel)
+                ran = {k for k, v in pra.LAUNCHES.items() if v}
+                if dev == "cuda" and sc.use_paged_kernel and (
+                        not ran or any(k.endswith("_int8") != (
+                            quant == "int8") for k in ran)):
+                    raise AssertionError(f"kv_quant {quant} {mode} {extra} "
+                                         f"launched {sorted(ran)}")
+                toks[dev] = [o.tokens for o in outs]
+            if toks["cuda"] != toks["cpu"]:
+                raise AssertionError(f"{quant} {mode} {extra}: card "
+                                     f"{toks['cuda']} != CPU {toks['cpu']}")
+            card[(mode, tuple(extra))] = toks["cuda"]
+            log("small_model", kv_quant=quant, mode=mode, **extra,
+                tokens=toks["cuda"], ok=True)
+        paged = card[("forkkv", ())]
+        gather = card[("forkkv", ("use_paged_kernel",))]
+        if gather != paged:
+            raise AssertionError(f"{quant}: gather path {gather} != paged "
+                                 f"path {paged}")
+
+
+REACT_SC = dict(page_size=16, max_pages=26, max_batch=4,
+                max_prefill_tokens=64, mode="forkkv", max_pages_per_req=24,
+                host_tier_bytes=64 << 20)
+REACT_WF = dict(n_workflows=3, agents_per_workflow=2, rounds=2,
+                shared_context_len=256, instr_len=16, tool_obs_len=24,
+                max_new_tokens=4, seed=0)
+TIER_KEYS = ("tier_hits", "demoted_pages", "promoted_pages",
+             "promoted_bytes", "host_evicted_pages", "dropped_device_pages",
+             "preemptions", "evicted_pages", "prefilled_tokens", "tasks_done")
+
+
+def small_tiers_card_vs_cpu(tiny, tfm, Engine, ServeConfig, workflows, pra):
+    """Phase 4, tiers: tests/test_tiers.py's ReAct run (3 workflows x 2
+    agents x 2 rounds over a 256-token context, 26 device pages, the host
+    tier on) with int8 bCache pages, on the card and on the CPU: greedy
+    outputs and tier counters equal, pages demoted and promoted back
+    (tier_hits > 0), and on the card only int8 variants launched.  The
+    model is the test's with 4 heads, so that head_dim is 64, a width the
+    kernels take."""
+    cfg = dataclasses.replace(tiny(rank=8, num_heads=4, num_kv_heads=2),
+                              kv_quant="int8")
+    params = tfm.init_params(cfg, 0, device="cpu")
+    lora = tfm.init_lora_stacks(cfg, 1, 16, device="cpu")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p, lo = (tree_map(lambda t: t.to(dev), x) for x in (params, lora))
+        eng = Engine(cfg, p, lo, ServeConfig(**REACT_SC), device=dev)
+        reset_counts(pra)
+        rep = workflows.WorkflowDriver(eng, workflows.WorkflowConfig(
+            **REACT_WF, vocab=cfg.vocab_size)).run_react()
+        ran = {k for k, v in pra.LAUNCHES.items() if v}
+        if dev == "cuda" and (not ran or not all(k.endswith("_int8")
+                                                 for k in ran)):
+            raise AssertionError(f"react launched {sorted(ran)}")
+        got[dev] = ({k: rep[k] for k in TIER_KEYS},
+                    [r.output for r in sorted(eng.done, key=lambda r: r.rid)])
+    if got["cuda"] != got["cpu"]:
+        raise AssertionError(f"react card {got['cuda']} != CPU {got['cpu']}")
+    counters = got["cuda"][0]
+    if counters["tier_hits"] < 1 or counters["tasks_done"] != 12:
+        raise AssertionError(f"react under pressure: {counters}")
+    log("small_tiers", kv_quant="int8", **counters,
+        outputs=got["cuda"][1][:3], ok=True)
+
+
+def page_round_trip(tiny, tfm, Engine, ServeConfig):
+    """Phase 4, tiers: on the card, ``export_pages`` → ``import_pages``
+    into other pages is bit-identical for bf16 pages and for int8 pages
+    with their scales (base and residual pools filled at random)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    src, dst = [3, 5, 6, 9], [20, 11, 30, 2]
+    for dtype, quant in (("bfloat16", "none"), ("float32", "int8")):
+        cfg = dataclasses.replace(tiny(rank=8, num_layers=2), dtype=dtype,
+                                  kv_quant=quant)
+        eng = Engine(cfg, tfm.init_params(cfg, 0), tfm.init_lora_stacks(
+            cfg, 1, 4), ServeConfig(page_size=16, max_pages=64,
+                                     mode="forkkv", host_tier_bytes=1 << 26))
+        ex = eng.executor
+        pools = {k: v for k, v in ex.pools._asdict().items()
+                 if v is not None}
+        for t in pools.values():
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                      device="cuda"))
+            else:
+                t.copy_(torch.rand(t.shape, generator=gen, device="cuda"))
+        for kind in ("base", "res"):
+            ex.import_pages(kind, dst, ex.export_pages(kind, src))
+        torch.cuda.synchronize()
+        for name, t in pools.items():
+            if not torch.equal(t[:, src].view(torch.uint8),
+                               t[:, dst].view(torch.uint8)):
+                raise AssertionError(f"{dtype}/{quant} {name}: pages changed "
+                                     f"in a round trip")
+        log("page_round_trip", dtype=dtype, kv_quant=quant,
+            pools=sorted(pools), pages=len(src), ok=True)
+        del eng, ex, pools
+    torch.cuda.empty_cache()
+
+
+def persist_restore(tiny, tfm, Engine, Request, ServeConfig):
+    """Phase 4, tiers: tests/test_persist.py's acceptance on the card with
+    int8 bCache pages and a disk tier below the host tier (its files under
+    the persist dir): an engine serves a context then a probe, persists
+    every cached prefix; a fresh engine restores the manifest and serves
+    the probe with the same greedy tokens, from tier hits (head_dim 64, as
+    in ``small_tiers_card_vs_cpu``)."""
+    import tempfile
+    cfg = dataclasses.replace(tiny(rank=8, num_heads=4, num_kv_heads=2),
+                              kv_quant="int8")
+    params = tfm.init_params(cfg, 0)
+    lora = tfm.init_lora_stacks(cfg, 1, 16)
+    rng = np.random.default_rng(0)
+    ctx = [int(t) for t in rng.integers(0, cfg.vocab_size, 64)]
+    probe = ctx + [int(t) for t in rng.integers(0, cfg.vocab_size, 8)]
+
+    def run_one(eng, prompt):
+        req = Request(rid=0, adapter_id=3, prompt=list(prompt),
+                      max_new_tokens=6)
+        eng.submit(req)
+        while req.state != "done":
+            eng.step()
+        return req
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        sc = ServeConfig(page_size=16, max_pages=256, max_batch=4,
+                         max_prefill_tokens=64, mode="forkkv",
+                         max_pages_per_req=12, host_tier_bytes=64 << 20,
+                         disk_tier_bytes=64 << 20, persist_dir=d)
+        eng1 = Engine(cfg, params, lora, sc)
+        run_one(eng1, ctx)
+        want = run_one(eng1, probe).output
+        n = eng1.persist()
+        eng2 = Engine(cfg, params, lora, sc)
+        restored = eng2.restore()
+        req = run_one(eng2, probe)
+    m = eng2.metrics()
+    if not (n > 0 and restored == n and req.output == want
+            and m["tier_hits"] > 0 and req.prefilled_tokens < len(probe)):
+        raise AssertionError(f"persist/restore: {n} pages, {restored} "
+                             f"restored, {req.output} vs {want}, tier_hits "
+                             f"{m['tier_hits']}, prefilled "
+                             f"{req.prefilled_tokens}")
+    log("persist_restore", kv_quant="int8", pages=n, tokens=want,
+        tier_hits=m["tier_hits"], prefilled_tokens=req.prefilled_tokens,
+        ok=True)
 
 
 def main() -> int:
@@ -1546,7 +1779,10 @@ def main() -> int:
     from repro_torch.kernels import rg_lru as rg
     from repro_torch.models import hybrid
     from repro_torch.models import transformer as tfm
+    from repro_torch.serving import workflows
     from repro_torch.serving.api import ForkServer
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.executor import pool_bytes
     from repro_torch.serving.sampling import SamplingParams
 
     t_start = time.perf_counter()
@@ -1570,15 +1806,19 @@ def main() -> int:
                for m in sources})
 
     # 3. kernels against their plain versions
-    check_kernels(pra, ref)
+    check_kernels(pra, ref, tfm.quantize_kv)
     check_dense_kernels(ra, ref)
     check_scan_kernels(rg, ref)
 
     # 4. small models: card vs CPU
     small_model_card_vs_cpu(tiny_serving_model, tfm, ForkServer,
-                            ServeConfig, SamplingParams)
+                            ServeConfig, SamplingParams, pra)
     small_dense_card_vs_cpu(tiny_serving_model, tfm, mods)
     small_hybrid_card_vs_cpu(hybrid, RG9B, mods)
+    small_tiers_card_vs_cpu(tiny_serving_model, tfm, Engine, ServeConfig,
+                            workflows, pra)
+    page_round_trip(tiny_serving_model, tfm, Engine, ServeConfig)
+    persist_restore(tiny_serving_model, tfm, Engine, Request, ServeConfig)
 
     # 5. Llama3-8B, full width and depth, bf16, random weights
     cfg = LLAMA3_8B
@@ -1591,24 +1831,38 @@ def main() -> int:
         param_gib=sum(t.numel() * t.element_size()
                       for t in list(params["layers"].values()) +
                       [params["embed"], params["unembed"]]) / 2 ** 30)
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(ALL_KERNELS, 0)
     peaks = {}
     shapes = LaunchShapes(pra)
+    cfg8 = dataclasses.replace(cfg, kv_quant="int8")
 
-    def run(label, sc, drive, expect):
-        """One serve with the counts zeroed just before it and read just
-        after; returns its outputs and metrics."""
-        server = ForkServer(cfg, params, lora, sc)
+    def run(label, sc, drive, expect, model=cfg, record=True):
+        """One serve of ``model`` with the counts zeroed just before it and
+        read just after (its launches recorded for phase 6 unless not
+        ``record``); an int8 model must launch int8 variants only.
+        Returns its outputs and metrics."""
+        server = ForkServer(model, params, lora, sc)
         torch.cuda.reset_peak_memory_stats()
         reset_counts(*mods)
-        with shapes:
+        if record:
+            with shapes:
+                outs, m, seconds = drive(server)
+        else:
             outs, m, seconds = drive(server)
         ran = check_counts(pra, ref, expect)
+        if model.kv_quant == "int8" and not all(k.endswith("_int8")
+                                                for k in ran):
+            raise AssertionError(f"{label}: a full-precision kernel ran on "
+                                 f"int8 pages: {ran}")
         for k, v in ran.items():
             launches[k] += v
         gen = sum(len(o.tokens) for o in outs)
-        peaks[label] = (m["peak_base_pages"], m["peak_res_pages"])
-        log("serve", label=label, mode=sc.mode, model=cfg.name,
+        peaks[label] = (m["peak_base_pages"], m["peak_res_pages"],
+                        m["peak_cache_bytes"])
+        pb = pool_bytes(server.engine.executor.pools)
+        log("serve", label=label, mode=sc.mode, model=model.name,
+            kv_quant=model.kv_quant, max_pages=sc.max_pages,
+            host_tier_bytes=sc.host_tier_bytes,
             mixed_batching=sc.mixed_batching,
             broadcast_fork=sc.broadcast_fork, forks=len(outs),
             context=2048, instr=64, new_tokens=16, seconds=seconds,
@@ -1621,7 +1875,13 @@ def main() -> int:
             peak_base_pages=m["peak_base_pages"],
             peak_res_pages=m["peak_res_pages"],
             peak_cache_bytes=m["peak_cache_bytes"],
+            base_bytes_per_page=pb["base"] / sc.max_pages,
+            res_bytes_per_page=pb["residual"] / max(
+                1, server.engine.executor.num_res_pages),
             hit_kinds=m["hit_kinds"], launches=ran,
+            **{k: m[k] for k in ("tier_hits", "demoted_pages",
+                                 "promoted_pages", "evicted_pages",
+                                 "preemptions")},
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
             tokens=[o.tokens for o in outs[:2]], ok=True)
         del server
@@ -1644,6 +1904,27 @@ def main() -> int:
     log("memory_effect", forkkv_peak_base_pages=peaks["forkkv"][0],
         forkkv_peak_res_pages=peaks["forkkv"][1],
         prefix_peak_base_pages=peaks["prefix"][0])
+
+    # the same serves over int8 bCache pages
+    for label, mode, extra, expect in LLAMA_INT8_SERVES:
+        sc = ServeConfig(mode=mode, **big, **extra)
+        outs, m = run(label, sc, staggered, expect, model=cfg8)
+        check_serving(outs, m, 16, mixed=sc.mixed_batching)
+    log("memory_effect_int8", peaks={
+        label: dict(zip(("base_pages", "res_pages", "cache_bytes"),
+                        peaks[label]))
+        for label in ("forkkv", "prefix", "forkkv int8", "prefix int8")})
+
+    # memory pressure: bf16 pages, 640 device pages, the host tier on;
+    # every fork must finish, and prefix (peak 937 pages) must demote
+    for mode, expect in (("forkkv", LLAMA_SERVES[0][3]),
+                         ("prefix", LLAMA_SERVES[1][3])):
+        sc = ServeConfig(mode=mode, **PRESSURE)
+        outs, m = run(f"{mode} pressure", sc, staggered, expect,
+                      record=False)
+        check_serving(outs, m, 16, mixed=False)
+        if mode == "prefix" and m["demoted_pages"] < 1:
+            raise AssertionError(f"prefix at {PRESSURE}: no page demoted")
 
     # the fan-out, without and with broadcast fork
     for broadcast in (False, True):
@@ -1676,7 +1957,7 @@ def main() -> int:
     recorded = shapes.launches()
     log("serve_launches", geometries={
         n: sorted({k[:4] for k in v}) for n, v in recorded.items()})
-    measured = check_serving_shapes(pra, ref, recorded)
+    measured = check_serving_shapes(pra, ref, recorded, tfm.quantize_kv)
     measured.update(check_dense_main_path(ra, ref, first.cases))
     measured.update({f"{n}_d256": rec for n, rec in check_dense_main_path(
         ra, ref, rg_first.cases).items()})
@@ -1692,7 +1973,7 @@ def main() -> int:
     kernels = []
     entries = [(n, r, "src/repro_torch/kernels/csrc/"
                 "paged_residual_attention.cu", "llama3-8b")
-               for n, (_, r) in KERNELS.items()]
+               for n, (_, r) in ALL_KERNELS.items()]
     entries += [(n, r, DENSE_SOURCE, "llama3-8b")
                 for n, r in DENSE_KERNELS.items()]
     entries += [(f"{n}_d256", r, DENSE_SOURCE, RG9B.name)

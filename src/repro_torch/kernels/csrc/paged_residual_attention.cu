@@ -18,6 +18,16 @@
 // base-only twins drop the residual stream at compile time
 // (HAS_RES = false).
 //
+// The int8 variant of all six (the ``quant = kb_scale is not None`` branch
+// of each Pallas entry: :231, :363, :516, :645, :787, :922) is the same
+// template with the bCache element type TB = int8_t: kb/vb pages are int8
+// with f32 scale pools (P, page, Hkv), and each page element is multiplied
+// by its per-(token, head) scale in f32 as it is loaded, before the
+// residual term is added to K (Pallas: k_b * ks_ref, then + K_r B_k) and
+// before V enters the softmax update.  The residual pools and B_k/B_v stay
+// in q's type.  The launchers take the two scale pointers, null for
+// full-precision pages.
+//
 // What it computes, per request row b and kv head h (G = Hq / Hkv query
 // heads share that kv head):
 //   K = K_b + RoPE(K_r . B_k)   rebuilt per page in f32 in shared memory,
@@ -35,11 +45,15 @@
 //   * the page loop has plain bounds: from the first page inside the
 //     window of the tile's earliest row to the last page that is live and
 //     causal for its latest row (replacing the Pallas index-map clamps);
-//   * all arithmetic is f32 FMAs on the CUDA cores; inputs are f32 or bf16.
+//   * all arithmetic is f32 FMAs on the CUDA cores; inputs are f32 or bf16,
+//     bCache pages f32, bf16 or int8 (one byte-wide load per element).
 //   * a tile whose rows all lie at or past q_len writes zeros and returns.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -49,6 +63,19 @@ constexpr float kNegInit = -1e30f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+
+// One bCache element in f32.  An int8 element is multiplied by the scale
+// of its (token, head), rounded on its own (no FMA with what is added
+// next), as the Pallas kernel dequantizes the tile before the residual.
+template <typename TB>
+__device__ __forceinline__ float base_elem(const TB* pool, const float* s,
+                                           long i, long si) {
+  if constexpr (std::is_same<TB, int8_t>::value)
+    return __fmul_rn(to_f32(pool[i]), s[si]);
+  else
+    return to_f32(pool[i]);
 }
 
 template <typename T>
@@ -62,8 +89,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 struct Args {
   const void* q;       // (B, Sq, Hq, D)
-  const void* kb;      // (P, page, Hkv, D)
+  const void* kb;      // (P, page, Hkv, D)      T, or int8 with scales
   const void* vb;
+  const float* kb_s;   // (P, page, Hkv) f32     int8 pages only, else null
+  const float* vb_s;
   const void* kr;      // (Pr, page, R)       HAS_RES only
   const void* vr;
   const void* bk;      // (B, R, Hkv*D)       HAS_RES only
@@ -115,7 +144,7 @@ struct Layout {
   }
 };
 
-template <typename T, bool HAS_RES>
+template <typename T, typename TB, bool HAS_RES>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(Args a) {
   extern __shared__ float smem[];
@@ -196,8 +225,8 @@ paged_attention_kernel(Args a) {
                                 : 0;
   const int j_hi = last_k >= 0 ? min(last_k / page, a.w - 1) : -1;
 
-  const T* kb = static_cast<const T*>(a.kb);
-  const T* vb = static_cast<const T*>(a.vb);
+  const TB* kb = static_cast<const TB*>(a.kb);
+  const TB* vb = static_cast<const TB*>(a.vb);
   const T* kr = static_cast<const T*>(a.kr);
   const T* vr = static_cast<const T*>(a.vr);
   __syncthreads();
@@ -207,9 +236,12 @@ paged_attention_kernel(Args a) {
     // base page tile (page, D) of head h sits at stride Hkv*D
     const long kv_base = (pb * page * a.hkv + h) * D;
     const long kv_row = (long)a.hkv * D;
+    // scale of (page pb, token t, head h) at (pb * page + t) * Hkv + h
+    const long s_base = pb * page * a.hkv + h;
     for (int e = tid; e < page * D; e += kThreads) {
       const int t = e / D, dd = e % D;
-      Vs[e] = to_f32(vb[kv_base + t * kv_row + dd]);
+      Vs[e] = base_elem(vb, a.vb_s, kv_base + t * kv_row + dd,
+                        s_base + (long)t * a.hkv);
     }
     if (HAS_RES) {
       const long pr = a.bt_r[(long)b * a.w + j];
@@ -234,14 +266,17 @@ paged_attention_kernel(Args a) {
           k1 = x1 * cs - x2 * sn;
           k2 = x2 * cs + x1 * sn;
         }
-        Ks[t * L.dp + i] = to_f32(kb[kv_base + t * kv_row + i]) + k1;
+        const long st = s_base + (long)t * a.hkv;
+        Ks[t * L.dp + i] = base_elem(kb, a.kb_s, kv_base + t * kv_row + i,
+                                     st) + k1;
         Ks[t * L.dp + i + half] =
-            to_f32(kb[kv_base + t * kv_row + i + half]) + k2;
+            base_elem(kb, a.kb_s, kv_base + t * kv_row + i + half, st) + k2;
       }
     } else {
       for (int e = tid; e < page * D; e += kThreads) {
         const int t = e / D, dd = e % D;
-        Ks[t * L.dp + dd] = to_f32(kb[kv_base + t * kv_row + dd]);
+        Ks[t * L.dp + dd] = base_elem(kb, a.kb_s, kv_base + t * kv_row + dd,
+                                      s_base + (long)t * a.hkv);
       }
     }
     __syncthreads();
@@ -317,12 +352,12 @@ paged_attention_kernel(Args a) {
   }
 }
 
-template <typename T, bool HAS_RES>
+template <typename T, typename TB, bool HAS_RES>
 int launch(const Args& a, int bsz, cudaStream_t stream) {
   const int G = a.hq / a.hkv;
   const Layout L(a.tq * G, a.d, a.r, a.page, HAS_RES);
   const size_t smem = (size_t)L.total * sizeof(float);
-  auto kernel = paged_attention_kernel<T, HAS_RES>;
+  auto kernel = paged_attention_kernel<T, TB, HAS_RES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -331,30 +366,41 @@ int launch(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int dispatch_pages(bool has_res, const Args& a, int bsz, cudaStream_t s) {
+  if (a.kb_s != nullptr)
+    return has_res ? launch<T, int8_t, true>(a, bsz, s)
+                   : launch<T, int8_t, false>(a, bsz, s);
+  return has_res ? launch<T, T, true>(a, bsz, s)
+                 : launch<T, T, false>(a, bsz, s);
+}
+
+// dtype: q's type; the pages are int8 exactly when the scales are given.
 int dispatch(int dtype, bool has_res, const Args& a, int bsz,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return has_res ? launch<float, true>(a, bsz, s)
-                   : launch<float, false>(a, bsz, s);
-  if (dtype == 1)
-    return has_res ? launch<__nv_bfloat16, true>(a, bsz, s)
-                   : launch<__nv_bfloat16, false>(a, bsz, s);
+  if ((a.kb_s == nullptr) != (a.vb_s == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_pages<float>(has_res, a, bsz, s);
+  if (dtype == 1) return dispatch_pages<__nv_bfloat16>(has_res, a, bsz, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Each launcher returns
-// cudaGetLastError() after the launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16 (q, out, residual pools, B_k/B_v).
+// kb_s/vb_s: both null (kb/vb in q's type) or both the f32 scale pools of
+// int8 kb/vb.  Each launcher returns cudaGetLastError() after the launch
+// (0 = success).
 extern "C" int paged_residual_attention_mixed(
-    int dtype, const void* q, const void* kb, const void* vb, const void* kr,
-    const void* vr, const void* bk, const void* bv, const void* bt_b,
-    const void* bt_r, const void* start, const void* q_len,
-    const void* kv_len, void* out, int bsz, int sq, int hq, int hkv, int d,
-    int r, int page, int w, int tq, float scale, int window,
-    float rope_theta, int use_rope, void* stream) {
-  const Args a{q, kb, vb, kr, vr, bk, bv,
+    int dtype, const void* q, const void* kb, const void* vb,
+    const void* kb_s, const void* vb_s, const void* kr, const void* vr,
+    const void* bk, const void* bv, const void* bt_b, const void* bt_r,
+    const void* start, const void* q_len, const void* kv_len, void* out,
+    int bsz, int sq, int hq, int hkv, int d, int r, int page, int w, int tq,
+    float scale, int window, float rope_theta, int use_rope, void* stream) {
+  const Args a{q, kb, vb, static_cast<const float*>(kb_s),
+               static_cast<const float*>(vb_s), kr, vr, bk, bv,
                static_cast<const int*>(bt_b), static_cast<const int*>(bt_r),
                static_cast<const int*>(start), static_cast<const int*>(q_len),
                static_cast<const int*>(kv_len), out,
@@ -364,12 +410,14 @@ extern "C" int paged_residual_attention_mixed(
 }
 
 extern "C" int paged_residual_attention_decode(
-    int dtype, const void* q, const void* kb, const void* vb, const void* kr,
-    const void* vr, const void* bk, const void* bv, const void* bt_b,
-    const void* bt_r, const void* kv_len, void* out, int bsz, int hq,
-    int hkv, int d, int r, int page, int w, float scale, int window,
-    float rope_theta, int use_rope, void* stream) {
-  const Args a{q, kb, vb, kr, vr, bk, bv,
+    int dtype, const void* q, const void* kb, const void* vb,
+    const void* kb_s, const void* vb_s, const void* kr, const void* vr,
+    const void* bk, const void* bv, const void* bt_b, const void* bt_r,
+    const void* kv_len, void* out, int bsz, int hq, int hkv, int d, int r,
+    int page, int w, float scale, int window, float rope_theta,
+    int use_rope, void* stream) {
+  const Args a{q, kb, vb, static_cast<const float*>(kb_s),
+               static_cast<const float*>(vb_s), kr, vr, bk, bv,
                static_cast<const int*>(bt_b), static_cast<const int*>(bt_r),
                nullptr, nullptr, static_cast<const int*>(kv_len), out,
                1, hq, hkv, d, r, page, w, 1, scale, window, rope_theta,
@@ -378,12 +426,14 @@ extern "C" int paged_residual_attention_decode(
 }
 
 extern "C" int paged_residual_attention_prefill(
-    int dtype, const void* q, const void* kb, const void* vb, const void* kr,
-    const void* vr, const void* bk, const void* bv, const void* bt_b,
-    const void* bt_r, const void* start, const void* kv_len, void* out,
-    int bsz, int sq, int hq, int hkv, int d, int r, int page, int w, int tq,
-    float scale, int window, float rope_theta, int use_rope, void* stream) {
-  const Args a{q, kb, vb, kr, vr, bk, bv,
+    int dtype, const void* q, const void* kb, const void* vb,
+    const void* kb_s, const void* vb_s, const void* kr, const void* vr,
+    const void* bk, const void* bv, const void* bt_b, const void* bt_r,
+    const void* start, const void* kv_len, void* out, int bsz, int sq,
+    int hq, int hkv, int d, int r, int page, int w, int tq, float scale,
+    int window, float rope_theta, int use_rope, void* stream) {
+  const Args a{q, kb, vb, static_cast<const float*>(kb_s),
+               static_cast<const float*>(vb_s), kr, vr, bk, bv,
                static_cast<const int*>(bt_b), static_cast<const int*>(bt_r),
                static_cast<const int*>(start), nullptr,
                static_cast<const int*>(kv_len), out,
@@ -394,11 +444,13 @@ extern "C" int paged_residual_attention_prefill(
 
 extern "C" int paged_attention_mixed_base(
     int dtype, const void* q, const void* kb, const void* vb,
-    const void* bt_b, const void* start, const void* q_len,
-    const void* kv_len, void* out, int bsz, int sq, int hq, int hkv, int d,
-    int page, int w, int tq, float scale, int window, void* stream) {
-  const Args a{q, kb, vb, nullptr, nullptr, nullptr, nullptr,
-               static_cast<const int*>(bt_b), nullptr,
+    const void* kb_s, const void* vb_s, const void* bt_b, const void* start,
+    const void* q_len, const void* kv_len, void* out, int bsz, int sq,
+    int hq, int hkv, int d, int page, int w, int tq, float scale,
+    int window, void* stream) {
+  const Args a{q, kb, vb, static_cast<const float*>(kb_s),
+               static_cast<const float*>(vb_s), nullptr, nullptr, nullptr,
+               nullptr, static_cast<const int*>(bt_b), nullptr,
                static_cast<const int*>(start), static_cast<const int*>(q_len),
                static_cast<const int*>(kv_len), out,
                sq, hq, hkv, d, 0, page, w, tq, scale, window, 0.f, 0};
@@ -407,23 +459,25 @@ extern "C" int paged_attention_mixed_base(
 
 extern "C" int paged_attention_decode_base(
     int dtype, const void* q, const void* kb, const void* vb,
-    const void* bt_b, const void* kv_len, void* out, int bsz, int hq,
-    int hkv, int d, int page, int w, float scale, int window,
-    void* stream) {
-  const Args a{q, kb, vb, nullptr, nullptr, nullptr, nullptr,
-               static_cast<const int*>(bt_b), nullptr, nullptr, nullptr,
-               static_cast<const int*>(kv_len), out,
+    const void* kb_s, const void* vb_s, const void* bt_b,
+    const void* kv_len, void* out, int bsz, int hq, int hkv, int d,
+    int page, int w, float scale, int window, void* stream) {
+  const Args a{q, kb, vb, static_cast<const float*>(kb_s),
+               static_cast<const float*>(vb_s), nullptr, nullptr, nullptr,
+               nullptr, static_cast<const int*>(bt_b), nullptr, nullptr,
+               nullptr, static_cast<const int*>(kv_len), out,
                1, hq, hkv, d, 0, page, w, 1, scale, window, 0.f, 0};
   return dispatch(dtype, false, a, bsz, stream);
 }
 
 extern "C" int paged_attention_prefill_base(
     int dtype, const void* q, const void* kb, const void* vb,
-    const void* bt_b, const void* start, const void* kv_len, void* out,
-    int bsz, int sq, int hq, int hkv, int d, int page, int w, int tq,
-    float scale, int window, void* stream) {
-  const Args a{q, kb, vb, nullptr, nullptr, nullptr, nullptr,
-               static_cast<const int*>(bt_b), nullptr,
+    const void* kb_s, const void* vb_s, const void* bt_b, const void* start,
+    const void* kv_len, void* out, int bsz, int sq, int hq, int hkv, int d,
+    int page, int w, int tq, float scale, int window, void* stream) {
+  const Args a{q, kb, vb, static_cast<const float*>(kb_s),
+               static_cast<const float*>(vb_s), nullptr, nullptr, nullptr,
+               nullptr, static_cast<const int*>(bt_b), nullptr,
                static_cast<const int*>(start), nullptr,
                static_cast<const int*>(kv_len), out,
                sq, hq, hkv, d, 0, page, w, tq, scale, window, 0.f, 0};

@@ -4,12 +4,15 @@ kernels in ``csrc/paged_residual_attention.cu``.
 These replace the six Pallas kernels of
 ``repro/kernels/paged_residual_attention.py``: the unified prefill/decode
 grid (mixed and decode) and the phase-separated chunked prefill, each
-disaggregated and base-only.  Each wrapper
-checks device, dtype, contiguity and shapes, raises on anything the kernel
-does not take, allocates the output, launches on PyTorch's current stream
-and raises if the launch failed.  It never falls back to the plain version;
-that lives in :mod:`repro_torch.kernels.ref` and is chosen only for CPU
-tensors, by :mod:`repro_torch.kernels.ops`.
+disaggregated and base-only, and each with its int8 variant: given
+``kb_scale``/``vb_scale`` (f32 (P, page, Hkv)), the bCache pools are int8
+and every page is dequantized on chip (the Pallas entries' ``quant =
+kb_scale is not None`` branch).  Each wrapper checks device, dtype,
+contiguity and shapes, raises on anything the kernel does not take,
+allocates the output, launches on PyTorch's current stream and raises if
+the launch failed.  It never falls back to the plain version; that lives
+in :mod:`repro_torch.kernels.ref` and is chosen only for CPU tensors, by
+:mod:`repro_torch.kernels.ops`.
 
 Bound on an H100.  A decode row reads every live page of kb/vb (Hkv·D
 values per token) and kr/vr (R per token) once and does about 4·G·D
@@ -25,7 +28,10 @@ The chunked prefill is the same: operations for long chunks, bytes for
 short ones.  Unlike the Pallas prefill, which holds all G·chunk query rows
 of a (row, kv head) in VMEM (16 MB of accumulator at chunk 8192, G 4), it
 tiles query positions like the mixed grid and skips the tiles at or past
-a row's valid count, so a padded chunk costs only its valid rows.
+a row's valid count, so a padded chunk costs only its valid rows.  int8
+pages halve the base bytes of a bf16 page (plus 4 bytes of scale per token
+and head), which is what a bytes-bound decode gains; the kernel reads them
+one byte per load, and packing four per load is later work.
 """
 from __future__ import annotations
 
@@ -37,15 +43,18 @@ import torch
 
 from repro_torch.kernels import _build
 
-# Launches of each kernel.  ``chip_smoke.py`` zeroes these before it serves
-# and reads them after, to show the serving path went through the kernels.
+ENTRIES = ("paged_residual_attention_mixed",
+           "paged_residual_attention_decode",
+           "paged_residual_attention_prefill",
+           "paged_attention_mixed_base",
+           "paged_attention_decode_base",
+           "paged_attention_prefill_base")
+# Launches of each kernel, the int8 variants apart under "<entry>_int8".
+# ``chip_smoke.py`` zeroes these before it serves and reads them after, to
+# show the serving path went through the kernels.
 LAUNCHES: Dict[str, int] = {
-    "paged_residual_attention_mixed": 0,
-    "paged_residual_attention_decode": 0,
-    "paged_residual_attention_prefill": 0,
-    "paged_attention_mixed_base": 0,
-    "paged_attention_decode_base": 0,
-    "paged_attention_prefill_base": 0,
+    **dict.fromkeys(ENTRIES, 0),
+    **dict.fromkeys((f"{n}_int8" for n in ENTRIES), 0),
 }
 
 SOURCE = "paged_residual_attention"
@@ -57,17 +66,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "paged_residual_attention_mixed":
-        [_I] + [_P] * 13 + [_I] * 9 + [_F, _I, _F, _I, _P],
+        [_I] + [_P] * 15 + [_I] * 9 + [_F, _I, _F, _I, _P],
     "paged_residual_attention_decode":
-        [_I] + [_P] * 11 + [_I] * 7 + [_F, _I, _F, _I, _P],
+        [_I] + [_P] * 13 + [_I] * 7 + [_F, _I, _F, _I, _P],
     "paged_residual_attention_prefill":
-        [_I] + [_P] * 12 + [_I] * 9 + [_F, _I, _F, _I, _P],
+        [_I] + [_P] * 14 + [_I] * 9 + [_F, _I, _F, _I, _P],
     "paged_attention_mixed_base":
-        [_I] + [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+        [_I] + [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     "paged_attention_decode_base":
-        [_I] + [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+        [_I] + [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     "paged_attention_prefill_base":
-        [_I] + [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+        [_I] + [_P] * 9 + [_I] * 8 + [_F, _I, _P],
 }
 
 
@@ -102,24 +111,34 @@ def _check(name: str, t: Optional[torch.Tensor], device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _geometry(q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, window,
-              decode: bool):
-    """Shared checks; returns (bsz, sq, hq, hkv, d, page, w, g, dtype code)."""
+def _geometry(q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale,
+              window, decode: bool):
+    """Shared checks; returns (bsz, sq, hq, hkv, d, page, w, g, dtype code).
+    The pools are in q's dtype, or int8 with both f32 scale pools
+    (P, page, Hkv)."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{q.device}")
-    if kb_scale is not None:
-        raise NotImplementedError(
-            "int8 bCache pages are not ported to the CUDA kernels yet "
-            "(ROADMAP Queue 2, int8 variant of kernels 1-6)")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if (kb_scale is None) != (vb_scale is None):
+        raise ValueError("kb_scale and vb_scale go together")
     dev, dt = q.device, q.dtype
+    pool_dt = dt if kb_scale is None else torch.int8
+    if kb_scale is None and kb_pool is not None and \
+            kb_pool.dtype == torch.int8:
+        raise ValueError("int8 bCache pools need kb_scale and vb_scale")
     _check("q", q, dev, dt, 3 if decode else 4)
-    _check("kb_pool", kb_pool, dev, dt, 4)
-    _check("vb_pool", vb_pool, dev, dt, 4)
+    _check("kb_pool", kb_pool, dev, pool_dt, 4)
+    _check("vb_pool", vb_pool, dev, pool_dt, 4)
     if vb_pool.shape != kb_pool.shape:
         raise ValueError("kb_pool and vb_pool shapes differ")
+    if kb_scale is not None:
+        for name, t in (("kb_scale", kb_scale), ("vb_scale", vb_scale)):
+            _check(name, t, dev, torch.float32, 3)
+            if t.shape != kb_pool.shape[:3]:
+                raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                                 f"expected {tuple(kb_pool.shape[:3])}")
     _check("bt_b", bt_b, dev, torch.int32, 2)
     _check("kv_len", kv_len, dev, torch.int32, 1)
     bsz = q.shape[0]
@@ -180,15 +199,18 @@ def _check_rows(start, q_len, bsz, dev):
             raise ValueError("q_len batch differs from q's")
 
 
-def _run(name: str, *args) -> None:
+def _run(name: str, kb_scale, *args) -> None:
+    """Launch entry ``name``; the count goes to its int8 variant when the
+    pages carry scales."""
     err = getattr(_lib(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name if kb_scale is None else f"{name}_int8"] += 1
 
 
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """Device address; None (a null pointer) for an absent tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -203,22 +225,26 @@ def paged_residual_attention_mixed(q, kb_pool, vb_pool, kr_pool, vr_pool,
                                    vb_scale=None) -> torch.Tensor:
     """Unified mixed prefill/decode attention over paged disaggregated
     pools.  Replaces ``paged_residual_attention_mixed``
-    (repro/kernels/paged_residual_attention.py:764).
+    (repro/kernels/paged_residual_attention.py:764), and given
+    ``kb_scale``/``vb_scale`` its int8 branch (:787).
 
-    q: (B, Sq, Hq, D); kb/vb: (P, page, Hkv, D); kr/vr: (Pr, page, R);
+    q: (B, Sq, Hq, D); kb/vb: (P, page, Hkv, D) in q's dtype, or int8 with
+    kb_scale/vb_scale (P, page, Hkv) f32; kr/vr: (Pr, page, R);
     b_k/b_v: (B, R, Hkv·D); bt_b/bt_r: (B, W) int32; start/q_len/kv_len:
     (B,) int32 with ``kv_len = start + q_len``.  Rows at or past q_len come
     back as exact zeros.  Returns (B, Sq, Hq, D).  Bound: bytes for decode
     rows, operations for long prefill rows (module docstring)."""
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
-        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, window, decode=False)
+        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
+        decode=False)
     r = _check_residual(q, kr_pool, vr_pool, b_k, b_v, bt_r, bsz, hkv, d,
                         page, w)
     _check_rows(start, q_len, bsz, q.device)
     tq = max(1, min(sq, MAX_ROWS // g))
     out = torch.empty_like(q)
-    _run("paged_residual_attention_mixed", code, _ptr(q), _ptr(kb_pool),
-         _ptr(vb_pool), _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
+    _run("paged_residual_attention_mixed", kb_scale, code, _ptr(q),
+         _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
+         _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
          _ptr(bt_b), _ptr(bt_r), _ptr(start), _ptr(q_len), _ptr(kv_len),
          _ptr(out), bsz, sq, hq, hkv, d, r, page, w, tq, float(scale),
          int(window), float(rope_theta), int(use_rope), _stream(q))
@@ -233,18 +259,21 @@ def paged_residual_attention_decode(q, kb_pool, vb_pool, kr_pool, vr_pool,
                                     vb_scale=None) -> torch.Tensor:
     """Decode over paged disaggregated pools: one query row per request at
     position ``kv_len - 1``.  Replaces ``paged_residual_attention_decode``
-    (repro/kernels/paged_residual_attention.py:206).  The same kernel as
+    (repro/kernels/paged_residual_attention.py:206), and given
+    ``kb_scale``/``vb_scale`` its int8 branch (:231).  The same kernel as
     :func:`paged_residual_attention_mixed` with Sq = 1.
 
     q: (B, Hq, D); pools and tables as the mixed kernel; kv_len: (B,)
     int32.  Returns (B, Hq, D).  Bound: bytes (module docstring)."""
     bsz, _, hq, hkv, d, page, w, _, code = _geometry(
-        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, window, decode=True)
+        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
+        decode=True)
     r = _check_residual(q, kr_pool, vr_pool, b_k, b_v, bt_r, bsz, hkv, d,
                         page, w)
     out = torch.empty_like(q)
-    _run("paged_residual_attention_decode", code, _ptr(q), _ptr(kb_pool),
-         _ptr(vb_pool), _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
+    _run("paged_residual_attention_decode", kb_scale, code, _ptr(q),
+         _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
+         _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
          _ptr(bt_b), _ptr(bt_r), _ptr(kv_len), _ptr(out), bsz, hq, hkv, d,
          r, page, w, float(scale), int(window), float(rope_theta),
          int(use_rope), _stream(q))
@@ -260,7 +289,8 @@ def paged_residual_attention_prefill(q, kb_pool, vb_pool, kr_pool, vr_pool,
     """Phase-separated chunked prefill over paged disaggregated pools; the
     chunk's own K/V is already written into them.  Replaces
     ``paged_residual_attention_prefill``
-    (repro/kernels/paged_residual_attention.py:488).  The mixed kernel
+    (repro/kernels/paged_residual_attention.py:488), and given
+    ``kb_scale``/``vb_scale`` its int8 branch (:516).  The mixed kernel
     with each row's q-length clamp(kv_len - start, 0, chunk) computed in
     the kernel.
 
@@ -271,14 +301,16 @@ def paged_residual_attention_prefill(q, kb_pool, vb_pool, kr_pool, vr_pool,
     (B, chunk, Hq, D).  Bound: operations for long chunks, bytes for short
     ones (module docstring)."""
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
-        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, window, decode=False)
+        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
+        decode=False)
     r = _check_residual(q, kr_pool, vr_pool, b_k, b_v, bt_r, bsz, hkv, d,
                         page, w)
     _check_rows(start, None, bsz, q.device)
     tq = max(1, min(sq, MAX_ROWS // g))
     out = torch.empty_like(q)
-    _run("paged_residual_attention_prefill", code, _ptr(q), _ptr(kb_pool),
-         _ptr(vb_pool), _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
+    _run("paged_residual_attention_prefill", kb_scale, code, _ptr(q),
+         _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
+         _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
          _ptr(bt_b), _ptr(bt_r), _ptr(start), _ptr(kv_len), _ptr(out), bsz,
          sq, hq, hkv, d, r, page, w, tq, float(scale), int(window),
          float(rope_theta), int(use_rope), _stream(q))
@@ -290,16 +322,19 @@ def paged_attention_mixed_base(q, kb_pool, vb_pool, bt_b, start, q_len,
                                kb_scale=None, vb_scale=None) -> torch.Tensor:
     """Base-only unified mixed grid over unified caches (the prefix and
     full_reuse baselines).  Replaces ``paged_attention_mixed_base``
-    (repro/kernels/paged_residual_attention.py:910).  Shapes as
+    (repro/kernels/paged_residual_attention.py:910), and given
+    ``kb_scale``/``vb_scale`` its int8 branch (:922).  Shapes as
     :func:`paged_residual_attention_mixed` minus the residual stream.
     Bound: bytes for decode rows, operations for long prefill rows."""
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
-        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, window, decode=False)
+        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
+        decode=False)
     _check_rows(start, q_len, bsz, q.device)
     tq = max(1, min(sq, MAX_ROWS // g))
     out = torch.empty_like(q)
-    _run("paged_attention_mixed_base", code, _ptr(q), _ptr(kb_pool),
-         _ptr(vb_pool), _ptr(bt_b), _ptr(start), _ptr(q_len), _ptr(kv_len),
+    _run("paged_attention_mixed_base", kb_scale, code, _ptr(q),
+         _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
+         _ptr(bt_b), _ptr(start), _ptr(q_len), _ptr(kv_len),
          _ptr(out), bsz, sq, hq, hkv, d, page, w, tq, float(scale),
          int(window), _stream(q))
     return out
@@ -310,14 +345,17 @@ def paged_attention_decode_base(q, kb_pool, vb_pool, bt_b, kv_len, *,
                                 kb_scale=None, vb_scale=None
                                 ) -> torch.Tensor:
     """Base-only paged decode.  Replaces ``paged_attention_decode_base``
-    (repro/kernels/paged_residual_attention.py:345).  Shapes as
+    (repro/kernels/paged_residual_attention.py:345), and given
+    ``kb_scale``/``vb_scale`` its int8 branch (:363).  Shapes as
     :func:`paged_residual_attention_decode` minus the residual stream.
     Bound: bytes."""
     bsz, _, hq, hkv, d, page, w, _, code = _geometry(
-        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, window, decode=True)
+        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
+        decode=True)
     out = torch.empty_like(q)
-    _run("paged_attention_decode_base", code, _ptr(q), _ptr(kb_pool),
-         _ptr(vb_pool), _ptr(bt_b), _ptr(kv_len), _ptr(out), bsz, hq, hkv,
+    _run("paged_attention_decode_base", kb_scale, code, _ptr(q),
+         _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
+         _ptr(bt_b), _ptr(kv_len), _ptr(out), bsz, hq, hkv,
          d, page, w, float(scale), int(window), _stream(q))
     return out
 
@@ -329,16 +367,19 @@ def paged_attention_prefill_base(q, kb_pool, vb_pool, bt_b, start, kv_len,
     """Base-only chunked prefill: the prefix and full_reuse baselines'
     phase-separated prefill and the broadcast-fork base trajectory
     (B = 1).  Replaces ``paged_attention_prefill_base``
-    (repro/kernels/paged_residual_attention.py:633).  Shapes as
+    (repro/kernels/paged_residual_attention.py:633), and given
+    ``kb_scale``/``vb_scale`` its int8 branch (:645).  Shapes as
     :func:`paged_residual_attention_prefill` minus the residual stream.
     Bound: operations for long chunks, bytes for short ones."""
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
-        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, window, decode=False)
+        q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
+        decode=False)
     _check_rows(start, None, bsz, q.device)
     tq = max(1, min(sq, MAX_ROWS // g))
     out = torch.empty_like(q)
-    _run("paged_attention_prefill_base", code, _ptr(q), _ptr(kb_pool),
-         _ptr(vb_pool), _ptr(bt_b), _ptr(start), _ptr(kv_len), _ptr(out),
+    _run("paged_attention_prefill_base", kb_scale, code, _ptr(q),
+         _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
+         _ptr(bt_b), _ptr(start), _ptr(kv_len), _ptr(out),
          bsz, sq, hq, hkv, d, page, w, tq, float(scale), int(window),
          _stream(q))
     return out

@@ -214,6 +214,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed per-layer caches on ``device`` (None: the CUDA device): an
     RG-LRU layer keeps its conv inputs (B, 3, W) and f32 state (B, W); a
     local layer a ring of ``min(max_len, local_window)`` slots."""
+    if cfg.kv_quant == "int8":
+        raise NotImplementedError(
+            "int8 caches for the hybrid family: the reference's hybrid "
+            "init_cache holds no scales, so its local layers cannot run "
+            "over int8 K/V")
     dev = resolve_device(device)
     dt = dtype or cfg.activation_dtype
     w = _lru_width(cfg)

@@ -20,8 +20,11 @@ reference left them to XLA; ``forward`` with ``disagg=True`` reaches the
 dense ResidualAttention kernels through :mod:`repro_torch.kernels.ops`.
 Unlike the reference, whose arrays are immutable, ``prefill`` and
 ``decode_step`` write the cache in place (and return it), so a step holds
-one cache and not two.  MoE layers, ``extra_embeds`` (VLM) and int8 caches
-raise ``NotImplementedError``.
+one cache and not two.  With ``cfg.kv_quant == "int8"`` the caches hold int8
+K/V with f32 per-(position, head) scales (``k_scale``/``v_scale``),
+quantized on every write and dequantized before attention, as in the
+reference.  MoE layers and ``extra_embeds`` (VLM) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -113,6 +116,25 @@ def init_lora_stacks(cfg: ModelConfig, seed: int, n_adapters: int,
 
 
 # --------------------------------------------------------------------------
+# KV-cache int8 quantization
+# --------------------------------------------------------------------------
+def quantize_kv(x: torch.Tensor):
+    """Per-(position, head) symmetric int8.  x: (..., Hkv, hd).  Returns
+    (int8 values, f32 scales (..., Hkv)): ``scale = max(amax|x| / 127,
+    1e-8)``, values ``clip(round(x / scale), ±127)`` with round half to
+    even, bit for bit the reference's ``quantize_kv``."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+# --------------------------------------------------------------------------
 # Building blocks
 # --------------------------------------------------------------------------
 def _bgmv(x, a_l, b_l, scaling, adapter_ids):
@@ -179,12 +201,6 @@ def _ring_kpos(kv_len: torch.Tensor, window: int) -> torch.Tensor:
     return torch.where(p >= 0, p, attn_lib.EMPTY_POS)
 
 
-def _no_int8(cfg: ModelConfig) -> None:
-    if cfg.kv_quant == "int8":
-        raise NotImplementedError(
-            "int8 KV caches are not ported yet (ROADMAP Queue 1, item 7)")
-
-
 def attention(p_l, x, cfg: ModelConfig, *, positions, mode: str,
               cache=None, kv_len=None, lora=None, adapter_ids=None,
               disagg: bool = False, window: int = 0, chunk_start=None):
@@ -193,8 +209,8 @@ def attention(p_l, x, cfg: ModelConfig, *, positions, mode: str,
     mode: "full"    — no cache, causal over x (training)
           "prefill" — write the cache at ``positions``, causal
           "decode"  — x is (B, 1, d); write the cache at ``kv_len``
-    cache: dict with "k", "v" [, "k_res", "v_res"] (layer slice, no L dim),
-    written in place.
+    cache: dict with "k", "v" [, "k_res", "v_res"] [, "k_scale",
+    "v_scale" under int8] (layer slice, no L dim), written in place.
     """
     bsz, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -252,16 +268,24 @@ def attention(p_l, x, cfg: ModelConfig, *, positions, mode: str,
 
     if cache is None:
         raise ValueError(f"mode {mode!r} needs a cache")
-    _no_int8(cfg)
     smax = cache["k"].shape[1]
     is_ring = window > 0 and smax == window
-    dt = cache["k"].dtype
+    quant = cfg.kv_quant == "int8"
 
     def write(slot, *pairs):
         """Scatter (B, n, ...) rows into cache slots (B, n), in place."""
         bidx = torch.arange(bsz, device=x.device)[:, None]
         for name, t in pairs:
-            cache[name][bidx, slot.long()] = t.to(dt)
+            cache[name][bidx, slot.long()] = t.to(cache[name].dtype)
+
+    def write_kv(slot, k, v):
+        """The base K/V write, quantized with its scales under int8."""
+        if not quant:
+            write(slot, ("k", k), ("v", v))
+            return
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        write(slot, ("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))
 
     if mode == "prefill":
         new_len = positions[:, -1] + 1
@@ -272,13 +296,15 @@ def attention(p_l, x, cfg: ModelConfig, *, positions, mode: str,
             # need: attend over [old cache ‖ fresh chunk], concatenated
             # before the writes below
             old_kpos = _ring_kpos(positions[:, 0], window)   # state@start
-            k_all = torch.cat([cache["k"], k_base.to(dt)], dim=1)
-            v_all = torch.cat([cache["v"], v_base.to(dt)], dim=1)
+            k_old, v_old = _cache_kv(cache, cfg, q.dtype)
+            k_all = torch.cat([k_old, k_base.to(k_old.dtype)], dim=1)
+            v_all = torch.cat([v_old, v_base.to(v_old.dtype)], dim=1)
             kpos_all = torch.cat([old_kpos, positions], dim=1)
             kr_all = vr_all = None
             if use_dis:
-                kr_all = torch.cat([cache["k_res"], k_res.to(dt)], dim=1)
-                vr_all = torch.cat([cache["v_res"], v_res.to(dt)], dim=1)
+                rdt = cache["k_res"].dtype
+                kr_all = torch.cat([cache["k_res"], k_res.to(rdt)], dim=1)
+                vr_all = torch.cat([cache["v_res"], v_res.to(rdt)], dim=1)
         if is_ring and s >= window:
             # only the last `window` chunk tokens survive: write exactly one
             # token per ring slot (duplicate scatter indices are undefined)
@@ -287,7 +313,7 @@ def attention(p_l, x, cfg: ModelConfig, *, positions, mode: str,
         else:
             slot = (positions % window) if is_ring else positions
             last = slice(0, s)
-        write(slot, ("k", k_base[:, last]), ("v", v_base[:, last]))
+        write_kv(slot, k_base[:, last], v_base[:, last])
         if k_res is not None:
             write(slot, ("k_res", k_res[:, last]), ("v_res", v_res[:, last]))
         if banded:
@@ -310,7 +336,7 @@ def attention(p_l, x, cfg: ModelConfig, *, positions, mode: str,
 
     # decode: s == 1
     slot = (kv_len % window) if is_ring else kv_len
-    write(slot[:, None], ("k", k_base), ("v", v_base))
+    write_kv(slot[:, None], k_base, v_base)
     if k_res is not None:
         write(slot[:, None], ("k_res", k_res), ("v_res", v_res))
     out = _cached_attention(q, cache, positions, kv_len + 1, cfg, bk_rows,
@@ -318,10 +344,19 @@ def attention(p_l, x, cfg: ModelConfig, *, positions, mode: str,
     return out, cache
 
 
+def _cache_kv(cache, cfg: ModelConfig, dtype: torch.dtype):
+    """A layer cache's K/V, dequantized to ``dtype`` under int8 (the
+    reference's ``dequantize_kv`` before attention)."""
+    if cfg.kv_quant != "int8":
+        return cache["k"], cache["v"]
+    return (dequantize_kv(cache["k"], cache["k_scale"], dtype),
+            dequantize_kv(cache["v"], cache["v_scale"], dtype))
+
+
 def _cached_attention(q, cache, qpos, kv_len, cfg, bk_rows, bv_rows,
                       window, is_ring, scale, use_disagg):
     """Attention of q against a (possibly ring) cache."""
-    k, v = cache["k"], cache["v"]
+    k, v = _cache_kv(cache, cfg, q.dtype)
     bsz, smax = k.shape[0], k.shape[1]
     if is_ring:
         kmask_pos = _ring_kpos(kv_len, smax)      # (B, W) absolute positions
@@ -482,8 +517,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Optional[Union[str, torch.device]] = None) -> Params:
     """Zeroed contiguous caches (L, batch, Smax, ...) on ``device`` (None:
     the CUDA device); a sliding-window model keeps a ring of
-    ``min(max_len, window)`` slots."""
-    _no_int8(cfg)
+    ``min(max_len, window)`` slots.  Under ``kv_quant == "int8"`` K/V are
+    int8 with f32 ``k_scale``/``v_scale`` of shape (L, batch, Smax, Hkv);
+    the residual caches stay in ``dtype``."""
     dev = resolve_device(device)
     dt = dtype or cfg.activation_dtype
     hd = cfg.resolved_head_dim
@@ -491,8 +527,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     w = cfg.sliding_window
     smax = min(max_len, w) if w else max_len
     shape = (L, batch, smax, cfg.num_kv_heads, hd)
-    cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
+    kv_dt = torch.int8 if cfg.kv_quant == "int8" else dt
+    cache = {"k": torch.zeros(shape, dtype=kv_dt, device=dev),
+             "v": torch.zeros(shape, dtype=kv_dt, device=dev)}
+    if cfg.kv_quant == "int8":
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=dev)
+        cache["v_scale"] = torch.zeros_like(cache["k_scale"])
     if disagg:
         res = (L, batch, smax, cfg.lora.rank)
         cache["k_res"] = torch.zeros(res, dtype=dt, device=dev)

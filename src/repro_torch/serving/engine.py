@@ -22,9 +22,16 @@ chunk.  Pools are refcounted; under pressure the decoupled LRU eviction
 frees tree leaves; requests that cannot allocate are queued (admission
 control) or preempted.
 
-The reference's int8 bCache pages and host/disk tiers with
-persist/restore are not ported yet: their settings raise
-``NotImplementedError`` at construction instead of running silently.
+With ``ServeConfig.host_tier_bytes > 0`` (or a disk tier or a persist dir)
+both device pools are wrapped in
+:class:`~repro_torch.serving.tiers.TieredPagePool` (DESIGN.md §10):
+eviction demotes unlocked leaves to a numpy-backed host tier instead of
+destroying them, host pressure spills them to an optional disk tier, and
+prefix matching during admission promotes tier-hit pages back into free
+device pages.  :meth:`Engine.persist` writes every cached prefix to disk
+and :meth:`Engine.restore` grafts a persisted manifest back as host-tier
+nodes.  ``ModelConfig.kv_quant="int8"`` stores the bCache pages as int8
+with f32 scales, which the tiers carry with them.
 
 Clients should not drive this class directly: the session/fork API
 (:mod:`repro_torch.serving.api`) wraps it with ``AgentSession`` context
@@ -33,6 +40,9 @@ pinning, streaming ``GenerationHandle`` s and the ``poll()`` pump.
 from __future__ import annotations
 
 import collections
+import json
+import os
+import tempfile
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -46,6 +56,9 @@ from repro_torch.serving.radix import DualRadixTree, RadixTree, ResidualForest
 from repro_torch.serving.sampling import GREEDY, SamplingParams
 from repro_torch.serving.scheduler import BatchPlan, IterationScheduler
 from repro_torch.serving.speculate import AdaptiveK, make_proposer
+from repro_torch.serving.tiers import (DiskTier, HostTier, TieredPagePool,
+                                       get_codec, read_blob_file,
+                                       write_blob_file)
 
 
 def percentile(vals: Sequence[float], q: float) -> float:
@@ -145,29 +158,39 @@ class Request:
         return self.prompt + self.output[:-1]
 
 
-def _refuse_unported(cfg: ModelConfig, sc: ServeConfig) -> None:
-    """Raise for every setting whose serving path the port lacks, naming
-    the ROADMAP item that ports it, so none of them can run silently."""
-    unported = []
-    if cfg.kv_quant == "int8":
-        unported.append(('kv_quant="int8"', 7))
-    if sc.host_tier_bytes or sc.disk_tier_bytes or sc.persist_dir:
-        unported.append(("host_tier_bytes/disk_tier_bytes/persist_dir", 9))
-    if unported:
-        raise NotImplementedError("; ".join(
-            f"{name} is not ported yet (ROADMAP Queue 1, item {item})"
-            for name, item in unported))
-
-
 class Engine:
     def __init__(self, cfg: ModelConfig, params, lora, sc: ServeConfig,
                  device=None):
-        _refuse_unported(cfg, sc)
         self.cfg = cfg
         self.sc = sc
         self.mode = sc.mode
         disagg = sc.mode == "forkkv"
+        # a disk tier or a persist dir implies tiering even without an
+        # explicit host budget — restore grafts into the host tier, so one
+        # must exist (default 1 GiB when only the deeper tiers asked)
+        tiered = (sc.host_tier_bytes > 0 or sc.disk_tier_bytes > 0
+                  or bool(sc.persist_dir))
+        host_bytes = sc.host_tier_bytes or (1 << 30)
+        # ONE host budget shared by both pools: host DRAM is one resource.
+        self.host_tier = HostTier(host_bytes) if tiered else None
+        # ...and one disk budget below it (DESIGN.md §18).  Blob files live
+        # under persist_dir when given (so they survive restarts alongside
+        # the manifest), else in a throwaway temp dir.
+        self.disk_tier = None
+        self.kv_codec = get_codec(sc.kv_codec)
+        if tiered and sc.disk_tier_bytes > 0:
+            disk_root = (os.path.join(sc.persist_dir, "disk")
+                         if sc.persist_dir
+                         else tempfile.mkdtemp(prefix="forkkv-disk-"))
+            self.disk_tier = DiskTier(
+                disk_root, sc.disk_tier_bytes,
+                io_hook=lambda: self.faults.io("disk_io"))
         self.base_pool = PagePool(sc.max_pages, sc.page_size, "base")
+        if tiered:
+            self.base_pool = TieredPagePool(
+                self.base_pool, self.host_tier,
+                promote_limit=sc.tier_promote_limit,
+                codec=self.kv_codec, disk=self.disk_tier)
         # EQUAL BYTE BUDGETS, not equal page counts: an rCache page holds
         # the same tokens in r/kv_dim of the bytes (the paper's asymmetry),
         # so the residual pool gets kv_dim/r x more pages per byte.
@@ -175,6 +198,11 @@ class Engine:
             if disagg else 1
         n_res_pages = sc.max_pages * res_factor if disagg else sc.max_pages
         self.res_pool = PagePool(n_res_pages, sc.page_size, "residual")
+        if tiered and disagg:
+            self.res_pool = TieredPagePool(
+                self.res_pool, self.host_tier,
+                promote_limit=sc.tier_promote_limit,
+                codec=self.kv_codec, disk=self.disk_tier)
         # reserve the dump page in both pools
         dump_b = self.base_pool.alloc(1)[0]
         dump_r = self.res_pool.alloc(1)[0]
@@ -192,6 +220,31 @@ class Engine:
             self.forest = ResidualForest(self.base_pool)
         else:                      # full_reuse
             self.tree = RadixTree(self.base_pool)
+        if tiered:
+            # device↔host byte movement + back-pressure (DESIGN.md §10);
+            # bound late: the executor/trees must exist first.  The fault
+            # sites model IO errors on the transfer path (§17): tiers.py
+            # catches them, counts tier_io_errors, and falls back (failed
+            # demote → true eviction; failed promote → stay host-tier).
+            def _export(kind):
+                def fn(p):
+                    self.faults.io("tier_demote")
+                    return self.executor.export_pages(kind, p)
+                return fn
+
+            def _import(kind):
+                def fn(p, b):
+                    self.faults.io("tier_promote")
+                    self.executor.import_pages(kind, p, b)
+                return fn
+
+            self.base_pool.bind(
+                export_fn=_export("base"), import_fn=_import("base"),
+                pressure_fn=lambda n: self._evict(self.base_pool, n))
+            if disagg:
+                self.res_pool.bind(
+                    export_fn=_export("res"), import_fn=_import("res"),
+                    pressure_fn=lambda n: self._evict(self.res_pool, n))
         self.waiting: List[Request] = []
         self.running: List[Request] = []
         self.done: List[Request] = []
@@ -211,6 +264,8 @@ class Engine:
         self.stalled = 0              # requests failed by stall detection
         self.timeouts = 0             # waiting requests past deadline_s
         self.shed = 0                 # requests rejected by overload bounds
+        self.restored_pages = 0       # pages grafted from a persist
+                                      # manifest at startup (§18)
         # fault tolerance (DESIGN.md §17): deterministic fault injection
         # (inert when no plan is configured), preempt–restore accounting,
         # quarantine/executor-isolation counters, drain + watchdog state
@@ -364,6 +419,8 @@ class Engine:
             0, self.tenant_pinned_pages.get(tenant, 0) - pages)
 
     def _evict(self, pool: PagePool, n: int) -> int:
+        tiered = getattr(pool, "is_tiered", False)
+        before = pool.demoted_pages if tiered else 0
         if self.mode == "forkkv":
             if pool is self.base_pool:
                 freed = self.dual.base.evict(n)
@@ -373,6 +430,8 @@ class Engine:
             freed = self.forest.evict(n)
         else:
             freed = self.tree.evict(n)
+        if tiered and pool.demoted_pages > before:
+            self.preemptions += 1     # cache state pushed out under pressure
         return freed
 
     def _alloc(self, pool: PagePool, n: int) -> Optional[List[int]]:
@@ -799,6 +858,115 @@ class Engine:
     def drained(self) -> bool:
         """True once a draining engine holds no in-flight work."""
         return self.draining and not self.running and not self.waiting
+
+    # --------------------------------------------- persist / restore (§18)
+    def _persist_trees(self):
+        """(executor_kind, adapter, tree) triples covering every radix
+        namespace of the current mode."""
+        if self.mode == "forkkv":
+            out = [("base", None, self.dual.base)]
+            out += [("res", aid, t)
+                    for aid, t in sorted(self.dual.residual.trees.items())]
+            return out
+        if self.mode == "prefix":
+            return [("base", aid, t)
+                    for aid, t in sorted(self.forest.trees.items())]
+        return [("base", None, self.tree)]
+
+    def _tree_for_record(self, rec):
+        if self.mode == "forkkv":
+            return (self.dual.base if rec["kind"] == "base"
+                    else self.dual.residual.tree(rec["adapter"]))
+        if self.mode == "prefix":
+            return self.forest.tree(rec["adapter"])
+        return self.tree
+
+    def _node_blobs(self, kind: str, node, pool):
+        """Logical (decoded) page blobs of one radix node, whatever tier
+        it currently occupies.  Read-only: no refcounts move."""
+        if node.tier == "device":
+            return self.executor.export_pages(kind, list(node.pages))
+        store = pool.disk if node.tier == "disk" else pool.host
+        return [pool.codec.decode(store.get(h)) for h in node.pages]
+
+    def persist(self, persist_dir: Optional[str] = None) -> int:
+        """Write every cached prefix (all tiers) to ``persist_dir`` as
+        blob files + a token-prefix manifest, so a restarted engine can
+        :meth:`restore` the shared agent context instead of re-prefilling
+        it.  Returns the number of pages persisted.  Blobs are stored
+        LOGICAL (decoded), so the restarted server may use a different
+        codec.  Best-effort: an unreadable node is skipped, not fatal."""
+        d = persist_dir or self.sc.persist_dir
+        if not d or self.host_tier is None:
+            return 0
+        os.makedirs(d, exist_ok=True)
+        records = []
+        pages_out = 0
+        for kind, adapter, tree in self._persist_trees():
+            stack = [((), tree.root)]
+            while stack:
+                prefix, node = stack.pop()
+                full = prefix + node.key
+                for child in sorted(node.children.values(),
+                                    key=lambda c: c.key):
+                    stack.append((full, child))
+                if node is tree.root or not node.pages:
+                    continue
+                try:
+                    blobs = self._node_blobs(kind, node, tree.pool)
+                except Exception:
+                    continue        # e.g. injected disk fault: skip node
+                merged = {}
+                for i, b in enumerate(blobs):
+                    for k, v in b.items():
+                        merged[f"{i}/{k}"] = v
+                fname = f"node_{len(records):06d}.blob"
+                write_blob_file(os.path.join(d, fname), merged)
+                records.append({"kind": kind, "adapter": adapter,
+                                "tokens": [int(t) for t in full],
+                                "n_pages": len(blobs), "file": fname})
+                pages_out += len(blobs)
+        manifest = {"mode": self.mode, "page_size": self.sc.page_size,
+                    "records": records}
+        tmp = os.path.join(d, "manifest.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, os.path.join(d, "manifest.json"))
+        return pages_out
+
+    def restore(self, persist_dir: Optional[str] = None) -> int:
+        """Rehydrate a :meth:`persist` manifest into the radix trees as
+        HOST-tier nodes: zero device pages move until a later match
+        promotes them (the normal tier-hit path, so restored context
+        shows up as ``tier_hits`` instead of re-prefill).  Records come
+        parent-first; grafts are best-effort (a full host budget or a
+        mode/page-size mismatch skips, never fails the restart).
+        Returns the number of pages grafted."""
+        d = persist_dir or self.sc.persist_dir
+        if not d or self.host_tier is None:
+            return 0
+        mf = os.path.join(d, "manifest.json")
+        if not os.path.exists(mf):
+            return 0
+        with open(mf) as f:
+            doc = json.load(f)
+        if doc.get("mode") != self.mode \
+                or doc.get("page_size") != self.sc.page_size:
+            return 0
+        restored = 0
+        for rec in doc["records"]:
+            try:
+                merged = read_blob_file(os.path.join(d, rec["file"]))
+            except Exception:
+                continue
+            blobs = [dict() for _ in range(rec["n_pages"])]
+            for k, v in merged.items():
+                i, _, key = k.partition("/")
+                blobs[int(i)][key] = v
+            tree = self._tree_for_record(rec)
+            restored += tree.graft_host(rec["tokens"], blobs)
+        self.restored_pages += restored
+        return restored
 
     # ------------------------------------------------- broadcast fork
     def _try_broadcast(self) -> bool:
@@ -1248,17 +1416,32 @@ class Engine:
         prefilled = sum(r.prefill_share for r in self.done)
         prompt_tokens = sum(len(r.prompt) for r in self.done
                             if not r.error)
-        # the host/disk tiers are not ported: their counters stay zero so
-        # the metrics keep the reference's keys
         tier = {"tier_hits": 0, "disk_hits": 0, "demoted_pages": 0,
                 "demoted_bytes": 0, "promoted_pages": 0,
                 "promoted_bytes": 0, "spilled_pages": 0,
                 "host_evicted_pages": 0, "disk_evicted_pages": 0,
                 "dropped_device_pages": 0, "tier_io_errors": 0,
-                "codec_logical_bytes": 0, "codec_stored_bytes": 0,
-                "host_used_bytes": 0, "host_compressed_bytes": 0,
-                "compression_ratio": 1.0, "disk_used_bytes": 0,
-                "kv_codec": "none", "restored_pages": 0}
+                "codec_logical_bytes": 0, "codec_stored_bytes": 0}
+        for pool in (self.base_pool, self.res_pool):
+            if getattr(pool, "is_tiered", False):
+                for k, v in pool.stats().items():
+                    if k in tier:
+                        tier[k] += v
+        # device cache destroyed by host-LRU cascades is real eviction too
+        evicted += tier["dropped_device_pages"]
+        tier["host_used_bytes"] = (self.host_tier.used_bytes
+                                   if self.host_tier else 0)
+        # stored (post-codec) host bytes and the achieved ratio (§18):
+        # host_used_bytes IS compressed occupancy now that the budget
+        # accounts stored sizes — mirrored under the explicit name too
+        tier["host_compressed_bytes"] = tier["host_used_bytes"]
+        tier["compression_ratio"] = (
+            tier["codec_logical_bytes"] / tier["codec_stored_bytes"]
+            if tier["codec_stored_bytes"] else 1.0)
+        tier["disk_used_bytes"] = (self.disk_tier.used_bytes
+                                   if self.disk_tier else 0)
+        tier["kv_codec"] = self.kv_codec.name if self.host_tier else "none"
+        tier["restored_pages"] = self.restored_pages
         # per-request latency aggregates (satellite, §14): TTFT from
         # arrival to first output token, TPOT the mean gap after it —
         # over finished generating requests only

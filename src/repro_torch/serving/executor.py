@@ -26,11 +26,21 @@ assignment) where the reference donated the pools to ``.at[].set``.
 Padding rows and CoW-inherited positions all write to the reserved dump
 page, so the index lists hold duplicates; that is harmless, since the dump
 page is never read at a valid position.
+
+With ``ModelConfig.kv_quant == "int8"`` the bCache pools are int8 with f32
+per-(token, head) scale pools ``kb_s``/``vb_s``: every base write is
+quantized (``transformer.quantize_kv``, as the reference does), the paged
+kernels take the scales and dequantize each page on chip, and the gather
+path dequantizes the gathered view.  The rCache stays full precision.
+``export_pages``/``import_pages`` move whole pages between the pools and
+host numpy blobs for the host/disk tiers and persist/restore; int8 pages
+travel with their scales.
 """
 from __future__ import annotations
 
 from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import rope as rope_lib
@@ -40,6 +50,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import base
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.sampling import sample_tokens
+from repro_torch.serving.tiers import BFLOAT16
 
 Params = Dict
 
@@ -54,19 +65,21 @@ class Pools(NamedTuple):
     vb: torch.Tensor            # (L, Pb, page, Hkv, hd)  base V
     kr: Optional[torch.Tensor]  # (L, Pr, page, R)        residual K (no RoPE)
     vr: Optional[torch.Tensor]
+    # int8 bCache pages: per-(token, head) f32 dequant scales, written with
+    # every kb/vb write; None on the full-precision path
+    kb_s: Optional[torch.Tensor] = None   # (L, Pb, page, Hkv)
+    vb_s: Optional[torch.Tensor] = None
 
 
 def make_pools(cfg: ModelConfig, num_pages: int, num_res_pages: int,
                page_size: int, disagg: bool, dtype=None,
                device=None) -> Pools:
-    if cfg.kv_quant == "int8":
-        raise NotImplementedError(
-            "int8 bCache pools are not ported yet (ROADMAP Queue 1, item 7)")
     dev = resolve_device(device)
     dt = dtype or cfg.activation_dtype
     L, hd = cfg.num_layers, cfg.resolved_head_dim
+    quant = cfg.kv_quant == "int8"
     kb = torch.zeros((L, num_pages, page_size, cfg.num_kv_heads, hd),
-                     dtype=dt, device=dev)
+                     dtype=torch.int8 if quant else dt, device=dev)
     vb = torch.zeros_like(kb)
     if disagg:
         kr = torch.zeros((L, num_res_pages, page_size, cfg.lora.rank),
@@ -74,7 +87,11 @@ def make_pools(cfg: ModelConfig, num_pages: int, num_res_pages: int,
         vr = torch.zeros_like(kr)
     else:
         kr = vr = None
-    return Pools(kb, vb, kr, vr)
+    kb_s = vb_s = None
+    if quant:
+        kb_s = torch.zeros(kb.shape[:-1], dtype=torch.float32, device=dev)
+        vb_s = torch.zeros_like(kb_s)
+    return Pools(kb, vb, kr, vr, kb_s, vb_s)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -83,9 +100,29 @@ def _nbytes(t: torch.Tensor) -> int:
 
 def pool_bytes(pools: Pools) -> Dict[str, int]:
     out = {"base": _nbytes(pools.kb) + _nbytes(pools.vb)}
+    if pools.kb_s is not None:
+        out["base"] += _nbytes(pools.kb_s) + _nbytes(pools.vb_s)
     out["residual"] = _nbytes(pools.kr) + _nbytes(pools.vr) \
         if pools.kr is not None else 0
     return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Host copy; bf16 comes back as its bit patterns tagged ``BFLOAT16``
+    (numpy has no bf16)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(BFLOAT16)
+    return t.cpu().numpy()
+
+
+def _from_numpy(a: np.ndarray, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """Inverse of :func:`_to_numpy`: a bf16 pool's blobs are its 16-bit
+    patterns."""
+    a = np.ascontiguousarray(a)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(dtype).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 class PagedExecutor:
@@ -107,6 +144,9 @@ class PagedExecutor:
         # the gather-to-contiguous path kept for parity testing
         self.use_paged = serve_cfg.use_paged_kernel
         self.min_table_pages = serve_cfg.min_table_pages
+        # int8 bCache pages: quantize at write time, dequantize per page on
+        # chip in the kernels, or after the gather on the gather path
+        self.kv_quant = cfg.kv_quant == "int8"
         # executor calls that took the gather-to-contiguous path (0 whenever
         # use_paged_kernel=True; surfaced via Engine.metrics())
         self.fallback_gather_calls = 0
@@ -122,6 +162,54 @@ class PagedExecutor:
         self.dump_page_r = self.num_res_pages - 1
         # distinct decode shapes seen: (batch bucket, width bucket, sampled)
         self._decode_shapes: Set[Tuple[int, int, bool]] = set()
+
+    # ------------------------------------------------ tiered KV offload
+    def _page_pools(self, kind: str) -> List[Tuple[str, torch.Tensor]]:
+        """(blob key, pool) pairs of one page kind: "base" (kb/vb, and the
+        scales ks/vs of int8 pages) or "res" (kr/vr)."""
+        p = self.pools
+        if kind != "base":
+            return [("k", p.kr), ("v", p.vr)]
+        pairs = [("k", p.kb), ("v", p.vb)]
+        if self.kv_quant:
+            pairs += [("ks", p.kb_s), ("vs", p.vb_s)]
+        return pairs
+
+    @torch.no_grad()
+    def export_pages(self, kind: str,
+                     page_ids: Sequence[int]) -> List[Dict]:
+        """Device→host copy of whole KV pages (DESIGN.md §10).
+
+        ``kind`` selects the pool ("base" → kb/vb, "res" → kr/vr).  Returns
+        one blob per page — ``{"k": (L, page, ...), "v": ...}`` numpy arrays
+        holding the exact bytes (plus ``"ks"``/``"vs"`` scales of int8
+        pages), so a later :meth:`import_pages` restores the cache
+        bit-identically.
+        """
+        ids = torch.tensor(list(page_ids), dtype=torch.long,
+                           device=self.device)
+        arrays = [(key, _to_numpy(pool[:, ids]))
+                  for key, pool in self._page_pools(kind)]
+        # per-page COPIES, not views: each blob must be independently
+        # freeable or the HostTier's byte accounting undercounts (a
+        # surviving 1-page view would pin the whole n-page export)
+        return [{key: a[:, i].copy() for key, a in arrays}
+                for i in range(len(page_ids))]
+
+    @torch.no_grad()
+    def import_pages(self, kind: str, page_ids: Sequence[int],
+                     blobs: Sequence[Dict]) -> None:
+        """Host→device copy: write blobs back into freshly allocated pages
+        (the promotion half of the tier lifecycle), in place.  The
+        reference pads the page count to a power of two and donates the
+        pools only to bound XLA recompiles; writing ``pool[:, ids]`` in
+        place gives the same pools."""
+        ids = torch.tensor(list(page_ids), dtype=torch.long,
+                           device=self.device)
+        for key, pool in self._page_pools(kind):
+            pool[:, ids] = _from_numpy(
+                np.stack([b[key] for b in blobs], axis=1), pool.dtype,
+                self.device)
 
     # ------------------------------------------------------------ helpers
     def _layer_params(self, li):
@@ -164,15 +252,41 @@ class PagedExecutor:
             v_base = v_base + v_off
         return k_base, v_base, None, None, None, None
 
+    def _write_base(self, li, wp, woff, k, v):
+        """Write base K/V rows into layer ``li``'s pools in place,
+        quantized with their scales under int8 (the reference's
+        ``_maybe_quant``).  Returns the layer's (kb, vb, kb_s, vb_s), the
+        scales None on the full-precision path."""
+        pools = self.pools
+        kbp, vbp = pools.kb[li], pools.vb[li]
+        if not self.kv_quant:
+            kbp[wp, woff] = k
+            vbp[wp, woff] = v
+            return kbp, vbp, None, None
+        ksp, vsp = pools.kb_s[li], pools.vb_s[li]
+        kq, ks = tfm.quantize_kv(k)
+        vq, vs = tfm.quantize_kv(v)
+        kbp[wp, woff] = kq
+        vbp[wp, woff] = vq
+        ksp[wp, woff] = ks
+        vsp[wp, woff] = vs
+        return kbp, vbp, ksp, vsp
+
     def _gather(self, li, bt_b, bt_r=None, bk=None, bv=None):
         """The gather path: layer ``li``'s pages of every row copied into
-        contiguous (B, W·page, ...) views.  Returns (k, v, k_res, v_res,
-        b_k, b_v); the residual parts are None when ``bt_r`` is."""
+        contiguous (B, W·page, ...) views; int8 pages are dequantized to
+        the activation dtype after the gather.  Returns (k, v, k_res,
+        v_res, b_k, b_v); the residual parts are None when ``bt_r`` is."""
         cfg, pools = self.cfg, self.pools
         bsz, w = bt_b.shape[0], bt_b.shape[1] * self.page
         btb = bt_b.long()
-        kc = pools.kb[li][btb].reshape(bsz, w, cfg.num_kv_heads, -1)
-        vc = pools.vb[li][btb].reshape(bsz, w, cfg.num_kv_heads, -1)
+        kc, vc = pools.kb[li][btb], pools.vb[li][btb]
+        if self.kv_quant:
+            dt = cfg.activation_dtype
+            kc = tfm.dequantize_kv(kc, pools.kb_s[li][btb], dt)
+            vc = tfm.dequantize_kv(vc, pools.vb_s[li][btb], dt)
+        kc = kc.reshape(bsz, w, cfg.num_kv_heads, -1)
+        vc = vc.reshape(bsz, w, cfg.num_kv_heads, -1)
         if bt_r is None:
             return kc, vc, None, None, None, None
         btr = bt_r.long()
@@ -250,9 +364,8 @@ class PagedExecutor:
             kb_, vb_, kr_, vr_, bk, bv = self._project_kv(
                 p_l, lora_l, h, sin, cos, adapter_ids)
             # write the new token in place (the reference's donated .at[].set)
-            kbp, vbp = pools.kb[li], pools.vb[li]
-            kbp[wpb, wof] = kb_[:, 0]
-            vbp[wpb, wof] = vb_[:, 0]
+            kbp, vbp, ksp, vsp = self._write_base(li, wpb, wof, kb_[:, 0],
+                                                  vb_[:, 0])
             if self.disagg:
                 krp, vrp = pools.kr[li], pools.vr[li]
                 krp[wpr, wof] = kr_[:, 0]
@@ -267,7 +380,8 @@ class PagedExecutor:
                     bt_b, bt_r, kv_len + 1,
                     scale=cfg.resolved_head_dim ** -0.5,
                     window=cfg.sliding_window,
-                    rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
+                    rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
+                    kb_scale=ksp, vb_scale=vsp)
             else:
                 attn = tfm._attend(
                     q, *self._gather(li, bt_b, bt_r, bk, bv), kmask_pos,
@@ -395,9 +509,7 @@ class PagedExecutor:
                                    positions)
             kb_, vb_, kr_, vr_, bk, bv = self._project_kv(
                 p_l, lora_l, h, sin, cos, adapter_ids)
-            kbp, vbp = pools.kb[li], pools.vb[li]
-            kbp[wp_b, woff] = kb_
-            vbp[wp_b, woff] = vb_
+            kbp, vbp, ksp, vsp = self._write_base(li, wp_b, woff, kb_, vb_)
             krp = vrp = None
             if self.disagg:
                 krp, vrp = pools.kr[li], pools.vr[li]
@@ -407,10 +519,11 @@ class PagedExecutor:
             paged = (q, kbp, vbp, krp, vrp, bk, bv, bt_b, bt_r, start)
             if self.use_paged and unified:
                 attn = kernel_ops.paged_residual_attention_mixed(
-                    *paged, n_valid, kv_len, **kw)
+                    *paged, n_valid, kv_len, kb_scale=ksp, vb_scale=vsp,
+                    **kw)
             elif self.use_paged:
                 attn = kernel_ops.paged_residual_attention_prefill(
-                    *paged, kv_len, **kw)
+                    *paged, kv_len, kb_scale=ksp, vb_scale=vsp, **kw)
             else:
                 attn = tfm._attend(
                     q, *self._gather(li, bt_b, bt_r, bk, bv), kmask_pos,
@@ -598,9 +711,8 @@ class PagedExecutor:
                                lora_l["a_k"][ids].to(x.dtype)) * sc
             vr_ = torch.einsum("sd,kdr->ksr", h[0],
                                lora_l["a_v"][ids].to(x.dtype)) * sc
-            kbp, vbp = pools.kb[li], pools.vb[li]
-            kbp[wp_b, woff] = kb_[0]
-            vbp[wp_b, woff] = vb_[0]
+            kbp, vbp, ksp, vsp = self._write_base(li, wp_b, woff, kb_[0],
+                                                  vb_[0])
             pools.kr[li][wp_r, woff[None]] = kr_
             pools.vr[li][wp_r, woff[None]] = vr_
             if self.use_paged:
@@ -608,7 +720,7 @@ class PagedExecutor:
                     q, kbp, vbp, None, None, None, None, bt_b[None], None,
                     start, kv_len, scale=hd ** -0.5,
                     window=cfg.sliding_window, rope_theta=cfg.rope_theta,
-                    use_rope=cfg.use_rope)
+                    use_rope=cfg.use_rope, kb_scale=ksp, vb_scale=vsp)
             else:
                 kc, vc, *_ = self._gather(li, bt_b[None])
                 kmask_pos = torch.arange(kc.shape[1], device=self.device)

@@ -6,9 +6,10 @@ The actual cache tensors live in the executor as pooled torch tensors of shape
 ForkKV mode: one for the shared bCache, one for the per-agent rCache
 (decoupled lifecycles, paper §5.2).
 
-Tiered KV offload (``ServeConfig.host_tier_bytes > 0``) is not ported yet
-and the engine refuses it; until then every pool is a plain
-:class:`PagePool`, whose ``is_tiered`` class attribute is False.
+With tiered KV offload enabled (``ServeConfig.host_tier_bytes > 0``) the
+engine wraps both pools in :class:`~repro_torch.serving.tiers.TieredPagePool`,
+which adds the host/disk tiers; callers tell the two apart by the
+``is_tiered`` class attribute.
 """
 from __future__ import annotations
 

@@ -331,15 +331,29 @@ def test_extra_embeds_refused():
                      m.tcfg, extra_embeds=torch.zeros((1, 2, 64)))
 
 
-def test_int8_cache_refused():
-    m = Model()
-    cfg = dataclasses.replace(m.tcfg, kv_quant="int8")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttfm.init_cache(cfg, B, 16, device="cpu")
-    cache = ttfm.init_cache(m.tcfg, B, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttfm.prefill(m.tparams, torch.zeros((B, 4), dtype=torch.long),
-                     cache, cfg)
+@pytest.mark.parametrize("kw", [dict(), dict(sliding_window=6)],
+                         ids=["full", "ring"])
+def test_int8_init_cache(kw):
+    """An int8 cache has JAX's entries, shapes and dtypes: int8 K/V, f32
+    per-(position, head) scales, residual caches in the activation dtype;
+    a prefill + decode step over it writes the scales."""
+    jcfg, tcfg = (dataclasses.replace(c, kv_quant="int8")
+                  for c in _cfgs(**kw))
+    jc = jtfm.init_cache(jcfg, B, 16, disagg=True)
+    tc = ttfm.init_cache(tcfg, B, 16, disagg=True, device="cpu")
+    assert set(tc) == set(jc)
+    for name in jc:
+        assert tuple(tc[name].shape) == jc[name].shape, name
+        assert str(tc[name].dtype).split(".")[1] == str(jc[name].dtype), name
+    m = Model(**kw)
+    _, tkw = m.kw(True, [0, 1], True)
+    tok = torch.from_numpy(_tokens((B, 5))).long()
+    _, tc = ttfm.prefill(m.tparams, tok[:, :4], tc, tcfg, **tkw)
+    _, tc = ttfm.decode_step(m.tparams, tok[:, 4], tc,
+                             torch.full((B,), 4, dtype=torch.int32), tcfg,
+                             **tkw)
+    assert (tc["k_scale"][:, :, :5] > 0).all()
+    assert (tc["k_scale"][:, :, 5:] == 0).all()
 
 
 def test_init_cache_needs_a_device_without_cuda():

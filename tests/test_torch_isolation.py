@@ -1,5 +1,5 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU fallback, and
-no unported serving path that runs silently."""
+every serving setting of the reference constructs and serves."""
 import ast
 import dataclasses
 import os
@@ -14,6 +14,7 @@ from repro_torch.configs.paper_models import tiny_serving_model
 from repro_torch.core.config import ServeConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.api import ForkServer
+from repro_torch.serving.sampling import SamplingParams
 
 torch.set_num_threads(2)
 
@@ -77,15 +78,28 @@ def test_entry_points_refuse_to_run_on_cpu_without_being_asked():
 @pytest.mark.parametrize("change", [
     dict(host_tier_bytes=1 << 20),
     dict(disk_tier_bytes=1 << 20),
-    dict(persist_dir="unused"),
+    dict(persist_dir="tmp"),
     "kv_quant",
 ])
-def test_unported_settings_raise_at_construction(change):
+def test_tier_and_int8_settings_construct_and_serve(change, tmp_path):
+    """The settings the port once refused (the host and disk tiers, a
+    persist dir, int8 bCache pages) construct and serve on the CPU."""
     cfg, params, lora = _tiny()
-    sc = ServeConfig(max_pages=16)
+    sc = ServeConfig(max_pages=16, max_pages_per_req=8, page_size=8)
     if change == "kv_quant":
         cfg = dataclasses.replace(cfg, kv_quant="int8")
     else:
+        change = {k: str(tmp_path) if v == "tmp" else v
+                  for k, v in change.items()}
         sc = dataclasses.replace(sc, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ForkServer(cfg, params, lora, sc, device="cpu")
+    server = ForkServer(cfg, params, lora, sc, device="cpu")
+    out = server.generate(1, list(range(20)),
+                          SamplingParams(max_new_tokens=3)).result()
+    assert out.finish_reason == "length" and len(out.tokens) == 3
+    eng = server.engine
+    if change == "kv_quant":
+        assert eng.executor.pools.kb.dtype == torch.int8
+        assert eng.executor.pools.kb_s.dtype == torch.float32
+    else:
+        assert eng.host_tier is not None and eng.base_pool.is_tiered
+        assert (eng.disk_tier is not None) == ("disk_tier_bytes" in change)
