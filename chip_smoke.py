@@ -10,8 +10,13 @@ error:
 1. environment: the card's name and power limit, torch/CUDA versions;
    TF32 is switched off for matmul and cuDNN so f32 runs are IEEE f32;
 2. build: nvcc compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
-   one process per source, all started together;
-3. kernels: the six paged attention kernels (mixed, decode and chunked
+   one process per source, all started together; one line per kernel
+   with its registers, stack and spill bytes from ptxas;
+3. kernels: every launch is checked to have run the kernel its type
+   routes it to (bf16 launches of the chunked base-only prefill #6 and of
+   the dense prefill #7: their tensor-core kernels, counted as
+   ``<entry>[_int8]_mma``; f32 launches: the scalar kernels);
+   the six paged attention kernels (mixed, decode and chunked
    prefill, each disaggregated and base-only) and their six int8 variants
    (int8 pages quantized by the port's ``quantize_kv``, with f32 scales)
    at Llama3-8B's head geometry, q in f32 and bf16, against their plain
@@ -21,11 +26,16 @@ error:
    yardstick; an int8 variant must also stay within 5% of the plain
    version on the full-precision pages; the prefill cases hold a chunk
    starting mid-page, padded chunks and a padding row with n_valid = 0,
-   and run with and without a window that straddles pages.  Then the two dense kernels (prefill and decode over
+   and run with and without a window that straddles pages; #6 (and its
+   int8 variant) also at page sizes 8 and 32, head_dim 64 and a group of
+   64 heads.  Then the two dense kernels (prefill and decode over
    contiguous caches) at the CPU tests' cases with R 16 at D 128 (MHA,
    GQA, MQA) and at D 256 (RecurrentGemma-9B's MQA with G 16, and GQA):
    window 0 and 5; a chunk at an offset; kv_len None; Sq and Sk of 150;
-   and a ragged decode over 2048 keys, f32 and bf16.  Then the RG-LRU
+   and a ragged decode over 2048 keys, f32 and bf16; the prefill also at
+   the edges of the tensor-core tile, window 0 and 100: Sq and Sk off the
+   tile's multiples, ranks 8, 32 and 5, head_dim 64, a group of 64 heads,
+   D 256 at ranks 24 and (bf16 only) 32.  Then the RG-LRU
    scan kernel at tests/test_kernels.py's shapes (the ragged one as it
    is), at S 1 and at W 200, f32 and bf16, h0 non-zero;
 4. a small f32 model served on the card and on the CPU: identical greedy
@@ -56,12 +66,16 @@ error:
    and never through a plain version, and every launch's geometry is
    recorded.  The four staggered serves again with int8 bCache pages
    (only int8 variants may launch), with peak pages and bytes per page;
+   in bf16 (int8 pages too) the prefix phase-separated serves and the
+   broadcast pass must run #6's tensor-core kernel and never its template
+   instance;
    then the staggered serve in bf16 at ``max_pages`` 640 (between
    forkkv's peak of 169 base pages and prefix's 937) with a 4 GiB host
    tier, in both modes: every fork finishes, prefix demotes pages, tier
    counters logged.  Then the dense model API on the same weights:
    ``forward(disagg=True)`` on 4 rows x 1000 tokens (adapters 0-3) must
-   launch the dense prefill kernel once per layer, and ``forward`` on one
+   launch the dense prefill kernel once per layer (in bf16 its
+   tensor-core kernel, on f32 copies the scalar one), and ``forward`` on one
    token the dense decode kernel once per layer; both are timed, with
    ``prefill`` of 600 tokens and 16 ``decode_step`` s over a 1024-slot
    cache, and a profiled decode step (device busy time, kernels per
@@ -74,7 +88,8 @@ error:
    freed, RecurrentGemma-9B at full width and depth (38 layers: 26 RG-LRU,
    12 local attention; random bf16 weights from seed 0, 4 adapters of
    rank 16 on the local layers): ``forward(disagg=True)`` on 4 x 1000
-   tokens must launch the dense prefill kernel 12 times and the scan
+   tokens must launch the dense prefill kernel (as for Llama3-8B) 12
+   times and the scan
    kernel 26 times, ``forward`` on one token the dense decode kernel 12
    times and the scan 26 times, and ``prefill`` of 2500 tokens into a
    4096-slot cache (2048-slot local rings) + 16 ``decode_step`` s the scan
@@ -90,11 +105,14 @@ error:
    random f32 inputs of the same geometry; the scan kernel on the inputs
    of its first launch at each shape of 5. (f32, timed) and on the same
    inputs in bf16;
-7. the kernels line (#1–#6, their int8 variants, #7–#9), the card line
-   and the result line.
+7. the kernels line (#1–#6, their int8 variants, #7–#9, each named by the
+   counter of the kernel the bf16 main path ran: ``_mma`` for #6, its int8
+   variant and #7), the card line and the result line.
 """
 import dataclasses
+import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -128,6 +146,35 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(text):
+    """{kernel: registers, stack and spill bytes} from an ``nvcc
+    -Xptxas=-v`` log, each kernel by its demangled name (``c++filt``, or the
+    mangled one where that is missing)."""
+    use, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            use.setdefault(name, {}).update(
+                stack=int(m[1]), spill_stores=int(m[2]),
+                spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            use.setdefault(name, {})["registers"] = int(m[1])
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(use),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = list(use)
+    return {n.replace("(anonymous namespace)::", ""): v
+            for n, v in zip(names, use.values())}
 
 
 # ---------------------------------------------------------------- timing
@@ -176,14 +223,14 @@ FIXED = {
 
 
 def make_case(kind, dtype, window, seed, start, qlen, sq, width,
-              device="cuda", quantize=None):
-    """Random inputs at Llama3-8B's head geometry for rows that start at
-    ``start`` with ``qlen`` query positions each (decode: qlen 1, sq 1),
-    padded to ``sq`` positions, over block tables ``width`` pages wide
-    drawn from a shuffled pool.  With ``quantize`` (the port's write-time
-    ``quantize_kv``) the base pools are int8 with their scales ``ks``/``vs``
-    and the full-precision pools stay as ``kb_fp``/``vb_fp``."""
-    g = LLAMA_GEOM
+              device="cuda", quantize=None, geom=None):
+    """Random inputs at Llama3-8B's head geometry (or ``geom``) for rows
+    that start at ``start`` with ``qlen`` query positions each (decode:
+    qlen 1, sq 1), padded to ``sq`` positions, over block tables ``width``
+    pages wide drawn from a shuffled pool.  With ``quantize`` (the port's
+    write-time ``quantize_kv``) the base pools are int8 with their scales
+    ``ks``/``vs`` and the full-precision pools stay as ``kb_fp``/``vb_fp``."""
+    g = geom or LLAMA_GEOM
     bsz = len(start)
     pool = bsz * width + 16
     gen = torch.Generator(device=device)
@@ -212,7 +259,7 @@ def make_case(kind, dtype, window, seed, start, qlen, sq, width,
     c["q"] = rn(bsz, g["hq"], g["d"]) if kind == "decode" else \
         rn(bsz, sq, g["hq"], g["d"])
     c.update(kind=kind, window=window, scale=g["d"] ** -0.5, dtype=dtype,
-             start_l=start, qlen_l=qlen, ks=None, vs=None)
+             start_l=start, qlen_l=qlen, ks=None, vs=None, geom=g)
     if quantize is not None:
         c["kb_fp"], c["vb_fp"] = c["kb"], c["vb"]
         c["kb"], c["ks"] = quantize(c["kb_fp"])
@@ -259,8 +306,8 @@ def plain_call(ref, name, c):
               vb_scale=c["vs"])
     bsz = c["bt_b"].shape[0]
     sq = 1 if c["kind"] == "decode" else c["q"].shape[1]
-    sk = c["bt_b"].shape[1] * LLAMA_GEOM["page"]
-    step = max(1, PLAIN_SCORE_BYTES // (LLAMA_GEOM["hq"] * sq * sk * 4))
+    sk = c["bt_b"].shape[1] * c["geom"]["page"]
+    step = max(1, PLAIN_SCORE_BYTES // (c["geom"]["hq"] * sq * sk * 4))
 
     def rows(sl):
         args = [c["q"][sl], c["kb"], c["vb"]] + (
@@ -285,7 +332,7 @@ def library_call(c):
     contiguously (int8 pages dequantized to q's type beforehand), GQA heads
     expanded and the paged masks as a boolean mask: a yardstick for the
     base-only kernels, never used by the port."""
-    g = LLAMA_GEOM
+    g = c["geom"]
     bsz, width, page = c["bt_b"].shape[0], c["bt_b"].shape[1], g["page"]
     sk = width * page
     rep = g["hq"] // g["hkv"]
@@ -322,7 +369,7 @@ def work(name, c):
     q rows below q_len and B_k/B_v read once, all of out (padding rows are
     zeroed) written once; one QK and one PV product per unmasked
     (query, key) pair and head, plus the rank-R reconstruction."""
-    g = LLAMA_GEOM
+    g = c["geom"]
     res = "residual" in name
     esize = torch.tensor([], dtype=c["dtype"]).element_size()
     page, d, hq, hkv, r = g["page"], g["d"], g["hq"], g["hkv"], g["r"]
@@ -358,6 +405,7 @@ def work(name, c):
 
 
 PALLAS = "src/repro/kernels/paged_residual_attention.py"
+PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_residual_attention.cu"
 KERNELS = {
     # name: (case kind, replaces)
     "paged_residual_attention_mixed": (
@@ -385,6 +433,12 @@ QUANT_TOL = 0.05      # int8 vs full-precision pages, as a share of the
 DTYPES = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_RTOL))
 
 
+def launched(mod, before):
+    """The launch counters of ``mod`` that moved since ``before``."""
+    return {k: v - before[k] for k, v in mod.LAUNCHES.items()
+            if v != before[k]}
+
+
 def compare(pra, ref, name, c, tol, case):
     """The kernel against its plain version on ``c``; raises on a
     non-zero row at or past q_len or an error past ``tol`` (f32: absolute;
@@ -393,8 +447,17 @@ def compare(pra, ref, name, c, tol, case):
     the plain version computes and the kernel zeroes: only the rows below
     n_valid are compared.  An int8 case also holds the kernel within
     ``QUANT_TOL`` of the plain version on the full-precision pages.
-    Returns the record to log."""
+    The launch must have gone to the kernel ``pra.kernel_name`` names (a
+    bf16 launch of a tensor-core entry to its ``_mma`` kernel, f32 to the
+    template).  Returns the record to log."""
+    before = dict(pra.LAUNCHES)
     got = kernel_call(pra, name, c)()
+    ran = launched(pra, before)
+    kernel = pra.kernel_name(name.removesuffix("_int8"), c["dtype"],
+                             c["ks"] is not None)
+    if ran != {kernel: 1}:
+        raise AssertionError(f"{name} {case} {c['dtype']}: ran {ran}, "
+                             f"not {kernel}")
     want = plain_call(ref, name, c)()
     full = None if c["ks"] is None else plain_call(ref, name, dict(
         c, kb=c["kb_fp"], vb=c["vb_fp"], ks=None, vs=None))()
@@ -414,9 +477,9 @@ def compare(pra, ref, name, c, tol, case):
     err = (got.float() - want.float()).abs().max().item()
     ref_max = want.float().abs().max().item()
     limit = tol * ref_max if c["dtype"] == torch.bfloat16 else tol
-    rec = dict(kernel=name, dtype=str(c["dtype"]).split(".")[1], case=case,
-               window=c["window"], max_abs_err=err, ref_max_abs=ref_max,
-               limit=limit)
+    rec = dict(kernel=name, ran=kernel, dtype=str(c["dtype"]).split(".")[1],
+               case=case, window=c["window"], max_abs_err=err,
+               ref_max_abs=ref_max, limit=limit)
     if full is not None:
         rec["vs_full_precision"] = (got.float() - full.float()).abs().max(
         ).item() / full.float().abs().max().item()
@@ -464,6 +527,38 @@ def check_kernels(pra, ref, quantize, kernels=ALL_KERNELS):
                     log("kernel", **measure(pra, ref, name, c, rec), ok=True)
                 del cases
                 torch.cuda.empty_cache()
+
+
+# #6 at the edges of its tensor-core tile (bf16; the same cases in f32 run
+# the template): page sizes 8 and 32, head_dim 64, and a group of 64 heads
+# (one position per tile), on the fixed prefill rows with block tables
+# covering their 2048 positions
+PREFILL_EDGES = {
+    "page 8": dict(LLAMA_GEOM, page=8),
+    "page 32": dict(LLAMA_GEOM, page=32),
+    "D 64": dict(LLAMA_GEOM, d=64),
+    "G 64, D 64": dict(hq=64, hkv=1, d=64, r=16, page=16),
+}
+
+
+def check_prefill_edges(pra, ref, quantize):
+    """Phase 3: the base-only chunked prefill (#6) and its int8 variant at
+    ``PREFILL_EDGES``, f32 and bf16, without and with a window."""
+    for label, geom in PREFILL_EDGES.items():
+        width = 2048 // geom["page"]
+        for dtype, tol in DTYPES:
+            for window in (0, 300):
+                for quant in (False, True):
+                    name = "paged_attention_prefill_base" + (
+                        "_int8" if quant else "")
+                    c = make_case("prefill", dtype, window, seed=7,
+                                  quantize=quantize if quant else None,
+                                  geom=geom, **dict(FIXED["prefill"],
+                                                    width=width))
+                    log("kernel", **compare(pra, ref, name, c, tol,
+                                            f"edge {label}"), ok=True)
+                    del c
+        torch.cuda.empty_cache()
 
 
 def check_serving_shapes(pra, ref, recorded, quantize):
@@ -537,6 +632,28 @@ DENSE_FIXED = [
       _DKV),
      ("rg mqa decode Sk=2048", "rg mqa", 1, 2048, [k - 1 for k in _DKV],
       _DKV)]
+
+
+# (label, (hq, hkv, d, r), sq, sk, start, kv_len): #7 at the edges of its
+# tensor-core tile (bf16; the same cases in f32 run the scalar kernel): Sq
+# not a multiple of the tile's positions, Sk not a multiple of the 64-key
+# block, ranks 8, 32 and 5 (K_r rows not 16-byte aligned), head_dim 64, a
+# group of 64 heads, and D 256 at rank 24 (zero-padded to 32); each run
+# without and with a window of 100, which straddles key blocks
+DENSE_EDGES = [
+    ("edge R 8, Sq 37, Sk 97", (32, 8, 128, 8), 37, 97, [3, 60], [40, 97]),
+    ("edge R 32, Sq 130, Sk 200", (32, 8, 128, 32), 130, 200, [70, 0],
+     [200, 130]),
+    ("edge R 5", (12, 3, 128, 5), 37, 97, [3, 60], [40, 97]),
+    ("edge D 64", (8, 2, 64, 16), 130, 200, [70, 0], [200, 130]),
+    ("edge G 64", (64, 1, 128, 16), 37, 97, [3, 60], [40, 97]),
+    ("edge D 256, R 24", (16, 1, 256, 24), 300, 300, [0], None),
+]
+# and in bf16 only: D 256 at rank 32, which the tensor-core kernel takes
+# and the scalar kernel refuses (its shared memory holds R <= ~26 at D 256)
+DENSE_EDGES_BF16 = [
+    ("edge D 256, R 32", (16, 1, 256, 32), 300, 300, [0], None),
+]
 
 
 def rope_tables(bsz, sk, d, dtype, device="cuda"):
@@ -666,18 +783,24 @@ def compare_dense(ra, ref, c, tol):
     """The dense kernel against its plain version on ``c``; raises on a
     non-finite output or an error past ``tol`` (f32: absolute; bf16: a
     share of the plain version's max |value|).  Every row of these cases
-    sees a key.  Returns the record to log."""
+    sees a key.  A bf16 prefill must have run the tensor-core kernel, an
+    f32 one the scalar kernel.  Returns the record to log."""
+    before = dict(ra.LAUNCHES)
     got = dense_kernel_call(ra, c)()
     want = dense_plain_call(ref, c)()
     torch.cuda.synchronize()
     name = dense_name(c)
+    kernel = name if c["decode"] else ra.prefill_kernel(c["dtype"])
+    if launched(ra, before) != {kernel: 1}:
+        raise AssertionError(f"{name} {c['label']} {c['dtype']}: ran "
+                             f"{launched(ra, before)}, not {kernel}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name} {c['label']}: non-finite output")
     err = (got.float() - want.float()).abs().max().item()
     ref_max = want.float().abs().max().item()
     limit = tol * ref_max if c["dtype"] == torch.bfloat16 else tol
-    rec = dict(kernel=name, dtype=str(c["dtype"]).split(".")[1],
-               case=c["label"], window=c["window"],
+    rec = dict(kernel=name, ran=kernel, dtype=str(c["dtype"]).split(".")[1],
+               case=c["label"], window=c["window"], causal=c["causal"],
                shape=list(c["q"].shape) + [c["k_base"].shape[1]],
                max_abs_err=err, ref_max_abs=ref_max, limit=limit)
     del got, want
@@ -699,16 +822,22 @@ def measure_dense(ra, ref, c, rec):
 
 def check_dense_kernels(ra, ref):
     """Phase 3, dense: both kernels against their plain version at the
-    fixed cases, f32 and bf16, window 0 and 5; the 2048-key decodes are
-    timed in bf16."""
+    fixed cases, f32 and bf16, window 0 and 5, and the prefill at
+    ``DENSE_EDGES`` (bf16 also ``DENSE_EDGES_BF16``), window 0 and 100,
+    causal and not; the 2048-key decodes are timed in bf16."""
     for dtype, tol in DTYPES:
-        for window in (0, 5):
-            for i, case in enumerate(DENSE_FIXED):
+        groups = [((0, 5), DENSE_FIXED, 20, (True,)),
+                  ((0, 100), DENSE_EDGES, 60, (True, False))]
+        if dtype == torch.bfloat16:
+            groups.append(((0, 100), DENSE_EDGES_BF16, 80, (True, False)))
+        for windows, cases, seed, causals in groups:
+            for window, causal, (i, case) in itertools.product(
+                    windows, causals, enumerate(cases)):
                 c = make_dense_case(*case, dtype=dtype, window=window,
-                                    seed=20 + i)
+                                    seed=seed + i)
+                c["causal"] = causal
                 rec = compare_dense(ra, ref, c, tol)
-                if case[0].endswith("Sk=2048") and \
-                        dtype == torch.bfloat16:
+                if case[0].endswith("Sk=2048") and dtype == torch.bfloat16:
                     measure_dense(ra, ref, c, rec)
                 log("dense_kernel", **rec, ok=True)
                 del c
@@ -1074,12 +1203,22 @@ def prefill_decode(mod, cfg, params, tokens, prompt, steps, max_len, kw):
     return torch.stack(logits, 1), ms
 
 
+def dense_prefill(cfg):
+    """The dense prefill kernel, by its launch counter, that a model in
+    ``cfg.dtype`` runs: the tensor-core kernel in bf16, the scalar kernel
+    in f32."""
+    from repro_torch.kernels import residual_attention as ra
+    return ra.prefill_kernel(cfg.activation_dtype)
+
+
 def dense_api(tfm, cfg, params, lora, tokens, counted, prompt, steps):
     """The dense model API on ``tokens`` (B x S) over adapters 0..B-1:
     ``forward`` disaggregated (the prefill kernel once per layer) and
     unified, ``forward`` on the first token (the decode kernel once per
     layer), and ``prefill`` of ``prompt`` tokens then ``steps``
-    ``decode_step`` s over a 1024-slot cache.  ``counted(fn, want)`` runs
+    ``decode_step`` s over a 1024-slot cache.  The prefill kernel is the
+    tensor-core one in bf16 and the scalar one in f32 (``dense_prefill``).
+    ``counted(fn, want)`` runs
     ``fn`` with the counts zeroed just before it and checks them just
     after.  Returns (logits, times in ms)."""
     bsz, n = tokens.shape[0], cfg.num_layers
@@ -1087,7 +1226,7 @@ def dense_api(tfm, cfg, params, lora, tokens, counted, prompt, steps):
     out, ms = {}, {}
     out["forward"], ms["forward_ms"] = counted(
         lambda: tfm.forward(params, tokens, cfg, disagg=True, **kw),
-        {"residual_attention_prefill": n})
+        {dense_prefill(cfg): n})
     out["unified"] = tfm.forward(params, tokens, cfg, **kw)
     out["s1"], ms["forward_s1_ms"] = counted(
         lambda: tfm.forward(params, tokens[:, :1], cfg, disagg=True, **kw),
@@ -1233,7 +1372,7 @@ def hybrid_api(hybrid, cfg, params, lora, tokens, counted, fwd_len, prompt,
     ms, gaps = {}, {}
     fwd, ms["forward_ms"] = counted(
         lambda: hybrid.forward(params, x, cfg, disagg=True, **kw),
-        {"residual_attention_prefill": n_local, "rg_lru_scan": n_rec})
+        {dense_prefill(cfg): n_local, "rg_lru_scan": n_rec})
     uni = hybrid.forward(params, x, cfg, **kw)
     gaps["disagg_vs_unified"] = logit_gap(fwd, uni)
     s1, ms["forward_s1_ms"] = counted(
@@ -1444,10 +1583,12 @@ def check_serving(outs, m, max_new, mixed=True, gather=False):
         raise AssertionError("pages leaked after close + evict")
 
 
-def check_counts(pra, ref, expect_kernels):
+def check_counts(pra, ref, expect_kernels, dtype):
     """The launches of the serve just run (the counts were zeroed before
-    it): every kernel in ``expect_kernels`` launched, no plain version ran.
-    Returns every kernel's non-zero count."""
+    it): every kernel in ``expect_kernels`` launched, no plain version ran,
+    and in bf16 no template instance of an entry whose bf16 launches run a
+    tensor-core kernel (``pra.MMA_ENTRIES``).  Returns every kernel's
+    non-zero count."""
     ran = {k: v for k, v in pra.LAUNCHES.items() if v}
     missing = [k for k in expect_kernels if k not in ran]
     if missing:
@@ -1455,6 +1596,10 @@ def check_counts(pra, ref, expect_kernels):
     if any(ref.LAUNCHES.values()):
         raise AssertionError(f"plain versions ran on the card: "
                              f"{ref.LAUNCHES}")
+    scalar = [k for k in ran if k.removesuffix("_int8") in pra.MMA_ENTRIES]
+    if dtype == torch.bfloat16 and scalar:
+        raise AssertionError(f"bf16 serve ran the template instead of the "
+                             f"tensor-core kernel: {scalar}")
     return ran
 
 
@@ -1516,8 +1661,10 @@ class LaunchShapes:
         return out
 
 
-# (label, mode, ServeConfig settings, kernels that must launch) of the
-# staggered Llama3-8B serves
+# (label, mode, ServeConfig settings, entries that must launch) of the
+# staggered Llama3-8B serves; ``run`` maps each entry to the kernel it runs
+# for the model (``pra.kernel_name``: bf16 prefix phase-separated serves
+# run #6's tensor-core kernel, ``paged_attention_prefill_base_mma``)
 LLAMA_SERVES = (
     ("forkkv", "forkkv", {}, ("paged_residual_attention_mixed",
                               "paged_residual_attention_decode")),
@@ -1531,7 +1678,7 @@ LLAMA_SERVES = (
 )
 # the same four serves with int8 bCache pages: only the int8 variants run
 LLAMA_INT8_SERVES = tuple(
-    (f"{label} int8", mode, extra, tuple(f"{k}_int8" for k in expect))
+    (f"{label} int8", mode, extra, expect)
     for label, mode, extra, expect in LLAMA_SERVES)
 # adapters of the fan-out's forks: not the session's adapter 0, so every
 # fork re-prefills the whole prompt from position 0
@@ -1542,11 +1689,12 @@ PRESSURE = dict(max_pages=640, max_pages_per_req=256,
                 host_tier_bytes=4 << 30)
 
 
-def check_broadcast(exact, kernel_launches, n_layers, prompt_len, page):
+def check_broadcast(exact, n_prefill, n_layers, prompt_len, page):
     """The fan-out ran ONE shared base-trajectory pass: it covers the
     prompt's whole pages but the last (whose logits give the first token),
     it is credited to its writer, each fork prefills only its own tail, and
-    the base-only prefill kernel ran once per layer."""
+    the base-only prefill kernel ran ``n_prefill`` times, once per
+    layer."""
     shared = prompt_len // page * page
     if shared >= prompt_len:
         shared -= page
@@ -1554,10 +1702,10 @@ def check_broadcast(exact, kernel_launches, n_layers, prompt_len, page):
     want = sorted([tail] * (len(FANOUT) - 1) + [shared + tail])
     if exact != want:
         raise AssertionError(f"broadcast prefilled_tokens {exact} != {want}")
-    n = kernel_launches["paged_attention_prefill_base"]
-    if n != n_layers:
+    if n_prefill != n_layers:
         raise AssertionError(f"broadcast pass launched the base prefill "
-                             f"{n} times, not once per layer ({n_layers})")
+                             f"{n_prefill} times, not once per layer "
+                             f"({n_layers})")
 
 
 def reset_counts(*mods):
@@ -1583,8 +1731,9 @@ def small_model_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig,
     on the CPU from the same weights must give the same greedy tokens, in
     every setting of ``SMALL_SERVES``, with full-precision and with int8
     bCache pages (on the card a paged int8 serve launches only int8
-    variants); on the card the gather path's tokens must equal the paged
-    path's."""
+    variants, and every f32 launch a template instance, never a
+    tensor-core ``_mma`` kernel); on the card the gather path's tokens must
+    equal the paged path's."""
     base = tiny(rank=16, num_layers=2, d_model=256, num_heads=4,
                 num_kv_heads=2, vocab_size=512)
     params = tfm.init_params(base, 0, device="cpu")
@@ -1609,9 +1758,11 @@ def small_model_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig,
                 check_serving(outs, m, 6, mixed=sc.mixed_batching,
                               gather=not sc.use_paged_kernel)
                 ran = {k for k, v in pra.LAUNCHES.items() if v}
+                # f32: the template instances only, never a "_mma" kernel
                 if dev == "cuda" and sc.use_paged_kernel and (
-                        not ran or any(k.endswith("_int8") != (
-                            quant == "int8") for k in ran)):
+                        not ran or any(("_int8" in k) != (
+                            quant == "int8") or k.endswith("_mma")
+                            for k in ran)):
                     raise AssertionError(f"kv_quant {quant} {mode} {extra} "
                                          f"launched {sorted(ran)}")
                 toks[dev] = [o.tokens for o in outs]
@@ -1659,7 +1810,7 @@ def small_tiers_card_vs_cpu(tiny, tfm, Engine, ServeConfig, workflows, pra):
         rep = workflows.WorkflowDriver(eng, workflows.WorkflowConfig(
             **REACT_WF, vocab=cfg.vocab_size)).run_react()
         ran = {k for k, v in pra.LAUNCHES.items() if v}
-        if dev == "cuda" and (not ran or not all(k.endswith("_int8")
+        if dev == "cuda" and (not ran or not all("_int8" in k
                                                  for k in ran)):
             raise AssertionError(f"react launched {sorted(ran)}")
         got[dev] = ({k: rep[k] for k in TIER_KEYS},
@@ -1802,11 +1953,16 @@ def main() -> int:
         for f in [pool.submit(m.build) for m in sources]:
             f.result()
     log("build", seconds=time.perf_counter() - t0,
-        ptxas={m.SOURCE: _build.BUILD_LOGS.get(m.SOURCE, "(cached build)")
-               for m in sources})
+        cached=[m.SOURCE for m in sources
+                if m.SOURCE not in _build.BUILD_LOGS])
+    for m in sources:
+        for kernel, use in ptxas_kernels(
+                _build.BUILD_LOGS.get(m.SOURCE, "")).items():
+            log("ptxas", source=m.SOURCE, kernel=kernel, **use)
 
     # 3. kernels against their plain versions
     check_kernels(pra, ref, tfm.quantize_kv)
+    check_prefill_edges(pra, ref, tfm.quantize_kv)
     check_dense_kernels(ra, ref)
     check_scan_kernels(rg, ref)
 
@@ -1831,7 +1987,7 @@ def main() -> int:
         param_gib=sum(t.numel() * t.element_size()
                       for t in list(params["layers"].values()) +
                       [params["embed"], params["unembed"]]) / 2 ** 30)
-    launches = dict.fromkeys(ALL_KERNELS, 0)
+    launches = dict.fromkeys(pra.LAUNCHES, 0)
     peaks = {}
     shapes = LaunchShapes(pra)
     cfg8 = dataclasses.replace(cfg, kv_quant="int8")
@@ -1839,8 +1995,9 @@ def main() -> int:
     def run(label, sc, drive, expect, model=cfg, record=True):
         """One serve of ``model`` with the counts zeroed just before it and
         read just after (its launches recorded for phase 6 unless not
-        ``record``); an int8 model must launch int8 variants only.
-        Returns its outputs and metrics."""
+        ``record``): each entry of ``expect`` must have launched the kernel
+        it runs for ``model`` (``pra.kernel_name``), and an int8 model int8
+        variants only.  Returns its outputs and metrics."""
         server = ForkServer(model, params, lora, sc)
         torch.cuda.reset_peak_memory_stats()
         reset_counts(*mods)
@@ -1849,9 +2006,11 @@ def main() -> int:
                 outs, m, seconds = drive(server)
         else:
             outs, m, seconds = drive(server)
-        ran = check_counts(pra, ref, expect)
-        if model.kv_quant == "int8" and not all(k.endswith("_int8")
-                                                for k in ran):
+        int8 = model.kv_quant == "int8"
+        ran = check_counts(pra, ref, [
+            pra.kernel_name(e, model.activation_dtype, int8) for e in expect],
+            model.activation_dtype)
+        if int8 and not all("_int8" in k for k in ran):
             raise AssertionError(f"{label}: a full-precision kernel ran on "
                                  f"int8 pages: {ran}")
         for k, v in ran.items():
@@ -1936,8 +2095,9 @@ def main() -> int:
         check_serving(outs, m, 16, mixed=False)
         exact = sorted(int(o.metrics["prefilled_tokens"]) for o in outs)
         if broadcast:
-            check_broadcast(exact, pra.LAUNCHES, cfg.num_layers,
-                            2048 + 64, sc.page_size)
+            check_broadcast(exact, pra.LAUNCHES[pra.kernel_name(
+                "paged_attention_prefill_base", cfg.activation_dtype,
+                False)], cfg.num_layers, 2048 + 64, sc.page_size)
         log("fanout_prefill", label=label, prefilled_tokens=exact,
             peak_base_pages=m["peak_base_pages"],
             peak_res_pages=m["peak_res_pages"], ok=True)
@@ -1962,28 +2122,34 @@ def main() -> int:
     measured.update({f"{n}_d256": rec for n, rec in check_dense_main_path(
         ra, ref, rg_first.cases).items()})
     measured["rg_lru_scan"] = check_scan_main_path(rg, ref, scans.cases)
-    for name in DENSE_KERNELS:
-        launches[f"{name}_d256"] = rg_launches[name]
-    launches["rg_lru_scan"] = rg_launches["rg_lru_scan"]
 
     # 7. kernels line, card line, result line: the paged kernels at their
     # heaviest serving launch, the dense kernels at Llama3-8B's (D 128) and
     # at RecurrentGemma-9B's (D 256, "_d256") first main-path launch, the
-    # scan at the hybrid forward's
+    # scan at the hybrid forward's.  Each kernel is named by its launch
+    # counter on the bf16 main path: #6 and #7 by their tensor-core
+    # kernels ("_mma").
     kernels = []
-    entries = [(n, r, "src/repro_torch/kernels/csrc/"
-                "paged_residual_attention.cu", "llama3-8b")
-               for n, (_, r) in ALL_KERNELS.items()]
-    entries += [(n, r, DENSE_SOURCE, "llama3-8b")
-                for n, r in DENSE_KERNELS.items()]
-    entries += [(f"{n}_d256", r, DENSE_SOURCE, RG9B.name)
-                for n, r in DENSE_KERNELS.items()]
-    entries += [("rg_lru_scan", SCAN_REPLACES, SCAN_SOURCE, RG9B.name)]
-    for name, replaces, source, model in entries:
-        rec = measured[name]
+    entries = []              # (name, measured, launches, replaces, ...)
+    for n, (_, r) in ALL_KERNELS.items():
+        name = pra.kernel_name(n.removesuffix("_int8"), torch.bfloat16,
+                               n.endswith("_int8"))
+        entries.append((name, n, launches[name], r, PAGED_SOURCE,
+                        "llama3-8b"))
+    for n, r in DENSE_KERNELS.items():
+        name = ra.prefill_kernel(torch.bfloat16) \
+            if n == "residual_attention_prefill" else n
+        entries.append((name, n, launches[name], r, DENSE_SOURCE,
+                        "llama3-8b"))
+        entries.append((f"{name}_d256", f"{n}_d256", rg_launches[name], r,
+                        DENSE_SOURCE, RG9B.name))
+    entries.append(("rg_lru_scan", "rg_lru_scan", rg_launches["rg_lru_scan"],
+                    SCAN_REPLACES, SCAN_SOURCE, RG9B.name))
+    for name, key, n_launches, replaces, source, model in entries:
+        rec = measured[key]
         kernels.append(dict(
             name=name, status="ported", route="cuda", source=source,
-            replaces=replaces, model=model, launches=launches[name],
+            replaces=replaces, model=model, launches=n_launches,
             max_abs_err=rec["max_abs_err"], ms=rec["kernel_ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))

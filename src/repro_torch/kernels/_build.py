@@ -3,9 +3,9 @@
 Each source under ``kernels/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first CUDA use, and
 loaded with ``ctypes``.  Libraries go to ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing here runs when
-the package is imported.
+the checkout, named by a hash of the source, the headers beside it and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.  Nothing here runs when the package is imported.
 """
 from __future__ import annotations
 
@@ -40,9 +40,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built, keyed by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built, keyed by the source, every header
+    under ``csrc/`` (a source may include any of them) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

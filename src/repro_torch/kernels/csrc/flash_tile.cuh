@@ -1,0 +1,281 @@
+// Tensor-core flash-attention tile for NVIDIA Hopper (sm_90a), shared by
+// the bf16 prefill kernels of residual_attention.cu (#7) and
+// paged_residual_attention.cu (#6).
+//
+// A CTA holds kRows = 128 query rows, 16 per warp of its 8: on the H100
+// both kernels ran faster so than with 4 warps (64 rows), which load (and
+// for #7 rebuild) each key block twice as often
+// (scripts/mma_tile_variants.py, PERF.md §6).  Every product runs on the
+// tensor cores as mma.sync.m16n8k16 with bf16 operands and f32
+// accumulators; operands come from shared memory through ldmatrix, whose
+// rows are padded by kPad elements so the eight row addresses of one 8x8
+// matrix fall in distinct banks.  The softmax state stays in
+// registers: in the m16n8 accumulator layout a thread holds rows
+// lane/4 and lane/4 + 8 of its warp's 16 and columns 2*(lane%4) + {0,1}
+// of every 8-wide n-tile, so a row's max and sum take two quad shuffles.
+//
+// Rounding points (held on the CPU by tests/test_torch_mma_rounding.py):
+// scores and both accumulators are f32; P is rounded to bf16 where it
+// becomes an A operand (scores -> P . V, acc_r -> acc_r . B_v); the row
+// sum l is taken over the f32 P.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <math_constants.h>
+
+#include <cstdint>
+
+namespace flash {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;     // query rows per CTA
+constexpr int kPad = 8;                // bf16 elements of padding per row
+constexpr float kNegInit = -1e30f;     // running max before any key
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; ``valid`` false zero-fills the 16 bytes
+// and reads nothing (``src`` must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+               "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
+               "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
+// c += a . b for one m16n8k16 tile: a row-major 16x16, b column-major
+// 16x8, both bf16; c f32.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S = Q . K^T for one warp: q points at the warp's 16 rows (stride ``qs``
+// elements), k at BK key rows (stride ``ks``), both D wide.
+template <int D, int BK>
+__device__ __forceinline__ void scores(float (&s)[BK / 8][4], const bf16* q,
+                                       int qs, const bf16* k, int ks,
+                                       int lane) {
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n)
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, q + (lane & 15) * qs + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int n2 = 0; n2 < BK / 16; ++n2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, k + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * ks +
+                         kk * 16 + ((lane >> 3) & 1) * 8);
+      mma(s[2 * n2], a, b[0], b[1]);
+      mma(s[2 * n2 + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The warp's 16 rows of Q (stride ``qs``) as A fragments, one per 16
+// columns, for ``scores`` to keep in registers across key blocks.
+template <int D>
+__device__ __forceinline__ void load_q(uint32_t (&qf)[D / 16][4],
+                                       const bf16* q, int qs, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(qf[kk], q + (lane & 15) * qs + kk * 16 + (lane >> 4) * 8);
+}
+
+// S = Q . K^T as ``scores`` above, with Q's fragments in registers.
+template <int D, int BK>
+__device__ __forceinline__ void scores(float (&s)[BK / 8][4],
+                                       const uint32_t (&qf)[D / 16][4],
+                                       const bf16* k, int ks, int lane) {
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n)
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int n2 = 0; n2 < BK / 16; ++n2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, k + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * ks +
+                         kk * 16 + ((lane >> 3) & 1) * 8);
+      mma(s[2 * n2], qf[kk], b[0], b[1]);
+      mma(s[2 * n2 + 1], qf[kk], b[2], b[3]);
+    }
+}
+
+// c += A . B for one warp, with A (16 x K) given as f32 accumulator
+// fragments (K/8 n-tiles), rounded here to bf16 A fragments, and B
+// (K x N) row-major in shared memory with row stride ``bs`` (read
+// transposed by ldmatrix).
+template <int K, int N>
+__device__ __forceinline__ void product(float (&c)[N / 8][4],
+                                        const float (&a)[K / 8][4],
+                                        const bf16* b, int bs, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint32_t af[4] = {
+        pack_bf16(a[2 * kk][0], a[2 * kk][1]),
+        pack_bf16(a[2 * kk][2], a[2 * kk][3]),
+        pack_bf16(a[2 * kk + 1][0], a[2 * kk + 1][1]),
+        pack_bf16(a[2 * kk + 1][2], a[2 * kk + 1][3])};
+    const bf16* row =
+        b + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * bs +
+        (lane >> 4) * 8;
+#pragma unroll
+    for (int n2 = 0; n2 < N / 16; ++n2) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, row + n2 * 16);
+      mma(c[2 * n2], af, bf[0], bf[1]);
+      mma(c[2 * n2 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// Masks the scores of key block j0 for the thread's two rows (positions
+// pos[0], pos[1]): key kpos is seen iff kpos < klimit, kpos <= pos when
+// ``causal``, and kpos > pos - window when ``window`` > 0.
+template <int BK>
+__device__ __forceinline__ void mask(float (&s)[BK / 8][4], int j0,
+                                     const int (&pos)[2], int klimit,
+                                     bool causal, int window, int lane) {
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kpos = j0 + n * 8 + 2 * (lane & 3) + (i & 1);
+      const int qp = pos[i >> 1];
+      bool seen = kpos < klimit;
+      if (causal) seen = seen && kpos <= qp;
+      if (window > 0) seen = seen && kpos > qp - window;
+      if (!seen) s[n][i] = -CUDART_INF_F;
+    }
+}
+
+// The online-softmax step for one key block: turns s (raw scores) into
+// P = exp(scale * s - m) in f32, updates the running max m (kept in the
+// exp2 domain, scale * log2(e) folded in) and the thread's partial row
+// sum l, and returns in alpha = exp(m_old - m_new) the factor by which
+// the accumulators are to be rescaled (``rescale``).
+template <int BK>
+__device__ __forceinline__ void softmax_step(float (&s)[BK / 8][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2],
+                                             float scale_log2) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+      mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx * scale_log2);
+    alpha[h] = exp2f(m[h] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2f(fmaf(s[n][2 * h + e], scale_log2, -m_new));
+        s[n][2 * h + e] = p;
+        sum += p;
+      }
+    l[h] = l[h] * alpha[h] + sum;
+    m[h] = m_new;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N][4],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+}
+
+// Sums the quad's partial row sums.
+__device__ __forceinline__ void finish_rowsum(float (&l)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+}
+
+// Writes the warp's rows o / max(l, 1e-20) in bf16; row r (0..15 of the
+// warp) goes to dst[r] unless dst[r] is null (a padding row).
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&o)[D / 8][4],
+                                           const float (&l)[2],
+                                           bf16* const (&dst)[2], int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (dst[h] == nullptr) continue;
+    const float inv = 1.f / fmaxf(l[h], 1e-20f);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst[h] + n * 8 + 2 * (lane & 3)) =
+          pack_bf16(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+  }
+}
+
+}  // namespace flash

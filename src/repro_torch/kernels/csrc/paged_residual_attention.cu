@@ -36,7 +36,11 @@
 //   online softmax with two accumulators, acc = P . V_b and acc_r = P . V_r
 //   out = (acc + acc_r . B_v) / max(l, 1e-20); rows at or past q_len = 0.
 //
-// Design (simple first; speed is later work):
+// One exception to the template: a bf16 launch of
+// paged_attention_prefill_base (bf16 or int8 pages) runs the tensor-core
+// flash tile paged_prefill_base_mma_kernel (below, on flash_tile.cuh).
+//
+// Template design (simple first; speed is later work):
 //   * one CTA per (q tile, kv head, row).  A q tile is `tq` query positions
 //     times the G heads of the group (tq*G <= 64 rows), so every page of
 //     K/V is read once for all G heads, and a long prefill row is split
@@ -52,8 +56,11 @@
 #include <cuda_bf16.h>
 #include <math_constants.h>
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
+
+#include "flash_tile.cuh"
 
 namespace {
 
@@ -386,12 +393,251 @@ int dispatch(int dtype, bool has_res, const Args& a, int bsz,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------
+// bf16 base-only chunked prefill on the tensor cores (flash_tile.cuh):
+// paged_attention_prefill_base and its int8 branch with q in bf16.
+//
+// The flash tile of residual_attention.cu without the rebuild: 128 query
+// rows (tq positions x G heads, tq = 128 / G) of 8 warps per CTA, key
+// blocks of 64 keys gathered key row by key row through
+// bt_b[kpos / page], so every page size works, with cp.async into the
+// other of two shared-memory stages while this one is used.  Keys at or
+// past min(kv_len, W * page) are zero-filled, never read.  q_len, the
+// zeroed rows and tiles past it, and the key-loop bounds are those of the
+// scalar template above.
+//
+// int8 pages dequantize the tile to bf16: the int8 codes and
+// their f32 (token, head) scales land in a staging stage, and each element
+// becomes bf16(code * scale) in the bf16 K/V tile, which is where the
+// plain version rounds (ref.py's gather: (kb.f32 * ks).to(q.dtype)).  So
+// the kernel's K and V equal the plain version's bit for bit, and the only
+// rounding the tensor cores add is P's.  (Scaling S's and P's columns
+// instead would need the scales in registers per key column and round P
+// after the V scale, a point the plain version does not have.)
+template <int D, bool INT8>
+struct PagedMmaLayout {
+  static constexpr int BK = 64;
+  static constexpr int DS = D + flash::kPad;
+  // bf16 elements: Q, then the K/V tiles (two stages of bf16 pages, one
+  // converted tile for int8 pages); then, int8 only, bytes of two stages
+  // of codes (K, V: BK x D) and scales (K, V: BK floats)
+  static constexpr int kQ = 0, kKV = kQ + flash::kRows * DS,
+                       kTile = 2 * BK * DS,
+                       kElems = kKV + (INT8 ? 1 : 2) * kTile;
+  static constexpr int kStage8 = 2 * BK * D + 2 * BK * (int)sizeof(float);
+  static constexpr size_t kBytes =
+      (size_t)kElems * sizeof(__nv_bfloat16) + (INT8 ? 2 * kStage8 : 0);
+};
+
+template <int D, bool INT8>
+__global__ void __launch_bounds__(flash::kThreads, 1)
+paged_prefill_base_mma_kernel(Args a, int bsz) {
+  using flash::bf16;
+  using L = PagedMmaLayout<D, INT8>;
+  constexpr int BK = L::BK, DS = L::DS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Qs = sm + L::kQ;
+  unsigned char* staging = smem_raw + L::kElems * sizeof(bf16);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.hq / a.hkv, page = a.page;
+  const int ntiles = (a.sq + a.tq - 1) / a.tq;
+  const int per_tile = a.hkv * bsz;
+  const int tile = ntiles - 1 - (int)(blockIdx.x / per_tile);
+  const int h = (int)(blockIdx.x % per_tile) % a.hkv;
+  const int b = (int)(blockIdx.x % per_tile) / a.hkv;
+
+  const int kvlen = a.kv_len[b];
+  const int start = a.start[b];
+  const int qlen = max(0, min(a.sq, kvlen - start));
+  const int q0 = tile * a.tq;
+  const int npos = min(a.tq, a.sq - q0);
+  const int nq = max(0, min(npos, qlen - q0));
+  bf16* out = static_cast<bf16*>(a.out);
+  const long out_tile = ((long)b * a.sq + q0) * a.hq + (long)h * G;
+
+  // rows at or past q_len: exact zeros
+  for (int e = tid; e < (npos - nq) * G * (D / 8); e += flash::kThreads) {
+    const int qi = nq + e / (G * (D / 8)), rest = e % (G * (D / 8));
+    *reinterpret_cast<uint4*>(out + (out_tile + (long)qi * a.hq) * D +
+                              rest * 8) = make_uint4(0, 0, 0, 0);
+  }
+  if (nq == 0) return;
+  const int nrows = nq * G;                         // row = qi * G + g
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int e = tid; e < flash::kRows * (D / 8); e += flash::kThreads) {
+    const int r = e / (D / 8), c = e % (D / 8);
+    const bool ok = r < nrows;
+    const bf16* src =
+        ok ? q + (out_tile + (long)(r / G) * a.hq + r % G) * D + c * 8 : q;
+    flash::cp_async16(Qs + r * DS + c * 8, src, ok);
+  }
+  flash::cp_async_commit();
+
+  const int klimit = min(kvlen, a.w * page);
+  const int qpos_lo = start + q0, qpos_hi = start + q0 + nq - 1;
+  const int last_k = min(klimit - 1, qpos_hi);
+  const int first_k = a.window > 0 ? max(qpos_lo - (a.window - 1), 0) : 0;
+  const int jb0 = first_k / BK;
+  const int nblocks = last_k >= 0 ? max(0, last_k / BK - jb0 + 1) : 0;
+  const int* bt = a.bt_b + (long)b * a.w;
+
+  // element offset of (key kpos, head h, column 0) in the pools, and the
+  // scale offset of (kpos, h)
+  auto token = [&](int kpos) {
+    const long pb = bt[kpos / page];
+    return (pb * page + kpos % page) * a.hkv + h;
+  };
+  auto load_block = [&](int blk, int st) {
+    const int j0 = blk * BK;
+    if constexpr (!INT8) {
+      const bf16* kb = static_cast<const bf16*>(a.kb);
+      const bf16* vb = static_cast<const bf16*>(a.vb);
+      bf16* Kd = sm + L::kKV + st * L::kTile;
+      bf16* Vd = Kd + BK * DS;
+      for (int e = tid; e < BK * (D / 8); e += flash::kThreads) {
+        const int t = e / (D / 8), c = e % (D / 8);
+        const bool ok = j0 + t < klimit;
+        const long src = ok ? token(j0 + t) * D + c * 8 : 0;
+        flash::cp_async16(Kd + t * DS + c * 8, kb + src, ok);
+        flash::cp_async16(Vd + t * DS + c * 8, vb + src, ok);
+      }
+    } else {
+      const int8_t* kb = static_cast<const int8_t*>(a.kb);
+      const int8_t* vb = static_cast<const int8_t*>(a.vb);
+      unsigned char* s8 = staging + st * L::kStage8;
+      float* ksc = reinterpret_cast<float*>(s8 + 2 * BK * D);
+      for (int e = tid; e < BK * (D / 16); e += flash::kThreads) {
+        const int t = e / (D / 16), c = e % (D / 16);
+        const bool ok = j0 + t < klimit;
+        const long src = ok ? token(j0 + t) * D + c * 16 : 0;
+        flash::cp_async16(s8 + t * D + c * 16, kb + src, ok);
+        flash::cp_async16(s8 + BK * D + t * D + c * 16, vb + src, ok);
+      }
+      for (int t = tid; t < BK; t += flash::kThreads) {
+        const bool ok = j0 + t < klimit;
+        const long src = ok ? token(j0 + t) : 0;
+        flash::cp_async4(ksc + t, a.kb_s + src, ok);
+        flash::cp_async4(ksc + BK + t, a.vb_s + src, ok);
+      }
+    }
+  };
+  // int8: bf16(code * scale) of stage st into the one bf16 K/V tile
+  auto dequantize = [&](int st) {
+    const unsigned char* s8 = staging + st * L::kStage8;
+    const float* ksc = reinterpret_cast<const float*>(s8 + 2 * BK * D);
+    bf16* Kd = sm + L::kKV;
+    for (int e = tid; e < 2 * BK * (D / 8); e += flash::kThreads) {
+      const int kv = e / (BK * (D / 8)), rest = e % (BK * (D / 8));
+      const int t = rest / (D / 8), c = rest % (D / 8);
+      const uint2 raw =
+          *reinterpret_cast<const uint2*>(s8 + kv * BK * D + t * D + c * 8);
+      const float sc = ksc[kv * BK + t];
+      // bytes 2i and 2i + 1 of the eight codes -> one bf16 pair
+      auto pair = [&](uint32_t word, int shift) {
+        return flash::pack_bf16(
+            __fmul_rn((float)(int8_t)(word >> shift), sc),
+            __fmul_rn((float)(int8_t)(word >> (shift + 8)), sc));
+      };
+      *reinterpret_cast<uint4*>(Kd + kv * BK * DS + t * DS + c * 8) =
+          make_uint4(pair(raw.x, 0), pair(raw.x, 16), pair(raw.y, 0),
+                     pair(raw.y, 16));
+    }
+  };
+
+  float o[D / 8][4], m[2], l[2];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  m[0] = m[1] = flash::kNegInit;
+  l[0] = l[1] = 0.f;
+  const float scale_log2 = a.scale * flash::kLog2e;
+  int pos[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    pos[hh] = qpos_lo + min(warp * 16 + (lane >> 2) + 8 * hh, nrows - 1) / G;
+
+  if (nblocks > 0) load_block(jb0, 0);
+  flash::cp_async_commit();
+  flash::cp_async_wait<1>();                        // Q
+  __syncthreads();
+  uint32_t qf[D / 16][4];                           // Q's A fragments
+  flash::load_q<D>(qf, Qs + warp * 16 * DS, DS, lane);
+  for (int it = 0; it < nblocks; ++it) {
+    const int st = it & 1;
+    if (it + 1 < nblocks) load_block(jb0 + it + 1, st ^ 1);
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Ks = sm + L::kKV + (INT8 ? 0 : st * L::kTile);
+    if constexpr (INT8) {
+      dequantize(st);
+      __syncthreads();
+    }
+    const int j0 = (jb0 + it) * BK;
+    float s[BK / 8][4], alpha[2];
+    flash::scores<D, BK>(s, qf, Ks, DS, lane);
+    const bool full = j0 + BK <= klimit && j0 + BK - 1 <= qpos_lo &&
+                      (a.window <= 0 || j0 > qpos_hi - a.window);
+    if (!full) flash::mask<BK>(s, j0, pos, klimit, true, a.window, lane);
+    flash::softmax_step<BK>(s, m, l, alpha, scale_log2);
+    flash::rescale<D / 8>(o, alpha);
+    flash::product<BK, D>(o, s, Ks + BK * DS, DS, lane);
+    __syncthreads();
+  }
+  flash::cp_async_wait<0>();
+
+  flash::finish_rowsum(l);
+  bf16* dst[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = warp * 16 + (lane >> 2) + 8 * hh;
+    dst[hh] = r < nrows ? out + (out_tile + (long)(r / G) * a.hq + r % G) * D
+                        : nullptr;
+  }
+  flash::store_rows<D>(o, l, dst, lane);
+}
+
+template <int D, bool INT8>
+int launch_prefill_mma(const Args& a, int bsz, cudaStream_t stream) {
+  using L = PagedMmaLayout<D, INT8>;
+  auto kernel = paged_prefill_base_mma_kernel<D, INT8>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)((a.sq + a.tq - 1) / a.tq) * a.hkv * bsz;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, flash::kThreads, L::kBytes, stream>>>(a, bsz);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 base-only chunked prefill: D 64/128, tq * G <= 128 rows, page
+// 1..32, bf16 or int8 pages.
+int dispatch_prefill_mma(const Args& a, int bsz, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.tq < 1 ||
+      a.tq * (a.hq / a.hkv) > flash::kRows || a.page < 1 || a.page > 32)
+    return (int)cudaErrorInvalidValue;
+  const bool int8 = a.kb_s != nullptr;
+  if (a.d == 64)
+    return int8 ? launch_prefill_mma<64, true>(a, bsz, s)
+                : launch_prefill_mma<64, false>(a, bsz, s);
+  if (a.d == 128)
+    return int8 ? launch_prefill_mma<128, true>(a, bsz, s)
+                : launch_prefill_mma<128, false>(a, bsz, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, out, residual pools, B_k/B_v).
 // kb_s/vb_s: both null (kb/vb in q's type) or both the f32 scale pools of
-// int8 kb/vb.  Each launcher returns cudaGetLastError() after the launch
-// (0 = success).
+// int8 kb/vb.  paged_attention_prefill_base with bf16 q runs the
+// tensor-core kernel (tq * G <= 128 rows); every other launch the
+// template.
+// Each launcher returns cudaGetLastError() after the launch (0 = success),
+// or cudaErrorInvalidValue for a geometry its kernel does not take.
 extern "C" int paged_residual_attention_mixed(
     int dtype, const void* q, const void* kb, const void* vb,
     const void* kb_s, const void* vb_s, const void* kr, const void* vr,
@@ -481,5 +727,7 @@ extern "C" int paged_attention_prefill_base(
                static_cast<const int*>(start), nullptr,
                static_cast<const int*>(kv_len), out,
                sq, hq, hkv, d, 0, page, w, tq, scale, window, 0.f, 0};
+  // bf16 takes the tensor-core kernel, f32 (IEEE, no TF32) the template
+  if (dtype == 1) return dispatch_prefill_mma(a, bsz, stream);
   return dispatch(dtype, false, a, bsz, stream);
 }

@@ -24,7 +24,12 @@
 // (the launcher passes a null qpos pointer).  A null kv_len pointer means
 // all Sk keys are valid.
 //
-// Design (simple first; speed is later work):
+// Two kernels, chosen by q's type in the prefill launcher: a bf16 prefill
+// runs the tensor-core flash tile (residual_attention_mma_kernel, below,
+// on flash_tile.cuh); an f32 prefill and every decode run the scalar
+// kernel described next (IEEE f32: the tensor cores have no such mode).
+//
+// Scalar design (simple first; speed is later work):
 //   * one CTA per (query tile, kv head, request row).  A query tile is `tq`
 //     query positions times the G heads of the group, so each key block of
 //     K/V is read once for all G heads, and a long prefill spreads over
@@ -43,14 +48,18 @@
 //
 // Bound on an H100: a long causal prefill does ~4 G D flops per (query,
 // key) pair and kv head and reads each key once per query tile, so it is
-// bound by operations (989 TFLOP/s bf16 on tensor cores); this design runs
-// f32 FMAs (67 TFLOP/s peak) and stays well above that bound.  Decode reads
+// bound by operations (989 TFLOP/s bf16 on tensor cores); the scalar
+// design runs f32 FMAs (67 TFLOP/s peak) and stays well above that bound,
+// the bf16 one runs mma.sync on the tensor cores (wgmma, TMA and warp
+// specialisation are later work).  Decode reads
 // Sk*(Hkv*D*2 + 2R + D) values per row and does a few flops per byte: bound
 // by bytes (3.35 TB/s).
 #include <climits>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
+
+#include "flash_tile.cuh"
 
 namespace {
 
@@ -323,10 +332,320 @@ int dispatch(int dtype, const Args& a, int bsz, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------
+// bf16 prefill on the tensor cores (flash_tile.cuh).
+//
+// One CTA per (query tile, kv head, request row) as above, but 128 rows
+// (tq positions x G heads, tq = 128 / G) of 8 warps, and every product an
+// m16n8k16 MMA.  Per key block of BK keys (64; 32 at D 256, where the
+// accumulator alone takes 128 registers a thread):
+//   * cp.async brings K_b, V_b, sin, cos and (R a multiple of 8) K_r, V_r
+//     into the other of two shared-memory stages while this one is used;
+//     keys at or past kv_len are zero-filled, never read;
+//   * K_r (BK x R, zero-padded to RP = 16 or 32) . B_k (RP x D) runs as
+//     MMAs whose accumulator holds columns c and c + D/2 in one thread
+//     (n-tiles j and j + D/16), so RoPE rotates in registers with sin/cos
+//     read from the tables; K_b is added in f32 and the sum rounded once
+//     to bf16 in place of K_b (the plain version's rounding point);
+//   * S = Q K^T, the mask (only on blocks that straddle kv_len, the
+//     causal edge or the window), the online softmax in registers,
+//     O += P V_b and O_r += P V_r, P rounded to bf16;
+// then O += O_r . B_v (O_r rounded to bf16) and O / max(l, 1e-20).
+// The latest query tiles, the heaviest under a causal mask, launch first.
+
+// x * c + y * s with each product rounded on its own (no FMA)
+__device__ __forceinline__ float rot(float x, float c, float y, float s) {
+  return __fadd_rn(__fmul_rn(x, c), __fmul_rn(y, s));
+}
+
+template <int D, int BK, int RP>
+struct MmaLayout {
+  static constexpr int DS = D + flash::kPad;       // Q, K, V, B_k, B_v rows
+  static constexpr int RS = RP + flash::kPad;      // K_r, V_r rows
+  static constexpr int HS = D / 2 + flash::kPad;   // sin, cos rows
+  static constexpr int kK = 0, kV = kK + BK * DS, kKr = kV + BK * DS,
+                       kVr = kKr + BK * RS, kSin = kVr + BK * RS,
+                       kCos = kSin + BK * HS, kStage = kCos + BK * HS;
+  static constexpr int kQ = 0, kBk = kQ + flash::kRows * DS,
+                       kBv = kBk + RP * DS, kStages = kBv + RP * DS,
+                       kElems = kStages + 2 * kStage;
+  // rowpos (flash::kRows ints) first, then kElems bf16
+  static constexpr size_t kBytes =
+      flash::kRows * sizeof(int) + (size_t)kElems * sizeof(__nv_bfloat16);
+};
+
+template <int D, int BK, int RP>
+__global__ void __launch_bounds__(flash::kThreads, 1)
+residual_attention_mma_kernel(Args a, int bsz) {
+  using flash::bf16;
+  using L = MmaLayout<D, BK, RP>;
+  constexpr int DS = L::DS, RS = L::RS, HS = L::HS, HALF = D / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* rowpos = reinterpret_cast<int*>(smem_raw);
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw + flash::kRows * sizeof(int));
+  bf16* Qs = sm + L::kQ;
+  bf16* Bks = sm + L::kBk;
+  bf16* Bvs = sm + L::kBv;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.hq / a.hkv, R = a.r;
+  const int ntiles = (a.sq + a.tq - 1) / a.tq;
+  const int per_tile = a.hkv * bsz;
+  const int tile = ntiles - 1 - (int)(blockIdx.x / per_tile);
+  const int h = (int)(blockIdx.x % per_tile) % a.hkv;
+  const int b = (int)(blockIdx.x % per_tile) / a.hkv;
+  const long sk = a.sk;
+  const int kvlen = a.kv_len ? min(max(a.kv_len[b], 0), a.sk) : a.sk;
+  const int q0 = tile * a.tq;
+  const int nq = min(a.tq, a.sq - q0);
+  const int nrows = nq * G;                         // row = qi * G + g
+  const long out_tile = ((long)b * a.sq + q0) * a.hq + (long)h * G;
+  const long hd = (long)a.hkv * D;
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* kb = static_cast<const bf16*>(a.kb);
+  const bf16* vb = static_cast<const bf16*>(a.vb);
+  const bf16* kr = static_cast<const bf16*>(a.kr);
+  const bf16* vr = static_cast<const bf16*>(a.vr);
+  const bf16* bk = static_cast<const bf16*>(a.bk);
+  const bf16* bv = static_cast<const bf16*>(a.bv);
+  const bf16* sin_tab = static_cast<const bf16*>(a.sin);
+  const bf16* cos_tab = static_cast<const bf16*>(a.cos);
+
+  // Q rows (zero past nrows), B_k and B_v rows (zero from R to RP)
+  for (int e = tid; e < flash::kRows * (D / 8); e += flash::kThreads) {
+    const int r = e / (D / 8), c = e % (D / 8);
+    const bool ok = r < nrows;
+    const bf16* src =
+        ok ? q + (out_tile + (long)(r / G) * a.hq + r % G) * D + c * 8 : q;
+    flash::cp_async16(Qs + r * DS + c * 8, src, ok);
+  }
+  for (int e = tid; e < RP * (D / 8); e += flash::kThreads) {
+    const int rr = e / (D / 8), c = e % (D / 8);
+    const bool ok = rr < R;
+    const long src = ok ? ((long)b * R + rr) * hd + (long)h * D + c * 8 : 0;
+    flash::cp_async16(Bks + rr * DS + c * 8, bk + src, ok);
+    flash::cp_async16(Bvs + rr * DS + c * 8, bv + src, ok);
+  }
+  flash::cp_async_commit();
+  // K_r / V_r columns R..RP-1 stay zero in both stages
+  for (int st = 0; st < 2; ++st) {
+    bf16* base = sm + L::kStages + st * L::kStage;
+    for (int e = tid; e < BK * (RP - R); e += flash::kThreads) {
+      const int t = e / (RP - R), rr = R + e % (RP - R);
+      base[L::kKr + t * RS + rr] = __float2bfloat16(0.f);
+      base[L::kVr + t * RS + rr] = __float2bfloat16(0.f);
+    }
+  }
+  int qlo = INT_MAX, qhi = INT_MIN;
+  for (int i = 0; i < nq; ++i) {
+    const int p = a.qpos ? a.qpos[(long)b * a.sq + q0 + i] : kvlen - 1;
+    qlo = min(qlo, p);
+    qhi = max(qhi, p);
+  }
+  for (int r = tid; r < flash::kRows; r += flash::kThreads) {
+    const int i = min(r, nrows - 1) / G;
+    rowpos[r] = a.qpos ? a.qpos[(long)b * a.sq + q0 + i] : kvlen - 1;
+  }
+
+  const int last_k = a.causal ? min(kvlen - 1, qhi) : kvlen - 1;
+  const int first_k = a.window > 0 ? max(qlo - (a.window - 1), 0) : 0;
+  const int jb0 = first_k / BK;
+  const int nblocks = last_k >= 0 ? max(0, last_k / BK - jb0 + 1) : 0;
+  const bool vec_res = (R % 8) == 0;
+
+  auto load_block = [&](int blk, int st) {
+    bf16* base = sm + L::kStages + st * L::kStage;
+    const int j0 = blk * BK;
+    for (int e = tid; e < BK * (D / 8); e += flash::kThreads) {
+      const int t = e / (D / 8), c = e % (D / 8);
+      const int kpos = j0 + t;
+      const bool ok = kpos < kvlen;
+      const long src = ok ? (((long)b * sk + kpos) * a.hkv + h) * D + c * 8
+                          : 0;
+      flash::cp_async16(base + L::kK + t * DS + c * 8, kb + src, ok);
+      flash::cp_async16(base + L::kV + t * DS + c * 8, vb + src, ok);
+    }
+    for (int e = tid; e < BK * (HALF / 8); e += flash::kThreads) {
+      const int t = e / (HALF / 8), c = e % (HALF / 8);
+      const int kpos = j0 + t;
+      const bool ok = kpos < kvlen;
+      const long src = ok ? ((long)b * sk + kpos) * HALF + c * 8 : 0;
+      flash::cp_async16(base + L::kSin + t * HS + c * 8, sin_tab + src, ok);
+      flash::cp_async16(base + L::kCos + t * HS + c * 8, cos_tab + src, ok);
+    }
+    if (vec_res) {
+      for (int e = tid; e < BK * (R / 8); e += flash::kThreads) {
+        const int t = e / (R / 8), c = e % (R / 8);
+        const int kpos = j0 + t;
+        const bool ok = kpos < kvlen;
+        const long src = ok ? ((long)b * sk + kpos) * R + c * 8 : 0;
+        flash::cp_async16(base + L::kKr + t * RS + c * 8, kr + src, ok);
+        flash::cp_async16(base + L::kVr + t * RS + c * 8, vr + src, ok);
+      }
+    } else {            // rows of R elements are not 16-byte aligned
+      for (int e = tid; e < BK * R; e += flash::kThreads) {
+        const int t = e / R, rr = e % R;
+        const int kpos = j0 + t;
+        const bool ok = kpos < kvlen;
+        const long src = ((long)b * sk + kpos) * R + rr;
+        base[L::kKr + t * RS + rr] = ok ? kr[src] : __float2bfloat16(0.f);
+        base[L::kVr + t * RS + rr] = ok ? vr[src] : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  float o[D / 8][4], orr[RP / 8][4], m[2], l[2];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < RP / 8; ++n)
+    orr[n][0] = orr[n][1] = orr[n][2] = orr[n][3] = 0.f;
+  m[0] = m[1] = flash::kNegInit;
+  l[0] = l[1] = 0.f;
+  const float scale_log2 = a.scale * flash::kLog2e;
+
+  if (nblocks > 0) load_block(jb0, 0);
+  flash::cp_async_commit();
+  flash::cp_async_wait<1>();                        // Q, B_k, B_v
+  __syncthreads();                                  // and rowpos
+  const int pos[2] = {rowpos[warp * 16 + (lane >> 2)],
+                      rowpos[warp * 16 + (lane >> 2) + 8]};
+  const bf16* Qw = Qs + warp * 16 * DS;
+  // Q's A fragments stay in registers up to D 128; at D 256 the
+  // accumulator takes 128 registers and Q is read again per key block
+  constexpr bool kQInRegisters = D <= 128;
+  uint32_t qf[kQInRegisters ? D / 16 : 1][4];
+  if constexpr (kQInRegisters) flash::load_q<D>(qf, Qw, DS, lane);
+
+  for (int it = 0; it < nblocks; ++it) {
+    const int st = it & 1;
+    if (it + 1 < nblocks) load_block(jb0 + it + 1, st ^ 1);
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();
+    __syncthreads();
+    bf16* base = sm + L::kStages + st * L::kStage;
+    bf16* Ks = base + L::kK;
+    const bf16* Krs = base + L::kKr;
+    const bf16* Sn = base + L::kSin;
+    const bf16* Cs = base + L::kCos;
+
+    // K = K_b + RoPE(K_r . B_k): 16 keys x the n-tile pair (j, j + D/16)
+    // per item, items spread over the warps
+    for (int item = warp; item < (BK / 16) * (D / 16); item += flash::kWarps) {
+      const int mt = item / (D / 16), j = item % (D / 16);
+      float x1[4] = {0.f, 0.f, 0.f, 0.f}, x2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < RP / 16; ++kk) {
+        uint32_t af[4], bf[2];
+        flash::ldmatrix_x4(af, Krs + (mt * 16 + (lane & 15)) * RS + kk * 16 +
+                                   (lane >> 4) * 8);
+        const bf16* brow =
+            Bks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DS + 8 * j;
+        flash::ldmatrix_x2_trans(bf, brow);
+        flash::mma(x1, af, bf[0], bf[1]);
+        flash::ldmatrix_x2_trans(bf, brow + HALF);
+        flash::mma(x2, af, bf[0], bf[1]);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = mt * 16 + (lane >> 2) + 8 * hh;
+        const int i = 8 * j + 2 * (lane & 3);
+        const float2 sn = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Sn + t * HS + i));
+        const float2 cs = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Cs + t * HS + i));
+        __nv_bfloat162* k1 =
+            reinterpret_cast<__nv_bfloat162*>(Ks + t * DS + i);
+        __nv_bfloat162* k2 =
+            reinterpret_cast<__nv_bfloat162*>(Ks + t * DS + i + HALF);
+        const float2 b1 = __bfloat1622float2(*k1);
+        const float2 b2 = __bfloat1622float2(*k2);
+        // the plain version's f32 operations, uncontracted: k_b + (x1 cos -
+        // x2 sin) and k_b + (x2 cos + x1 sin), each product rounded
+        *k1 = __floats2bfloat162_rn(
+            b1.x + rot(x1[2 * hh], cs.x, x2[2 * hh], -sn.x),
+            b1.y + rot(x1[2 * hh + 1], cs.y, x2[2 * hh + 1], -sn.y));
+        *k2 = __floats2bfloat162_rn(
+            b2.x + rot(x2[2 * hh], cs.x, x1[2 * hh], sn.x),
+            b2.y + rot(x2[2 * hh + 1], cs.y, x1[2 * hh + 1], sn.y));
+      }
+    }
+    __syncthreads();
+
+    const int j0 = (jb0 + it) * BK;
+    float s[BK / 8][4];
+    if constexpr (kQInRegisters)
+      flash::scores<D, BK>(s, qf, Ks, DS, lane);
+    else
+      flash::scores<D, BK>(s, Qw, DS, Ks, DS, lane);
+    const bool full = j0 + BK <= kvlen && (!a.causal || j0 + BK - 1 <= qlo) &&
+                      (a.window <= 0 || j0 > qhi - a.window);
+    if (!full)
+      flash::mask<BK>(s, j0, pos, kvlen, a.causal != 0, a.window, lane);
+    float alpha[2];
+    flash::softmax_step<BK>(s, m, l, alpha, scale_log2);
+    flash::rescale<D / 8>(o, alpha);
+    flash::rescale<RP / 8>(orr, alpha);
+    flash::product<BK, D>(o, s, base + L::kV, DS, lane);
+    flash::product<BK, RP>(orr, s, base + L::kVr, RS, lane);
+    __syncthreads();
+  }
+  flash::cp_async_wait<0>();
+
+  // epilogue: (O + O_r . B_v) / max(l, 1e-20)
+  flash::product<RP, D>(o, orr, Bvs, DS, lane);
+  flash::finish_rowsum(l);
+  bf16* out = static_cast<bf16*>(a.out);
+  bf16* dst[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = warp * 16 + (lane >> 2) + 8 * hh;
+    dst[hh] = r < nrows ? out + (out_tile + (long)(r / G) * a.hq + r % G) * D
+                        : nullptr;
+  }
+  flash::store_rows<D>(o, l, dst, lane);
+}
+
+template <int D, int BK, int RP>
+int launch_mma(const Args& a, int bsz, cudaStream_t stream) {
+  using L = MmaLayout<D, BK, RP>;
+  auto kernel = residual_attention_mma_kernel<D, BK, RP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)((a.sq + a.tq - 1) / a.tq) * a.hkv * bsz;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, flash::kThreads, L::kBytes, stream>>>(a, bsz);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 prefill: D 64/128/256, R 1..32, tq * G <= 128 rows.
+int dispatch_mma(const Args& a, int bsz, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.r < 1 || a.r > 32 || a.tq < 1 || a.tq * (a.hq / a.hkv) > flash::kRows)
+    return (int)cudaErrorInvalidValue;
+  const bool r16 = a.r <= 16;
+  switch (a.d) {
+    case 64:
+      return r16 ? launch_mma<64, 64, 16>(a, bsz, s)
+                 : launch_mma<64, 64, 32>(a, bsz, s);
+    case 128:
+      return r16 ? launch_mma<128, 64, 16>(a, bsz, s)
+                 : launch_mma<128, 64, 32>(a, bsz, s);
+    case 256:
+      return r16 ? launch_mma<256, 32, 16>(a, bsz, s)
+                 : launch_mma<256, 32, 32>(a, bsz, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Each launcher returns
-// cudaGetLastError() after the launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16.  The bf16 prefill runs the
+// tensor-core kernel (tq * G <= 128 rows), everything else the scalar one.
+// Each launcher returns cudaGetLastError() after the launch (0 = success),
+// or cudaErrorInvalidValue for a geometry its kernel does not take.
 extern "C" int residual_attention_prefill(
     int dtype, const void* q, const void* kb, const void* vb, const void* kr,
     const void* vr, const void* bk, const void* bv, const void* sin,
@@ -337,6 +656,8 @@ extern "C" int residual_attention_prefill(
                static_cast<const int*>(qpos),
                static_cast<const int*>(kv_len), out,
                sq, sk, hq, hkv, d, r, tq, scale, causal, window};
+  // bf16 takes the tensor-core kernel, f32 (IEEE, no TF32) the scalar one
+  if (dtype == 1) return dispatch_mma(a, bsz, stream);
   return dispatch(dtype, a, bsz, stream);
 }
 

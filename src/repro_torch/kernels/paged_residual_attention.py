@@ -21,9 +21,13 @@ flops per token and kv head: a few flops per byte, far below the card's
 reads each page once for all G query heads of its kv head and rebuilds K
 on chip, so the residual adds only R/(Hkv·D) of the base bytes.  A long
 prefill row does ~4·tq·G·D flops per token of each page it reads and is
-bound by operations; this first design runs them as f32 FMAs on the CUDA
-cores (67 TFLOP/s peak) instead of bf16 tensor-core MMAs, so it stays far
-from the 989 TFLOP/s bound (later work: wgmma, TMA, split-K over pages).
+bound by operations; the template runs them as f32 FMAs on the CUDA
+cores (67 TFLOP/s peak), far from the 989 TFLOP/s bound.  A bf16 launch
+of the base-only chunked prefill (``MMA_ENTRIES``, bf16 or int8 pages)
+runs a flash tile on the tensor cores instead (mma.sync, 128 query rows
+per CTA, 64-key blocks gathered through the block table; counted as
+``<entry>[_int8]_mma``); the other entries follow (later work, as are
+wgmma, TMA and split-K over pages), and f32 stays on the template.
 The chunked prefill is the same: operations for long chunks, bytes for
 short ones.  Unlike the Pallas prefill, which holds all G·chunk query rows
 of a (row, kv head) in VMEM (16 MB of accumulator at chunk 8192, G 4), it
@@ -49,16 +53,23 @@ ENTRIES = ("paged_residual_attention_mixed",
            "paged_attention_mixed_base",
            "paged_attention_decode_base",
            "paged_attention_prefill_base")
-# Launches of each kernel, the int8 variants apart under "<entry>_int8".
-# ``chip_smoke.py`` zeroes these before it serves and reads them after, to
-# show the serving path went through the kernels.
+# Entries whose bf16 launches run the tensor-core kernel (bf16 or int8
+# pages); their f32 launches and every other entry run the template.
+MMA_ENTRIES = ("paged_attention_prefill_base",)
+# Launches of each kernel, the int8 variants apart under "<entry>_int8"
+# and the tensor-core kernel under "<entry>[_int8]_mma".  ``chip_smoke.py``
+# zeroes these before it serves and reads them after, to show the serving
+# path went through the kernels.
 LAUNCHES: Dict[str, int] = {
     **dict.fromkeys(ENTRIES, 0),
     **dict.fromkeys((f"{n}_int8" for n in ENTRIES), 0),
+    **dict.fromkeys((f"{n}{i}_mma" for n in MMA_ENTRIES
+                     for i in ("", "_int8")), 0),
 }
 
 SOURCE = "paged_residual_attention"
 MAX_ROWS = 64          # query rows (positions x group heads) per CTA
+MMA_ROWS = 128         # the same for the tensor-core kernel (8 warps)
 MAX_PAGE = 32
 MAX_RANK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -199,13 +210,33 @@ def _check_rows(start, q_len, bsz, dev):
             raise ValueError("q_len batch differs from q's")
 
 
-def _run(name: str, kb_scale, *args) -> None:
-    """Launch entry ``name``; the count goes to its int8 variant when the
-    pages carry scales."""
+def kernel_name(entry: str, dtype: torch.dtype, int8: bool) -> str:
+    """The kernel, by its launch counter, that entry ``entry`` runs with q
+    in ``dtype`` over int8 (``int8``) or full-precision pages: the
+    tensor-core kernel for bf16 launches of ``MMA_ENTRIES``, else the
+    template (f32 stays IEEE f32; the tensor cores have no such mode)."""
+    name = f"{entry}_int8" if int8 else entry
+    if entry in MMA_ENTRIES and dtype == torch.bfloat16:
+        return f"{name}_mma"
+    return name
+
+
+def tile_positions(entry: str, dtype: torch.dtype, group: int,
+                   sq: int) -> int:
+    """Query positions per CTA of the kernel that ``entry`` runs in
+    ``dtype``: its row budget (``MMA_ROWS`` for a tensor-core kernel, else
+    ``MAX_ROWS``) over the group, at most Sq."""
+    mma = kernel_name(entry, dtype, False).endswith("_mma")
+    return max(1, min(sq, (MMA_ROWS if mma else MAX_ROWS) // group))
+
+
+def _run(name: str, q, kb_scale, *args) -> None:
+    """Launch entry ``name``; the count goes to the kernel it ran
+    (``kernel_name``)."""
     err = getattr(_lib(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name if kb_scale is None else f"{name}_int8"] += 1
+    LAUNCHES[kernel_name(name, q.dtype, kb_scale is not None)] += 1
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -242,7 +273,7 @@ def paged_residual_attention_mixed(q, kb_pool, vb_pool, kr_pool, vr_pool,
     _check_rows(start, q_len, bsz, q.device)
     tq = max(1, min(sq, MAX_ROWS // g))
     out = torch.empty_like(q)
-    _run("paged_residual_attention_mixed", kb_scale, code, _ptr(q),
+    _run("paged_residual_attention_mixed", q, kb_scale, code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
          _ptr(bt_b), _ptr(bt_r), _ptr(start), _ptr(q_len), _ptr(kv_len),
@@ -271,7 +302,7 @@ def paged_residual_attention_decode(q, kb_pool, vb_pool, kr_pool, vr_pool,
     r = _check_residual(q, kr_pool, vr_pool, b_k, b_v, bt_r, bsz, hkv, d,
                         page, w)
     out = torch.empty_like(q)
-    _run("paged_residual_attention_decode", kb_scale, code, _ptr(q),
+    _run("paged_residual_attention_decode", q, kb_scale, code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
          _ptr(bt_b), _ptr(bt_r), _ptr(kv_len), _ptr(out), bsz, hq, hkv, d,
@@ -308,7 +339,7 @@ def paged_residual_attention_prefill(q, kb_pool, vb_pool, kr_pool, vr_pool,
     _check_rows(start, None, bsz, q.device)
     tq = max(1, min(sq, MAX_ROWS // g))
     out = torch.empty_like(q)
-    _run("paged_residual_attention_prefill", kb_scale, code, _ptr(q),
+    _run("paged_residual_attention_prefill", q, kb_scale, code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
          _ptr(bt_b), _ptr(bt_r), _ptr(start), _ptr(kv_len), _ptr(out), bsz,
@@ -332,7 +363,7 @@ def paged_attention_mixed_base(q, kb_pool, vb_pool, bt_b, start, q_len,
     _check_rows(start, q_len, bsz, q.device)
     tq = max(1, min(sq, MAX_ROWS // g))
     out = torch.empty_like(q)
-    _run("paged_attention_mixed_base", kb_scale, code, _ptr(q),
+    _run("paged_attention_mixed_base", q, kb_scale, code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(bt_b), _ptr(start), _ptr(q_len), _ptr(kv_len),
          _ptr(out), bsz, sq, hq, hkv, d, page, w, tq, float(scale),
@@ -353,7 +384,7 @@ def paged_attention_decode_base(q, kb_pool, vb_pool, bt_b, kv_len, *,
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
         decode=True)
     out = torch.empty_like(q)
-    _run("paged_attention_decode_base", kb_scale, code, _ptr(q),
+    _run("paged_attention_decode_base", q, kb_scale, code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(bt_b), _ptr(kv_len), _ptr(out), bsz, hq, hkv,
          d, page, w, float(scale), int(window), _stream(q))
@@ -375,9 +406,9 @@ def paged_attention_prefill_base(q, kb_pool, vb_pool, bt_b, start, kv_len,
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
         decode=False)
     _check_rows(start, None, bsz, q.device)
-    tq = max(1, min(sq, MAX_ROWS // g))
+    tq = tile_positions("paged_attention_prefill_base", q.dtype, g, sq)
     out = torch.empty_like(q)
-    _run("paged_attention_prefill_base", kb_scale, code, _ptr(q),
+    _run("paged_attention_prefill_base", q, kb_scale, code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(bt_b), _ptr(start), _ptr(kv_len), _ptr(out),
          bsz, sq, hq, hkv, d, page, w, tq, float(scale), int(window),

@@ -15,15 +15,21 @@ never falls back to the plain version; that lives in
 
 Bound on an H100.  A long causal prefill does ~4·G·D flops per (query,
 key) pair and kv head over keys it reads once per query tile: bound by
-operations (989 TFLOP/s bf16).  This first design runs f32 FMAs on the
-CUDA cores (67 TFLOP/s peak), so it stays far above that bound (later
-work: tensor-core tiles).  Decode does a few flops per byte of K/V: bound
-by bytes (3.35 TB/s); one CTA per (kv head, row) walks the whole cache, so
-a short batch leaves most SMs idle (later work: split-K over keys).
-Head dims 64, 128 and 256 are taken; a CTA holds 64 query rows at D <= 128
-and 32 at D 256 (``ROWS_BY_HEAD_DIM``), so its shared memory stays inside
-the card's 227 KB.  A rank too large for that budget at D 256 (above ~26)
-is refused by the launcher, and the wrapper raises.
+operations (989 TFLOP/s bf16).  A bf16 prefill runs a flash tile on the
+tensor cores (mma.sync, 128 query rows per CTA, K rebuilt per key block
+by an MMA with RoPE in registers; counted as
+``residual_attention_prefill_mma``); an f32 prefill runs the first,
+scalar design, f32 FMAs on the CUDA cores (67 TFLOP/s peak), which keeps
+f32 IEEE (the tensor cores have no such mode).  Decode does a few flops
+per byte of K/V: bound by bytes (3.35 TB/s); one CTA per (kv head, row)
+walks the whole cache, so a short batch leaves most SMs idle (later work:
+split-K over keys).  Head dims 64, 128 and 256 are taken; a CTA of the
+scalar kernel holds 64 query rows at D <= 128 and 32 at D 256
+(``ROWS_BY_HEAD_DIM``), so its shared memory stays inside the card's
+227 KB; the tensor-core kernel holds 128 (``MMA_ROWS``) at every
+head_dim.  A rank too large for the scalar kernel's budget at D 256
+(above ~26) is refused by its launcher, and the wrapper raises; the
+tensor-core kernel takes ranks up to 32 at every head_dim.
 Unlike the Pallas prefill, which pads Sq and Sk to multiples of 128 with
 copies, the kernel takes any Sq and Sk and masks the ragged edge itself.
 """
@@ -39,8 +45,12 @@ from repro_torch.kernels import _build
 
 # Launches of each kernel.  ``chip_smoke.py`` zeroes these before it drives
 # the dense model and reads them after, to show the path went through them.
+# A bf16 prefill runs the tensor-core kernel, counted apart under
+# ``residual_attention_prefill_mma``; f32 prefills and every decode run
+# the scalar kernels.
 LAUNCHES: Dict[str, int] = {
     "residual_attention_prefill": 0,
+    "residual_attention_prefill_mma": 0,
     "residual_attention_decode": 0,
 }
 
@@ -50,6 +60,9 @@ SOURCE = "residual_attention"
 # (``Layout`` in the source), which at D 256 and 64 rows would need ~280 KB
 # of the H100's 227 KB; 32 rows need ~203 KB at R 16.
 ROWS_BY_HEAD_DIM = {64: 64, 128: 64, 256: 32}
+# Query rows per CTA of the bf16 tensor-core prefill at every head_dim: 8
+# warps of 16 rows, its softmax state in registers.
+MMA_ROWS = 128
 MAX_RANK = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -107,10 +120,25 @@ def tile_rows(d: int, group: int) -> int:
     return rows
 
 
+def prefill_kernel(dtype: torch.dtype) -> str:
+    """The prefill kernel, by its launch counter, that q in ``dtype`` runs:
+    the tensor-core kernel for bf16, the scalar one for f32 (IEEE f32; the
+    tensor cores have no such mode)."""
+    return "residual_attention_prefill_mma" if dtype == torch.bfloat16 \
+        else "residual_attention_prefill"
+
+
+def tile_positions(d: int, group: int, sq: int, dtype: torch.dtype) -> int:
+    """Query positions per CTA of the prefill kernel that ``dtype`` runs:
+    its row budget over the group, at most Sq."""
+    mma = prefill_kernel(dtype).endswith("_mma")
+    return max(1, min(sq, (MMA_ROWS if mma else tile_rows(d, group)) //
+                      group))
+
+
 def _geometry(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len,
               window, decode: bool):
-    """Shared checks; returns (bsz, sq, sk, hq, hkv, d, r, rows per CTA,
-    dtype code)."""
+    """Shared checks; returns (bsz, sq, sk, hq, hkv, d, r, dtype code)."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{q.device}")
@@ -133,7 +161,7 @@ def _geometry(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len,
     r = k_res.shape[2]
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    rows = tile_rows(d, hq // hkv)
+    tile_rows(d, hq // hkv)
     if not 1 <= r <= MAX_RANK:
         raise ValueError(f"rank {r} not in [1, {MAX_RANK}]")
     if sk < 1:
@@ -153,14 +181,15 @@ def _geometry(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len,
     _check("cos", cos, dev, dt, (bsz, sk, d // 2))
     if kv_len is not None:
         _check("kv_len", kv_len, dev, torch.int32, (bsz,))
-    return bsz, sq, sk, hq, hkv, d, r, rows, _DTYPES[dt]
+    return bsz, sq, sk, hq, hkv, d, r, _DTYPES[dt]
 
 
-def _run(name: str, *args) -> None:
+def _run(name: str, counter: str, *args) -> None:
+    """Launch entry ``name``; the launch counts under ``counter``."""
     err = getattr(_lib(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[counter] += 1
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -188,13 +217,14 @@ def residual_attention_prefill(q, k_base, v_base, k_res, v_res, b_k, b_v,
     (``window`` > 0).  A row that sees no key comes back as zeros.
     Returns (B, Sq, Hq, D).  Bound: operations for long prefills (module
     docstring)."""
-    bsz, sq, sk, hq, hkv, d, r, rows, code = _geometry(
+    bsz, sq, sk, hq, hkv, d, r, code = _geometry(
         q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len, window,
         decode=False)
     _check("qpos", qpos, q.device, torch.int32, (bsz, sq))
-    tq = max(1, min(sq, rows // (hq // hkv)))
+    tq = tile_positions(d, hq // hkv, sq, q.dtype)
     out = torch.empty_like(q)
-    _run("residual_attention_prefill", code, _ptr(q), _ptr(k_base),
+    _run("residual_attention_prefill", prefill_kernel(q.dtype), code,
+         _ptr(q), _ptr(k_base),
          _ptr(v_base), _ptr(k_res), _ptr(v_res), _ptr(b_k), _ptr(b_v),
          _ptr(sin), _ptr(cos), _ptr(qpos), _ptr(kv_len), _ptr(out), bsz, sq,
          sk, hq, hkv, d, r, tq, float(scale), int(causal), int(window),
@@ -212,11 +242,12 @@ def residual_attention_decode(q, k_base, v_base, k_res, v_res, b_k, b_v,
 
     q: (B, Hq, D); the cache as :func:`residual_attention_prefill`.
     Returns (B, Hq, D).  Bound: bytes (module docstring)."""
-    bsz, _, sk, hq, hkv, d, r, _, code = _geometry(
+    bsz, _, sk, hq, hkv, d, r, code = _geometry(
         q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len, window,
         decode=True)
     out = torch.empty_like(q)
-    _run("residual_attention_decode", code, _ptr(q), _ptr(k_base),
+    _run("residual_attention_decode", "residual_attention_decode", code,
+         _ptr(q), _ptr(k_base),
          _ptr(v_base), _ptr(k_res), _ptr(v_res), _ptr(b_k), _ptr(b_v),
          _ptr(sin), _ptr(cos), _ptr(kv_len), _ptr(out), bsz, sk, hq, hkv, d,
          r, float(scale), int(window), _stream(q))

@@ -1,0 +1,333 @@
+"""The rounding plan of the tensor-core prefill kernels, checked on the CPU.
+
+The bf16 launches of the dense prefill (#7, ``residual_attention.cu``) and
+of the paged base-only chunked prefill (#6, ``paged_residual_attention.cu``,
+bf16 and int8 pages) run on the tensor cores, which take bf16 operands.
+``emulate`` below repeats, in plain torch and in this test only, what
+those kernels compute and where they round, key block by key block (64
+keys; 32 at head_dim 256):
+
+* the rebuilt K = K_b + RoPE(K_r . B_k), f32 then rounded once to bf16
+  (int8 pages: each element bf16(code * scale), the plain version's own
+  rounding point);
+* S = Q K^T in f32, the running max in the exp2 domain, P in f32 for the
+  row sum and rounded to bf16 as the A operand of P . V_b and P . V_r;
+* f32 accumulators, and at the end O_r rounded to bf16 for O_r . B_v;
+* O / max(l, 1e-20).
+
+With bf16 inputs it is held to the port's plain version (the card's
+yardstick) within 0.5% of the plain version's max |value|, half the 1%
+that ``chip_smoke.py`` holds the kernels to.  The emulation returns its
+f32 output, before the kernel's last rounding to bf16, which adds at most
+half a bf16 ulp (<= 0.2% of max |value| here) on the card.  With f32
+inputs and no rounding it is the same algorithm in f32, held to the JAX
+package's ``repro.kernels.ref`` within 1e-5.
+
+Geometries: Llama3-8B's heads (Hq 32, Hkv 8, D 128, R 16) and
+RecurrentGemma-9B's (Hq 16, Hkv 1, D 256, R 16), Sq = Sk = 200, causal
+with and without a window that straddles key blocks; the paged cases at
+Llama3-8B's heads, page 16, bf16 and int8 pages.  Also the routing by
+type: which kernel, by its launch counter, a bf16 or f32 launch runs.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.kernels import paged_residual_attention as tpra
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import residual_attention as tra
+from repro_torch.models.transformer import quantize_kv
+
+LOG2E = 1.4426950408889634
+HEADS = {"llama3-8b": (32, 8, 128, 16), "recurrentgemma-9b": (16, 1, 256, 16)}
+SEQ = 200
+WINDOWS = (0, 77)
+SHARE = 0.005        # half of chip_smoke's BF16_RTOL
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def key_block(d):
+    """Keys per block of the tensor-core kernels (``BK``)."""
+    return 32 if d == 256 else 64
+
+
+def emulate(q, k, v, qpos, kv_len, *, scale, window, res=None, lowp):
+    """The kernels' online softmax over key blocks.  q: (B, Sq, Hq, D);
+    k/v: (B, Sk, Hkv, D) f32 (K already rebuilt and rounded); qpos: (B, Sq);
+    kv_len: (B,); ``res`` = (v_res (B, Sk, R), b_v (B, R, Hkv*D)) for the
+    disaggregated kernel.  ``lowp`` rounds P and O_r to bf16 where the
+    tensor cores take them.  Returns the f32 output (B, Sq, Hq, D)."""
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if lowp else \
+        (lambda t: t)
+    bsz, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.float().reshape(bsz, sq, hkv, g, d)
+    m = torch.full((bsz, sq, hkv, g), -1e30)
+    l = torch.zeros(bsz, sq, hkv, g)
+    o = torch.zeros(bsz, sq, hkv, g, d)
+    orr = None if res is None else torch.zeros(bsz, sq, hkv, g,
+                                               res[0].shape[-1])
+    c = scale * LOG2E
+    bk = key_block(d)
+    for j0 in range(0, sk, bk):
+        sl = slice(j0, min(j0 + bk, sk))
+        kp = torch.arange(sk)[sl]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k[:, sl])
+        seen = (kp[None, None] < kv_len[:, None, None]) & \
+            (kp[None, None] <= qpos[..., None])
+        if window:
+            seen &= kp[None, None] > qpos[..., None] - window
+        s = torch.where(seen[:, :, None, None], s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        m = m_new
+        o = o * alpha[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", rnd(p),
+                                                v[:, sl])
+        if res is not None:
+            orr = orr * alpha[..., None] + torch.einsum(
+                "bqhgk,bkr->bqhgr", rnd(p), res[0][:, sl].float())
+    if res is not None:
+        b_v = res[1].float().reshape(bsz, -1, hkv, d)
+        o = o + torch.einsum("bqhgr,brhd->bqhgd", rnd(orr), b_v)
+    o = o / torch.clamp(l, min=1e-20)[..., None]
+    return o.reshape(bsz, sq, hq, d)
+
+
+def rebuild_k(k_base, k_res, b_k, sin, cos, lowp):
+    """K = K_b + RoPE(K_r . B_k) in f32, rounded once to bf16 (``lowp``)."""
+    bsz, sk, hkv, d = k_base.shape
+    kl = torch.einsum("bsr,brn->bsn", k_res.float(),
+                      b_k.float()).reshape(bsz, sk, hkv, d)
+    x1, x2 = kl[..., :d // 2], kl[..., d // 2:]
+    sn, cs = sin.float()[:, :, None], cos.float()[:, :, None]
+    k = k_base.float() + torch.cat([x1 * cs - x2 * sn, x2 * cs + x1 * sn],
+                                   -1)
+    return k.to(torch.bfloat16).float() if lowp else k
+
+
+def dense_inputs(model, seed):
+    hq, hkv, d, r = HEADS[model]
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    bsz = 2
+    inv = 1.0 / (10_000.0 ** (np.arange(d // 2, dtype=np.float32) /
+                              (d // 2)))
+    ang = np.arange(SEQ, dtype=np.float32)[:, None] * inv
+    tab = lambda t: np.broadcast_to(t, (bsz, SEQ, d // 2)).copy()  # noqa
+    return dict(
+        q=f(bsz, SEQ, hq, d), k_base=f(bsz, SEQ, hkv, d),
+        v_base=f(bsz, SEQ, hkv, d), k_res=f(bsz, SEQ, r) * 0.3,
+        v_res=f(bsz, SEQ, r) * 0.3, b_k=f(bsz, r, hkv * d) * 0.3,
+        b_v=f(bsz, r, hkv * d) * 0.3, sin=tab(np.sin(ang)),
+        cos=tab(np.cos(ang)),
+        qpos=np.broadcast_to(np.arange(SEQ, dtype=np.int32),
+                             (bsz, SEQ)).copy(),
+        # the second row's cache holds fewer valid keys than Sk
+        kv_len=np.asarray([SEQ, SEQ - 37], np.int32))
+
+
+_CACHE = ("k_base", "v_base", "k_res", "v_res", "b_k", "b_v", "sin", "cos")
+
+
+def emulate_dense(t, window, lowp):
+    d = t["q"].shape[-1]
+    k = rebuild_k(t["k_base"], t["k_res"], t["b_k"], t["sin"], t["cos"],
+                  lowp)
+    return emulate(t["q"], k, t["v_base"].float(), t["qpos"].long(),
+                   t["kv_len"].long(), scale=d ** -0.5, window=window,
+                   res=(t["v_res"], t["b_v"]), lowp=lowp)
+
+
+def rows_seeing_a_key(t, window):
+    """(B, Sq) rows that see at least one key (the rest average V in the
+    plain versions and are 0 in the kernels)."""
+    qp, kvl = t["qpos"].long(), t["kv_len"].long()[:, None]
+    lo = torch.clamp(qp - window + 1, min=0) if window else \
+        torch.zeros_like(qp)
+    return lo <= torch.minimum(qp, kvl - 1)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("model", list(HEADS))
+def test_dense_rounding_plan_holds_half_the_bf16_gate(model, window):
+    inp = dense_inputs(model, seed=11)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    bf = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+          for k, v in t.items()}
+    d = t["q"].shape[-1]
+    want = tref.residual_attention_ref(
+        bf["q"], *[bf[k] for k in _CACHE], qpos=bf["qpos"],
+        kv_len=bf["kv_len"], window=window, scale=d ** -0.5).float()
+    got = emulate_dense(bf, window, lowp=True)
+    rows = rows_seeing_a_key(t, window)
+    err = (got - want)[rows].abs().max().item()
+    assert err <= SHARE * want[rows].abs().max().item()
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("model", list(HEADS))
+def test_dense_algorithm_matches_jax_in_f32(model, window):
+    inp = dense_inputs(model, seed=12)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    d = t["q"].shape[-1]
+    got = emulate_dense(t, window, lowp=False).numpy()
+    want = np.asarray(jref.residual_attention_ref(
+        *[jnp.asarray(inp[k]) for k in ("q",) + _CACHE],
+        qpos=jnp.asarray(inp["qpos"]), kv_len=jnp.asarray(inp["kv_len"]),
+        window=window, scale=d ** -0.5))
+    rows = rows_seeing_a_key(t, window).numpy()
+    np.testing.assert_allclose(got[rows], want[rows], atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------- paged
+PAGE = 16
+START, N_VALID = [0, 40], [SEQ, 150]     # a full chunk, a padded one
+
+
+def paged_inputs(seed):
+    hq, hkv, d, _ = HEADS["llama3-8b"]
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    bsz = len(START)
+    width = (max(s + n for s, n in zip(START, N_VALID)) + PAGE - 1) // PAGE
+    pool = bsz * width + 3
+    bt = rng.permutation(pool)[:bsz * width].reshape(bsz, width)
+    return dict(q=f(bsz, SEQ, hq, d), kb=f(pool, PAGE, hkv, d),
+                vb=f(pool, PAGE, hkv, d), bt_b=bt.astype(np.int32),
+                start=np.asarray(START, np.int32),
+                kv_len=np.asarray([s + n for s, n in zip(START, N_VALID)],
+                                  np.int32))
+
+
+def emulate_paged(t, window, lowp, ks=None, vs=None):
+    """The paged kernel: pages gathered by position (int8: dequantized to
+    q's type first, as the plain version's gather does), then ``emulate``
+    without the residual stream; rows at or past n_valid are zeros."""
+    bsz, sq, _, d = t["q"].shape
+    hkv = t["kb"].shape[2]
+    bt = t["bt_b"].long()
+    sk = bt.shape[1] * PAGE
+
+    def gather(pool, sc):
+        x = pool[bt].reshape(bsz, sk, hkv, d)
+        if sc is not None:
+            x = (x.float() * sc[bt].reshape(bsz, sk, hkv)[..., None]).to(
+                t["q"].dtype)
+        return x.float()
+
+    qpos = t["start"].long()[:, None] + torch.arange(sq)[None]
+    out = emulate(t["q"], gather(t["kb"], ks), gather(t["vb"], vs), qpos,
+                  t["kv_len"].long(), scale=d ** -0.5, window=window,
+                  lowp=lowp)
+    valid = torch.arange(sq)[None] < torch.tensor(N_VALID)[:, None]
+    return out * valid[:, :, None, None]
+
+
+def valid_rows():
+    return torch.arange(SEQ)[None] < torch.tensor(N_VALID)[:, None]
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_paged_rounding_plan_holds_half_the_bf16_gate(pages, window):
+    inp = paged_inputs(seed=13)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    for k in ("q", "kb", "vb"):
+        t[k] = t[k].to(torch.bfloat16)
+    ks = vs = None
+    if pages == "int8":
+        (t["kb"], ks), (t["vb"], vs) = quantize_kv(t["kb"]), \
+            quantize_kv(t["vb"])
+    want = tref.paged_residual_attention_prefill_ref(
+        t["q"], t["kb"], t["vb"], None, None, None, None, t["bt_b"], None,
+        t["start"], t["kv_len"], window=window, kb_scale=ks,
+        vb_scale=vs).float()
+    got = emulate_paged(t, window, lowp=True, ks=ks, vs=vs)
+    rows = valid_rows()
+    err = (got - want)[rows].abs().max().item()
+    assert err <= SHARE * want[rows].abs().max().item()
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("pages", ["f32", "int8"])
+def test_paged_algorithm_matches_jax_in_f32(pages, window):
+    inp = paged_inputs(seed=14)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    ks = vs = None
+    if pages == "int8":
+        (t["kb"], ks), (t["vb"], vs) = quantize_kv(t["kb"]), \
+            quantize_kv(t["vb"])
+    got = emulate_paged(t, window, lowp=False, ks=ks, vs=vs).numpy()
+    j = lambda x: None if x is None else jnp.asarray(x.numpy())  # noqa
+    want = np.asarray(jref.paged_residual_attention_prefill_ref(
+        j(t["q"]), j(t["kb"]), j(t["vb"]), None, None, None, None,
+        j(t["bt_b"]), None, j(t["start"]), j(t["kv_len"]), window=window,
+        kb_scale=j(ks), vb_scale=j(vs)))
+    rows = valid_rows().numpy()
+    np.testing.assert_allclose(got[rows], want[rows], atol=1e-5, rtol=1e-5)
+
+
+
+# ------------------------------------------------------------- routing
+@pytest.mark.parametrize("dtype,int8,want", [
+    (torch.bfloat16, False, "paged_attention_prefill_base_mma"),
+    (torch.bfloat16, True, "paged_attention_prefill_base_int8_mma"),
+    (torch.float32, False, "paged_attention_prefill_base"),
+    (torch.float32, True, "paged_attention_prefill_base_int8"),
+])
+def test_paged_prefill_base_routes_by_dtype(dtype, int8, want):
+    """bf16 launches of #6 (bf16 or int8 pages) go to the tensor-core
+    kernel and are counted apart; f32 ones stay on the template."""
+    got = tpra.kernel_name("paged_attention_prefill_base", dtype, int8)
+    assert got == want and got in tpra.LAUNCHES
+
+
+@pytest.mark.parametrize("entry", [e for e in tpra.ENTRIES
+                                   if e not in tpra.MMA_ENTRIES])
+def test_other_paged_entries_keep_the_template(entry):
+    for dtype in (torch.bfloat16, torch.float32):
+        assert tpra.kernel_name(entry, dtype, False) == entry
+        assert tpra.kernel_name(entry, dtype, True) == f"{entry}_int8"
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, "residual_attention_prefill_mma"),
+    (torch.float32, "residual_attention_prefill"),
+])
+def test_dense_prefill_routes_by_dtype(dtype, want):
+    assert tra.prefill_kernel(dtype) == want and want in tra.LAUNCHES
+
+
+@pytest.mark.parametrize("d,group,sq,dtype,positions", [
+    (128, 4, 1000, torch.bfloat16, 32),    # Llama3-8B: 128 rows
+    (256, 16, 1000, torch.bfloat16, 8),    # RecurrentGemma-9B: 128 rows
+    (256, 16, 1000, torch.float32, 2),     # the scalar kernel: 32 at D 256
+    (128, 4, 1000, torch.float32, 16),     # and 64 at D 128
+    (128, 64, 5, torch.bfloat16, 2),
+    (64, 4, 3, torch.bfloat16, 3),         # at most Sq
+])
+def test_tile_positions_by_kernel(d, group, sq, dtype, positions):
+    assert tra.tile_positions(d, group, sq, dtype) == positions
+
+
+@pytest.mark.parametrize("dtype,positions", [(torch.bfloat16, 32),
+                                             (torch.float32, 16)])
+def test_paged_tile_positions_by_kernel(dtype, positions):
+    """#6 in bf16: 128 rows per CTA (Llama3-8B's G 4: 32 positions); the
+    template: 64 rows."""
+    assert tpra.tile_positions("paged_attention_prefill_base", dtype, 4,
+                               2048) == positions
+    assert tpra.tile_positions("paged_attention_mixed_base", dtype, 4,
+                               2048) == 16
