@@ -13,9 +13,12 @@ error:
    one process per source, all started together; one line per kernel
    with its registers, stack and spill bytes from ptxas;
 3. kernels: every launch is checked to have run the kernel its type
-   routes it to (bf16 launches of the chunked base-only prefill #6 and of
-   the dense prefill #7: their tensor-core kernels, counted as
-   ``<entry>[_int8]_mma``; f32 launches: the scalar kernels);
+   routes it to (bf16 launches of the base-only chunked prefill #6 and
+   mixed grid #3 and of the dense prefill #7: their tensor-core kernels,
+   counted as ``<entry>[_int8]_mma``; every launch of the base-only decode
+   #4: the split-K decode, ``<entry>[_int8]_splitk``, whose split count,
+   grid and workspace bytes each record logs; f32 launches of the others:
+   the scalar kernels);
    the six paged attention kernels (mixed, decode and chunked
    prefill, each disaggregated and base-only) and their six int8 variants
    (int8 pages quantized by the port's ``quantize_kv``, with f32 scales)
@@ -26,9 +29,13 @@ error:
    yardstick; an int8 variant must also stay within 5% of the plain
    version on the full-precision pages; the prefill cases hold a chunk
    starting mid-page, padded chunks and a padding row with n_valid = 0,
-   and run with and without a window that straddles pages; #6 (and its
-   int8 variant) also at page sizes 8 and 32, head_dim 64 and a group of
-   64 heads.  Then the two dense kernels (prefill and decode over
+   and run with and without a window that straddles pages; #6 and #3 and
+   #4 (and their int8 variants) also at page sizes 8 and 32, head_dim 64
+   and a group of 64 heads, #4 also on one row at kv_len 32768 over 2048
+   pages and on rows at kv_len 0, 1 and 17 beside a 2048 row (a window of
+   300 leaves some of their splits empty); an all-decode mixed-grid launch
+   is timed beside #4 on the same rows, and #4 on rows at kv_len 1 (its
+   launch floor).  Then the two dense kernels (prefill and decode over
    contiguous caches) at the CPU tests' cases with R 16 at D 128 (MHA,
    GQA, MQA) and at D 256 (RecurrentGemma-9B's MQA with G 16, and GQA):
    window 0 and 5; a chunk at an offset; kv_len None; Sq and Sk of 150;
@@ -66,9 +73,9 @@ error:
    and never through a plain version, and every launch's geometry is
    recorded.  The four staggered serves again with int8 bCache pages
    (only int8 variants may launch), with peak pages and bytes per page;
-   in bf16 (int8 pages too) the prefix phase-separated serves and the
-   broadcast pass must run #6's tensor-core kernel and never its template
-   instance;
+   in bf16 (int8 pages too) the prefix serves and the broadcast pass must
+   run #6's and #3's tensor-core kernels and never their template
+   instances, and in every type #4 only as the split-K decode;
    then the staggered serve in bf16 at ``max_pages`` 640 (between
    forkkv's peak of 169 base pages and prefix's 937) with a 4 GiB host
    tier, in both modes: every fork finishes, prefix demotes pages, tier
@@ -106,8 +113,9 @@ error:
    of its first launch at each shape of 5. (f32, timed) and on the same
    inputs in bf16;
 7. the kernels line (#1–#6, their int8 variants, #7–#9, each named by the
-   counter of the kernel the bf16 main path ran: ``_mma`` for #6, its int8
-   variant and #7), the card line and the result line.
+   counter of the kernel the bf16 main path ran: ``_mma`` for #3, #6, their
+   int8 variants and #7, ``_splitk`` for #4 and its int8 variant), the card
+   line and the result line.
 """
 import dataclasses
 import itertools
@@ -449,7 +457,10 @@ def compare(pra, ref, name, c, tol, case):
     ``QUANT_TOL`` of the plain version on the full-precision pages.
     The launch must have gone to the kernel ``pra.kernel_name`` names (a
     bf16 launch of a tensor-core entry to its ``_mma`` kernel, f32 to the
-    template).  Returns the record to log."""
+    template; the base-only decode to its ``_splitk`` kernel, whose split
+    count, grid and workspace bytes the record carries).  A decode row
+    at kv_len 0 (q_len 0) must come back 0 and is not compared.  Returns
+    the record to log."""
     before = dict(pra.LAUNCHES)
     got = kernel_call(pra, name, c)()
     ran = launched(pra, before)
@@ -464,22 +475,27 @@ def compare(pra, ref, name, c, tol, case):
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name} {case}: non-finite output")
-    if c["kind"] != "decode":
-        sq = got.shape[1]
-        rows = torch.arange(sq, device=got.device)[None] < \
-            torch.tensor(c["qlen_l"], device=got.device)[:, None]
-        pad = got[~rows]
-        if pad.numel() and pad.abs().max().item() != 0.0:
-            raise AssertionError(f"{name} {case}: a row past q_len is "
-                                 f"not 0")
-        got, want = got[rows], want[rows]
-        full = None if full is None else full[rows]
+    qlen = torch.tensor(c["qlen_l"], device=got.device)
+    # (B, Sq) rows below q_len; a decode row sees no key at kv_len 0 (q_len
+    # 0 here), where the kernel gives 0 and the plain version averages V
+    rows = qlen > 0 if c["kind"] == "decode" else \
+        torch.arange(got.shape[1], device=got.device)[None] < qlen[:, None]
+    pad = got[~rows]
+    if pad.numel() and pad.abs().max().item() != 0.0:
+        raise AssertionError(f"{name} {case}: a row past q_len is not 0")
+    got, want = got[rows], want[rows]
+    full = None if full is None else full[rows]
     err = (got.float() - want.float()).abs().max().item()
     ref_max = want.float().abs().max().item()
     limit = tol * ref_max if c["dtype"] == torch.bfloat16 else tol
     rec = dict(kernel=name, ran=kernel, dtype=str(c["dtype"]).split(".")[1],
                case=case, window=c["window"], max_abs_err=err,
                ref_max_abs=ref_max, limit=limit)
+    if kernel.endswith("_splitk"):
+        g, (bsz, width) = c["geom"], c["bt_b"].shape
+        rec["split"] = pra.split_plan(
+            bsz, g["hq"], g["hkv"], g["d"], width, g["page"],
+            torch.cuda.get_device_properties(0).multi_processor_count)
     if full is not None:
         rec["vs_full_precision"] = (got.float() - full.float()).abs().max(
         ).item() / full.float().abs().max().item()
@@ -529,36 +545,84 @@ def check_kernels(pra, ref, quantize, kernels=ALL_KERNELS):
                 torch.cuda.empty_cache()
 
 
-# #6 at the edges of its tensor-core tile (bf16; the same cases in f32 run
-# the template): page sizes 8 and 32, head_dim 64, and a group of 64 heads
-# (one position per tile), on the fixed prefill rows with block tables
-# covering their 2048 positions
+# #6 and #3 at the edges of their tensor-core tile (bf16; the same cases in
+# f32 run the template) and #4 at the same geometries (the split-K decode in
+# both types): page sizes 8 and 32, head_dim 64, and a group of 64 heads
+# (one position per tile), on the fixed rows with block tables covering
+# their 2048 positions
 PREFILL_EDGES = {
     "page 8": dict(LLAMA_GEOM, page=8),
     "page 32": dict(LLAMA_GEOM, page=32),
     "D 64": dict(LLAMA_GEOM, d=64),
     "G 64, D 64": dict(hq=64, hkv=1, d=64, r=16, page=16),
 }
+# (label, geometry, rows, table width) of #3's edges: the fixed mixed rows at
+# each geometry
+MIXED_EDGES = [(label, geom, FIXED["mixed"], 2048 // geom["page"])
+               for label, geom in PREFILL_EDGES.items()]
+# #4's edges: the fixed decode rows at each geometry; one row at kv_len
+# 32768 over 2048 pages (what split-K is for); rows at kv_len 0, 1 and 17
+# beside a 2048 row.  Every one runs again with a window of 300, which
+# leaves some of a long row's splits without a key.
+DECODE_EDGES = [(label, geom, FIXED["decode"], 2048 // geom["page"])
+                for label, geom in PREFILL_EDGES.items()] + [
+    ("long row", LLAMA_GEOM, dict(start=[32767], qlen=[1], sq=1), 2048),
+    ("kv_len 2048, 0, 1, 17", LLAMA_GEOM,
+     dict(start=[2047, 0, 0, 16], qlen=[1, 0, 1, 1], sq=1), 128),
+]
 
 
-def check_prefill_edges(pra, ref, quantize):
-    """Phase 3: the base-only chunked prefill (#6) and its int8 variant at
-    ``PREFILL_EDGES``, f32 and bf16, without and with a window."""
-    for label, geom in PREFILL_EDGES.items():
-        width = 2048 // geom["page"]
+def check_edges(pra, ref, quantize):
+    """Phase 3: the base-only chunked prefill (#6) at ``PREFILL_EDGES``, the
+    mixed grid (#3) at ``MIXED_EDGES`` and the decode (#4) at
+    ``DECODE_EDGES``, each with its int8 variant, f32 and bf16, without and
+    with a window."""
+    sets = [("paged_attention_prefill_base", label, geom,
+             dict(FIXED["prefill"], width=2048 // geom["page"]))
+            for label, geom in PREFILL_EDGES.items()]
+    sets += [("paged_attention_mixed_base", label, geom, dict(rows, width=w))
+             for label, geom, rows, w in MIXED_EDGES]
+    sets += [("paged_attention_decode_base", label, geom, dict(rows, width=w))
+             for label, geom, rows, w in DECODE_EDGES]
+    for entry, label, geom, rows in sets:
+        kind = KERNELS[entry][0]
         for dtype, tol in DTYPES:
             for window in (0, 300):
                 for quant in (False, True):
-                    name = "paged_attention_prefill_base" + (
-                        "_int8" if quant else "")
-                    c = make_case("prefill", dtype, window, seed=7,
+                    name = entry + ("_int8" if quant else "")
+                    c = make_case(kind, dtype, window, seed=7,
                                   quantize=quantize if quant else None,
-                                  geom=geom, **dict(FIXED["prefill"],
-                                                    width=width))
+                                  geom=geom, **rows)
                     log("kernel", **compare(pra, ref, name, c, tol,
                                             f"edge {label}"), ok=True)
                     del c
         torch.cuda.empty_cache()
+
+
+def time_decode_launches(pra, ref, quantize):
+    """Phase 3, bf16, bf16 and int8 pages: a mixed-grid launch (#3) whose
+    rows are all decode rows (the fixed decode rows, Sq 1) fills G of the
+    tensor-core tile's 128 rows: its time beside the decode kernel's (#4)
+    on the same rows; and #4's floor, 8 rows at kv_len 1 over 133-page
+    tables (two launches and a chain of dependent loads, next to no
+    bytes)."""
+    floor = dict(start=[0] * 8, qlen=[1] * 8, sq=1, width=133)
+    for quant in (False, True):
+        rec = {}
+        for label, entry, rows in (
+                ("mixed", "paged_attention_mixed_base", FIXED["decode"]),
+                ("decode", "paged_attention_decode_base", FIXED["decode"]),
+                ("decode floor", "paged_attention_decode_base", floor)):
+            name = entry + ("_int8" if quant else "")
+            c = make_case(KERNELS[entry][0], torch.bfloat16, 0, seed=8,
+                          quantize=quantize if quant else None, **rows)
+            r = compare(pra, ref, name, c, BF16_RTOL, label)
+            rec[label] = dict(ran=r["ran"], max_abs_err=r["max_abs_err"],
+                              kernel_ms=time_ms(kernel_call(pra, name, c)),
+                              bound_ms=work(name, c)[0])
+            del c
+        log("decode_launches", pages="int8" if quant else "bf16", **rec,
+            ok=True)
 
 
 def check_serving_shapes(pra, ref, recorded, quantize):
@@ -1586,9 +1650,10 @@ def check_serving(outs, m, max_new, mixed=True, gather=False):
 def check_counts(pra, ref, expect_kernels, dtype):
     """The launches of the serve just run (the counts were zeroed before
     it): every kernel in ``expect_kernels`` launched, no plain version ran,
-    and in bf16 no template instance of an entry whose bf16 launches run a
-    tensor-core kernel (``pra.MMA_ENTRIES``).  Returns every kernel's
-    non-zero count."""
+    no template instance of an entry that runs the split-K decode
+    (``pra.SPLIT_ENTRIES``) in any type, and in bf16 none of an entry whose
+    bf16 launches run a tensor-core kernel (``pra.MMA_ENTRIES``).  Returns
+    every kernel's non-zero count."""
     ran = {k: v for k, v in pra.LAUNCHES.items() if v}
     missing = [k for k in expect_kernels if k not in ran]
     if missing:
@@ -1596,10 +1661,13 @@ def check_counts(pra, ref, expect_kernels, dtype):
     if any(ref.LAUNCHES.values()):
         raise AssertionError(f"plain versions ran on the card: "
                              f"{ref.LAUNCHES}")
-    scalar = [k for k in ran if k.removesuffix("_int8") in pra.MMA_ENTRIES]
-    if dtype == torch.bfloat16 and scalar:
-        raise AssertionError(f"bf16 serve ran the template instead of the "
-                             f"tensor-core kernel: {scalar}")
+    # a template launch counts under the entry's own name (+ "_int8")
+    template = [k for k in ran if k.removesuffix("_int8") in (
+        pra.SPLIT_ENTRIES + (pra.MMA_ENTRIES if dtype == torch.bfloat16
+                             else ()))]
+    if template:
+        raise AssertionError(f"{dtype} serve ran the template instead of the "
+                             f"split-K or tensor-core kernel: {template}")
     return ran
 
 
@@ -1663,8 +1731,10 @@ class LaunchShapes:
 
 # (label, mode, ServeConfig settings, entries that must launch) of the
 # staggered Llama3-8B serves; ``run`` maps each entry to the kernel it runs
-# for the model (``pra.kernel_name``: bf16 prefix phase-separated serves
-# run #6's tensor-core kernel, ``paged_attention_prefill_base_mma``)
+# for the model (``pra.kernel_name``: bf16 prefix serves run #3's and #6's
+# tensor-core kernel, ``paged_attention_{mixed,prefill}_base_mma``, and
+# every prefix serve #4's split-K decode,
+# ``paged_attention_decode_base_splitk``)
 LLAMA_SERVES = (
     ("forkkv", "forkkv", {}, ("paged_residual_attention_mixed",
                               "paged_residual_attention_decode")),
@@ -1758,11 +1828,12 @@ def small_model_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig,
                 check_serving(outs, m, 6, mixed=sc.mixed_batching,
                               gather=not sc.use_paged_kernel)
                 ran = {k for k, v in pra.LAUNCHES.items() if v}
-                # f32: the template instances only, never a "_mma" kernel
+                # f32: the kernels f32 routes to (template instances and
+                # the split-K decode), never a "_mma" kernel
+                f32 = {pra.kernel_name(e, torch.float32, quant == "int8")
+                       for e in pra.ENTRIES}
                 if dev == "cuda" and sc.use_paged_kernel and (
-                        not ran or any(("_int8" in k) != (
-                            quant == "int8") or k.endswith("_mma")
-                            for k in ran)):
+                        not ran or not ran <= f32):
                     raise AssertionError(f"kv_quant {quant} {mode} {extra} "
                                          f"launched {sorted(ran)}")
                 toks[dev] = [o.tokens for o in outs]
@@ -1962,7 +2033,8 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     check_kernels(pra, ref, tfm.quantize_kv)
-    check_prefill_edges(pra, ref, tfm.quantize_kv)
+    check_edges(pra, ref, tfm.quantize_kv)
+    time_decode_launches(pra, ref, tfm.quantize_kv)
     check_dense_kernels(ra, ref)
     check_scan_kernels(rg, ref)
 
@@ -2127,8 +2199,8 @@ def main() -> int:
     # heaviest serving launch, the dense kernels at Llama3-8B's (D 128) and
     # at RecurrentGemma-9B's (D 256, "_d256") first main-path launch, the
     # scan at the hybrid forward's.  Each kernel is named by its launch
-    # counter on the bf16 main path: #6 and #7 by their tensor-core
-    # kernels ("_mma").
+    # counter on the bf16 main path: #3, #6 and #7 by their tensor-core
+    # kernels ("_mma"), #4 by its split-K decode ("_splitk").
     kernels = []
     entries = []              # (name, measured, launches, replaces, ...)
     for n, (_, r) in ALL_KERNELS.items():

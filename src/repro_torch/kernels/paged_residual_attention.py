@@ -22,20 +22,31 @@ reads each page once for all G query heads of its kv head and rebuilds K
 on chip, so the residual adds only R/(Hkv·D) of the base bytes.  A long
 prefill row does ~4·tq·G·D flops per token of each page it reads and is
 bound by operations; the template runs them as f32 FMAs on the CUDA
-cores (67 TFLOP/s peak), far from the 989 TFLOP/s bound.  A bf16 launch
-of the base-only chunked prefill (``MMA_ENTRIES``, bf16 or int8 pages)
-runs a flash tile on the tensor cores instead (mma.sync, 128 query rows
-per CTA, 64-key blocks gathered through the block table; counted as
-``<entry>[_int8]_mma``); the other entries follow (later work, as are
-wgmma, TMA and split-K over pages), and f32 stays on the template.
-The chunked prefill is the same: operations for long chunks, bytes for
-short ones.  Unlike the Pallas prefill, which holds all G·chunk query rows
-of a (row, kv head) in VMEM (16 MB of accumulator at chunk 8192, G 4), it
-tiles query positions like the mixed grid and skips the tiles at or past
-a row's valid count, so a padded chunk costs only its valid rows.  int8
-pages halve the base bytes of a bf16 page (plus 4 bytes of scale per token
-and head), which is what a bytes-bound decode gains; the kernel reads them
-one byte per load, and packing four per load is later work.
+cores (67 TFLOP/s peak), far from the 989 TFLOP/s bound.  Two designs
+replace the template where it lost most:
+
+* a bf16 launch of the base-only chunked prefill and of the base-only
+  mixed grid (``MMA_ENTRIES``, bf16 or int8 pages) runs a flash tile on
+  the tensor cores (mma.sync, 128 query rows per CTA, 64-key blocks
+  gathered through the block table; counted as ``<entry>[_int8]_mma``);
+* every launch of the base-only decode (``SPLIT_ENTRIES``, any type) runs
+  a split-K kernel: each row's live keys are cut into ``decode_splits``
+  shares of 64-key multiples, one CTA each for up to 8 query heads, with
+  16-byte loads (8 bytes of int8 codes) of several keys in flight per
+  lane, and a second kernel combines the shares' f32 partials from a
+  workspace (counted as ``<entry>[_int8]_splitk``).  A CUDA tensor never
+  reaches the template through this entry.
+
+The disaggregated entries (#1, #2, #5) follow (later work, as are wgmma
+and TMA), and f32 launches of the tensor-core entries stay on the
+template.  The chunked prefill is the same: operations for long chunks,
+bytes for short ones.  Unlike the Pallas prefill, which holds all G·chunk
+query rows of a (row, kv head) in VMEM (16 MB of accumulator at chunk
+8192, G 4), it tiles query positions like the mixed grid and skips the
+tiles at or past a row's valid count, so a padded chunk costs only its
+valid rows.  int8 pages halve the base bytes of a bf16 page (plus 4 bytes
+of scale per token and head), which is what a bytes-bound decode gains;
+the template reads them one byte per load.
 """
 from __future__ import annotations
 
@@ -54,25 +65,46 @@ ENTRIES = ("paged_residual_attention_mixed",
            "paged_attention_decode_base",
            "paged_attention_prefill_base")
 # Entries whose bf16 launches run the tensor-core kernel (bf16 or int8
-# pages); their f32 launches and every other entry run the template.
-MMA_ENTRIES = ("paged_attention_prefill_base",)
-# Launches of each kernel, the int8 variants apart under "<entry>_int8"
-# and the tensor-core kernel under "<entry>[_int8]_mma".  ``chip_smoke.py``
-# zeroes these before it serves and reads them after, to show the serving
-# path went through the kernels.
+# pages); their f32 launches run the template.
+MMA_ENTRIES = ("paged_attention_prefill_base", "paged_attention_mixed_base")
+# Entries whose every launch runs the split-K decode.
+SPLIT_ENTRIES = ("paged_attention_decode_base",)
+
+
+def kernel_name(entry: str, dtype: torch.dtype, int8: bool) -> str:
+    """The kernel, by its launch counter, that entry ``entry`` runs with q
+    in ``dtype`` over int8 (``int8``) or full-precision pages: the split-K
+    decode for ``SPLIT_ENTRIES`` in every type, the tensor-core kernel for
+    bf16 launches of ``MMA_ENTRIES``, else the template (f32 stays IEEE
+    f32; the tensor cores have no such mode)."""
+    name = f"{entry}_int8" if int8 else entry
+    if entry in SPLIT_ENTRIES:
+        return f"{name}_splitk"
+    if entry in MMA_ENTRIES and dtype == torch.bfloat16:
+        return f"{name}_mma"
+    return name
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Launches of each kernel, the int8 variants apart under "<entry>_int8",
+# the tensor-core kernel under "<entry>[_int8]_mma" and the split-K decode
+# under "<entry>[_int8]_splitk".  ``chip_smoke.py`` zeroes these before it
+# serves and reads them after, to show the serving path went through the
+# kernels.
 LAUNCHES: Dict[str, int] = {
-    **dict.fromkeys(ENTRIES, 0),
-    **dict.fromkeys((f"{n}_int8" for n in ENTRIES), 0),
-    **dict.fromkeys((f"{n}{i}_mma" for n in MMA_ENTRIES
-                     for i in ("", "_int8")), 0),
-}
+    kernel_name(e, dt, i8): 0
+    for i8 in (False, True) for e in ENTRIES for dt in _DTYPES}
 
 SOURCE = "paged_residual_attention"
 MAX_ROWS = 64          # query rows (positions x group heads) per CTA
 MMA_ROWS = 128         # the same for the tensor-core kernel (8 warps)
 MAX_PAGE = 32
 MAX_RANK = 32
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_KEYS = 64        # a decode split's share of keys: multiples of this
+SPLIT_HEADS = 8        # query heads per split-K CTA, at most
+# resident split-K CTAs per SM, by query heads per CTA: the kernel's
+# __launch_bounds__ minimum (min_blocks in the .cu)
+SPLIT_CTAS_PER_SM = {1: 4, 2: 4, 4: 4, 8: 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -85,7 +117,7 @@ _SIGNATURES = {
     "paged_attention_mixed_base":
         [_I] + [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     "paged_attention_decode_base":
-        [_I] + [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+        [_I] + [_P] * 11 + [_I] * 7 + [_F, _I, _P],
     "paged_attention_prefill_base":
         [_I] + [_P] * 9 + [_I] * 8 + [_F, _I, _P],
 }
@@ -210,17 +242,6 @@ def _check_rows(start, q_len, bsz, dev):
             raise ValueError("q_len batch differs from q's")
 
 
-def kernel_name(entry: str, dtype: torch.dtype, int8: bool) -> str:
-    """The kernel, by its launch counter, that entry ``entry`` runs with q
-    in ``dtype`` over int8 (``int8``) or full-precision pages: the
-    tensor-core kernel for bf16 launches of ``MMA_ENTRIES``, else the
-    template (f32 stays IEEE f32; the tensor cores have no such mode)."""
-    name = f"{entry}_int8" if int8 else entry
-    if entry in MMA_ENTRIES and dtype == torch.bfloat16:
-        return f"{name}_mma"
-    return name
-
-
 def tile_positions(entry: str, dtype: torch.dtype, group: int,
                    sq: int) -> int:
     """Query positions per CTA of the kernel that ``entry`` runs in
@@ -228,6 +249,47 @@ def tile_positions(entry: str, dtype: torch.dtype, group: int,
     ``MAX_ROWS``) over the group, at most Sq."""
     mma = kernel_name(entry, dtype, False).endswith("_mma")
     return max(1, min(sq, (MMA_ROWS if mma else MAX_ROWS) // group))
+
+
+def split_heads(group: int) -> int:
+    """Query heads per split-K CTA: the group rounded up to a power of
+    two, at most ``SPLIT_HEADS`` (a larger group takes several CTAs)."""
+    gt = 1
+    while gt < min(group, SPLIT_HEADS):
+        gt *= 2
+    return gt
+
+
+def decode_splits(bsz: int, groups: int, w: int, page: int,
+                  sm_count: int, heads: int) -> int:
+    """Splits of each row's keys for a decode launch of ``bsz`` rows x
+    ``groups`` CTAs per row (Hkv x the head tiles of a group, ``heads``
+    query heads each) over tables ``w`` pages wide: as many as fill the
+    card's resident CTA slots (``SPLIT_CTAS_PER_SM[heads]`` per SM) in one
+    pass, so no CTA waits for a second wave; at least one, and no more
+    than a full table has ``SPLIT_KEYS``-key shares."""
+    fit = SPLIT_CTAS_PER_SM[heads] * sm_count // max(1, bsz * groups)
+    most = -(-w * page // SPLIT_KEYS)
+    return max(1, min(fit, most))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_plan(bsz: int, hq: int, hkv: int, d: int, w: int, page: int,
+               sm_count: int) -> Dict[str, object]:
+    """The split-K decode's launch: its split count, the two kernels'
+    grids and the f32 workspace bytes (m, l and acc partials)."""
+    g = hq // hkv
+    heads = split_heads(g)
+    groups = hkv * -(-g // heads)
+    n_split = decode_splits(bsz, groups, w, page, sm_count, heads)
+    return dict(n_split=n_split, heads=heads,
+                grid=(n_split, groups, bsz),
+                combine_grid=-(-bsz * hq * d // 128),
+                workspace_bytes=4 * bsz * hq * n_split * (d + 2))
 
 
 def _run(name: str, q, kb_scale, *args) -> None:
@@ -355,13 +417,14 @@ def paged_attention_mixed_base(q, kb_pool, vb_pool, bt_b, start, q_len,
     full_reuse baselines).  Replaces ``paged_attention_mixed_base``
     (repro/kernels/paged_residual_attention.py:910), and given
     ``kb_scale``/``vb_scale`` its int8 branch (:922).  Shapes as
-    :func:`paged_residual_attention_mixed` minus the residual stream.
+    :func:`paged_residual_attention_mixed` minus the residual stream.  In
+    bf16 it runs #6's tensor-core tile with each row's q_len given.
     Bound: bytes for decode rows, operations for long prefill rows."""
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
         decode=False)
     _check_rows(start, q_len, bsz, q.device)
-    tq = max(1, min(sq, MAX_ROWS // g))
+    tq = tile_positions("paged_attention_mixed_base", q.dtype, g, sq)
     out = torch.empty_like(q)
     _run("paged_attention_mixed_base", q, kb_scale, code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
@@ -379,15 +442,22 @@ def paged_attention_decode_base(q, kb_pool, vb_pool, bt_b, kv_len, *,
     (repro/kernels/paged_residual_attention.py:345), and given
     ``kb_scale``/``vb_scale`` its int8 branch (:363).  Shapes as
     :func:`paged_residual_attention_decode` minus the residual stream.
-    Bound: bytes."""
+    Runs the split-K decode (``split_plan``) and its combine, with a
+    workspace of ``split_plan(...)["workspace_bytes"]``.  Bound: bytes."""
     bsz, _, hq, hkv, d, page, w, _, code = _geometry(
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
         decode=True)
+    n_split = split_plan(bsz, hq, hkv, d, w, page,
+                         _sm_count(q.device.index))["n_split"]
+    # f32 partials: m and l (B, Hq, n_split), acc (B, Hq, n_split, D)
+    n = bsz * hq * n_split
+    ws = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     _run("paged_attention_decode_base", q, kb_scale, code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
-         _ptr(bt_b), _ptr(kv_len), _ptr(out), bsz, hq, hkv,
-         d, page, w, float(scale), int(window), _stream(q))
+         _ptr(bt_b), _ptr(kv_len), _ptr(ws[:n]), _ptr(ws[n:2 * n]),
+         _ptr(ws[2 * n:]), _ptr(out), bsz, hq, hkv, d, page, w, n_split,
+         float(scale), int(window), _stream(q))
     return out
 
 

@@ -26,8 +26,12 @@ package's ``repro.kernels.ref`` within 1e-5.
 Geometries: Llama3-8B's heads (Hq 32, Hkv 8, D 128, R 16) and
 RecurrentGemma-9B's (Hq 16, Hkv 1, D 256, R 16), Sq = Sk = 200, causal
 with and without a window that straddles key blocks; the paged cases at
-Llama3-8B's heads, page 16, bf16 and int8 pages.  Also the routing by
-type: which kernel, by its launch counter, a bf16 or f32 launch runs.
+Llama3-8B's heads, page 16, bf16 and int8 pages, as the chunked prefill
+(#6: n_valid rows) and as the mixed grid (#3: explicit q_len, with a
+prefill row, decode rows of q_len 1 and a q_len 0 row), held to the
+prefill and the mixed plain versions.  Also the routing by type: which
+kernel, by its launch counter, a bf16 or f32 launch runs (the split-K
+decode #4 in every type: ``tests/test_torch_splitk.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -196,25 +200,33 @@ PAGE = 16
 START, N_VALID = [0, 40], [SEQ, 150]     # a full chunk, a padded one
 
 
-def paged_inputs(seed):
+# the mixed grid (#3 in bf16 runs the same tile with each row's q_len
+# given): a 160-position prefill row from mid-page, two decode rows
+# (q_len 1) and a q_len 0 row
+MIXED = dict(start=[40, 199, 63, 0], n_valid=[160, 1, 1, 0], sq=160)
+
+
+def paged_inputs(seed, start=START, n_valid=N_VALID, sq=SEQ):
     hq, hkv, d, _ = HEADS["llama3-8b"]
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
-    bsz = len(START)
-    width = (max(s + n for s, n in zip(START, N_VALID)) + PAGE - 1) // PAGE
+    bsz = len(start)
+    width = (max(s + n for s, n in zip(start, n_valid)) + PAGE - 1) // PAGE
     pool = bsz * width + 3
     bt = rng.permutation(pool)[:bsz * width].reshape(bsz, width)
-    return dict(q=f(bsz, SEQ, hq, d), kb=f(pool, PAGE, hkv, d),
+    return dict(q=f(bsz, sq, hq, d), kb=f(pool, PAGE, hkv, d),
                 vb=f(pool, PAGE, hkv, d), bt_b=bt.astype(np.int32),
-                start=np.asarray(START, np.int32),
-                kv_len=np.asarray([s + n for s, n in zip(START, N_VALID)],
+                start=np.asarray(start, np.int32),
+                q_len=np.asarray(n_valid, np.int32),
+                kv_len=np.asarray([s + n for s, n in zip(start, n_valid)],
                                   np.int32))
 
 
 def emulate_paged(t, window, lowp, ks=None, vs=None):
     """The paged kernel: pages gathered by position (int8: dequantized to
     q's type first, as the plain version's gather does), then ``emulate``
-    without the residual stream; rows at or past n_valid are zeros."""
+    without the residual stream; rows at or past n_valid (the mixed grid's
+    q_len) are zeros."""
     bsz, sq, _, d = t["q"].shape
     hkv = t["kb"].shape[2]
     bt = t["bt_b"].long()
@@ -231,12 +243,12 @@ def emulate_paged(t, window, lowp, ks=None, vs=None):
     out = emulate(t["q"], gather(t["kb"], ks), gather(t["vb"], vs), qpos,
                   t["kv_len"].long(), scale=d ** -0.5, window=window,
                   lowp=lowp)
-    valid = torch.arange(sq)[None] < torch.tensor(N_VALID)[:, None]
+    valid = torch.arange(sq)[None] < t["q_len"][:, None]
     return out * valid[:, :, None, None]
 
 
-def valid_rows():
-    return torch.arange(SEQ)[None] < torch.tensor(N_VALID)[:, None]
+def valid_rows(n_valid=N_VALID, sq=SEQ):
+    return torch.arange(sq)[None] < torch.tensor(n_valid)[:, None]
 
 
 @pytest.mark.parametrize("window", WINDOWS)
@@ -280,6 +292,50 @@ def test_paged_algorithm_matches_jax_in_f32(pages, window):
 
 
 
+def mixed_case(seed, pages, lowp):
+    t = {k: torch.from_numpy(v)
+         for k, v in paged_inputs(seed, **MIXED).items()}
+    if lowp:
+        for k in ("q", "kb", "vb"):
+            t[k] = t[k].to(torch.bfloat16)
+    ks = vs = None
+    if pages == "int8":
+        (t["kb"], ks), (t["vb"], vs) = quantize_kv(t["kb"]), \
+            quantize_kv(t["vb"])
+    return t, ks, vs
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_paged_mixed_rounding_plan_holds_half_the_bf16_gate(pages, window):
+    """The tile on the mixed grid's rows (explicit q_len: a prefill row,
+    decode rows, a q_len 0 row) against the plain mixed version, which
+    zeroes the rows past q_len as the kernel does."""
+    t, ks, vs = mixed_case(15, pages, lowp=True)
+    want = tref.paged_residual_attention_mixed_ref(
+        t["q"], t["kb"], t["vb"], None, None, None, None, t["bt_b"], None,
+        t["start"], t["q_len"], t["kv_len"], window=window, kb_scale=ks,
+        vb_scale=vs).float()
+    got = emulate_paged(t, window, lowp=True, ks=ks, vs=vs)
+    rows = valid_rows(MIXED["n_valid"], MIXED["sq"])
+    assert torch.all(got[~rows] == 0.0) and torch.all(want[~rows] == 0.0)
+    err = (got - want)[rows].abs().max().item()
+    assert err <= SHARE * want[rows].abs().max().item()
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("pages", ["f32", "int8"])
+def test_paged_mixed_algorithm_matches_jax_in_f32(pages, window):
+    t, ks, vs = mixed_case(16, pages, lowp=False)
+    got = emulate_paged(t, window, lowp=False, ks=ks, vs=vs).numpy()
+    j = lambda x: None if x is None else jnp.asarray(x.numpy())  # noqa
+    want = np.asarray(jref.paged_residual_attention_mixed_ref(
+        j(t["q"]), j(t["kb"]), j(t["vb"]), None, None, None, None,
+        j(t["bt_b"]), None, j(t["start"]), j(t["q_len"]), j(t["kv_len"]),
+        window=window, kb_scale=j(ks), vb_scale=j(vs)))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
 # ------------------------------------------------------------- routing
 @pytest.mark.parametrize("dtype,int8,want", [
     (torch.bfloat16, False, "paged_attention_prefill_base_mma"),
@@ -294,8 +350,47 @@ def test_paged_prefill_base_routes_by_dtype(dtype, int8, want):
     assert got == want and got in tpra.LAUNCHES
 
 
+@pytest.mark.parametrize("dtype,int8,want", [
+    (torch.bfloat16, False, "paged_attention_mixed_base_mma"),
+    (torch.bfloat16, True, "paged_attention_mixed_base_int8_mma"),
+    (torch.float32, False, "paged_attention_mixed_base"),
+    (torch.float32, True, "paged_attention_mixed_base_int8"),
+])
+def test_paged_mixed_base_routes_by_dtype(dtype, int8, want):
+    """bf16 launches of #3 (bf16 or int8 pages) go to #6's tensor-core
+    kernel and are counted apart; f32 ones stay on the template."""
+    got = tpra.kernel_name("paged_attention_mixed_base", dtype, int8)
+    assert got == want and got in tpra.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype,int8,want", [
+    (torch.bfloat16, False, "paged_attention_decode_base_splitk"),
+    (torch.bfloat16, True, "paged_attention_decode_base_int8_splitk"),
+    (torch.float32, False, "paged_attention_decode_base_splitk"),
+    (torch.float32, True, "paged_attention_decode_base_int8_splitk"),
+])
+def test_paged_decode_base_is_always_splitk(dtype, int8, want):
+    """Every launch of #4 runs the split-K decode, whatever the type."""
+    got = tpra.kernel_name("paged_attention_decode_base", dtype, int8)
+    assert got == want and got in tpra.LAUNCHES
+
+
+@pytest.mark.parametrize("entry", tpra.ENTRIES)
+def test_every_routed_counter_is_in_launches(entry):
+    """Each kernel an entry can run has a launch counter, and no counter
+    names a template instance that no launch can reach."""
+    routed = {tpra.kernel_name(e, dt, i8) for e in tpra.ENTRIES
+              for dt in (torch.bfloat16, torch.float32)
+              for i8 in (False, True)}
+    assert routed == set(tpra.LAUNCHES)
+    for dtype in (torch.bfloat16, torch.float32):
+        for int8 in (False, True):
+            assert tpra.kernel_name(entry, dtype, int8) in tpra.LAUNCHES
+
+
 @pytest.mark.parametrize("entry", [e for e in tpra.ENTRIES
-                                   if e not in tpra.MMA_ENTRIES])
+                                   if e not in tpra.MMA_ENTRIES +
+                                   tpra.SPLIT_ENTRIES])
 def test_other_paged_entries_keep_the_template(entry):
     for dtype in (torch.bfloat16, torch.float32):
         assert tpra.kernel_name(entry, dtype, False) == entry
@@ -325,9 +420,11 @@ def test_tile_positions_by_kernel(d, group, sq, dtype, positions):
 @pytest.mark.parametrize("dtype,positions", [(torch.bfloat16, 32),
                                              (torch.float32, 16)])
 def test_paged_tile_positions_by_kernel(dtype, positions):
-    """#6 in bf16: 128 rows per CTA (Llama3-8B's G 4: 32 positions); the
-    template: 64 rows."""
+    """#6 and #3 in bf16: 128 rows per CTA (Llama3-8B's G 4: 32
+    positions); the template: 64 rows."""
     assert tpra.tile_positions("paged_attention_prefill_base", dtype, 4,
                                2048) == positions
     assert tpra.tile_positions("paged_attention_mixed_base", dtype, 4,
+                               2048) == positions
+    assert tpra.tile_positions("paged_residual_attention_mixed", dtype, 4,
                                2048) == 16
