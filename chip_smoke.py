@@ -10,32 +10,35 @@ error:
 1. environment: the card's name and power limit, torch/CUDA versions;
    TF32 is switched off for matmul and cuDNN so f32 runs are IEEE f32;
 2. build: nvcc compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
-   one process per source, all started together; one line per kernel
-   with its registers, stack and spill bytes from ptxas;
+   one process per source (four), all started together; one line per
+   kernel with its registers, stack and spill bytes from ptxas;
 3. kernels: every launch is checked to have run the kernel its type
-   routes it to (bf16 launches of the base-only chunked prefill #6 and
-   mixed grid #3 and of the dense prefill #7: their tensor-core kernels,
-   counted as ``<entry>[_int8]_mma``; every launch of the base-only decode
-   #4: the split-K decode, ``<entry>[_int8]_splitk``, whose split count,
-   grid and workspace bytes each record logs; f32 launches of the others:
-   the scalar kernels);
+   routes it to (bf16 launches of the chunked prefills #6 and #5, of the
+   base-only mixed grid #3 and of the dense prefill #7: their tensor-core
+   kernels, counted as ``<entry>[_int8]_mma``; every launch of the decodes
+   #4 and #2: their split-K decodes, ``<entry>[_int8]_splitk``, whose split
+   count, grids and workspace bytes each record logs; f32 launches of the
+   others: the scalar kernels);
    the six paged attention kernels (mixed, decode and chunked
    prefill, each disaggregated and base-only) and their six int8 variants
    (int8 pages quantized by the port's ``quantize_kv``, with f32 scales)
    at Llama3-8B's head geometry, q in f32 and bf16, against their plain
    PyTorch versions on the same inputs, with times, the card's bound for
-   the same work, and for the base-only kernels
-   ``scaled_dot_product_attention`` (over dequantized K/V for int8) as a
-   yardstick; an int8 variant must also stay within 5% of the plain
+   the same work, and ``scaled_dot_product_attention`` as a yardstick
+   (over K/V gathered beforehand, untimed: int8 pages dequantized, a
+   disaggregated cache rebuilt by the plain ``reconstruct``); an int8
+   variant must also stay within 5% of the plain
    version on the full-precision pages; the prefill cases hold a chunk
    starting mid-page, padded chunks and a padding row with n_valid = 0,
    and run with and without a window that straddles pages; #6 and #3 and
    #4 (and their int8 variants) also at page sizes 8 and 32, head_dim 64
    and a group of 64 heads, #4 also on one row at kv_len 32768 over 2048
    pages and on rows at kv_len 0, 1 and 17 beside a 2048 row (a window of
-   300 leaves some of their splits empty); an all-decode mixed-grid launch
-   is timed beside #4 on the same rows, and #4 on rows at kv_len 1 (its
-   launch floor).  Then the two dense kernels (prefill and decode over
+   300 leaves some of their splits empty); #5 and #2 at the same edges and
+   at ranks 5, 8 and 32, #5 also on rows at kv_len 0, 1 and 17 beside a
+   512-token chunk; an all-decode mixed-grid launch is timed beside #4 on
+   the same rows, and #4 and #2 on rows at kv_len 1 (their launch
+   floors).  Then the two dense kernels (prefill and decode over
    contiguous caches) at the CPU tests' cases with R 16 at D 128 (MHA,
    GQA, MQA) and at D 256 (RecurrentGemma-9B's MQA with G 16, and GQA):
    window 0 and 5; a chunk at an offset; kv_len None; Sq and Sk of 150;
@@ -74,8 +77,9 @@ error:
    recorded.  The four staggered serves again with int8 bCache pages
    (only int8 variants may launch), with peak pages and bytes per page;
    in bf16 (int8 pages too) the prefix serves and the broadcast pass must
-   run #6's and #3's tensor-core kernels and never their template
-   instances, and in every type #4 only as the split-K decode;
+   run #6's and #3's tensor-core kernels and the forkkv phase-separated
+   serves #5's, never their template instances, and in every type #4 and
+   #2 only as split-K decodes;
    then the staggered serve in bf16 at ``max_pages`` 640 (between
    forkkv's peak of 169 base pages and prefix's 937) with a 4 GiB host
    tier, in both modes: every fork finishes, prefix demotes pages, tier
@@ -113,9 +117,9 @@ error:
    of its first launch at each shape of 5. (f32, timed) and on the same
    inputs in bf16;
 7. the kernels line (#1–#6, their int8 variants, #7–#9, each named by the
-   counter of the kernel the bf16 main path ran: ``_mma`` for #3, #6, their
-   int8 variants and #7, ``_splitk`` for #4 and its int8 variant), the card
-   line and the result line.
+   counter of the kernel the bf16 main path ran: ``_mma`` for #3, #5, #6,
+   their int8 variants and #7, ``_splitk`` for #2, #4 and their int8
+   variants), the card line and the result line.
 """
 import dataclasses
 import itertools
@@ -335,25 +339,24 @@ def plain_call(ref, name, c):
                               for lo in range(0, bsz, step)])
 
 
-def library_call(c):
-    """``scaled_dot_product_attention`` over the same base K/V laid out
-    contiguously (int8 pages dequantized to q's type beforehand), GQA heads
-    expanded and the paged masks as a boolean mask: a yardstick for the
-    base-only kernels, never used by the port."""
+def library_call(ref, name, c):
+    """``scaled_dot_product_attention`` over the same K/V laid out
+    contiguously beforehand (not timed): the base pages (int8 dequantized
+    to q's type), for a disaggregated kernel rebuilt with the residual
+    pages by the plain ``reconstruct`` (``ref._gather_paged_kv``), GQA
+    heads expanded, the paged masks as a boolean mask: a yardstick, never
+    used by the port."""
     g = c["geom"]
     bsz, width, page = c["bt_b"].shape[0], c["bt_b"].shape[1], g["page"]
     sk = width * page
     rep = g["hq"] // g["hkv"]
-    bt = c["bt_b"].long()
-
-    def lay(pool, scale):
-        x = pool[bt]
-        if scale is not None:
-            x = (x.float() * scale[bt][..., None]).to(c["dtype"])
-        x = x.reshape(bsz, sk, g["hkv"], g["d"]).transpose(1, 2)
-        return x.repeat_interleave(rep, dim=1).contiguous()
-
-    k, v = lay(c["kb"], c["ks"]), lay(c["vb"], c["vs"])
+    k, v = ref._gather_paged_kv(
+        c["q"], c["kb"], c["vb"], c["kr"] if "residual" in name else None,
+        c["vr"], c["b_k"], c["b_v"], c["bt_b"], c["bt_r"],
+        rope_theta=10_000.0, use_rope=True, kb_scale=c["ks"],
+        vb_scale=c["vs"])
+    k, v = (x.reshape(bsz, sk, g["hkv"], g["d"]).transpose(1, 2)
+            .repeat_interleave(rep, dim=1).contiguous() for x in (k, v))
     q = c["q"][:, :, None] if c["kind"] == "decode" else \
         c["q"].transpose(1, 2)
     q = q.contiguous()
@@ -414,6 +417,7 @@ def work(name, c):
 
 PALLAS = "src/repro/kernels/paged_residual_attention.py"
 PAGED_SOURCE = "src/repro_torch/kernels/csrc/paged_residual_attention.cu"
+DISAGG_SOURCE = "src/repro_torch/kernels/csrc/paged_residual_disagg.cu"
 KERNELS = {
     # name: (case kind, replaces)
     "paged_residual_attention_mixed": (
@@ -493,9 +497,12 @@ def compare(pra, ref, name, c, tol, case):
                ref_max_abs=ref_max, limit=limit)
     if kernel.endswith("_splitk"):
         g, (bsz, width) = c["geom"], c["bt_b"].shape
-        rec["split"] = pra.split_plan(
-            bsz, g["hq"], g["hkv"], g["d"], width, g["page"],
-            torch.cuda.get_device_properties(0).multi_processor_count)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        rec["split"] = pra.res_split_plan(
+            bsz, g["hq"], g["hkv"], g["d"], g["r"], width, g["page"],
+            c["ks"] is not None, sms) if "residual" in name else \
+            pra.split_plan(bsz, g["hq"], g["hkv"], g["d"], width, g["page"],
+                           sms)
     if full is not None:
         rec["vs_full_precision"] = (got.float() - full.float()).abs().max(
         ).item() / full.float().abs().max().item()
@@ -514,12 +521,11 @@ def compare(pra, ref, name, c, tol, case):
 
 
 def measure(pra, ref, name, c, rec):
-    """Adds the kernel's, the plain version's and (base-only kernels) the
-    library call's times and the bound on ``c`` to ``rec``."""
+    """Adds the kernel's, the plain version's and the library call's times
+    and the bound on ``c`` to ``rec``."""
     rec["kernel_ms"] = time_ms(kernel_call(pra, name, c))
     rec["plain_ms"] = time_ms(plain_call(ref, name, c), reps=3, warmup=1)
-    rec["library_ms"] = None if "residual" in name else \
-        time_ms(library_call(c))
+    rec["library_ms"] = time_ms(library_call(ref, name, c))
     (rec["bound_ms"], rec["bound_by"], rec["bytes"],
      rec["ops"]) = work(name, c)
     return rec
@@ -560,10 +566,10 @@ PREFILL_EDGES = {
 # each geometry
 MIXED_EDGES = [(label, geom, FIXED["mixed"], 2048 // geom["page"])
                for label, geom in PREFILL_EDGES.items()]
-# #4's edges: the fixed decode rows at each geometry; one row at kv_len
-# 32768 over 2048 pages (what split-K is for); rows at kv_len 0, 1 and 17
-# beside a 2048 row.  Every one runs again with a window of 300, which
-# leaves some of a long row's splits without a key.
+# #4's (and #2's) edges: the fixed decode rows at each geometry; one row at
+# kv_len 32768 over 2048 pages (what split-K is for); rows at kv_len 0, 1
+# and 17 beside a 2048 row.  Every one runs again with a window of 300,
+# which leaves some of a long row's splits without a key.
 DECODE_EDGES = [(label, geom, FIXED["decode"], 2048 // geom["page"])
                 for label, geom in PREFILL_EDGES.items()] + [
     ("long row", LLAMA_GEOM, dict(start=[32767], qlen=[1], sq=1), 2048),
@@ -572,11 +578,22 @@ DECODE_EDGES = [(label, geom, FIXED["decode"], 2048 // geom["page"])
 ]
 
 
+# #5 and #2 (the disaggregated chunked prefill's tile and decode's
+# split-K kernel) also at ranks whose K_r rows are not 16-byte multiples
+# (5, zero-padded to 16 in the tile), 8 (one 16-byte copy, padded) and 32
+# (the RP 32 instances), and #5 on rows at kv_len 0, 1, 17 (a row of 8
+# from position 9) beside a 512-token chunk from 1000
+RANK_EDGES = {f"R {r}": dict(LLAMA_GEOM, r=r) for r in (5, 8, 32)}
+RES_PREFILL_ROWS = dict(start=[0, 0, 9, 1000], qlen=[0, 1, 8, 512], sq=512)
+
+
 def check_edges(pra, ref, quantize):
     """Phase 3: the base-only chunked prefill (#6) at ``PREFILL_EDGES``, the
     mixed grid (#3) at ``MIXED_EDGES`` and the decode (#4) at
-    ``DECODE_EDGES``, each with its int8 variant, f32 and bf16, without and
-    with a window."""
+    ``DECODE_EDGES``; the disaggregated chunked prefill (#5) and decode
+    (#2) at the same edges and at ``RANK_EDGES``, #5 also on
+    ``RES_PREFILL_ROWS``; each with its int8 variant, f32 and bf16, without
+    and with a window."""
     sets = [("paged_attention_prefill_base", label, geom,
              dict(FIXED["prefill"], width=2048 // geom["page"]))
             for label, geom in PREFILL_EDGES.items()]
@@ -584,6 +601,16 @@ def check_edges(pra, ref, quantize):
              for label, geom, rows, w in MIXED_EDGES]
     sets += [("paged_attention_decode_base", label, geom, dict(rows, width=w))
              for label, geom, rows, w in DECODE_EDGES]
+    sets += [("paged_residual_attention_prefill", label, geom,
+              dict(FIXED["prefill"], width=2048 // geom["page"]))
+             for label, geom in {**PREFILL_EDGES, **RANK_EDGES}.items()]
+    sets += [("paged_residual_attention_prefill", "kv_len 0, 1, 17",
+              LLAMA_GEOM, dict(RES_PREFILL_ROWS, width=128))]
+    sets += [("paged_residual_attention_decode", label, geom,
+              dict(rows, width=w)) for label, geom, rows, w in DECODE_EDGES]
+    sets += [("paged_residual_attention_decode", label, geom,
+              dict(FIXED["decode"], width=128))
+             for label, geom in RANK_EDGES.items()]
     for entry, label, geom, rows in sets:
         kind = KERNELS[entry][0]
         for dtype, tol in DTYPES:
@@ -605,14 +632,18 @@ def time_decode_launches(pra, ref, quantize):
     tensor-core tile's 128 rows: its time beside the decode kernel's (#4)
     on the same rows; and #4's floor, 8 rows at kv_len 1 over 133-page
     tables (two launches and a chain of dependent loads, next to no
-    bytes)."""
+    bytes); the same two for the disaggregated decode (#2)."""
     floor = dict(start=[0] * 8, qlen=[1] * 8, sq=1, width=133)
     for quant in (False, True):
         rec = {}
         for label, entry, rows in (
                 ("mixed", "paged_attention_mixed_base", FIXED["decode"]),
                 ("decode", "paged_attention_decode_base", FIXED["decode"]),
-                ("decode floor", "paged_attention_decode_base", floor)):
+                ("decode floor", "paged_attention_decode_base", floor),
+                ("res decode", "paged_residual_attention_decode",
+                 FIXED["decode"]),
+                ("res decode floor", "paged_residual_attention_decode",
+                 floor)):
             name = entry + ("_int8" if quant else "")
             c = make_case(KERNELS[entry][0], torch.bfloat16, 0, seed=8,
                           quantize=quantize if quant else None, **rows)
@@ -1650,9 +1681,10 @@ def check_serving(outs, m, max_new, mixed=True, gather=False):
 def check_counts(pra, ref, expect_kernels, dtype):
     """The launches of the serve just run (the counts were zeroed before
     it): every kernel in ``expect_kernels`` launched, no plain version ran,
-    no template instance of an entry that runs the split-K decode
-    (``pra.SPLIT_ENTRIES``) in any type, and in bf16 none of an entry whose
-    bf16 launches run a tensor-core kernel (``pra.MMA_ENTRIES``).  Returns
+    no template instance of an entry that runs a split-K decode
+    (``pra.SPLIT_ENTRIES``: #4, #2) in any type, and in bf16 none of an
+    entry whose bf16 launches run a tensor-core kernel
+    (``pra.MMA_ENTRIES``: #6, #3, #5).  Returns
     every kernel's non-zero count."""
     ran = {k: v for k, v in pra.LAUNCHES.items() if v}
     missing = [k for k in expect_kernels if k not in ran]
@@ -1732,9 +1764,11 @@ class LaunchShapes:
 # (label, mode, ServeConfig settings, entries that must launch) of the
 # staggered Llama3-8B serves; ``run`` maps each entry to the kernel it runs
 # for the model (``pra.kernel_name``: bf16 prefix serves run #3's and #6's
-# tensor-core kernel, ``paged_attention_{mixed,prefill}_base_mma``, and
-# every prefix serve #4's split-K decode,
-# ``paged_attention_decode_base_splitk``)
+# tensor-core kernel, ``paged_attention_{mixed,prefill}_base_mma``, the
+# bf16 forkkv phase-separated serve #5's,
+# ``paged_residual_attention_prefill_mma``; every serve its decode's
+# split-K kernel, ``paged_{attention_decode_base,residual_attention_decode}
+# _splitk``, int8 pages the ``_int8_`` twins of all of these)
 LLAMA_SERVES = (
     ("forkkv", "forkkv", {}, ("paged_residual_attention_mixed",
                               "paged_residual_attention_decode")),
@@ -2023,13 +2057,13 @@ def main() -> int:
     with ThreadPoolExecutor(len(sources)) as pool:
         for f in [pool.submit(m.build) for m in sources]:
             f.result()
+    names = pra.SOURCES + (ra.SOURCE, rg.SOURCE)
     log("build", seconds=time.perf_counter() - t0,
-        cached=[m.SOURCE for m in sources
-                if m.SOURCE not in _build.BUILD_LOGS])
-    for m in sources:
+        cached=[n for n in names if n not in _build.BUILD_LOGS])
+    for name in names:
         for kernel, use in ptxas_kernels(
-                _build.BUILD_LOGS.get(m.SOURCE, "")).items():
-            log("ptxas", source=m.SOURCE, kernel=kernel, **use)
+                _build.BUILD_LOGS.get(name, "")).items():
+            log("ptxas", source=name, kernel=kernel, **use)
 
     # 3. kernels against their plain versions
     check_kernels(pra, ref, tfm.quantize_kv)
@@ -2199,15 +2233,17 @@ def main() -> int:
     # heaviest serving launch, the dense kernels at Llama3-8B's (D 128) and
     # at RecurrentGemma-9B's (D 256, "_d256") first main-path launch, the
     # scan at the hybrid forward's.  Each kernel is named by its launch
-    # counter on the bf16 main path: #3, #6 and #7 by their tensor-core
-    # kernels ("_mma"), #4 by its split-K decode ("_splitk").
+    # counter on the bf16 main path: #3, #5, #6 and #7 by their tensor-core
+    # kernels ("_mma"), #2 and #4 by their split-K decodes ("_splitk").
     kernels = []
     entries = []              # (name, measured, launches, replaces, ...)
     for n, (_, r) in ALL_KERNELS.items():
         name = pra.kernel_name(n.removesuffix("_int8"), torch.bfloat16,
                                n.endswith("_int8"))
-        entries.append((name, n, launches[name], r, PAGED_SOURCE,
-                        "llama3-8b"))
+        source = DISAGG_SOURCE if n.startswith((
+            "paged_residual_attention_prefill",
+            "paged_residual_attention_decode")) else PAGED_SOURCE
+        entries.append((name, n, launches[name], r, source, "llama3-8b"))
     for n, r in DENSE_KERNELS.items():
         name = ra.prefill_kernel(torch.bfloat16) \
             if n == "residual_attention_prefill" else n

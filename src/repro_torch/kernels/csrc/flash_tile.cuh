@@ -1,6 +1,10 @@
 // Tensor-core flash-attention tile for NVIDIA Hopper (sm_90a), shared by
-// the bf16 prefill kernels of residual_attention.cu (#7) and
-// paged_residual_attention.cu (#6).
+// the bf16 prefill kernels of residual_attention.cu (#7),
+// paged_residual_attention.cu (#6, #3) and paged_residual_disagg.cu (#5),
+// and by #2's split-K decode there: the MMA and softmax steps, the
+// rebuild of K = K_b + RoPE(K_r . B_k) on the tensor cores (#7, #5; its
+// MMA part for #2) and the int8 pages' dequantization to bf16 (#6, #3,
+// #5, #2).
 //
 // A CTA holds kRows = 128 query rows, 16 per warp of its 8: on the H100
 // both kernels ran faster so than with 4 warps (64 rows), which load (and
@@ -258,6 +262,101 @@ __device__ __forceinline__ void finish_rowsum(float (&l)[2]) {
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+}
+
+// x * c + y * s with each product rounded on its own (no FMA): the plain
+// version's f32 operations in RoPE
+__device__ __forceinline__ float rot(float x, float c, float y, float s) {
+  return __fadd_rn(__fmul_rn(x, c), __fmul_rn(y, s));
+}
+
+// K_r . B_k for 16 keys and the n-tile pair (j, j + D/16): in the m16n8
+// accumulator layout x1 holds columns 8 j + 2 (lane % 4) + {0, 1} of keys
+// lane / 4 and lane / 4 + 8, and x2 the same columns + D/2, so RoPE
+// rotates in registers.  kr: the 16 keys' rows (stride ``rs``, RP columns,
+// zero from R on); bk: B_k's RP rows (stride ``bks``).
+template <int D, int RP>
+__device__ __forceinline__ void lora_pair(float (&x1)[4], float (&x2)[4],
+                                          const bf16* kr, int rs,
+                                          const bf16* bk, int bks, int j,
+                                          int lane) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x1[i] = x2[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < RP / 16; ++kk) {
+    uint32_t af[4], bf[2];
+    ldmatrix_x4(af, kr + (lane & 15) * rs + kk * 16 + (lane >> 4) * 8);
+    const bf16* brow =
+        bk + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * bks + 8 * j;
+    ldmatrix_x2_trans(bf, brow);
+    mma(x1, af, bf[0], bf[1]);
+    ldmatrix_x2_trans(bf, brow + D / 2);
+    mma(x2, af, bf[0], bf[1]);
+  }
+}
+
+// K = K_b + RoPE(K_r . B_k) in place for BK keys: k holds the keys' K_b
+// rows (stride ``ks``) on entry, kr their K_r rows, sn/cs their sin/cos
+// rows (stride ``hs``).  Items of 16 keys x an n-tile pair (``lora_pair``)
+// are spread over the CTA's warps; K_b is added in f32 and the sum
+// rounded once to bf16, where the plain version rounds.
+template <int D, int BK, int RP>
+__device__ __forceinline__ void rebuild_k(bf16* k, int ks, const bf16* kr,
+                                          int rs, const bf16* bk, int bks,
+                                          const bf16* sn, const bf16* cs,
+                                          int hs, int warp, int lane) {
+  for (int item = warp; item < (BK / 16) * (D / 16); item += kWarps) {
+    const int mt = item / (D / 16), j = item % (D / 16);
+    float x1[4], x2[4];
+    lora_pair<D, RP>(x1, x2, kr + mt * 16 * rs, rs, bk, bks, j, lane);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int t = mt * 16 + (lane >> 2) + 8 * hh;
+      const int i = 8 * j + 2 * (lane & 3);
+      const float2 s = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(sn + t * hs + i));
+      const float2 c = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(cs + t * hs + i));
+      __nv_bfloat162* k1 = reinterpret_cast<__nv_bfloat162*>(k + t * ks + i);
+      __nv_bfloat162* k2 =
+          reinterpret_cast<__nv_bfloat162*>(k + t * ks + i + D / 2);
+      const float2 b1 = __bfloat1622float2(*k1);
+      const float2 b2 = __bfloat1622float2(*k2);
+      // the plain version's f32 operations, uncontracted: k_b + (x1 cos -
+      // x2 sin) and k_b + (x2 cos + x1 sin), each product rounded
+      *k1 = __floats2bfloat162_rn(
+          b1.x + rot(x1[2 * hh], c.x, x2[2 * hh], -s.x),
+          b1.y + rot(x1[2 * hh + 1], c.y, x2[2 * hh + 1], -s.y));
+      *k2 = __floats2bfloat162_rn(
+          b2.x + rot(x2[2 * hh], c.x, x1[2 * hh], s.x),
+          b2.y + rot(x2[2 * hh + 1], c.y, x1[2 * hh + 1], s.y));
+    }
+  }
+}
+
+// int8 pages: bf16(code * scale) of ``rows`` rows of D int8 codes
+// (contiguous) with one f32 scale per row, into bf16 rows of stride
+// ``ds``, where the plain version rounds (its gather: (kb.f32 *
+// ks).to(q.dtype)); thread ``tid`` of ``nthreads`` takes every nthreads-th
+// group of 8 codes.
+template <int D>
+__device__ __forceinline__ void dequantize_rows(const unsigned char* codes,
+                                                const float* scales,
+                                                bf16* dst, int ds, int rows,
+                                                int tid, int nthreads) {
+  for (int e = tid; e < rows * (D / 8); e += nthreads) {
+    const int t = e / (D / 8), c = e % (D / 8);
+    const uint2 raw = *reinterpret_cast<const uint2*>(codes + t * D + c * 8);
+    const float sc = scales[t];
+    // bytes 2i and 2i + 1 of the eight codes -> one bf16 pair
+    auto pair = [&](uint32_t word, int shift) {
+      return pack_bf16(__fmul_rn((float)(int8_t)(word >> shift), sc),
+                       __fmul_rn((float)(int8_t)(word >> (shift + 8)), sc));
+    };
+    *reinterpret_cast<uint4*>(dst + t * ds + c * 8) =
+        make_uint4(pair(raw.x, 0), pair(raw.x, 16), pair(raw.y, 0),
+                   pair(raw.y, 16));
   }
 }
 

@@ -353,11 +353,6 @@ int dispatch(int dtype, const Args& a, int bsz, void* stream) {
 // then O += O_r . B_v (O_r rounded to bf16) and O / max(l, 1e-20).
 // The latest query tiles, the heaviest under a causal mask, launch first.
 
-// x * c + y * s with each product rounded on its own (no FMA)
-__device__ __forceinline__ float rot(float x, float c, float y, float s) {
-  return __fadd_rn(__fmul_rn(x, c), __fmul_rn(y, s));
-}
-
 template <int D, int BK, int RP>
 struct MmaLayout {
   static constexpr int DS = D + flash::kPad;       // Q, K, V, B_k, B_v rows
@@ -530,47 +525,9 @@ residual_attention_mma_kernel(Args a, int bsz) {
     const bf16* Sn = base + L::kSin;
     const bf16* Cs = base + L::kCos;
 
-    // K = K_b + RoPE(K_r . B_k): 16 keys x the n-tile pair (j, j + D/16)
-    // per item, items spread over the warps
-    for (int item = warp; item < (BK / 16) * (D / 16); item += flash::kWarps) {
-      const int mt = item / (D / 16), j = item % (D / 16);
-      float x1[4] = {0.f, 0.f, 0.f, 0.f}, x2[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < RP / 16; ++kk) {
-        uint32_t af[4], bf[2];
-        flash::ldmatrix_x4(af, Krs + (mt * 16 + (lane & 15)) * RS + kk * 16 +
-                                   (lane >> 4) * 8);
-        const bf16* brow =
-            Bks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DS + 8 * j;
-        flash::ldmatrix_x2_trans(bf, brow);
-        flash::mma(x1, af, bf[0], bf[1]);
-        flash::ldmatrix_x2_trans(bf, brow + HALF);
-        flash::mma(x2, af, bf[0], bf[1]);
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int t = mt * 16 + (lane >> 2) + 8 * hh;
-        const int i = 8 * j + 2 * (lane & 3);
-        const float2 sn = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Sn + t * HS + i));
-        const float2 cs = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Cs + t * HS + i));
-        __nv_bfloat162* k1 =
-            reinterpret_cast<__nv_bfloat162*>(Ks + t * DS + i);
-        __nv_bfloat162* k2 =
-            reinterpret_cast<__nv_bfloat162*>(Ks + t * DS + i + HALF);
-        const float2 b1 = __bfloat1622float2(*k1);
-        const float2 b2 = __bfloat1622float2(*k2);
-        // the plain version's f32 operations, uncontracted: k_b + (x1 cos -
-        // x2 sin) and k_b + (x2 cos + x1 sin), each product rounded
-        *k1 = __floats2bfloat162_rn(
-            b1.x + rot(x1[2 * hh], cs.x, x2[2 * hh], -sn.x),
-            b1.y + rot(x1[2 * hh + 1], cs.y, x2[2 * hh + 1], -sn.y));
-        *k2 = __floats2bfloat162_rn(
-            b2.x + rot(x2[2 * hh], cs.x, x1[2 * hh], sn.x),
-            b2.y + rot(x2[2 * hh + 1], cs.y, x1[2 * hh + 1], sn.y));
-      }
-    }
+    // K = K_b + RoPE(K_r . B_k) in place of K_b
+    flash::rebuild_k<D, BK, RP>(Ks, DS, Krs, RS, Bks, DS, Sn, Cs, HS, warp,
+                                lane);
     __syncthreads();
 
     const int j0 = (jb0 + it) * BK;

@@ -1,5 +1,7 @@
 """Paged ResidualAttention on the card: wrappers over the hand-written CUDA
-kernels in ``csrc/paged_residual_attention.cu``.
+kernels in ``csrc/paged_residual_attention.cu`` and, for the
+disaggregated chunked prefill and decode (#5, #2),
+``csrc/paged_residual_disagg.cu``; the two build in parallel.
 
 These replace the six Pallas kernels of
 ``repro/kernels/paged_residual_attention.py``: the unified prefill/decode
@@ -22,40 +24,47 @@ reads each page once for all G query heads of its kv head and rebuilds K
 on chip, so the residual adds only R/(Hkv·D) of the base bytes.  A long
 prefill row does ~4·tq·G·D flops per token of each page it reads and is
 bound by operations; the template runs them as f32 FMAs on the CUDA
-cores (67 TFLOP/s peak), far from the 989 TFLOP/s bound.  Two designs
-replace the template where it lost most:
+cores (67 TFLOP/s peak), far from the 989 TFLOP/s bound.  Redesigns
+replace the template where it lost most, in the entries that run them:
 
-* a bf16 launch of the base-only chunked prefill and of the base-only
-  mixed grid (``MMA_ENTRIES``, bf16 or int8 pages) runs a flash tile on
-  the tensor cores (mma.sync, 128 query rows per CTA, 64-key blocks
-  gathered through the block table; counted as ``<entry>[_int8]_mma``);
-* every launch of the base-only decode (``SPLIT_ENTRIES``, any type) runs
-  a split-K kernel: each row's live keys are cut into ``decode_splits``
-  shares of 64-key multiples, one CTA each for up to 8 query heads, with
-  16-byte loads (8 bytes of int8 codes) of several keys in flight per
-  lane, and a second kernel combines the shares' f32 partials from a
-  workspace (counted as ``<entry>[_int8]_splitk``).  A CUDA tensor never
-  reaches the template through this entry.
+* a bf16 launch of a chunked prefill or of the base-only mixed grid
+  (``MMA_ENTRIES``: #6, #3 and the disaggregated #5; bf16 or int8 pages)
+  runs a flash tile on the tensor cores (mma.sync, 128 query rows per
+  CTA, 64-key blocks gathered through the block tables; counted as
+  ``<entry>[_int8]_mma``); #5's tile rebuilds K = K_b + RoPE(K_r . B_k)
+  per key block on the tensor cores, with RoPE from ``rope_table``, and
+  applies B_v once after the key loop;
+* every launch of a decode (``SPLIT_ENTRIES``, any type) runs a split-K
+  kernel: each row's live keys are cut into shares, one CTA (#4, up to 8
+  query heads, 64-key shares, ``split_plan``) or one warp (#2, up to 16
+  heads as an m16 tile, 16-key shares, ``res_split_plan``; in bf16 it
+  rebuilds K on the tensor cores and keeps a second accumulator of R
+  columns, in f32 it is the template share by share), and a second kernel
+  combines the shares' f32 partials from a workspace, #2's applying B_v
+  (counted as ``<entry>[_int8]_splitk``).  A CUDA tensor never reaches the
+  template through these entries.
 
-The disaggregated entries (#1, #2, #5) follow (later work, as are wgmma
-and TMA), and f32 launches of the tensor-core entries stay on the
-template.  The chunked prefill is the same: operations for long chunks,
-bytes for short ones.  Unlike the Pallas prefill, which holds all G·chunk
-query rows of a (row, kv head) in VMEM (16 MB of accumulator at chunk
-8192, G 4), it tiles query positions like the mixed grid and skips the
-tiles at or past a row's valid count, so a padded chunk costs only its
-valid rows.  int8 pages halve the base bytes of a bf16 page (plus 4 bytes
-of scale per token and head), which is what a bytes-bound decode gains;
-the template reads them one byte per load.
+The disaggregated mixed grid (#1) stays on the template, and f32
+launches of the tensor-core entries too; wgmma and TMA are later work.
+The chunked prefill is the same: operations for long chunks, bytes for
+short ones.  Unlike the Pallas prefill, which holds all G·chunk query
+rows of a (row, kv head) in VMEM (16 MB of accumulator at chunk 8192, G
+4), it tiles query positions like the mixed grid and skips the tiles at
+or past a row's valid count, so a padded chunk costs only its valid rows.
+int8 pages halve the base bytes of a bf16 page (plus 4 bytes of scale per
+token and head), which is what a bytes-bound decode gains; the template
+reads them one byte per load.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core import rope as rope_lib
 from repro_torch.kernels import _build
 
 ENTRIES = ("paged_residual_attention_mixed",
@@ -64,17 +73,19 @@ ENTRIES = ("paged_residual_attention_mixed",
            "paged_attention_mixed_base",
            "paged_attention_decode_base",
            "paged_attention_prefill_base")
-# Entries whose bf16 launches run the tensor-core kernel (bf16 or int8
+# Entries whose bf16 launches run a tensor-core kernel (bf16 or int8
 # pages); their f32 launches run the template.
-MMA_ENTRIES = ("paged_attention_prefill_base", "paged_attention_mixed_base")
-# Entries whose every launch runs the split-K decode.
-SPLIT_ENTRIES = ("paged_attention_decode_base",)
+MMA_ENTRIES = ("paged_attention_prefill_base", "paged_attention_mixed_base",
+               "paged_residual_attention_prefill")
+# Entries whose every launch runs a split-K decode.
+SPLIT_ENTRIES = ("paged_attention_decode_base",
+                 "paged_residual_attention_decode")
 
 
 def kernel_name(entry: str, dtype: torch.dtype, int8: bool) -> str:
     """The kernel, by its launch counter, that entry ``entry`` runs with q
-    in ``dtype`` over int8 (``int8``) or full-precision pages: the split-K
-    decode for ``SPLIT_ENTRIES`` in every type, the tensor-core kernel for
+    in ``dtype`` over int8 (``int8``) or full-precision pages: a split-K
+    decode for ``SPLIT_ENTRIES`` in every type, a tensor-core kernel for
     bf16 launches of ``MMA_ENTRIES``, else the template (f32 stays IEEE
     f32; the tensor cores have no such mode)."""
     name = f"{entry}_int8" if int8 else entry
@@ -96,6 +107,10 @@ LAUNCHES: Dict[str, int] = {
     for i8 in (False, True) for e in ENTRIES for dt in _DTYPES}
 
 SOURCE = "paged_residual_attention"
+# the sources under csrc/, and the entries that live in the second
+SOURCES = (SOURCE, "paged_residual_disagg")
+_ENTRY_SOURCE = {"paged_residual_attention_prefill": SOURCES[1],
+                 "paged_residual_attention_decode": SOURCES[1]}
 MAX_ROWS = 64          # query rows (positions x group heads) per CTA
 MMA_ROWS = 128         # the same for the tensor-core kernel (8 warps)
 MAX_PAGE = 32
@@ -105,15 +120,25 @@ SPLIT_HEADS = 8        # query heads per split-K CTA, at most
 # resident split-K CTAs per SM, by query heads per CTA: the kernel's
 # __launch_bounds__ minimum (min_blocks in the .cu)
 SPLIT_CTAS_PER_SM = {1: 4, 2: 4, 4: 4, 8: 2}
+# The split-K decode with the residual stream (#2): a share is a multiple
+# of RES_SPLIT_KEYS keys (the bf16 kernel's warp step), a CTA of
+# RES_SPLIT_WARPS warps takes that many shares, and up to RES_SPLIT_HEADS
+# query heads (one m16 tile); its shared memory (``res_split_smem``)
+# decides how many CTAs an SM holds.
+RES_SPLIT_KEYS = 16
+RES_SPLIT_WARPS = 4
+RES_SPLIT_HEADS = 16
+SMEM_PER_SM = 228 * 1024      # H100: shared memory of an SM
+SMEM_PER_CTA_RESERVED = 1024  # what the card reserves for each CTA
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "paged_residual_attention_mixed":
         [_I] + [_P] * 15 + [_I] * 9 + [_F, _I, _F, _I, _P],
     "paged_residual_attention_decode":
-        [_I] + [_P] * 13 + [_I] * 7 + [_F, _I, _F, _I, _P],
+        [_I] + [_P] * 19 + [_I] * 8 + [_F, _I, _F, _I, _P],
     "paged_residual_attention_prefill":
-        [_I] + [_P] * 14 + [_I] * 9 + [_F, _I, _F, _I, _P],
+        [_I] + [_P] * 16 + [_I] * 9 + [_F, _I, _F, _I, _P],
     "paged_attention_mixed_base":
         [_I] + [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     "paged_attention_decode_base":
@@ -124,19 +149,21 @@ _SIGNATURES = {
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def _lib(source: str) -> ctypes.CDLL:
+    lib = _build.load(source)
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        if _ENTRY_SOURCE.get(name, SOURCE) == source:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
 def build() -> None:
-    """Compile and load the kernels now (they are built at first use
-    otherwise)."""
-    _lib()
+    """Compile and load the kernels now, one nvcc per source, together
+    (they are built at first use otherwise)."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(_lib, SOURCES))
 
 
 def _check(name: str, t: Optional[torch.Tensor], device: torch.device,
@@ -292,10 +319,84 @@ def split_plan(bsz: int, hq: int, hkv: int, d: int, w: int, page: int,
                 workspace_bytes=4 * bsz * hq * n_split * (d + 2))
 
 
+def res_split_smem(d: int, r: int, int8: bool) -> int:
+    """Shared-memory bytes of one CTA of the split-K decode with the
+    residual stream, block-table slices aside (``Layout`` of
+    ``splitk_res`` in the source): B_k (RP rows), and per warp two stages
+    of 16 keys' K, V, K_r, V_r and RoPE rows (+ a bf16 V tile for int8
+    pages).  Rows are padded by 8 elements."""
+    rp = 16 if r <= 16 else 32
+    ds, rs, hs, keys = d + 8, rp + 8, d // 2 + 8, RES_SPLIT_KEYS
+    row = d if int8 else 2 * ds
+    stage = keys * (2 * row + (8 if int8 else 0) + 4 * rs + 4 * hs)
+    warp = 2 * stage + (2 * keys * ds if int8 else 0)
+    return 2 * rp * ds + RES_SPLIT_WARPS * warp
+
+
+def res_ctas_per_sm(d: int, r: int, int8: bool) -> int:
+    """Resident CTAs per SM of the split-K decode with the residual
+    stream, as its shared memory allows (2 KB left for the block-table
+    slices), at most 3."""
+    need = res_split_smem(d, r, int8) + SMEM_PER_CTA_RESERVED + 2048
+    return max(1, min(3, SMEM_PER_SM // need))
+
+
+def res_split_plan(bsz: int, hq: int, hkv: int, d: int, r: int, w: int,
+                   page: int, int8: bool, sm_count: int) -> Dict[str, object]:
+    """The launch of the split-K decode with the residual stream (#2):
+    ``n_split`` shares of each row's live keys, RES_SPLIT_WARPS per CTA,
+    with as many CTAs per (row, head tile) as fill the card's resident
+    slots (``res_ctas_per_sm``) in one pass, and no more than a full table
+    has 64-key CTA ranges; the bf16 kernel's and the combine's grids; the
+    f32 workspace bytes (m, l, acc and acc_r partials).  f32 launches run
+    the template one CTA per share, over the same shares."""
+    g = hq // hkv
+    groups = hkv * -(-g // RES_SPLIT_HEADS)
+    ctas = res_ctas_per_sm(d, r, int8)
+    fit = ctas * sm_count // max(1, bsz * groups)
+    most = -(-w * page // (RES_SPLIT_KEYS * RES_SPLIT_WARPS))
+    cta_splits = max(1, min(fit, most))
+    n_split = cta_splits * RES_SPLIT_WARPS
+    return dict(n_split=n_split, ctas_per_sm=ctas,
+                grid=(cta_splits, groups, bsz), combine_grid=bsz * hq,
+                workspace_bytes=4 * bsz * hq * n_split * (d + r + 2))
+
+
+ROPE_TABLE_ROWS = 4096      # rows of a RoPE table, at least
+_ROPE_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def rope_table(device: torch.device, d: int, theta: float,
+               dtype: torch.dtype, rows: int,
+               use_rope: bool = True) -> torch.Tensor:
+    """(2, N, D/2): sin, then cos, of positions 0..N-1 as the plain
+    version computes them (``core/rope.rope_sincos``) rounded to
+    ``dtype``, as it rounds them; sin 0 and cos 1 without RoPE, which the
+    kernels' rotation passes through unchanged.  N is a power of two, at
+    least ``ROPE_TABLE_ROWS`` and ``rows`` (the launch's W * page).  Built
+    once per (device, D, theta, dtype, use_rope) and rebuilt larger when a
+    launch needs more rows (1 MB at 4096 rows, D 128, bf16)."""
+    key = (str(device), d, float(theta), dtype, bool(use_rope))
+    table = _ROPE_TABLES.get(key)
+    if table is None or table.shape[1] < rows:
+        n = ROPE_TABLE_ROWS
+        while n < rows:
+            n *= 2
+        if use_rope:
+            sin, cos = rope_lib.rope_sincos(
+                torch.arange(n, device=device), d, theta)
+        else:
+            sin = torch.zeros(n, d // 2, device=device)
+            cos = torch.ones(n, d // 2, device=device)
+        table = torch.stack([sin, cos]).to(dtype).contiguous()
+        _ROPE_TABLES[key] = table
+    return table
+
+
 def _run(name: str, q, kb_scale, *args) -> None:
     """Launch entry ``name``; the count goes to the kernel it ran
     (``kernel_name``)."""
-    err = getattr(_lib(), name)(*args)
+    err = getattr(_lib(_ENTRY_SOURCE.get(name, SOURCE)), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[kernel_name(name, q.dtype, kb_scale is not None)] += 1
@@ -353,8 +454,11 @@ def paged_residual_attention_decode(q, kb_pool, vb_pool, kr_pool, vr_pool,
     """Decode over paged disaggregated pools: one query row per request at
     position ``kv_len - 1``.  Replaces ``paged_residual_attention_decode``
     (repro/kernels/paged_residual_attention.py:206), and given
-    ``kb_scale``/``vb_scale`` its int8 branch (:231).  The same kernel as
-    :func:`paged_residual_attention_mixed` with Sq = 1.
+    ``kb_scale``/``vb_scale`` its int8 branch (:231).  Runs, in every type,
+    the split-K decode with the residual stream (``res_split_plan``) and
+    its combine, which applies B_v, with a workspace of
+    ``res_split_plan(...)["workspace_bytes"]``; RoPE comes from
+    ``rope_table`` in q's type.
 
     q: (B, Hq, D); pools and tables as the mixed kernel; kv_len: (B,)
     int32.  Returns (B, Hq, D).  Bound: bytes (module docstring)."""
@@ -363,13 +467,21 @@ def paged_residual_attention_decode(q, kb_pool, vb_pool, kr_pool, vr_pool,
         decode=True)
     r = _check_residual(q, kr_pool, vr_pool, b_k, b_v, bt_r, bsz, hkv, d,
                         page, w)
+    n_split = res_split_plan(bsz, hq, hkv, d, r, w, page,
+                             kb_scale is not None,
+                             _sm_count(q.device.index))["n_split"]
+    # f32 partials: m and l (B, Hq, n_split), acc (..., D), acc_r (..., R)
+    n = bsz * hq * n_split
+    ws = torch.empty(n * (d + r + 2), dtype=torch.float32, device=q.device)
+    table = rope_table(q.device, d, rope_theta, q.dtype, w * page, use_rope)
     out = torch.empty_like(q)
     _run("paged_residual_attention_decode", q, kb_scale, code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
-         _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
-         _ptr(bt_b), _ptr(bt_r), _ptr(kv_len), _ptr(out), bsz, hq, hkv, d,
-         r, page, w, float(scale), int(window), float(rope_theta),
-         int(use_rope), _stream(q))
+         _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v), _ptr(table[0]),
+         _ptr(table[1]), _ptr(bt_b), _ptr(bt_r), _ptr(kv_len), _ptr(ws[:n]), _ptr(ws[n:2 * n]),
+         _ptr(ws[2 * n:(2 + d) * n]), _ptr(ws[(2 + d) * n:]), _ptr(out),
+         bsz, hq, hkv, d, r, page, w, n_split, float(scale), int(window),
+         float(rope_theta), int(use_rope), _stream(q))
     return out
 
 
@@ -383,9 +495,10 @@ def paged_residual_attention_prefill(q, kb_pool, vb_pool, kr_pool, vr_pool,
     chunk's own K/V is already written into them.  Replaces
     ``paged_residual_attention_prefill``
     (repro/kernels/paged_residual_attention.py:488), and given
-    ``kb_scale``/``vb_scale`` its int8 branch (:516).  The mixed kernel
-    with each row's q-length clamp(kv_len - start, 0, chunk) computed in
-    the kernel.
+    ``kb_scale``/``vb_scale`` its int8 branch (:516).  Each row's
+    q-length is clamp(kv_len - start, 0, chunk), computed in the kernel.
+    bf16 runs the tensor-core tile (K rebuilt per key block on chip, RoPE
+    from ``rope_table``), f32 the template.
 
     q: (B, chunk, Hq, D); pools, tables and B_k/B_v as the mixed kernel;
     start: (B,) int32 position of each row's first query; kv_len: (B,)
@@ -399,14 +512,18 @@ def paged_residual_attention_prefill(q, kb_pool, vb_pool, kr_pool, vr_pool,
     r = _check_residual(q, kr_pool, vr_pool, b_k, b_v, bt_r, bsz, hkv, d,
                         page, w)
     _check_rows(start, None, bsz, q.device)
-    tq = max(1, min(sq, MAX_ROWS // g))
+    tq = tile_positions("paged_residual_attention_prefill", q.dtype, g, sq)
+    table = rope_table(q.device, d, rope_theta, q.dtype, w * page,
+                       use_rope) if q.dtype == torch.bfloat16 else None
     out = torch.empty_like(q)
     _run("paged_residual_attention_prefill", q, kb_scale, code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
-         _ptr(bt_b), _ptr(bt_r), _ptr(start), _ptr(kv_len), _ptr(out), bsz,
-         sq, hq, hkv, d, r, page, w, tq, float(scale), int(window),
-         float(rope_theta), int(use_rope), _stream(q))
+         _ptr(None if table is None else table[0]),
+         _ptr(None if table is None else table[1]), _ptr(bt_b), _ptr(bt_r),
+         _ptr(start), _ptr(kv_len), _ptr(out), bsz, sq, hq, hkv, d, r, page,
+         w, tq, float(scale), int(window), float(rope_theta), int(use_rope),
+         _stream(q))
     return out
 
 

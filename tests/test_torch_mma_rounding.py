@@ -29,16 +29,25 @@ with and without a window that straddles key blocks; the paged cases at
 Llama3-8B's heads, page 16, bf16 and int8 pages, as the chunked prefill
 (#6: n_valid rows) and as the mixed grid (#3: explicit q_len, with a
 prefill row, decode rows of q_len 1 and a q_len 0 row), held to the
-prefill and the mixed plain versions.  Also the routing by type: which
+prefill and the mixed plain versions; and the disaggregated chunked
+prefill (#5: the same tile with #7's rebuild), bf16 and int8 pages, whose
+K_r/V_r rows come through their own block table and whose RoPE values
+are the wrapper's table (``rope_table``, q's type), held to the port's
+plain prefill version and in f32 to ``repro.kernels.ref``.  The table is
+held to ``rope_sincos`` exactly and to the angles of JAX's
+``_reconstruct_k`` within f32 rounding.  Also the routing by type: which
 kernel, by its launch counter, a bf16 or f32 launch runs (the split-K
-decode #4 in every type: ``tests/test_torch_splitk.py``).
+decodes #4 and #2 in every type: ``tests/test_torch_splitk.py``).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import paged_residual_attention as jpra
 from repro.kernels import ref as jref
+from repro.core import rope as jrope
+from repro_torch.core import rope as trope
 from repro_torch.kernels import paged_residual_attention as tpra
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import residual_attention as tra
@@ -336,6 +345,149 @@ def test_paged_mixed_algorithm_matches_jax_in_f32(pages, window):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
+# --------------------------------------------- paged, disaggregated (#5)
+RANK = 16
+
+
+def res_paged_inputs(seed):
+    """``paged_inputs`` plus residual pools (Pr, page, R) behind their own
+    block table and per-row B_k/B_v (B, R, Hkv * D)."""
+    t = paged_inputs(seed)
+    rng = np.random.default_rng(seed + 100)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    bsz, width = t["bt_b"].shape
+    hkv, d = t["kb"].shape[2], t["kb"].shape[3]
+    pool_r = bsz * width + 5
+    t.update(kr=f(pool_r, PAGE, RANK) * 0.3, vr=f(pool_r, PAGE, RANK) * 0.3,
+             b_k=f(bsz, RANK, hkv * d) * 0.3, b_v=f(bsz, RANK, hkv * d) * 0.3,
+             bt_r=rng.permutation(pool_r)[:bsz * width].reshape(
+                 bsz, width).astype(np.int32))
+    return t
+
+
+def emulate_paged_res(t, window, lowp, ks=None, vs=None):
+    """#5's tile: base pages gathered by position (int8: dequantized to q's
+    type), residual rows through bt_r, K rebuilt with sin/cos from the
+    wrapper's table in q's type and rounded once (``rebuild_k``), then
+    ``emulate`` with the residual stream; rows at or past n_valid are
+    zeros."""
+    bsz, sq, _, d = t["q"].shape
+    hkv = t["kb"].shape[2]
+    bt, btr = t["bt_b"].long(), t["bt_r"].long()
+    sk = bt.shape[1] * PAGE
+
+    def gather(pool, sc):
+        x = pool[bt].reshape(bsz, sk, hkv, d)
+        if sc is not None:
+            x = (x.float() * sc[bt].reshape(bsz, sk, hkv)[..., None]).to(
+                t["q"].dtype)
+        return x
+
+    table = tpra.rope_table(torch.device("cpu"), d, 10_000.0, t["q"].dtype,
+                            sk)
+    sin, cos = (table[i, :sk].expand(bsz, sk, d // 2) for i in (0, 1))
+    k = rebuild_k(gather(t["kb"], ks), t["kr"][btr].reshape(bsz, sk, -1),
+                  t["b_k"], sin, cos, lowp)
+    qpos = t["start"].long()[:, None] + torch.arange(sq)[None]
+    out = emulate(t["q"], k, gather(t["vb"], vs).float(), qpos,
+                  t["kv_len"].long(), scale=d ** -0.5, window=window,
+                  res=(t["vr"][btr].reshape(bsz, sk, -1), t["b_v"]),
+                  lowp=lowp)
+    valid = torch.arange(sq)[None] < t["q_len"][:, None]
+    return out * valid[:, :, None, None]
+
+
+_RES = ("kr", "vr", "b_k", "b_v")
+
+
+def res_case(seed, pages, lowp):
+    t = {k: torch.from_numpy(v) for k, v in res_paged_inputs(seed).items()}
+    if lowp:
+        for k in ("q", "kb", "vb") + _RES:
+            t[k] = t[k].to(torch.bfloat16)
+    ks = vs = None
+    if pages == "int8":
+        (t["kb"], ks), (t["vb"], vs) = quantize_kv(t["kb"]), \
+            quantize_kv(t["vb"])
+    return t, ks, vs
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_paged_res_rounding_plan_holds_half_the_bf16_gate(pages, window):
+    t, ks, vs = res_case(17, pages, lowp=True)
+    want = tref.paged_residual_attention_prefill_ref(
+        t["q"], t["kb"], t["vb"], *[t[k] for k in _RES], t["bt_b"],
+        t["bt_r"], t["start"], t["kv_len"], window=window, kb_scale=ks,
+        vb_scale=vs).float()
+    got = emulate_paged_res(t, window, lowp=True, ks=ks, vs=vs)
+    rows = valid_rows()
+    assert torch.all(got[~rows] == 0.0)
+    err = (got - want)[rows].abs().max().item()
+    assert err <= SHARE * want[rows].abs().max().item()
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("pages", ["f32", "int8"])
+def test_paged_res_algorithm_matches_jax_in_f32(pages, window):
+    t, ks, vs = res_case(18, pages, lowp=False)
+    got = emulate_paged_res(t, window, lowp=False, ks=ks, vs=vs).numpy()
+    j = lambda x: None if x is None else jnp.asarray(x.numpy())  # noqa
+    want = np.asarray(jref.paged_residual_attention_prefill_ref(
+        *[j(t[k]) for k in ("q", "kb", "vb") + _RES + ("bt_b", "bt_r",
+                                                      "start", "kv_len")],
+        window=window, kb_scale=j(ks), vb_scale=j(vs)))
+    rows = valid_rows().numpy()
+    np.testing.assert_allclose(got[rows], want[rows], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+def test_rope_table_is_the_plain_versions_sincos(d, dtype):
+    """Row p of the table is ``rope_sincos(p)`` rounded to q's type, bit
+    for bit, at every position a launch of W * page keys reads; it grows
+    when a launch needs more rows; without RoPE it is sin 0, cos 1."""
+    dev = torch.device("cpu")
+    rows = 5000                                   # past the first 4096
+    table = tpra.rope_table(dev, d, 10_000.0, dtype, rows)
+    assert table.shape[0] == 2 and table.shape[1] >= rows
+    assert table.shape[2] == d // 2 and table.dtype == dtype
+    pos = torch.arange(rows)
+    sin, cos = trope.rope_sincos(pos, d, 10_000.0)
+    assert torch.equal(table[0, :rows], sin.to(dtype))
+    assert torch.equal(table[1, :rows], cos.to(dtype))
+    assert tpra.rope_table(dev, d, 10_000.0, dtype, 100) is table
+    bigger = tpra.rope_table(dev, d, 10_000.0, dtype, 3 * table.shape[1])
+    assert torch.equal(bigger[:, :rows], table[:, :rows])
+    plain = tpra.rope_table(dev, d, 10_000.0, dtype, rows, use_rope=False)
+    assert torch.all(plain[0] == 0) and torch.all(plain[1] == 1)
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 500_000.0])
+def test_rope_table_matches_jax_angles(theta):
+    """The f32 table against JAX's ``rope_sincos`` and against the angles
+    JAX's Pallas kernels use (``_reconstruct_k``: RoPE from the logical
+    position j * page + t), read off a rebuild of x = [1, 0] rows (out =
+    [cos, sin]) of pages 0, 7 and 255, within f32 rounding."""
+    d, page = 128, 16
+    table = tpra.rope_table(torch.device("cpu"), d, theta, torch.float32,
+                            4096).numpy()
+    pos = np.arange(4096, dtype=np.int32)
+    jsin, jcos = jrope.rope_sincos(jnp.asarray(pos), d, theta)
+    np.testing.assert_allclose(table[0, :4096], np.asarray(jsin), atol=2e-6)
+    np.testing.assert_allclose(table[1, :4096], np.asarray(jcos), atol=2e-6)
+    kb = jnp.zeros((1, page, 1, d), jnp.float32)
+    kr = jnp.ones((1, page, 1), jnp.float32)
+    bk = jnp.asarray(np.concatenate([np.ones(d // 2), np.zeros(d // 2)]
+                                    ).astype(np.float32)[None, None, None])
+    for j in (0, 7, 255):
+        k = np.asarray(jpra._reconstruct_k(kb, kr, bk, j, page=page, d=d,
+                                           rope_theta=theta, use_rope=True))
+        rows = table[:, j * page:(j + 1) * page]
+        np.testing.assert_allclose(k[:, :d // 2], rows[1], atol=2e-6)
+        np.testing.assert_allclose(k[:, d // 2:], rows[0], atol=2e-6)
+
+
 # ------------------------------------------------------------- routing
 @pytest.mark.parametrize("dtype,int8,want", [
     (torch.bfloat16, False, "paged_attention_prefill_base_mma"),
@@ -373,6 +525,34 @@ def test_paged_decode_base_is_always_splitk(dtype, int8, want):
     """Every launch of #4 runs the split-K decode, whatever the type."""
     got = tpra.kernel_name("paged_attention_decode_base", dtype, int8)
     assert got == want and got in tpra.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype,int8,want", [
+    (torch.bfloat16, False, "paged_residual_attention_prefill_mma"),
+    (torch.bfloat16, True, "paged_residual_attention_prefill_int8_mma"),
+    (torch.float32, False, "paged_residual_attention_prefill"),
+    (torch.float32, True, "paged_residual_attention_prefill_int8"),
+])
+def test_paged_res_prefill_routes_by_dtype(dtype, int8, want):
+    """bf16 launches of #5 (bf16 or int8 pages) go to its tensor-core tile
+    and are counted apart; f32 ones stay on the template."""
+    got = tpra.kernel_name("paged_residual_attention_prefill", dtype, int8)
+    assert got == want and got in tpra.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype,int8,want", [
+    (torch.bfloat16, False, "paged_residual_attention_decode_splitk"),
+    (torch.bfloat16, True, "paged_residual_attention_decode_int8_splitk"),
+    (torch.float32, False, "paged_residual_attention_decode_splitk"),
+    (torch.float32, True, "paged_residual_attention_decode_int8_splitk"),
+])
+def test_paged_res_decode_is_always_splitk(dtype, int8, want):
+    """Every launch of #2 runs the split-K decode, whatever the type; no
+    counter of a template instance of #2 is left."""
+    got = tpra.kernel_name("paged_residual_attention_decode", dtype, int8)
+    assert got == want and got in tpra.LAUNCHES
+    assert "paged_residual_attention_decode" not in tpra.LAUNCHES
+    assert "paged_residual_attention_decode_int8" not in tpra.LAUNCHES
 
 
 @pytest.mark.parametrize("entry", tpra.ENTRIES)
@@ -428,3 +608,13 @@ def test_paged_tile_positions_by_kernel(dtype, positions):
                                2048) == positions
     assert tpra.tile_positions("paged_residual_attention_mixed", dtype, 4,
                                2048) == 16
+
+
+@pytest.mark.parametrize("dtype,group,positions", [
+    (torch.bfloat16, 4, 32), (torch.float32, 4, 16),
+    (torch.bfloat16, 64, 2), (torch.float32, 64, 1)])
+def test_paged_res_prefill_tile_positions_by_kernel(dtype, group, positions):
+    """#5 in bf16: 128 rows per CTA of its tile; in f32, the template's
+    64."""
+    assert tpra.tile_positions("paged_residual_attention_prefill", dtype,
+                               group, 2048) == positions

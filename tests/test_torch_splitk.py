@@ -20,6 +20,19 @@ package's ``repro.kernels.ref`` within 1e-5.  Rows: kv_len 0, 1, a
 non-multiple of the page and a long row; n_split 1, 3 and 7 (7 leaves
 shares empty); windows 0 and 77, which straddles shares.  Also
 ``decode_splits`` and ``split_heads``, the wrapper's launch plan.
+
+The split-K decode with the residual stream (#2,
+``paged_residual_attention_decode``) is held the same way by
+``emulate_res``: shares of ``RES_SPLIT_KEYS`` multiples, each stepping
+through 16 keys at a time as a warp does: K = K_b + RoPE(K_r . B_k) in f32
+with sin/cos from the wrapper's ``rope_table``, rounded once to bf16 (int8
+pages: bf16(code * scale) first); the online softmax in base 2 with P
+rounded to bf16 for P . V_b and P . V_r; f32 partials m, l, acc and acc_r;
+and B_v applied after the combine, (sum w acc + (sum w acc_r) . B_v) / max(
+sum w l, 1e-20), so a row at kv_len 0 is exactly 0.  In f32 nothing is
+rounded and it is held to ``repro.kernels.ref`` within 1e-5 (the f32
+kernel is the template share by share, the same algorithm).  Also
+``res_split_plan``, its launch plan.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -218,3 +231,210 @@ def test_split_heads_tile_the_group(group, heads, ctas):
     assert plan["grid"][1] == 2 * ctas
     assert plan["workspace_bytes"] == 4 * 2 * group * 2 * \
         plan["n_split"] * (128 + 2)
+
+
+# ------------------------------------------------- with the residual stream
+RANK = 16
+
+
+def res_inputs(seed):
+    """``inputs`` plus residual pools (Pr, page, R) addressed by their own
+    block table, and per-row B_k/B_v (B, R, Hkv * D)."""
+    t = inputs(seed)
+    rng = np.random.default_rng(seed + 100)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    bsz = len(KV_LEN)
+    pool_r = bsz * WIDTH + 5
+    t.update(kr=f(pool_r, PAGE, RANK) * 0.3, vr=f(pool_r, PAGE, RANK) * 0.3,
+             b_k=f(bsz, RANK, HKV * D) * 0.3, b_v=f(bsz, RANK, HKV * D) * 0.3,
+             bt_r=rng.permutation(pool_r)[:bsz * WIDTH].reshape(
+                 bsz, WIDTH).astype(np.int32))
+    return t
+
+
+def res_shares(first, end, n_split):
+    """[lo, hi) of each share: equal shares in whole RES_SPLIT_KEYS
+    multiples."""
+    n = max(0, end - first)
+    per = -(-(-(-n // n_split)) // tpra.RES_SPLIT_KEYS) * tpra.RES_SPLIT_KEYS
+    return [(first + s * per, min(end, first + (s + 1) * per))
+            for s in range(n_split)]
+
+
+def rebuilt_k(t, ks, lowp):
+    """(B, W * page, Hkv, D) f32: K = K_b + RoPE(K_r . B_k), sin/cos from
+    the wrapper's table in q's type; rounded once to bf16 (``lowp``)."""
+    q = t["q"]
+    bsz, width = t["bt_b"].shape
+    sk = width * PAGE
+    bt, btr = t["bt_b"].long(), t["bt_r"].long()
+    kb = t["kb"][bt].reshape(bsz, sk, HKV, D)
+    if ks is not None:
+        kb = (kb.float() * ks[bt].reshape(bsz, sk, HKV)[..., None]).to(
+            q.dtype)
+    kr = t["kr"][btr].reshape(bsz, sk, -1).float()
+    kl = torch.einsum("bsr,brn->bsn", kr, t["b_k"].float()).reshape(
+        bsz, sk, HKV, D)
+    table = tpra.rope_table(torch.device("cpu"), D, 10_000.0, q.dtype, sk)
+    sn, cs = (table[i, :sk].float()[None, :, None] for i in (0, 1))
+    x1, x2 = kl[..., :D // 2], kl[..., D // 2:]
+    k = kb.float() + torch.cat([x1 * cs - x2 * sn, x2 * cs + x1 * sn], -1)
+    return k.to(torch.bfloat16).float() if lowp else k
+
+
+def emulate_res(t, n_split, window, ks=None, vs=None, lowp=True):
+    """The split-K decode with the residual stream: per (row, kv head),
+    each share's partials from 16-key steps of an online softmax, then the
+    combine with B_v.  Returns the f32 output (B, Hq, D)."""
+    rnd = (lambda x: x.to(torch.bfloat16).float()) if lowp else \
+        (lambda x: x)
+    q = t["q"]
+    bsz, hq, d = q.shape
+    g = hq // HKV
+    width = t["bt_b"].shape[1]
+    k = rebuilt_k(t, ks, lowp)
+    bt, btr = t["bt_b"].long(), t["bt_r"].long()
+    v = t["vb"][bt].reshape(bsz, width * PAGE, HKV, d)
+    if vs is not None:
+        v = (v.float() * vs[bt].reshape(bsz, -1, HKV)[..., None]).to(q.dtype)
+    v = v.float()
+    vr = t["vr"][btr].reshape(bsz, width * PAGE, -1).float()
+    b_v = t["b_v"].float().reshape(bsz, -1, HKV, d)
+    c = d ** -0.5 * LOG2E
+    out = torch.zeros(bsz, hq, d)
+    for b in range(bsz):
+        first, end = live_range(int(t["kv_len"][b]), width, window)
+        for h in range(HKV):
+            qh = q[b, h * g:(h + 1) * g].float()                # (G, D)
+            parts = []
+            for lo, hi in res_shares(first, end, n_split):
+                if lo >= hi:
+                    continue                # m = -1e30, l = 0: weight 0
+                m = torch.full((g,), NEG_INIT)
+                l = torch.zeros(g)
+                acc, accr = torch.zeros(g, d), torch.zeros(g, vr.shape[-1])
+                for k0 in range(lo, hi, tpra.RES_SPLIT_KEYS):
+                    sl = slice(k0, min(k0 + tpra.RES_SPLIT_KEYS, hi))
+                    s = qh @ k[b, sl, h].T                      # (G, keys)
+                    m_new = torch.maximum(m, s.amax(-1) * c)
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.exp2(s * c - m_new[:, None])
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + rnd(p) @ v[b, sl, h]
+                    accr = accr * alpha[:, None] + rnd(p) @ vr[b, sl]
+                    m = m_new
+                parts.append((m, l, acc, accr))
+            if not parts:
+                continue                    # l = 0 everywhere: exactly 0
+            mx = torch.stack([pt[0] for pt in parts]).amax(0)
+            w = [torch.exp2(pt[0] - mx)[:, None] for pt in parts]
+            lsum = sum(wi[:, 0] * pt[1] for wi, pt in zip(w, parts))
+            acc = sum(wi * pt[2] for wi, pt in zip(w, parts))
+            accr = sum(wi * pt[3] for wi, pt in zip(w, parts))
+            o = acc + accr @ b_v[b, :, h]
+            out[b, h * g:(h + 1) * g] = o / torch.clamp(lsum, min=1e-20)[
+                :, None]
+    return out
+
+
+_RES = ("kr", "vr", "b_k", "b_v")
+
+
+def res_case(seed, pages, lowp):
+    t = {k: torch.from_numpy(v) for k, v in res_inputs(seed).items()}
+    if lowp:
+        for k in ("q", "kb", "vb") + _RES:
+            t[k] = t[k].to(torch.bfloat16)
+    ks = vs = None
+    if pages == "int8":
+        (t["kb"], ks), (t["vb"], vs) = quantize_kv(t["kb"]), \
+            quantize_kv(t["vb"])
+    return t, ks, vs
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("n_split", SPLITS)
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_res_splitk_holds_half_the_bf16_gate(pages, n_split, window):
+    t, ks, vs = res_case(23, pages, lowp=True)
+    want = tref.paged_residual_attention_ref(
+        t["q"], t["kb"], t["vb"], t["kr"], t["vr"], t["b_k"], t["b_v"],
+        t["bt_b"], t["bt_r"], t["kv_len"], window=window, kb_scale=ks,
+        vb_scale=vs).float()
+    got = emulate_res(t, n_split, window, ks, vs)
+    rows = seen_rows()
+    assert torch.all(got[~rows] == 0.0)
+    err = (got - want)[rows].abs().max().item()
+    assert err <= SHARE * want[rows].abs().max().item()
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("n_split", SPLITS)
+@pytest.mark.parametrize("pages", ["f32", "int8"])
+def test_res_splitk_matches_jax_in_f32(pages, n_split, window):
+    t, ks, vs = res_case(24, pages, lowp=False)
+    got = emulate_res(t, n_split, window, ks, vs, lowp=False).numpy()
+    j = lambda x: None if x is None else jnp.asarray(x.numpy())  # noqa
+    want = np.asarray(jref.paged_residual_attention_ref(
+        *[j(t[k]) for k in ("q", "kb", "vb") + _RES + ("bt_b", "bt_r",
+                                                      "kv_len")],
+        window=window, kb_scale=j(ks), vb_scale=j(vs)))
+    rows = seen_rows().numpy()
+    np.testing.assert_allclose(got[rows], want[rows], atol=1e-5, rtol=1e-5)
+
+
+def test_res_shares_cover_the_live_range_once():
+    """#2's shares tile each row's live range exactly, in 16-key
+    multiples, with the empty ones at the end."""
+    for kv_len in (0, 1, 17, 45, 230, 256, 300):
+        for window in (0, 77, 300):
+            first, end = live_range(kv_len, WIDTH, window)
+            for n_split in (1, 3, 4, 8, 64):
+                got = res_shares(first, end, n_split)
+                keys = [k for lo, hi in got for k in range(lo, hi)]
+                assert keys == list(range(first, end))
+                full = [hi - lo for lo, hi in got if hi > lo][:-1]
+                assert all(n % tpra.RES_SPLIT_KEYS == 0 for n in full)
+
+
+@pytest.mark.parametrize("d,r,int8,ctas", [
+    (128, 16, False, 1), (128, 32, False, 1), (128, 16, True, 2),
+    (128, 32, True, 1), (64, 16, False, 3), (64, 16, True, 3)])
+def test_res_split_smem_fits_the_card(d, r, int8, ctas):
+    """Each instance's shared memory fits a CTA of the H100 (227 KB), and
+    as many CTAs per SM as the plan counts on fit together."""
+    smem = tpra.res_split_smem(d, r, int8)
+    assert smem + 2048 <= 227 * 1024
+    assert tpra.res_ctas_per_sm(d, r, int8) == ctas
+    assert ctas * (smem + tpra.SMEM_PER_CTA_RESERVED) <= tpra.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("bsz,hq,hkv,d,w,page,int8", [
+    (8, 32, 8, 128, 256, 16, False),   # Llama3-8B's heaviest decode
+    (8, 32, 8, 128, 133, 16, True),
+    (1, 32, 8, 128, 2048, 16, False),  # one long row
+    (1, 2, 2, 64, 1, 16, False),       # one page
+    (64, 32, 8, 128, 10, 16, False),   # more CTAs than the card holds
+    (3, 64, 1, 64, 40, 8, True),       # a group of 64: 4 head tiles
+])
+def test_res_split_plan_stays_in_bounds(bsz, hq, hkv, d, w, page, int8):
+    plan = tpra.res_split_plan(bsz, hq, hkv, d, RANK, w, page, int8, 132)
+    n, (cta_splits, groups, rows) = plan["n_split"], plan["grid"]
+    assert n == cta_splits * tpra.RES_SPLIT_WARPS and rows == bsz
+    assert groups == hkv * -(-(hq // hkv) // tpra.RES_SPLIT_HEADS)
+    assert 1 <= cta_splits <= -(-w * page // (4 * tpra.RES_SPLIT_KEYS))
+    # one pass of the card's resident slots, unless one CTA per row and
+    # head tile already exceeds it
+    assert cta_splits == 1 or \
+        cta_splits * bsz * groups <= plan["ctas_per_sm"] * 132
+    assert plan["workspace_bytes"] == 4 * bsz * hq * n * (d + RANK + 2)
+    assert plan["combine_grid"] == bsz * hq
+
+
+def test_res_split_plan_fills_the_card():
+    """At the heaviest decode (8 rows x 8 kv heads) the CTAs fill the
+    card's resident slots; one long row takes many shares."""
+    heavy = tpra.res_split_plan(8, 32, 8, 128, RANK, 256, 16, False, 132)
+    assert heavy["grid"][0] * 8 * 8 > 132 // 2
+    long = tpra.res_split_plan(1, 32, 8, 128, RANK, 2048, 16, False, 132)
+    assert long["n_split"] >= 32
