@@ -14,11 +14,12 @@ error:
    kernel with its registers, stack and spill bytes from ptxas;
 3. kernels: every launch is checked to have run the kernel its type
    routes it to (bf16 launches of the chunked prefills #6 and #5, of the
-   base-only mixed grid #3 and of the dense prefill #7: their tensor-core
+   mixed grids #3 and #1 and of the dense prefill #7: their tensor-core
    kernels, counted as ``<entry>[_int8]_mma``; every launch of the decodes
-   #4 and #2: their split-K decodes, ``<entry>[_int8]_splitk``, whose split
-   count, grids and workspace bytes each record logs; f32 launches of the
-   others: the scalar kernels);
+   #4 and #2 and bf16 launches of the dense decode #8: their split-K
+   decodes, ``<entry>[_int8]_splitk``, whose split count, grids and
+   workspace bytes each record logs; f32 launches of the others: the
+   scalar kernels);
    the six paged attention kernels (mixed, decode and chunked
    prefill, each disaggregated and base-only) and their six int8 variants
    (int8 pages quantized by the port's ``quantize_kv``, with f32 scales)
@@ -34,10 +35,12 @@ error:
    #4 (and their int8 variants) also at page sizes 8 and 32, head_dim 64
    and a group of 64 heads, #4 also on one row at kv_len 32768 over 2048
    pages and on rows at kv_len 0, 1 and 17 beside a 2048 row (a window of
-   300 leaves some of their splits empty); #5 and #2 at the same edges and
-   at ranks 5, 8 and 32, #5 also on rows at kv_len 0, 1 and 17 beside a
-   512-token chunk; an all-decode mixed-grid launch is timed beside #4 on
-   the same rows, and #4 and #2 on rows at kv_len 1 (their launch
+   300 leaves some of their splits empty); #5, #1 and #2 at the same edges
+   and at ranks 5, 8 and 32, #5 also on rows at kv_len 0, 1 and 17 beside
+   a 512-token chunk, #1 on ragged mixed rows (q_len 0, 1, 17 and 512;
+   kv_len 0, 1 and 17; the q_len 0 row at kv_len 0 must come back exactly
+   0); all-decode mixed-grid launches (#3, #1) are timed beside #4 and #2
+   on the same rows, and #4 and #2 on rows at kv_len 1 (their launch
    floors).  Then the two dense kernels (prefill and decode over
    contiguous caches) at the CPU tests' cases with R 16 at D 128 (MHA,
    GQA, MQA) and at D 256 (RecurrentGemma-9B's MQA with G 16, and GQA):
@@ -45,7 +48,10 @@ error:
    and a ragged decode over 2048 keys, f32 and bf16; the prefill also at
    the edges of the tensor-core tile, window 0 and 100: Sq and Sk off the
    tile's multiples, ranks 8, 32 and 5, head_dim 64, a group of 64 heads,
-   D 256 at ranks 24 and (bf16 only) 32.  Then the RG-LRU
+   D 256 at ranks 24 and (bf16 only) 32; the decode at D 64, 128 and 256
+   with groups of 4 and 16 at Sk 1 (``forward`` at S 1) and at Sk 4096
+   (B 4; timed in bf16 against its bound), window 0 and 300, at rank 5,
+   a group of 64 and (bf16 only) D 256 at rank 32.  Then the RG-LRU
    scan kernel at tests/test_kernels.py's shapes (the ragged one as it
    is), at S 1 and at W 200, f32 and bf16, h0 non-zero;
 4. a small f32 model served on the card and on the CPU: identical greedy
@@ -77,9 +83,9 @@ error:
    recorded.  The four staggered serves again with int8 bCache pages
    (only int8 variants may launch), with peak pages and bytes per page;
    in bf16 (int8 pages too) the prefix serves and the broadcast pass must
-   run #6's and #3's tensor-core kernels and the forkkv phase-separated
-   serves #5's, never their template instances, and in every type #4 and
-   #2 only as split-K decodes;
+   run #6's and #3's tensor-core kernels and the forkkv serves #5's and
+   #1's, never their template instances, and in every type #4 and #2 only
+   as split-K decodes;
    then the staggered serve in bf16 at ``max_pages`` 640 (between
    forkkv's peak of 169 base pages and prefix's 937) with a 4 GiB host
    tier, in both modes: every fork finishes, prefix demotes pages, tier
@@ -87,7 +93,8 @@ error:
    ``forward(disagg=True)`` on 4 rows x 1000 tokens (adapters 0-3) must
    launch the dense prefill kernel once per layer (in bf16 its
    tensor-core kernel, on f32 copies the scalar one), and ``forward`` on one
-   token the dense decode kernel once per layer; both are timed, with
+   token the dense decode kernel once per layer (in bf16 its split-K
+   decode, on f32 copies the scalar one); both are timed, with
    ``prefill`` of 600 tokens and 16 ``decode_step`` s over a 1024-slot
    cache, and a profiled decode step (device busy time, kernels per
    step, idle share).  On f32 copies of the same weights the
@@ -117,9 +124,9 @@ error:
    of its first launch at each shape of 5. (f32, timed) and on the same
    inputs in bf16;
 7. the kernels line (#1–#6, their int8 variants, #7–#9, each named by the
-   counter of the kernel the bf16 main path ran: ``_mma`` for #3, #5, #6,
-   their int8 variants and #7, ``_splitk`` for #2, #4 and their int8
-   variants), the card line and the result line.
+   counter of the kernel the bf16 main path ran: ``_mma`` for #1, #3, #5,
+   #6, their int8 variants and #7, ``_splitk`` for #2, #4, their int8
+   variants and #8), the card line and the result line.
 """
 import dataclasses
 import itertools
@@ -585,15 +592,20 @@ DECODE_EDGES = [(label, geom, FIXED["decode"], 2048 // geom["page"])
 # from position 9) beside a 512-token chunk from 1000
 RANK_EDGES = {f"R {r}": dict(LLAMA_GEOM, r=r) for r in (5, 8, 32)}
 RES_PREFILL_ROWS = dict(start=[0, 0, 9, 1000], qlen=[0, 1, 8, 512], sq=512)
+# #1 (on #5's tile with q_len given) on ragged mixed rows: a q_len 0 row at
+# kv_len 0 (exactly 0), a decode row at kv_len 1, 17 positions from 0, a
+# decode row at kv_len 17, 17 positions from mid-page 40, a full 512 row
+RES_MIXED_ROWS = dict(start=[0, 0, 0, 16, 40, 1000],
+                      qlen=[0, 1, 17, 1, 17, 512], sq=512)
 
 
 def check_edges(pra, ref, quantize):
     """Phase 3: the base-only chunked prefill (#6) at ``PREFILL_EDGES``, the
     mixed grid (#3) at ``MIXED_EDGES`` and the decode (#4) at
-    ``DECODE_EDGES``; the disaggregated chunked prefill (#5) and decode
-    (#2) at the same edges and at ``RANK_EDGES``, #5 also on
-    ``RES_PREFILL_ROWS``; each with its int8 variant, f32 and bf16, without
-    and with a window."""
+    ``DECODE_EDGES``; the disaggregated chunked prefill (#5), mixed grid
+    (#1) and decode (#2) at the same edges and at ``RANK_EDGES``, #5 also
+    on ``RES_PREFILL_ROWS``, #1 on ``RES_MIXED_ROWS``; each with its int8
+    variant, f32 and bf16, without and with a window."""
     sets = [("paged_attention_prefill_base", label, geom,
              dict(FIXED["prefill"], width=2048 // geom["page"]))
             for label, geom in PREFILL_EDGES.items()]
@@ -606,6 +618,14 @@ def check_edges(pra, ref, quantize):
              for label, geom in {**PREFILL_EDGES, **RANK_EDGES}.items()]
     sets += [("paged_residual_attention_prefill", "kv_len 0, 1, 17",
               LLAMA_GEOM, dict(RES_PREFILL_ROWS, width=128))]
+    sets += [("paged_residual_attention_mixed", label, geom,
+              dict(rows, width=w)) for label, geom, rows, w in MIXED_EDGES]
+    sets += [("paged_residual_attention_mixed", label, geom,
+              dict(FIXED["mixed"], width=128))
+             for label, geom in RANK_EDGES.items()]
+    sets += [("paged_residual_attention_mixed",
+              "q_len 0, 1, 17, 512; kv_len 0, 1, 17", LLAMA_GEOM,
+              dict(RES_MIXED_ROWS, width=128))]
     sets += [("paged_residual_attention_decode", label, geom,
               dict(rows, width=w)) for label, geom, rows, w in DECODE_EDGES]
     sets += [("paged_residual_attention_decode", label, geom,
@@ -632,7 +652,8 @@ def time_decode_launches(pra, ref, quantize):
     tensor-core tile's 128 rows: its time beside the decode kernel's (#4)
     on the same rows; and #4's floor, 8 rows at kv_len 1 over 133-page
     tables (two launches and a chain of dependent loads, next to no
-    bytes); the same two for the disaggregated decode (#2)."""
+    bytes); the same three for the disaggregated mixed grid and decode
+    (#1, #2)."""
     floor = dict(start=[0] * 8, qlen=[1] * 8, sq=1, width=133)
     for quant in (False, True):
         rec = {}
@@ -640,6 +661,8 @@ def time_decode_launches(pra, ref, quantize):
                 ("mixed", "paged_attention_mixed_base", FIXED["decode"]),
                 ("decode", "paged_attention_decode_base", FIXED["decode"]),
                 ("decode floor", "paged_attention_decode_base", floor),
+                ("res mixed", "paged_residual_attention_mixed",
+                 FIXED["decode"]),
                 ("res decode", "paged_residual_attention_decode",
                  FIXED["decode"]),
                 ("res decode floor", "paged_residual_attention_decode",
@@ -748,6 +771,24 @@ DENSE_EDGES = [
 # and the scalar kernel refuses (its shared memory holds R <= ~26 at D 256)
 DENSE_EDGES_BF16 = [
     ("edge D 256, R 32", (16, 1, 256, 32), 300, 300, [0], None),
+]
+# #8 (in bf16 the split-K decode) at D 64, 128 and 256 with groups of 4 and
+# 16: at Sk 1 (``forward`` at S 1: one range, no combine) and at Sk 4096
+# (B 4: ranges and a combine; timed in bf16 against its bound); ragged rows
+# at rank 5 and with a group of 64 (four 16-head tiles); each with window 0
+# and 300
+DECODE_HEADS = {"D 64 G 4": (8, 2, 64, 16), "D 128 G 4": (32, 8, 128, 16),
+                "D 128 G 16": (16, 1, 128, 16),
+                "D 256 G 16": (16, 1, 256, 16), "D 256 G 4": (8, 2, 256, 16)}
+_RAGGED = ([296, 40, 0, 16], [297, 41, 1, 17])
+DENSE_DECODE = [
+    (f"decode {label} Sk {sk}", heads, 1, sk, [sk - 1] * 4, [sk] * 4)
+    for label, heads in DECODE_HEADS.items() for sk in (1, 4096)
+] + [("decode R 5 ragged", (32, 8, 128, 5), 1, 300, *_RAGGED),
+     ("decode G 64 ragged", (64, 1, 128, 16), 1, 300, *_RAGGED)]
+# and in bf16 only: D 256 at rank 32 (the scalar kernel refuses it)
+DENSE_DECODE_BF16 = [
+    ("decode D 256 R 32 ragged", (16, 1, 256, 32), 1, 300, *_RAGGED),
 ]
 
 
@@ -878,14 +919,16 @@ def compare_dense(ra, ref, c, tol):
     """The dense kernel against its plain version on ``c``; raises on a
     non-finite output or an error past ``tol`` (f32: absolute; bf16: a
     share of the plain version's max |value|).  Every row of these cases
-    sees a key.  A bf16 prefill must have run the tensor-core kernel, an
-    f32 one the scalar kernel.  Returns the record to log."""
+    sees a key.  A bf16 prefill must have run the tensor-core kernel and a
+    bf16 decode the split-K decode (whose plan the record carries), an f32
+    launch the scalar kernel.  Returns the record to log."""
     before = dict(ra.LAUNCHES)
     got = dense_kernel_call(ra, c)()
     want = dense_plain_call(ref, c)()
     torch.cuda.synchronize()
     name = dense_name(c)
-    kernel = name if c["decode"] else ra.prefill_kernel(c["dtype"])
+    kernel = ra.decode_kernel(c["dtype"]) if c["decode"] else \
+        ra.prefill_kernel(c["dtype"])
     if launched(ra, before) != {kernel: 1}:
         raise AssertionError(f"{name} {c['label']} {c['dtype']}: ran "
                              f"{launched(ra, before)}, not {kernel}")
@@ -898,6 +941,12 @@ def compare_dense(ra, ref, c, tol):
                case=c["label"], window=c["window"], causal=c["causal"],
                shape=list(c["q"].shape) + [c["k_base"].shape[1]],
                max_abs_err=err, ref_max_abs=ref_max, limit=limit)
+    if kernel.endswith("_splitk"):
+        bsz, _, hq, d = c["q"].shape
+        rec["split"] = ra.decode_split_plan(
+            bsz, hq, c["k_base"].shape[2], d, c["k_res"].shape[2],
+            c["k_base"].shape[1], c["window"],
+            torch.cuda.get_device_properties(0).multi_processor_count)
     del got, want
     if err > limit:
         log("dense_kernel", **rec, ok=False)
@@ -917,14 +966,18 @@ def measure_dense(ra, ref, c, rec):
 
 def check_dense_kernels(ra, ref):
     """Phase 3, dense: both kernels against their plain version at the
-    fixed cases, f32 and bf16, window 0 and 5, and the prefill at
+    fixed cases, f32 and bf16, window 0 and 5, the prefill at
     ``DENSE_EDGES`` (bf16 also ``DENSE_EDGES_BF16``), window 0 and 100,
-    causal and not; the 2048-key decodes are timed in bf16."""
+    causal and not, and the decode at ``DENSE_DECODE`` (bf16 also
+    ``DENSE_DECODE_BF16``), window 0 and 300; the 2048- and 4096-key
+    decodes are timed in bf16."""
     for dtype, tol in DTYPES:
         groups = [((0, 5), DENSE_FIXED, 20, (True,)),
-                  ((0, 100), DENSE_EDGES, 60, (True, False))]
+                  ((0, 100), DENSE_EDGES, 60, (True, False)),
+                  ((0, 300), DENSE_DECODE, 90, (True,))]
         if dtype == torch.bfloat16:
-            groups.append(((0, 100), DENSE_EDGES_BF16, 80, (True, False)))
+            groups += [((0, 100), DENSE_EDGES_BF16, 80, (True, False)),
+                       ((0, 300), DENSE_DECODE_BF16, 120, (True,))]
         for windows, cases, seed, causals in groups:
             for window, causal, (i, case) in itertools.product(
                     windows, causals, enumerate(cases)):
@@ -932,7 +985,8 @@ def check_dense_kernels(ra, ref):
                                     seed=seed + i)
                 c["causal"] = causal
                 rec = compare_dense(ra, ref, c, tol)
-                if case[0].endswith("Sk=2048") and dtype == torch.bfloat16:
+                if case[0].endswith(("Sk=2048", "Sk 4096")) and \
+                        dtype == torch.bfloat16:
                     measure_dense(ra, ref, c, rec)
                 log("dense_kernel", **rec, ok=True)
                 del c
@@ -1306,13 +1360,23 @@ def dense_prefill(cfg):
     return ra.prefill_kernel(cfg.activation_dtype)
 
 
+def dense_decode(cfg):
+    """The dense decode kernel, by its launch counter, that a model in
+    ``cfg.dtype`` runs: the split-K decode in bf16, the scalar kernel in
+    f32."""
+    from repro_torch.kernels import residual_attention as ra
+    return ra.decode_kernel(cfg.activation_dtype)
+
+
 def dense_api(tfm, cfg, params, lora, tokens, counted, prompt, steps):
     """The dense model API on ``tokens`` (B x S) over adapters 0..B-1:
     ``forward`` disaggregated (the prefill kernel once per layer) and
     unified, ``forward`` on the first token (the decode kernel once per
     layer), and ``prefill`` of ``prompt`` tokens then ``steps``
     ``decode_step`` s over a 1024-slot cache.  The prefill kernel is the
-    tensor-core one in bf16 and the scalar one in f32 (``dense_prefill``).
+    tensor-core one in bf16 and the scalar one in f32 (``dense_prefill``),
+    the decode kernel the split-K one in bf16 and the scalar one in f32
+    (``dense_decode``).
     ``counted(fn, want)`` runs
     ``fn`` with the counts zeroed just before it and checks them just
     after.  Returns (logits, times in ms)."""
@@ -1325,7 +1389,7 @@ def dense_api(tfm, cfg, params, lora, tokens, counted, prompt, steps):
     out["unified"] = tfm.forward(params, tokens, cfg, **kw)
     out["s1"], ms["forward_s1_ms"] = counted(
         lambda: tfm.forward(params, tokens[:, :1], cfg, disagg=True, **kw),
-        {"residual_attention_decode": n})
+        {dense_decode(cfg): n})
     out["cache"], times = prefill_decode(tfm, cfg, params, tokens, prompt,
                                          steps, 1024, kw)
     ms.update(times)
@@ -1472,7 +1536,7 @@ def hybrid_api(hybrid, cfg, params, lora, tokens, counted, fwd_len, prompt,
     gaps["disagg_vs_unified"] = logit_gap(fwd, uni)
     s1, ms["forward_s1_ms"] = counted(
         lambda: hybrid.forward(params, x[:, :1], cfg, disagg=True, **kw),
-        {"residual_attention_decode": n_local, "rg_lru_scan": n_rec})
+        {dense_decode(cfg): n_local, "rg_lru_scan": n_rec})
     gaps["s1_vs_forward"] = logit_gap(s1[:, 0], fwd[:, 0])
     del fwd, s1
     if floor:
@@ -1684,7 +1748,7 @@ def check_counts(pra, ref, expect_kernels, dtype):
     no template instance of an entry that runs a split-K decode
     (``pra.SPLIT_ENTRIES``: #4, #2) in any type, and in bf16 none of an
     entry whose bf16 launches run a tensor-core kernel
-    (``pra.MMA_ENTRIES``: #6, #3, #5).  Returns
+    (``pra.MMA_ENTRIES``: #6, #3, #5, #1).  Returns
     every kernel's non-zero count."""
     ran = {k: v for k, v in pra.LAUNCHES.items() if v}
     missing = [k for k in expect_kernels if k not in ran]
@@ -1765,8 +1829,8 @@ class LaunchShapes:
 # staggered Llama3-8B serves; ``run`` maps each entry to the kernel it runs
 # for the model (``pra.kernel_name``: bf16 prefix serves run #3's and #6's
 # tensor-core kernel, ``paged_attention_{mixed,prefill}_base_mma``, the
-# bf16 forkkv phase-separated serve #5's,
-# ``paged_residual_attention_prefill_mma``; every serve its decode's
+# bf16 forkkv serves #1's and #5's,
+# ``paged_residual_attention_{mixed,prefill}_mma``; every serve its decode's
 # split-K kernel, ``paged_{attention_decode_base,residual_attention_decode}
 # _splitk``, int8 pages the ``_int8_`` twins of all of these)
 LLAMA_SERVES = (
@@ -2233,20 +2297,21 @@ def main() -> int:
     # heaviest serving launch, the dense kernels at Llama3-8B's (D 128) and
     # at RecurrentGemma-9B's (D 256, "_d256") first main-path launch, the
     # scan at the hybrid forward's.  Each kernel is named by its launch
-    # counter on the bf16 main path: #3, #5, #6 and #7 by their tensor-core
-    # kernels ("_mma"), #2 and #4 by their split-K decodes ("_splitk").
+    # counter on the bf16 main path: #1, #3, #5, #6 and #7 by their
+    # tensor-core kernels ("_mma"), #2, #4 and #8 by their split-K decodes
+    # ("_splitk").
     kernels = []
     entries = []              # (name, measured, launches, replaces, ...)
     for n, (_, r) in ALL_KERNELS.items():
         name = pra.kernel_name(n.removesuffix("_int8"), torch.bfloat16,
                                n.endswith("_int8"))
-        source = DISAGG_SOURCE if n.startswith((
-            "paged_residual_attention_prefill",
-            "paged_residual_attention_decode")) else PAGED_SOURCE
+        source = DISAGG_SOURCE if n.startswith("paged_residual") \
+            else PAGED_SOURCE
         entries.append((name, n, launches[name], r, source, "llama3-8b"))
     for n, r in DENSE_KERNELS.items():
         name = ra.prefill_kernel(torch.bfloat16) \
-            if n == "residual_attention_prefill" else n
+            if n == "residual_attention_prefill" else \
+            ra.decode_kernel(torch.bfloat16)
         entries.append((name, n, launches[name], r, DENSE_SOURCE,
                         "llama3-8b"))
         entries.append((f"{name}_d256", f"{n}_d256", rg_launches[name], r,

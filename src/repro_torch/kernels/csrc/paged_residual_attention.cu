@@ -9,23 +9,21 @@
 //   paged_attention_decode_base      (_kernel_base,         base only)
 //   paged_attention_prefill_base     (_kernel_prefill_base, base only)
 //
-// This source holds the entries of #1, #3, #4 and #6 and the redesigned
-// kernels of #3/#6 and #4; paged_residual_disagg.cu holds #5's and #2's,
-// so the two build in parallel.  The scalar template both use is
-// paged_template.cuh.
+// This source holds the entries of #3, #4 and #6 and their redesigned
+// kernels; paged_residual_disagg.cu holds #5's, #1's and #2's, so the two
+// build in parallel.  The scalar template both use is paged_template.cuh.
 //
 // Which kernel each entry runs, and what bounds it on the H100:
-//   * #1 paged_residual_attention_mixed: the template, every type (bound by
-//     operations for its prefill rows, bytes for its decode rows; the
-//     template's f32 CUDA-core FMAs keep it far from either);
 //   * #6 paged_attention_prefill_base and #3 paged_attention_mixed_base in
 //     bf16 (bf16 or int8 pages): the tensor-core flash tile
 //     paged_prefill_base_mma_kernel (below, on flash_tile.cuh); bound by
 //     operations at long chunks;
-//   * #5 paged_residual_attention_prefill in bf16 (bf16 or int8 pages): the
+//   * #5 paged_residual_attention_prefill and #1
+//     paged_residual_attention_mixed in bf16 (bf16 or int8 pages): the
 //     same tile with K rebuilt per key block on the tensor cores,
-//     paged_prefill_res_mma_kernel (paged_residual_disagg.cu); bound by
-//     operations;
+//     paged_prefill_res_mma_kernel (paged_residual_disagg.cu; #1 with each
+//     row's q_len given); bound by operations for long prefill rows, bytes
+//     for decode rows;
 //   * #4 paged_attention_decode_base, every type: the split-K decode
 //     paged_decode_split_kernel and its combine paged_decode_combine_kernel;
 //     bound by bytes;
@@ -34,7 +32,8 @@
 //     a residual partial per share), in f32 the template share by share;
 //     then paged_decode_res_combine_kernel, which applies B_v
 //     (paged_residual_disagg.cu); bound by bytes;
-//   * f32 launches of #3, #5 and #6: the template (IEEE f32, TF32 off).
+//   * f32 launches of #1, #3, #5 and #6: the template (IEEE f32, TF32
+//     off).
 //
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -850,27 +849,10 @@ int dispatch(int dtype, const Args& a, void* stream) {
 // kb_s/vb_s: both null (kb/vb in q's type) or both the f32 scale pools of
 // int8 kb/vb.  paged_attention_prefill_base and paged_attention_mixed_base
 // with bf16 q run the tensor-core kernel (tq * G <= 128 rows),
-// paged_attention_decode_base the split-K decode in every type; every
-// other launch the template.
+// paged_attention_decode_base the split-K decode in every type; their f32
+// launches the template.
 // Each launcher returns cudaGetLastError() after the launch (0 = success),
 // or cudaErrorInvalidValue for a geometry its kernel does not take.
-extern "C" int paged_residual_attention_mixed(
-    int dtype, const void* q, const void* kb, const void* vb,
-    const void* kb_s, const void* vb_s, const void* kr, const void* vr,
-    const void* bk, const void* bv, const void* bt_b, const void* bt_r,
-    const void* start, const void* q_len, const void* kv_len, void* out,
-    int bsz, int sq, int hq, int hkv, int d, int r, int page, int w, int tq,
-    float scale, int window, float rope_theta, int use_rope, void* stream) {
-  const Args a{q, kb, vb, static_cast<const float*>(kb_s),
-               static_cast<const float*>(vb_s), kr, vr, bk, bv,
-               static_cast<const int*>(bt_b), static_cast<const int*>(bt_r),
-               static_cast<const int*>(start), static_cast<const int*>(q_len),
-               static_cast<const int*>(kv_len), out,
-               sq, hq, hkv, d, r, page, w, tq, scale, window, rope_theta,
-               use_rope};
-  return dispatch(dtype, true, a, bsz, stream);
-}
-
 extern "C" int paged_attention_mixed_base(
     int dtype, const void* q, const void* kb, const void* vb,
     const void* kb_s, const void* vb_s, const void* bt_b, const void* start,
@@ -885,7 +867,7 @@ extern "C" int paged_attention_mixed_base(
                sq, hq, hkv, d, 0, page, w, tq, scale, window, 0.f, 0};
   // bf16 takes the tensor-core kernel, f32 (IEEE, no TF32) the template
   if (dtype == 1) return dispatch_prefill_mma(a, bsz, stream);
-  return dispatch(dtype, false, a, bsz, stream);
+  return dispatch<false>(dtype, a, bsz, stream);
 }
 
 // The split-K decode (splitk above), every type: ws_m/ws_l (B, Hq,
@@ -923,5 +905,5 @@ extern "C" int paged_attention_prefill_base(
                sq, hq, hkv, d, 0, page, w, tq, scale, window, 0.f, 0};
   // bf16 takes the tensor-core kernel, f32 (IEEE, no TF32) the template
   if (dtype == 1) return dispatch_prefill_mma(a, bsz, stream);
-  return dispatch(dtype, false, a, bsz, stream);
+  return dispatch<false>(dtype, a, bsz, stream);
 }

@@ -1,12 +1,14 @@
-// The disaggregated chunked prefill and decode for NVIDIA Hopper (sm_90a):
-// the redesigned kernels of two Pallas entries of
+// The disaggregated kernels for NVIDIA Hopper (sm_90a): the redesigned
+// kernels of three Pallas entries of
 // repro/kernels/paged_residual_attention.py, each with its int8 branch,
 //   paged_residual_attention_prefill (#5, _kernel_prefill; int8 :516)
+//   paged_residual_attention_mixed   (#1, _kernel_mixed;   int8 :787)
 //   paged_residual_attention_decode  (#2, _kernel;         int8 :231)
 // apart from paged_residual_attention.cu so that the two sources build in
-// parallel.  A bf16 launch of #5 runs the tensor-core tile
-// paged_prefill_res_mma_kernel (bound by operations); an f32 launch the
-// scalar template (paged_template.cuh).  Every launch of #2 runs a split-K
+// parallel.  A bf16 launch of #5 or #1 runs the tensor-core tile
+// paged_prefill_res_mma_kernel (bound by operations for long prefill rows;
+// #1 gives each row's q_len, #5 derives it); an f32 launch the scalar
+// template (paged_template.cuh).  Every launch of #2 runs a split-K
 // decode, in bf16 paged_decode_res_split_kernel (bound by bytes), in f32
 // the template share by share, then paged_decode_res_combine_kernel.
 #include <cuda_runtime.h>
@@ -24,8 +26,9 @@
 namespace {
 
 // ---------------------------------------------------------------------
-// bf16 disaggregated chunked prefill on the tensor cores:
-// paged_residual_attention_prefill (#5) and its int8 branch, q in bf16.
+// bf16 disaggregated chunked prefill and mixed grid on the tensor cores:
+// paged_residual_attention_prefill (#5) and paged_residual_attention_mixed
+// (#1), each with its int8 branch, q in bf16.
 //
 // #6's tile (paged_residual_attention.cu) with the rebuild of the dense
 // prefill's tile (residual_attention_mma_kernel, residual_attention.cu):
@@ -47,8 +50,12 @@ namespace {
 // to bf16 into the K tile.  Then #6's S = Q K^T, masks on blocks that
 // straddle an edge, online softmax in registers, O += P V_b and O_r +=
 // P V_r (P in bf16), and at the end O += O_r . B_v (O_r in bf16), O /
-// max(l, 1e-20).  q_len is derived from kv_len - start unless given, as
-// in #6's tile.  Each q tile of a row repeats the rebuild of the blocks
+// max(l, 1e-20).  q_len is derived from kv_len - start unless given (#1's
+// ragged rows: prefill rows, decode rows of q_len 1, q_len 0 padding), as
+// #6's tile takes #3's rows: the rows at or past q_len are zeroed and a
+// tile with none below it returns after the zeroing, so a mixed launch
+// costs its valid rows plus the zero stores of its padding (B * Sq * Hq *
+// D * 2 bytes in all).  Each q tile of a row repeats the rebuild of the blocks
 // it reads: 2 R D MMA flops per key against 4 * 128 * D for its QK and PV,
 // ~6% more tensor work at R 16; the rebuilt K never leaves the chip.
 template <int D, int RP, bool INT8>
@@ -97,7 +104,8 @@ paged_prefill_res_mma_kernel(Args a, int bsz) {
 
   const int kvlen = a.kv_len[b];
   const int start = a.start[b];
-  // derived for the chunked prefill (#5); a mixed grid would give it
+  // the mixed grid (#1) gives each row's q_len; the chunked prefill (#5)
+  // derives it
   const int qlen = a.q_len ? a.q_len[b] : max(0, min(a.sq, kvlen - start));
   const int q0 = tile * a.tq;
   const int npos = min(a.tq, a.sq - q0);
@@ -321,8 +329,9 @@ int launch_prefill_res_rank(const Args& a, int bsz, cudaStream_t s) {
               : launch_prefill_res_mma<D, 32, false>(a, bsz, s);
 }
 
-// The bf16 disaggregated chunked prefill: D 64/128, R 1..32, tq * G <= 128
-// rows, page 1..32, bf16 or int8 pages, RoPE tables given.
+// The bf16 disaggregated chunked prefill (q_len null) and mixed grid (q_len
+// given): D 64/128, R 1..32, tq * G <= 128 rows, page 1..32, bf16 or int8
+// pages, RoPE tables given.
 int dispatch_prefill_res_mma(const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.tq < 1 ||
@@ -919,8 +928,9 @@ extern "C" int paged_residual_attention_decode(
   return splitk_res::dispatch(dtype, a, stream);
 }
 
-// bf16 runs the tensor-core tile (sin/cos: the RoPE tables, N >= W * page
-// rows), f32 (IEEE, no TF32) the template.
+// The chunked prefill (#5) and the mixed grid (#1): bf16 runs the
+// tensor-core tile (sin/cos: the RoPE tables, N >= W * page rows), f32
+// (IEEE, no TF32) the template, which computes RoPE itself (sin/cos null).
 extern "C" int paged_residual_attention_prefill(
     int dtype, const void* q, const void* kb, const void* vb,
     const void* kb_s, const void* vb_s, const void* kr, const void* vr,
@@ -939,5 +949,26 @@ extern "C" int paged_residual_attention_prefill(
   a.sin = sin;
   a.cos = cos;
   if (dtype == 1) return dispatch_prefill_res_mma(a, bsz, stream);
-  return dispatch(dtype, true, a, bsz, stream);
+  return dispatch<true>(dtype, a, bsz, stream);
+}
+
+extern "C" int paged_residual_attention_mixed(
+    int dtype, const void* q, const void* kb, const void* vb,
+    const void* kb_s, const void* vb_s, const void* kr, const void* vr,
+    const void* bk, const void* bv, const void* sin, const void* cos,
+    const void* bt_b, const void* bt_r, const void* start,
+    const void* q_len, const void* kv_len, void* out, int bsz, int sq,
+    int hq, int hkv, int d, int r, int page, int w, int tq, float scale,
+    int window, float rope_theta, int use_rope, void* stream) {
+  Args a{q, kb, vb, static_cast<const float*>(kb_s),
+         static_cast<const float*>(vb_s), kr, vr, bk, bv,
+         static_cast<const int*>(bt_b), static_cast<const int*>(bt_r),
+         static_cast<const int*>(start), static_cast<const int*>(q_len),
+         static_cast<const int*>(kv_len), out,
+         sq, hq, hkv, d, r, page, w, tq, scale, window, rope_theta,
+         use_rope};
+  a.sin = sin;
+  a.cos = cos;
+  if (dtype == 1) return dispatch_prefill_res_mma(a, bsz, stream);
+  return dispatch<true>(dtype, a, bsz, stream);
 }

@@ -1,10 +1,10 @@
 // The scalar template of the paged ResidualAttention kernels for NVIDIA
-// Hopper (sm_90a), shared by paged_residual_attention.cu (#1, #3, #4, #6)
-// and paged_residual_disagg.cu (#5, #2): its arguments, the shares of a
-// split decode, the kernel and its launchers.  A bf16 launch of #1, the
-// f32 launches of #1, #3, #5 and #6, and the f32 launches of #2 (share by
-// share, SPLIT) run it; everything else runs the redesigned kernels of
-// the two sources.
+// Hopper (sm_90a), shared by paged_residual_attention.cu (#3, #4, #6) and
+// paged_residual_disagg.cu (#5, #1, #2): its arguments, the shares of a
+// split decode, the kernel and its launchers.  Only f32 launches run it:
+// those of #1, #3, #5 and #6, and those of #2 share by share (SPLIT);
+// every bf16 launch runs the redesigned kernels of the two sources, so
+// the template is instantiated for f32 q alone.
 //
 // One kernel template covers all six entries.  Decode is the mixed kernel
 // with Sq = 1, start = kv_len - 1 and q_len = 1 (null start / q_len
@@ -437,24 +437,16 @@ int launch(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_pages(bool has_res, const Args& a, int bsz, cudaStream_t s) {
-  if (a.kb_s != nullptr)
-    return has_res ? launch<T, int8_t, true>(a, bsz, s)
-                   : launch<T, int8_t, false>(a, bsz, s);
-  return has_res ? launch<T, T, true>(a, bsz, s)
-                 : launch<T, T, false>(a, bsz, s);
-}
-
-// dtype: q's type; the pages are int8 exactly when the scales are given.
-int dispatch(int dtype, bool has_res, const Args& a, int bsz,
-             void* stream) {
+// dtype: q's type, float32 only (every bf16 launch of the six entries
+// runs a redesigned kernel); the pages are int8 exactly when the scales
+// are given.
+template <bool HAS_RES>
+int dispatch(int dtype, const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((a.kb_s == nullptr) != (a.vb_s == nullptr))
+  if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch_pages<float>(has_res, a, bsz, s);
-  if (dtype == 1) return dispatch_pages<__nv_bfloat16>(has_res, a, bsz, s);
-  return (int)cudaErrorInvalidValue;
+  return a.kb_s != nullptr ? launch<float, int8_t, HAS_RES>(a, bsz, s)
+                           : launch<float, float, HAS_RES>(a, bsz, s);
 }
 
 }  // namespace

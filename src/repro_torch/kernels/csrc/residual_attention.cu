@@ -20,14 +20,15 @@
 // A query row that sees no key comes out 0, as in Pallas (the plain version
 // averages V there; no caller produces such a row).
 //
-// Decode is the prefill kernel with Sq = 1 and the query at kv_len - 1
-// (the launcher passes a null qpos pointer).  A null kv_len pointer means
-// all Sk keys are valid.
+// Decode has the query at kv_len - 1; a null kv_len pointer means all Sk
+// keys are valid.
 //
-// Two kernels, chosen by q's type in the prefill launcher: a bf16 prefill
-// runs the tensor-core flash tile (residual_attention_mma_kernel, below,
-// on flash_tile.cuh); an f32 prefill and every decode run the scalar
-// kernel described next (IEEE f32: the tensor cores have no such mode).
+// Three kernels, chosen by q's type: a bf16 prefill runs the tensor-core
+// flash tile (residual_attention_mma_kernel, below, on flash_tile.cuh), a
+// bf16 decode the split-K decode (residual_attention_decode_split_kernel,
+// below); every f32 launch runs the scalar kernel described next, a
+// decode as the prefill with Sq = 1 and a null qpos pointer (IEEE f32: the
+// tensor cores have no such mode).
 //
 // Scalar design (simple first; speed is later work):
 //   * one CTA per (query tile, kv head, request row).  A query tile is `tq`
@@ -54,6 +55,7 @@
 // specialisation are later work).  Decode reads
 // Sk*(Hkv*D*2 + 2R + D) values per row and does a few flops per byte: bound
 // by bytes (3.35 TB/s).
+#include <atomic>
 #include <climits>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -325,11 +327,10 @@ int launch(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// f32 only: every bf16 launch runs a tensor-core kernel.
 int dispatch(int dtype, const Args& a, int bsz, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, bsz, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, bsz, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch<float>(a, bsz, static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------
@@ -597,10 +598,555 @@ int dispatch_mma(const Args& a, int bsz, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------
+// bf16 decode, split over keys: residual_attention_decode (#8) with q in
+// bf16.  Bound by bytes: a row reads its live keys' K_b, V_b (Hkv D each),
+// K_r, V_r (R each) and sin, cos (D/2 each) once, and does ~(4 G + 2 R) D
+// flops per key and kv head.  The main path calls it with one new token
+// (`forward` at S 1: Sk 1, B 4), where the bound is ~0.1 us and the time
+// is all latency: the launch, one dependent chain of loads, a few MMAs.
+//
+// #2's split-K decode (paged_residual_disagg.cu) over a contiguous cache
+// (row b, key j, head h; no block tables), RoPE from the caller's per-key
+// sin/cos:
+//   * a CTA is 4 warps over 16 query heads of one kv head (one m16 tile:
+//     G <= 16 heads, rows past G zero; a larger group takes several CTAs)
+//     and one range of each row's live keys [max(kv_len - window, 0),
+//     kv_len): n_split equal ranges of 64-key multiples, one per CTA along
+//     the grid's x; within a range warp w takes the 16-key steps w, w + 4,
+//     w + 8, ... with an online softmax of its own;
+//   * per step, cp.async brings the 16 keys' K_b, V_b, K_r, V_r, sin and
+//     cos rows into the warp's stage (two stages up to D 128, one at D 256,
+//     where two would not fit); keys past the range are zero-filled and
+//     masked;
+//   * K_r . B_k (B_k in shared memory once per CTA) runs with the keys as
+//     M, so n-tiles j and j + D/16 of a thread hold the RoPE pairs:
+//     rotated in registers, K_b added in f32, rounded once to bf16, and
+//     used at once as the B fragments of S = Q K^T (the keys as N, the
+//     heads as M), 4 n-tiles at a time, so the rebuilt K never leaves the
+//     registers and only 8 of them hold it;
+//   * S, the online softmax in registers (base 2), O += P V_b and O_r +=
+//     P V_r with P in bf16;
+//   * the warps' f32 partials (m, l, O of D columns, O_r of RP) go to
+//     shared memory, over their own stages, and are merged with weights
+//     2^(m_w - max m) over the warps that saw a key.  With one range
+//     (n_split 1, the main path: Sk 1 is one range) the CTA finishes the
+//     row itself, each warp a quarter of D: O + O_r . B_v as an MMA (O_r in
+//     bf16, #5's tile's epilogue) over max(l, 1e-20), so there is no
+//     workspace and no second launch.  With several, each CTA writes its
+//     merged partial to the caller's f32 workspace and a combine
+//     (residual_attention_decode_combine_kernel) reduces the ranges and
+//     applies B_v the same way (O_r rounded to bf16).
+// A row with no key comes out exactly 0.  Q's A fragments stay in
+// registers up to D 128; at D 256 the accumulator alone takes 128
+// registers a thread, so they are read from shared memory per step.  The
+// shared-memory attribute is set once per instance and device, not per
+// launch.
+namespace splitk {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKeys = 16;                   // keys per warp step
+constexpr int kHeads = 16;                  // query heads per CTA
+constexpr int kRangeKeys = kWarps * kKeys;  // a range: multiples of this
+
+struct Args {
+  const void* q;        // (B, Hq, D) bf16
+  const void* kb;       // (B, Sk, Hkv, D)
+  const void* vb;
+  const void* kr;       // (B, Sk, R)
+  const void* vr;
+  const void* bk;       // (B, R, Hkv*D)
+  const void* bv;
+  const void* sin;      // (B, Sk, D/2)
+  const void* cos;
+  const int* kv_len;    // (B,) or null: all Sk keys valid
+  float* ws_m;          // (B, Hq, n_split)       n_split > 1 only
+  float* ws_l;          // (B, Hq, n_split)
+  float* ws_acc;        // (B, Hq, n_split, D)
+  float* ws_accr;       // (B, Hq, n_split, R)
+  void* out;            // (B, Hq, D)
+  int bsz, sk, hq, hkv, d, r, n_split, window;
+  float scale;
+};
+
+// Bytes: Q (16 x DS), B_k and B_v (RP x DS), then per warp kStages stages
+// of 16 keys' K, V (16 x DS), K_r, V_r (16 x RS), sin, cos (16 x HS), all
+// bf16.  After the key loop a warp's stages hold its f32 partial: m, l (16
+// heads each), O (16 x D), O_r (16 x RP).
+template <int D, int RP>
+struct Layout {
+  static constexpr int DS = D + flash::kPad;
+  static constexpr int RS = RP + flash::kPad;
+  static constexpr int HS = D / 2 + flash::kPad;
+  static constexpr int kStages = D > 128 ? 1 : 2;
+  static constexpr int kK = 0, kV = kK + kKeys * DS * 2,
+                       kKr = kV + kKeys * DS * 2, kVr = kKr + kKeys * RS * 2,
+                       kSin = kVr + kKeys * RS * 2,
+                       kCos = kSin + kKeys * HS * 2,
+                       kStage = kCos + kKeys * HS * 2;
+  static constexpr int kWarp = kStages * kStage;
+  static constexpr int kQ = 0, kBk = kQ + kHeads * DS * 2,
+                       kBv = kBk + RP * DS * 2, kWarp0 = kBv + RP * DS * 2,
+                       kBytes = kWarp0 + kWarps * kWarp;
+  // f32 offsets of a warp's partial
+  static constexpr int kPm = 0, kPl = kHeads, kPo = 2 * kHeads,
+                       kPr = kPo + kHeads * D;
+  static_assert((kPr + kHeads * RP) * 4 <= kWarp, "a partial fits");
+};
+
+// [lo, hi) of range ``split``: n_split equal ranges of the row's live keys
+// in whole kRangeKeys multiples (tests/test_torch_splitk.py repeats it)
+struct Range {
+  int lo, hi;
+  __device__ Range(const Args& a, int b, int split) {
+    const int kvlen = a.kv_len ? min(max(a.kv_len[b], 0), a.sk) : a.sk;
+    const int first = a.window > 0 ? max(kvlen - a.window, 0) : 0;
+    const int n = kvlen - first;
+    const int per = ((n + a.n_split - 1) / a.n_split + kRangeKeys - 1) /
+                    kRangeKeys * kRangeKeys;
+    const long lo0 = first + (long)split * per;
+    lo = lo0 < kvlen ? (int)lo0 : kvlen;
+    hi = min(kvlen, lo + per);
+  }
+};
+
+// Weights of the kWarps partials of head row ``r``: 2^(m_w - M) over the
+// warps with l_w > 0, else 0; returns sum_w wt_w l_w.
+template <int D, int RP>
+__device__ __forceinline__ float warp_weights(const unsigned char* parts,
+                                              int r, float (&wt)[kWarps]) {
+  using L = Layout<D, RP>;
+  float mx = flash::kNegInit;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const float* p = reinterpret_cast<const float*>(parts + w * L::kWarp);
+    if (p[L::kPl + r] > 0.f) mx = fmaxf(mx, p[L::kPm + r]);
+  }
+  float lsum = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const float* p = reinterpret_cast<const float*>(parts + w * L::kWarp);
+    wt[w] = p[L::kPl + r] > 0.f ? exp2f(p[L::kPm + r] - mx) : 0.f;
+    lsum = fmaf(wt[w], p[L::kPl + r], lsum);
+  }
+  return lsum;
+}
+
+template <int D, int RP>
+__global__ void __launch_bounds__(kThreads, 1)
+residual_attention_decode_split_kernel(Args a) {
+  using flash::bf16;
+  using L = Layout<D, RP>;
+  constexpr int DS = L::DS, RS = L::RS, HS = L::HS, HALF = D / 2;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  bf16* Qs = reinterpret_cast<bf16*>(dyn + L::kQ);
+  bf16* Bks = reinterpret_cast<bf16*>(dyn + L::kBk);
+  bf16* Bvs = reinterpret_cast<bf16*>(dyn + L::kBv);
+  unsigned char* parts = dyn + L::kWarp0;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.z, G = a.hq / a.hkv, R = a.r;
+  const int nht = (G + kHeads - 1) / kHeads;
+  const int h = blockIdx.y / nht;
+  const int g0 = (blockIdx.y % nht) * kHeads;
+  const int ng = min(kHeads, G - g0);               // heads of this CTA
+  const long head0 = (long)b * a.hq + (long)h * G + g0;
+  const long hd = (long)a.hkv * D;
+  const bool finish = a.n_split == 1;               // no combine
+  const Range range(a, b, blockIdx.x);
+
+  // Q rows (zero past ng); B_k and, to finish here, B_v (zero past R)
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int e = tid; e < kHeads * (D / 8); e += kThreads) {
+    const int r = e / (D / 8), c = e % (D / 8);
+    const bool ok = r < ng;
+    flash::cp_async16(Qs + r * DS + c * 8, ok ? q + (head0 + r) * D + c * 8
+                                              : q, ok);
+  }
+  const bf16* bk = static_cast<const bf16*>(a.bk);
+  const bf16* bv = static_cast<const bf16*>(a.bv);
+  for (int e = tid; e < RP * (D / 8); e += kThreads) {
+    const int rr = e / (D / 8), c = e % (D / 8);
+    const bool ok = rr < R;
+    const long src = ok ? ((long)b * R + rr) * hd + (long)h * D + c * 8 : 0;
+    flash::cp_async16(Bks + rr * DS + c * 8, bk + src, ok);
+    if (finish) flash::cp_async16(Bvs + rr * DS + c * 8, bv + src, ok);
+  }
+  flash::cp_async_commit();
+  // K_r / V_r columns R..RP-1 stay zero in the warp's stages
+  unsigned char* mine = parts + warp * L::kWarp;
+  for (int st = 0; st < L::kStages; ++st) {
+    bf16* kr_s = reinterpret_cast<bf16*>(mine + st * L::kStage + L::kKr);
+    bf16* vr_s = reinterpret_cast<bf16*>(mine + st * L::kStage + L::kVr);
+    for (int e = lane; e < kKeys * (RP - R); e += 32) {
+      const int t = e / (RP - R), rr = R + e % (RP - R);
+      kr_s[t * RS + rr] = __float2bfloat16(0.f);
+      vr_s[t * RS + rr] = __float2bfloat16(0.f);
+    }
+  }
+  flash::cp_async_wait<0>();
+  __syncthreads();
+
+  // Q's A fragments: in registers up to D 128, else read per step
+  constexpr bool kQRegs = D <= 128;
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  if constexpr (kQRegs) flash::load_q<D>(qf, Qs, DS, lane);
+  auto q_frag = [&](int kk, uint32_t (&f)[4]) {
+    if constexpr (kQRegs) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[i] = qf[kk][i];
+    } else {
+      flash::ldmatrix_x4(f, Qs + (lane & 15) * DS + kk * 16 + (lane >> 4) * 8);
+    }
+  };
+
+  const bf16* kb = static_cast<const bf16*>(a.kb);
+  const bf16* vb = static_cast<const bf16*>(a.vb);
+  const bf16* kr = static_cast<const bf16*>(a.kr);
+  const bf16* vr = static_cast<const bf16*>(a.vr);
+  const bf16* sin_tab = static_cast<const bf16*>(a.sin);
+  const bf16* cos_tab = static_cast<const bf16*>(a.cos);
+  const bool vec_res = (R % 8) == 0;
+  const long tok0 = (long)b * a.sk;                 // row b's first key
+  const int all_steps = (range.hi - range.lo + kKeys - 1) / kKeys;
+  const int nsteps =
+      all_steps > warp ? (all_steps - warp + kWarps - 1) / kWarps : 0;
+  auto first_key = [&](int it) {
+    return range.lo + (warp + kWarps * it) * kKeys;
+  };
+
+  // one step's loads into stage it % kStages; keys past the range are
+  // zero-filled
+  auto issue = [&](int it) {
+    if (it < nsteps) {
+      unsigned char* s = mine + (it % L::kStages) * L::kStage;
+      const int k0 = first_key(it);
+      for (int e = lane; e < kKeys * (D / 8); e += 32) {
+        const int t = e / (D / 8), c = e % (D / 8);
+        const bool ok = k0 + t < range.hi;
+        const long src = ok ? ((tok0 + k0 + t) * a.hkv + h) * D + c * 8 : 0;
+        flash::cp_async16(s + L::kK + (t * DS + c * 8) * 2, kb + src, ok);
+        flash::cp_async16(s + L::kV + (t * DS + c * 8) * 2, vb + src, ok);
+      }
+      if (vec_res) {
+        for (int e = lane; e < kKeys * (R / 8); e += 32) {
+          const int t = e / (R / 8), c = e % (R / 8);
+          const bool ok = k0 + t < range.hi;
+          const long src = ok ? (tok0 + k0 + t) * R + c * 8 : 0;
+          flash::cp_async16(s + L::kKr + (t * RS + c * 8) * 2, kr + src, ok);
+          flash::cp_async16(s + L::kVr + (t * RS + c * 8) * 2, vr + src, ok);
+        }
+      } else {          // rows of R elements are not 16-byte aligned
+        bf16* kr_s = reinterpret_cast<bf16*>(s + L::kKr);
+        bf16* vr_s = reinterpret_cast<bf16*>(s + L::kVr);
+        for (int e = lane; e < kKeys * R; e += 32) {
+          const int t = e / R, rr = e % R;
+          const bool ok = k0 + t < range.hi;
+          const long src = (tok0 + k0 + t) * R + rr;
+          kr_s[t * RS + rr] = ok ? kr[src] : __float2bfloat16(0.f);
+          vr_s[t * RS + rr] = ok ? vr[src] : __float2bfloat16(0.f);
+        }
+      }
+      for (int e = lane; e < kKeys * (HALF / 8); e += 32) {
+        const int t = e / (HALF / 8), c = e % (HALF / 8);
+        const bool ok = k0 + t < range.hi;
+        const long src = ok ? (tok0 + k0 + t) * HALF + c * 8 : 0;
+        flash::cp_async16(s + L::kSin + (t * HS + c * 8) * 2, sin_tab + src,
+                          ok);
+        flash::cp_async16(s + L::kCos + (t * HS + c * 8) * 2, cos_tab + src,
+                          ok);
+      }
+    }
+    flash::cp_async_commit();
+  };
+
+  float o[D / 8][4], orr[RP / 8][4], m[2], l[2];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < RP / 8; ++n)
+    orr[n][0] = orr[n][1] = orr[n][2] = orr[n][3] = 0.f;
+  m[0] = m[1] = flash::kNegInit;
+  l[0] = l[1] = 0.f;
+  const float scale_log2 = a.scale * flash::kLog2e;
+
+  if constexpr (L::kStages == 2) issue(0);
+  for (int it = 0; it < nsteps; ++it) {
+    if constexpr (L::kStages == 2) {
+      issue(it + 1);
+      flash::cp_async_wait<1>();
+    } else {
+      issue(it);
+      flash::cp_async_wait<0>();
+    }
+    __syncwarp();
+    const unsigned char* s = mine + (it % L::kStages) * L::kStage;
+    const bf16* Ks = reinterpret_cast<const bf16*>(s + L::kK);
+    const bf16* Krs = reinterpret_cast<const bf16*>(s + L::kKr);
+    const bf16* Sn = reinterpret_cast<const bf16*>(s + L::kSin);
+    const bf16* Cs = reinterpret_cast<const bf16*>(s + L::kCos);
+
+    // S = Q K^T over 16 heads x the step's 16 keys, K = K_b + RoPE(K_r .
+    // B_k) rebuilt for columns 16 i.. and D/2 + 16 i.. (n-tiles 2i, 2i + 1
+    // and their partners) and fed at once to the products of columns kk =
+    // i and i + D/32: kf[n][hh] holds key (lane / 4) + 8 hh, columns
+    // 2 (lane % 4) + {0, 1} of n-tile (2i, 2i + 1, 2i + D/16, 2i + 1 +
+    // D/16)[n]
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      uint32_t kf[4][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * i + jj;
+        float x1[4], x2[4];
+        flash::lora_pair<D, RP>(x1, x2, Krs, RS, Bks, DS, j, lane);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int t = (lane >> 2) + 8 * hh;
+          const int col = 8 * j + 2 * (lane & 3);
+          const float2 sn = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(Sn + t * HS + col));
+          const float2 cs = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(Cs + t * HS + col));
+          const float2 b1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(Ks + t * DS + col));
+          const float2 b2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(Ks + t * DS + col +
+                                                       HALF));
+          kf[jj][hh] = flash::pack_bf16(
+              b1.x + flash::rot(x1[2 * hh], cs.x, x2[2 * hh], -sn.x),
+              b1.y + flash::rot(x1[2 * hh + 1], cs.y, x2[2 * hh + 1], -sn.y));
+          kf[2 + jj][hh] = flash::pack_bf16(
+              b2.x + flash::rot(x2[2 * hh], cs.x, x1[2 * hh], sn.x),
+              b2.y + flash::rot(x2[2 * hh + 1], cs.y, x1[2 * hh + 1], sn.y));
+        }
+      }
+      uint32_t qa[4];
+      q_frag(i, qa);
+      flash::mma(sc[0], qa, kf[0][0], kf[1][0]);
+      flash::mma(sc[1], qa, kf[0][1], kf[1][1]);
+      q_frag(i + D / 32, qa);
+      flash::mma(sc[0], qa, kf[2][0], kf[3][0]);
+      flash::mma(sc[1], qa, kf[2][1], kf[3][1]);
+    }
+    const int k0 = first_key(it);
+    if (k0 + kKeys > range.hi) {
+      const int pos[2] = {0, 0};              // not read: no causal mask
+      flash::mask<kKeys>(sc, k0, pos, range.hi, false, 0, lane);
+    }
+    float alpha[2];
+    flash::softmax_step<kKeys>(sc, m, l, alpha, scale_log2);
+    flash::rescale<D / 8>(o, alpha);
+    flash::rescale<RP / 8>(orr, alpha);
+    flash::product<kKeys, D>(
+        o, sc, reinterpret_cast<const bf16*>(s + L::kV), DS, lane);
+    flash::product<kKeys, RP>(
+        orr, sc, reinterpret_cast<const bf16*>(s + L::kVr), RS, lane);
+    __syncwarp();                   // the stage is refilled next step
+  }
+  flash::cp_async_wait<0>();
+  __syncwarp();
+
+  // the warp's partial, over its own stages
+  flash::finish_rowsum(l);
+  {
+    float* p = reinterpret_cast<float*>(mine);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = (lane >> 2) + 8 * hh, c = 2 * (lane & 3);
+      if ((lane & 3) == 0) {
+        p[L::kPm + r] = m[hh];
+        p[L::kPl + r] = l[hh];
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(p + L::kPo + r * D + 8 * n + c) =
+            make_float2(o[n][2 * hh], o[n][2 * hh + 1]);
+#pragma unroll
+      for (int n = 0; n < RP / 8; ++n)
+        *reinterpret_cast<float2*>(p + L::kPr + r * RP + 8 * n + c) =
+            make_float2(orr[n][2 * hh], orr[n][2 * hh + 1]);
+    }
+  }
+  __syncthreads();
+
+  if (finish) {
+    // the row here: warp w takes columns [w D/4, (w + 1) D/4) of O + O_r .
+    // B_v, O_r merged in f32 and rounded to bf16 as the MMA's A operand
+    constexpr int QD = D / 4;
+    const int c0 = warp * QD;
+    float om[QD / 8][4], orm[RP / 8][4], lsum[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = (lane >> 2) + 8 * hh, c = 2 * (lane & 3);
+      float wt[kWarps];
+      lsum[hh] = warp_weights<D, RP>(parts, r, wt);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int n = 0; n < QD / 8; ++n) om[n][2 * hh + e] = 0.f;
+#pragma unroll
+        for (int n = 0; n < RP / 8; ++n) orm[n][2 * hh + e] = 0.f;
+      }
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* p = reinterpret_cast<const float*>(parts + w * L::kWarp);
+#pragma unroll
+        for (int n = 0; n < QD / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            om[n][2 * hh + e] = fmaf(
+                wt[w], p[L::kPo + r * D + c0 + 8 * n + c + e],
+                om[n][2 * hh + e]);
+#pragma unroll
+        for (int n = 0; n < RP / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            orm[n][2 * hh + e] = fmaf(wt[w], p[L::kPr + r * RP + 8 * n + c + e],
+                                      orm[n][2 * hh + e]);
+      }
+    }
+    flash::product<RP, QD>(om, orm, Bvs + c0, DS, lane);
+    bf16* out = static_cast<bf16*>(a.out);
+    bf16* dst[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = (lane >> 2) + 8 * hh;
+      dst[hh] = r < ng ? out + (head0 + r) * D + c0 : nullptr;
+    }
+    flash::store_rows<QD>(om, lsum, dst, lane);
+    return;
+  }
+
+  // the CTA's merged partial into the workspace, for the combine
+  for (int e = tid; e < ng * (D + RP); e += kThreads) {
+    const int r = e / (D + RP), col = e % (D + RP);
+    if (col >= D + R) continue;
+    float wt[kWarps];
+    const float lsum = warp_weights<D, RP>(parts, r, wt);
+    const long row = (head0 + r) * a.n_split + blockIdx.x;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* p = reinterpret_cast<const float*>(parts + w * L::kWarp);
+      v = fmaf(wt[w], col < D ? p[L::kPo + r * D + col]
+                              : p[L::kPr + r * RP + col - D], v);
+    }
+    if (col < D)
+      a.ws_acc[row * D + col] = v;
+    else
+      a.ws_accr[row * R + col - D] = v;
+    if (col == 0) {
+      float mx = flash::kNegInit;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* p = reinterpret_cast<const float*>(parts + w * L::kWarp);
+        if (p[L::kPl + r] > 0.f) mx = fmaxf(mx, p[L::kPm + r]);
+      }
+      a.ws_m[row] = mx;
+      a.ws_l[row] = lsum;
+    }
+  }
+}
+
+// out[b, head] = (sum_s w_s acc_s + bf16(sum_s w_s acc_r,s) . B_v[b, :,
+// head's kv head]) / max(sum_s w_s l_s, 1e-20), w_s = 2^(m_s - M) over the
+// ranges with l_s > 0: one CTA per (row, head), threads over R, then D.
+__global__ void __launch_bounds__(kThreads)
+residual_attention_decode_combine_kernel(Args a) {
+  __shared__ float accr[32];
+  const long row = blockIdx.x;                  // b * Hq + head
+  const int b = (int)(row / a.hq), head = (int)(row % a.hq);
+  const int h = head / (a.hq / a.hkv);
+  const float* m = a.ws_m + row * a.n_split;
+  const float* l = a.ws_l + row * a.n_split;
+  float mx = flash::kNegInit;
+  for (int s = 0; s < a.n_split; ++s)
+    if (l[s] > 0.f) mx = fmaxf(mx, m[s]);
+  float lsum = 0.f;
+  for (int s = 0; s < a.n_split; ++s)
+    if (l[s] > 0.f) lsum = fmaf(exp2f(m[s] - mx), l[s], lsum);
+  for (int rr = threadIdx.x; rr < a.r; rr += kThreads) {
+    float o = 0.f;
+    for (int s = 0; s < a.n_split; ++s)
+      if (l[s] > 0.f)
+        o = fmaf(exp2f(m[s] - mx),
+                 a.ws_accr[(row * a.n_split + s) * a.r + rr], o);
+    accr[rr] = __bfloat162float(__float2bfloat16(o));
+  }
+  __syncthreads();
+  const __nv_bfloat16* bv = static_cast<const __nv_bfloat16*>(a.bv) +
+                            (long)b * a.r * a.hkv * a.d + (long)h * a.d;
+  for (int col = threadIdx.x; col < a.d; col += kThreads) {
+    float o = 0.f;
+    for (int s = 0; s < a.n_split; ++s)
+      if (l[s] > 0.f)
+        o = fmaf(exp2f(m[s] - mx),
+                 a.ws_acc[(row * a.n_split + s) * a.d + col], o);
+    for (int rr = 0; rr < a.r; ++rr)
+      o = fmaf(accr[rr], __bfloat162float(bv[(long)rr * a.hkv * a.d + col]),
+               o);
+    static_cast<__nv_bfloat16*>(a.out)[row * a.d + col] =
+        __float2bfloat16(o / fmaxf(lsum, 1e-20f));
+  }
+}
+
+template <int D, int RP>
+int launch(const Args& a, cudaStream_t stream) {
+  using L = Layout<D, RP>;
+  auto kernel = residual_attention_decode_split_kernel<D, RP>;
+  // the shared-memory attribute, once per device (bit d of ``set``)
+  static std::atomic<unsigned> set{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 32) return (int)cudaErrorInvalidDevice;
+  if (!((set.load() >> dev) & 1u)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (err != cudaSuccess) return (int)err;
+    set.fetch_or(1u << dev);
+  }
+  const int G = a.hq / a.hkv;
+  const dim3 grid(a.n_split, a.hkv * ((G + kHeads - 1) / kHeads), a.bsz);
+  kernel<<<grid, kThreads, L::kBytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return (int)err;
+  residual_attention_decode_combine_kernel<<<(unsigned)((long)a.bsz * a.hq),
+                                             kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_rank(const Args& a, cudaStream_t s) {
+  return a.r <= 16 ? launch<D, 16>(a, s) : launch<D, 32>(a, s);
+}
+
+// D 64/128/256, R 1..32, any G, n_split >= 1 (a workspace when > 1).
+int dispatch(const Args& a, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.n_split < 1 || a.r < 1 || a.r > 32 || a.hkv < 1 ||
+      a.hq % a.hkv != 0 || a.bsz > 65535 ||
+      (long)a.hkv * ((a.hq / a.hkv + kHeads - 1) / kHeads) > 65535 ||
+      (long)a.bsz * a.hq > INT_MAX || a.sk < 1 ||
+      (a.n_split > 1 && (a.ws_m == nullptr || a.ws_l == nullptr ||
+                         a.ws_acc == nullptr || a.ws_accr == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (a.d == 64) return launch_rank<64>(a, s);
+  if (a.d == 128) return launch_rank<128>(a, s);
+  if (a.d == 256) return launch_rank<256>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace splitk
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  The bf16 prefill runs the
-// tensor-core kernel (tq * G <= 128 rows), everything else the scalar one.
+// tensor-core kernel (tq * G <= 128 rows), the bf16 decode the split-K
+// decode; every f32 launch the scalar kernel.
 // Each launcher returns cudaGetLastError() after the launch (0 = success),
 // or cudaErrorInvalidValue for a geometry its kernel does not take.
 extern "C" int residual_attention_prefill(
@@ -618,11 +1164,25 @@ extern "C" int residual_attention_prefill(
   return dispatch(dtype, a, bsz, stream);
 }
 
+// ws_m/ws_l (B, Hq, n_split), ws_acc (B, Hq, n_split, D) and ws_accr (B,
+// Hq, n_split, R): the caller's f32 workspace of the bf16 split-K decode
+// when n_split > 1, else null; f32 launches read neither.
 extern "C" int residual_attention_decode(
     int dtype, const void* q, const void* kb, const void* vb, const void* kr,
     const void* vr, const void* bk, const void* bv, const void* sin,
-    const void* cos, const void* kv_len, void* out, int bsz, int sk, int hq,
-    int hkv, int d, int r, float scale, int window, void* stream) {
+    const void* cos, const void* kv_len, void* ws_m, void* ws_l,
+    void* ws_acc, void* ws_accr, void* out, int bsz, int sk, int hq,
+    int hkv, int d, int r, int n_split, float scale, int window,
+    void* stream) {
+  if (dtype == 1) {
+    const splitk::Args a{q, kb, vb, kr, vr, bk, bv, sin, cos,
+                         static_cast<const int*>(kv_len),
+                         static_cast<float*>(ws_m), static_cast<float*>(ws_l),
+                         static_cast<float*>(ws_acc),
+                         static_cast<float*>(ws_accr), out,
+                         bsz, sk, hq, hkv, d, r, n_split, window, scale};
+    return splitk::dispatch(a, stream);
+  }
   const Args a{q, kb, vb, kr, vr, bk, bv, sin, cos, nullptr,
                static_cast<const int*>(kv_len), out,
                1, sk, hq, hkv, d, r, 1, scale, 1, window};

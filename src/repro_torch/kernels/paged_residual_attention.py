@@ -1,6 +1,6 @@
 """Paged ResidualAttention on the card: wrappers over the hand-written CUDA
 kernels in ``csrc/paged_residual_attention.cu`` and, for the
-disaggregated chunked prefill and decode (#5, #2),
+disaggregated chunked prefill, mixed grid and decode (#5, #1, #2),
 ``csrc/paged_residual_disagg.cu``; the two build in parallel.
 
 These replace the six Pallas kernels of
@@ -27,13 +27,14 @@ bound by operations; the template runs them as f32 FMAs on the CUDA
 cores (67 TFLOP/s peak), far from the 989 TFLOP/s bound.  Redesigns
 replace the template where it lost most, in the entries that run them:
 
-* a bf16 launch of a chunked prefill or of the base-only mixed grid
-  (``MMA_ENTRIES``: #6, #3 and the disaggregated #5; bf16 or int8 pages)
-  runs a flash tile on the tensor cores (mma.sync, 128 query rows per
-  CTA, 64-key blocks gathered through the block tables; counted as
-  ``<entry>[_int8]_mma``); #5's tile rebuilds K = K_b + RoPE(K_r . B_k)
-  per key block on the tensor cores, with RoPE from ``rope_table``, and
-  applies B_v once after the key loop;
+* a bf16 launch of a chunked prefill or of a mixed grid
+  (``MMA_ENTRIES``: #6 and #3, the disaggregated #5 and #1; bf16 or int8
+  pages) runs a flash tile on the tensor cores (mma.sync, 128 query rows
+  per CTA, 64-key blocks gathered through the block tables; counted as
+  ``<entry>[_int8]_mma``); the mixed grids give each row's q_len, the
+  chunked prefills derive it; #5's tile, which #1 shares, rebuilds K =
+  K_b + RoPE(K_r . B_k) per key block on the tensor cores, with RoPE from
+  ``rope_table``, and applies B_v once after the key loop;
 * every launch of a decode (``SPLIT_ENTRIES``, any type) runs a split-K
   kernel: each row's live keys are cut into shares, one CTA (#4, up to 8
   query heads, 64-key shares, ``split_plan``) or one warp (#2, up to 16
@@ -44,10 +45,10 @@ replace the template where it lost most, in the entries that run them:
   (counted as ``<entry>[_int8]_splitk``).  A CUDA tensor never reaches the
   template through these entries.
 
-The disaggregated mixed grid (#1) stays on the template, and f32
-launches of the tensor-core entries too; wgmma and TMA are later work.
-The chunked prefill is the same: operations for long chunks, bytes for
-short ones.  Unlike the Pallas prefill, which holds all G·chunk query
+f32 launches of the tensor-core entries stay on the template; wgmma and
+TMA are later work.  The chunked prefill is bound like the mixed grid:
+operations for long chunks, bytes for short ones.  Unlike the Pallas
+prefill, which holds all G·chunk query
 rows of a (row, kv head) in VMEM (16 MB of accumulator at chunk 8192, G
 4), it tiles query positions like the mixed grid and skips the tiles at
 or past a row's valid count, so a padded chunk costs only its valid rows.
@@ -65,6 +66,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core import rope as rope_lib
+from repro_torch.core.device import SMEM_PER_CTA_RESERVED, SMEM_PER_SM, \
+    sm_count
 from repro_torch.kernels import _build
 
 ENTRIES = ("paged_residual_attention_mixed",
@@ -76,7 +79,8 @@ ENTRIES = ("paged_residual_attention_mixed",
 # Entries whose bf16 launches run a tensor-core kernel (bf16 or int8
 # pages); their f32 launches run the template.
 MMA_ENTRIES = ("paged_attention_prefill_base", "paged_attention_mixed_base",
-               "paged_residual_attention_prefill")
+               "paged_residual_attention_prefill",
+               "paged_residual_attention_mixed")
 # Entries whose every launch runs a split-K decode.
 SPLIT_ENTRIES = ("paged_attention_decode_base",
                  "paged_residual_attention_decode")
@@ -110,6 +114,7 @@ SOURCE = "paged_residual_attention"
 # the sources under csrc/, and the entries that live in the second
 SOURCES = (SOURCE, "paged_residual_disagg")
 _ENTRY_SOURCE = {"paged_residual_attention_prefill": SOURCES[1],
+                 "paged_residual_attention_mixed": SOURCES[1],
                  "paged_residual_attention_decode": SOURCES[1]}
 MAX_ROWS = 64          # query rows (positions x group heads) per CTA
 MMA_ROWS = 128         # the same for the tensor-core kernel (8 warps)
@@ -128,13 +133,11 @@ SPLIT_CTAS_PER_SM = {1: 4, 2: 4, 4: 4, 8: 2}
 RES_SPLIT_KEYS = 16
 RES_SPLIT_WARPS = 4
 RES_SPLIT_HEADS = 16
-SMEM_PER_SM = 228 * 1024      # H100: shared memory of an SM
-SMEM_PER_CTA_RESERVED = 1024  # what the card reserves for each CTA
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "paged_residual_attention_mixed":
-        [_I] + [_P] * 15 + [_I] * 9 + [_F, _I, _F, _I, _P],
+        [_I] + [_P] * 17 + [_I] * 9 + [_F, _I, _F, _I, _P],
     "paged_residual_attention_decode":
         [_I] + [_P] * 19 + [_I] * 8 + [_F, _I, _F, _I, _P],
     "paged_residual_attention_prefill":
@@ -300,11 +303,6 @@ def decode_splits(bsz: int, groups: int, w: int, page: int,
     return max(1, min(fit, most))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def split_plan(bsz: int, hq: int, hkv: int, d: int, w: int, page: int,
                sm_count: int) -> Dict[str, object]:
     """The split-K decode's launch: its split count, the two kernels'
@@ -426,7 +424,10 @@ def paged_residual_attention_mixed(q, kb_pool, vb_pool, kr_pool, vr_pool,
     kb_scale/vb_scale (P, page, Hkv) f32; kr/vr: (Pr, page, R);
     b_k/b_v: (B, R, Hkv·D); bt_b/bt_r: (B, W) int32; start/q_len/kv_len:
     (B,) int32 with ``kv_len = start + q_len``.  Rows at or past q_len come
-    back as exact zeros.  Returns (B, Sq, Hq, D).  Bound: bytes for decode
+    back as exact zeros.  bf16 runs #5's tensor-core tile with each row's
+    q_len given (K rebuilt per key block on chip, RoPE from
+    ``rope_table``; a tile with no row below q_len only zeroes its rows),
+    f32 the template.  Returns (B, Sq, Hq, D).  Bound: bytes for decode
     rows, operations for long prefill rows (module docstring)."""
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
@@ -434,14 +435,18 @@ def paged_residual_attention_mixed(q, kb_pool, vb_pool, kr_pool, vr_pool,
     r = _check_residual(q, kr_pool, vr_pool, b_k, b_v, bt_r, bsz, hkv, d,
                         page, w)
     _check_rows(start, q_len, bsz, q.device)
-    tq = max(1, min(sq, MAX_ROWS // g))
+    tq = tile_positions("paged_residual_attention_mixed", q.dtype, g, sq)
+    table = rope_table(q.device, d, rope_theta, q.dtype, w * page,
+                       use_rope) if q.dtype == torch.bfloat16 else None
     out = torch.empty_like(q)
     _run("paged_residual_attention_mixed", q, kb_scale, code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
-         _ptr(bt_b), _ptr(bt_r), _ptr(start), _ptr(q_len), _ptr(kv_len),
-         _ptr(out), bsz, sq, hq, hkv, d, r, page, w, tq, float(scale),
-         int(window), float(rope_theta), int(use_rope), _stream(q))
+         _ptr(None if table is None else table[0]),
+         _ptr(None if table is None else table[1]), _ptr(bt_b), _ptr(bt_r),
+         _ptr(start), _ptr(q_len), _ptr(kv_len), _ptr(out), bsz, sq, hq,
+         hkv, d, r, page, w, tq, float(scale), int(window),
+         float(rope_theta), int(use_rope), _stream(q))
     return out
 
 
@@ -469,7 +474,7 @@ def paged_residual_attention_decode(q, kb_pool, vb_pool, kr_pool, vr_pool,
                         page, w)
     n_split = res_split_plan(bsz, hq, hkv, d, r, w, page,
                              kb_scale is not None,
-                             _sm_count(q.device.index))["n_split"]
+                             sm_count(q.device.index))["n_split"]
     # f32 partials: m and l (B, Hq, n_split), acc (..., D), acc_r (..., R)
     n = bsz * hq * n_split
     ws = torch.empty(n * (d + r + 2), dtype=torch.float32, device=q.device)
@@ -565,7 +570,7 @@ def paged_attention_decode_base(q, kb_pool, vb_pool, bt_b, kv_len, *,
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
         decode=True)
     n_split = split_plan(bsz, hq, hkv, d, w, page,
-                         _sm_count(q.device.index))["n_split"]
+                         sm_count(q.device.index))["n_split"]
     # f32 partials: m and l (B, Hq, n_split), acc (B, Hq, n_split, D)
     n = bsz * hq * n_split
     ws = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)

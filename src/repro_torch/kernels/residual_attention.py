@@ -18,18 +18,25 @@ key) pair and kv head over keys it reads once per query tile: bound by
 operations (989 TFLOP/s bf16).  A bf16 prefill runs a flash tile on the
 tensor cores (mma.sync, 128 query rows per CTA, K rebuilt per key block
 by an MMA with RoPE in registers; counted as
-``residual_attention_prefill_mma``); an f32 prefill runs the first,
-scalar design, f32 FMAs on the CUDA cores (67 TFLOP/s peak), which keeps
-f32 IEEE (the tensor cores have no such mode).  Decode does a few flops
-per byte of K/V: bound by bytes (3.35 TB/s); one CTA per (kv head, row)
-walks the whole cache, so a short batch leaves most SMs idle (later work:
-split-K over keys).  Head dims 64, 128 and 256 are taken; a CTA of the
+``residual_attention_prefill_mma``).  Decode does a few flops per byte of
+K/V: bound by bytes (3.35 TB/s), and at the main path's one new token
+(``forward`` at S 1) by latency alone.  A bf16 decode runs a split-K
+kernel (``decode_split_plan``; counted as
+``residual_attention_decode_splitk``): CTAs of 4 warps over up to 16
+query heads as one m16 tile, each CTA a range of every row's live keys,
+each warp 16-key steps of it with K rebuilt on the tensor cores; with one
+range (Sk 1 always) the CTA finishes the row and applies B_v itself, with
+several a second kernel combines the ranges from an f32 workspace.  Every
+f32 launch runs the first, scalar design, f32 FMAs on the CUDA cores (67
+TFLOP/s peak), which keeps f32 IEEE (the tensor cores have no such mode);
+its decode is one CTA per (kv head, row) over the whole cache.  Head
+dims 64, 128 and 256 are taken; a CTA of the
 scalar kernel holds 64 query rows at D <= 128 and 32 at D 256
 (``ROWS_BY_HEAD_DIM``), so its shared memory stays inside the card's
 227 KB; the tensor-core kernel holds 128 (``MMA_ROWS``) at every
 head_dim.  A rank too large for the scalar kernel's budget at D 256
 (above ~26) is refused by its launcher, and the wrapper raises; the
-tensor-core kernel takes ranks up to 32 at every head_dim.
+tensor-core kernels take ranks up to 32 at every head_dim.
 Unlike the Pallas prefill, which pads Sq and Sk to multiples of 128 with
 copies, the kernel takes any Sq and Sk and masks the ragged edge itself.
 """
@@ -41,17 +48,20 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core.device import SMEM_PER_CTA_RESERVED, SMEM_PER_SM, \
+    sm_count
 from repro_torch.kernels import _build
 
 # Launches of each kernel.  ``chip_smoke.py`` zeroes these before it drives
 # the dense model and reads them after, to show the path went through them.
 # A bf16 prefill runs the tensor-core kernel, counted apart under
-# ``residual_attention_prefill_mma``; f32 prefills and every decode run
-# the scalar kernels.
+# ``residual_attention_prefill_mma``, a bf16 decode the split-K decode,
+# ``residual_attention_decode_splitk``; f32 launches run the scalar kernel.
 LAUNCHES: Dict[str, int] = {
     "residual_attention_prefill": 0,
     "residual_attention_prefill_mma": 0,
     "residual_attention_decode": 0,
+    "residual_attention_decode_splitk": 0,
 }
 
 SOURCE = "residual_attention"
@@ -64,6 +74,12 @@ ROWS_BY_HEAD_DIM = {64: 64, 128: 64, 256: 32}
 # warps of 16 rows, its softmax state in registers.
 MMA_ROWS = 128
 MAX_RANK = 32
+# The bf16 split-K decode: a CTA of SPLIT_WARPS warps takes up to
+# SPLIT_HEADS query heads (one m16 tile) and one range of each row's live
+# keys, a multiple of SPLIT_KEYS * SPLIT_WARPS keys; each warp 16-key steps.
+SPLIT_KEYS = 16
+SPLIT_WARPS = 4
+SPLIT_HEADS = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -71,7 +87,7 @@ _SIGNATURES = {
     "residual_attention_prefill":
         [_I] + [_P] * 12 + [_I] * 8 + [_F, _I, _I, _P],
     "residual_attention_decode":
-        [_I] + [_P] * 11 + [_I] * 6 + [_F, _I, _P],
+        [_I] + [_P] * 15 + [_I] * 7 + [_F, _I, _P],
 }
 
 
@@ -126,6 +142,55 @@ def prefill_kernel(dtype: torch.dtype) -> str:
     tensor cores have no such mode)."""
     return "residual_attention_prefill_mma" if dtype == torch.bfloat16 \
         else "residual_attention_prefill"
+
+
+def decode_kernel(dtype: torch.dtype) -> str:
+    """The decode kernel, by its launch counter, that q in ``dtype`` runs:
+    the split-K decode for bf16, the scalar kernel for f32."""
+    return "residual_attention_decode_splitk" if dtype == torch.bfloat16 \
+        else "residual_attention_decode"
+
+
+def decode_split_smem(d: int, r: int) -> int:
+    """Shared-memory bytes of one CTA of the split-K decode (``Layout`` of
+    ``splitk`` in the source): Q (16 rows), B_k and B_v (RP rows), and per
+    warp two stages (one at D 256) of 16 keys' K, V, K_r, V_r, sin and cos
+    rows, all bf16, rows padded by 8 elements."""
+    rp = 16 if r <= 16 else 32
+    ds, rs, hs, keys = d + 8, rp + 8, d // 2 + 8, SPLIT_KEYS
+    stage = keys * 2 * (2 * ds + 2 * rs + 2 * hs)
+    stages = 1 if d > 128 else 2
+    return 2 * (SPLIT_HEADS + 2 * rp) * ds + SPLIT_WARPS * stages * stage
+
+
+def decode_ctas_per_sm(d: int, r: int) -> int:
+    """Resident CTAs per SM of the split-K decode, as its shared memory
+    allows, at most 2 (128 threads of up to 255 registers)."""
+    need = decode_split_smem(d, r) + SMEM_PER_CTA_RESERVED
+    return max(1, min(2, SMEM_PER_SM // need))
+
+
+def decode_split_plan(bsz: int, hq: int, hkv: int, d: int, r: int, sk: int,
+                      window: int, sm_count: int) -> Dict[str, object]:
+    """The bf16 split-K decode's launch: ``n_split`` ranges of each row's
+    live keys (at most min(Sk, window) of them), as many as fill the
+    card's resident CTA slots (``decode_ctas_per_sm``) in one pass and no
+    more than those keys have ``SPLIT_KEYS * SPLIT_WARPS``-key ranges; its
+    grid, and the combine's grid and f32 workspace (m, l, acc, acc_r
+    partials), both absent with one range (then the CTA finishes the row
+    itself: Sk 1 always)."""
+    groups = hkv * -(-(hq // hkv) // SPLIT_HEADS)
+    ctas = decode_ctas_per_sm(d, r)
+    fit = ctas * sm_count // max(1, bsz * groups)
+    live = min(sk, window) if window else sk
+    most = -(-live // (SPLIT_KEYS * SPLIT_WARPS))
+    n_split = max(1, min(fit, most))
+    combine = n_split > 1
+    return dict(n_split=n_split, ctas_per_sm=ctas,
+                grid=(n_split, groups, bsz),
+                combine_grid=bsz * hq if combine else 0,
+                workspace_bytes=4 * bsz * hq * n_split * (d + r + 2)
+                if combine else 0)
 
 
 def tile_positions(d: int, group: int, sq: int, dtype: torch.dtype) -> int:
@@ -238,17 +303,30 @@ def residual_attention_decode(q, k_base, v_base, k_res, v_res, b_k, b_v,
     """One query row per request at position ``kv_len - 1`` (``Sk - 1``
     with ``kv_len=None``) over a contiguous disaggregated cache.  Replaces
     ``residual_attention_decode`` (repro/kernels/residual_attention.py:267).
-    The prefill kernel with Sq = 1.
+    bf16 runs the split-K decode (``decode_split_plan``; with several
+    ranges a workspace of its ``workspace_bytes`` and a combine), f32 the
+    scalar kernel with Sq = 1.
 
     q: (B, Hq, D); the cache as :func:`residual_attention_prefill`.
     Returns (B, Hq, D).  Bound: bytes (module docstring)."""
     bsz, _, sk, hq, hkv, d, r, code = _geometry(
         q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len, window,
         decode=True)
+    n_split = 1
+    if q.dtype == torch.bfloat16:
+        n_split = decode_split_plan(bsz, hq, hkv, d, r, sk, window,
+                                    sm_count(q.device.index))["n_split"]
+    # f32 partials of several ranges: m and l (B, Hq, n_split), acc (...,
+    # D), acc_r (..., R); none with one range
+    n = bsz * hq * n_split
+    ws = torch.empty(n * (d + r + 2), dtype=torch.float32,
+                     device=q.device) if n_split > 1 else None
+    parts = [None] * 4 if ws is None else \
+        [ws[:n], ws[n:2 * n], ws[2 * n:(2 + d) * n], ws[(2 + d) * n:]]
     out = torch.empty_like(q)
-    _run("residual_attention_decode", "residual_attention_decode", code,
-         _ptr(q), _ptr(k_base),
-         _ptr(v_base), _ptr(k_res), _ptr(v_res), _ptr(b_k), _ptr(b_v),
-         _ptr(sin), _ptr(cos), _ptr(kv_len), _ptr(out), bsz, sk, hq, hkv, d,
-         r, float(scale), int(window), _stream(q))
+    _run("residual_attention_decode", decode_kernel(q.dtype), code,
+         _ptr(q), _ptr(k_base), _ptr(v_base), _ptr(k_res), _ptr(v_res),
+         _ptr(b_k), _ptr(b_v), _ptr(sin), _ptr(cos), _ptr(kv_len),
+         *map(_ptr, parts), _ptr(out), bsz, sk, hq, hkv, d, r, n_split,
+         float(scale), int(window), _stream(q))
     return out

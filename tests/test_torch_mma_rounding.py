@@ -33,11 +33,15 @@ prefill and the mixed plain versions; and the disaggregated chunked
 prefill (#5: the same tile with #7's rebuild), bf16 and int8 pages, whose
 K_r/V_r rows come through their own block table and whose RoPE values
 are the wrapper's table (``rope_table``, q's type), held to the port's
-plain prefill version and in f32 to ``repro.kernels.ref``.  The table is
+plain prefill version and in f32 to ``repro.kernels.ref``; and the
+disaggregated mixed grid (#1: #5's tile with each row's q_len given) on
+ragged mixed rows (q_len 0, 1, 17 and a long prefill row; kv_len 0, 1 and
+17), held to the plain mixed version and in f32 to JAX's.  The table is
 held to ``rope_sincos`` exactly and to the angles of JAX's
 ``_reconstruct_k`` within f32 rounding.  Also the routing by type: which
 kernel, by its launch counter, a bf16 or f32 launch runs (the split-K
-decodes #4 and #2 in every type: ``tests/test_torch_splitk.py``).
+decodes #4 and #2 in every type and #8 in bf16:
+``tests/test_torch_splitk.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -349,10 +353,10 @@ def test_paged_mixed_algorithm_matches_jax_in_f32(pages, window):
 RANK = 16
 
 
-def res_paged_inputs(seed):
-    """``paged_inputs`` plus residual pools (Pr, page, R) behind their own
-    block table and per-row B_k/B_v (B, R, Hkv * D)."""
-    t = paged_inputs(seed)
+def res_paged_inputs(seed, **rows):
+    """``paged_inputs`` (on ``rows``) plus residual pools (Pr, page, R)
+    behind their own block table and per-row B_k/B_v (B, R, Hkv * D)."""
+    t = paged_inputs(seed, **rows)
     rng = np.random.default_rng(seed + 100)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     bsz, width = t["bt_b"].shape
@@ -400,8 +404,9 @@ def emulate_paged_res(t, window, lowp, ks=None, vs=None):
 _RES = ("kr", "vr", "b_k", "b_v")
 
 
-def res_case(seed, pages, lowp):
-    t = {k: torch.from_numpy(v) for k, v in res_paged_inputs(seed).items()}
+def res_case(seed, pages, lowp, rows=None):
+    t = {k: torch.from_numpy(v)
+         for k, v in res_paged_inputs(seed, **(rows or {})).items()}
     if lowp:
         for k in ("q", "kb", "vb") + _RES:
             t[k] = t[k].to(torch.bfloat16)
@@ -439,6 +444,47 @@ def test_paged_res_algorithm_matches_jax_in_f32(pages, window):
         window=window, kb_scale=j(ks), vb_scale=j(vs)))
     rows = valid_rows().numpy()
     np.testing.assert_allclose(got[rows], want[rows], atol=1e-5, rtol=1e-5)
+
+
+# #1 in bf16 runs #5's tile with each row's q_len given: a q_len 0 row at
+# kv_len 0, a decode row at kv_len 1, 17 positions from 0, a decode row at
+# kv_len 17, a 160-position prefill row from mid-page and a decode row at
+# kv_len 200 (chip_smoke's ``RES_MIXED_ROWS`` at this test's size)
+RES_MIXED = dict(start=[0, 0, 0, 16, 40, 199], n_valid=[0, 1, 17, 1, 160, 1],
+                 sq=160)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_paged_res_mixed_rounding_plan_holds_half_the_bf16_gate(pages,
+                                                                window):
+    """#5's tile on #1's ragged rows against the plain mixed version,
+    which zeroes the rows past q_len as the kernel does (the q_len 0 row
+    at kv_len 0 too)."""
+    t, ks, vs = res_case(19, pages, lowp=True, rows=RES_MIXED)
+    want = tref.paged_residual_attention_mixed_ref(
+        t["q"], t["kb"], t["vb"], *[t[k] for k in _RES], t["bt_b"],
+        t["bt_r"], t["start"], t["q_len"], t["kv_len"], window=window,
+        kb_scale=ks, vb_scale=vs).float()
+    got = emulate_paged_res(t, window, lowp=True, ks=ks, vs=vs)
+    rows = valid_rows(RES_MIXED["n_valid"], RES_MIXED["sq"])
+    assert torch.all(got[~rows] == 0.0) and torch.all(want[~rows] == 0.0)
+    err = (got - want)[rows].abs().max().item()
+    assert err <= SHARE * want[rows].abs().max().item()
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("pages", ["f32", "int8"])
+def test_paged_res_mixed_algorithm_matches_jax_in_f32(pages, window):
+    t, ks, vs = res_case(20, pages, lowp=False, rows=RES_MIXED)
+    got = emulate_paged_res(t, window, lowp=False, ks=ks, vs=vs).numpy()
+    j = lambda x: None if x is None else jnp.asarray(x.numpy())  # noqa
+    want = np.asarray(jref.paged_residual_attention_mixed_ref(
+        *[j(t[k]) for k in ("q", "kb", "vb") + _RES + ("bt_b", "bt_r",
+                                                      "start", "q_len",
+                                                      "kv_len")],
+        window=window, kb_scale=j(ks), vb_scale=j(vs)))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -541,6 +587,19 @@ def test_paged_res_prefill_routes_by_dtype(dtype, int8, want):
 
 
 @pytest.mark.parametrize("dtype,int8,want", [
+    (torch.bfloat16, False, "paged_residual_attention_mixed_mma"),
+    (torch.bfloat16, True, "paged_residual_attention_mixed_int8_mma"),
+    (torch.float32, False, "paged_residual_attention_mixed"),
+    (torch.float32, True, "paged_residual_attention_mixed_int8"),
+])
+def test_paged_res_mixed_routes_by_dtype(dtype, int8, want):
+    """bf16 launches of #1 (bf16 or int8 pages) go to #5's tensor-core tile
+    and are counted apart; f32 ones stay on the template."""
+    got = tpra.kernel_name("paged_residual_attention_mixed", dtype, int8)
+    assert got == want and got in tpra.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype,int8,want", [
     (torch.bfloat16, False, "paged_residual_attention_decode_splitk"),
     (torch.bfloat16, True, "paged_residual_attention_decode_int8_splitk"),
     (torch.float32, False, "paged_residual_attention_decode_splitk"),
@@ -568,13 +627,18 @@ def test_every_routed_counter_is_in_launches(entry):
             assert tpra.kernel_name(entry, dtype, int8) in tpra.LAUNCHES
 
 
-@pytest.mark.parametrize("entry", [e for e in tpra.ENTRIES
-                                   if e not in tpra.MMA_ENTRIES +
-                                   tpra.SPLIT_ENTRIES])
+@pytest.mark.parametrize("entry", tpra.ENTRIES)
 def test_other_paged_entries_keep_the_template(entry):
-    for dtype in (torch.bfloat16, torch.float32):
-        assert tpra.kernel_name(entry, dtype, False) == entry
-        assert tpra.kernel_name(entry, dtype, True) == f"{entry}_int8"
+    """No paged entry reaches the template in bf16: each runs a tensor-core
+    tile or a split-K decode; in f32 every entry but the split-K decodes
+    keeps the template, under the entry's own name."""
+    assert entry in tpra.MMA_ENTRIES + tpra.SPLIT_ENTRIES
+    for int8 in (False, True):
+        template = f"{entry}_int8" if int8 else entry
+        assert tpra.kernel_name(entry, torch.bfloat16, int8) != template
+        want = f"{template}_splitk" if entry in tpra.SPLIT_ENTRIES \
+            else template
+        assert tpra.kernel_name(entry, torch.float32, int8) == want
 
 
 @pytest.mark.parametrize("dtype,want", [
@@ -583,6 +647,19 @@ def test_other_paged_entries_keep_the_template(entry):
 ])
 def test_dense_prefill_routes_by_dtype(dtype, want):
     assert tra.prefill_kernel(dtype) == want and want in tra.LAUNCHES
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, "residual_attention_decode_splitk"),
+    (torch.float32, "residual_attention_decode"),
+])
+def test_dense_decode_routes_by_dtype(dtype, want):
+    """bf16 launches of #8 run the split-K decode, counted apart; f32 ones
+    the scalar kernel.  Every dense counter is one a launch can reach."""
+    assert tra.decode_kernel(dtype) == want and want in tra.LAUNCHES
+    routed = {f(dt) for f in (tra.prefill_kernel, tra.decode_kernel)
+              for dt in (torch.bfloat16, torch.float32)}
+    assert routed == set(tra.LAUNCHES)
 
 
 @pytest.mark.parametrize("d,group,sq,dtype,positions", [
@@ -600,14 +677,12 @@ def test_tile_positions_by_kernel(d, group, sq, dtype, positions):
 @pytest.mark.parametrize("dtype,positions", [(torch.bfloat16, 32),
                                              (torch.float32, 16)])
 def test_paged_tile_positions_by_kernel(dtype, positions):
-    """#6 and #3 in bf16: 128 rows per CTA (Llama3-8B's G 4: 32
-    positions); the template: 64 rows."""
-    assert tpra.tile_positions("paged_attention_prefill_base", dtype, 4,
-                               2048) == positions
-    assert tpra.tile_positions("paged_attention_mixed_base", dtype, 4,
-                               2048) == positions
-    assert tpra.tile_positions("paged_residual_attention_mixed", dtype, 4,
-                               2048) == 16
+    """#6, #3 and #1 in bf16: 128 rows per CTA (Llama3-8B's G 4: 32
+    positions); the template (f32): 64 rows."""
+    for entry in ("paged_attention_prefill_base",
+                  "paged_attention_mixed_base",
+                  "paged_residual_attention_mixed"):
+        assert tpra.tile_positions(entry, dtype, 4, 2048) == positions
 
 
 @pytest.mark.parametrize("dtype,group,positions", [
