@@ -53,16 +53,25 @@ error:
    (B 4; timed in bf16 against its bound), window 0 and 300, at rank 5,
    a group of 64 and (bf16 only) D 256 at rank 32.  Then the RG-LRU
    scan kernel at tests/test_kernels.py's shapes (the ragged one as it
-   is), at S 1 and at W 200, f32 and bf16, h0 non-zero;
+   is), at S 1 and at W 200, f32 and bf16, h0 non-zero.  Then every
+   kernel at head_dim 32 (``tiny_serving_model()``'s at its defaults):
+   the six paged kernels and their int8 variants at groups of 2 and 4,
+   page 16, rank 8 on the fixed rows, and the dense prefill and decode
+   (``DENSE_D32``), f32 and bf16, with and without a window, each naming
+   the kernel that ran; the bf16 cases are timed (the ``d32_times``
+   line);
 4. a small f32 model served on the card and on the CPU: identical greedy
    tokens in forkkv and prefix mode, under the mixed and the
    phase-separated loop (``mixed_batching=False``), with broadcast fork
    and on the gather path (``use_paged_kernel=False``), whose tokens must
    also equal the paged path's on the card, all with full-precision and
    again with int8 bCache pages (``kv_quant="int8"``: only int8 variants
-   launch); then the same model's dense API: ``forward(disagg=True)``
-   logits card vs CPU, and greedy tokens from ``prefill`` +
-   ``decode_step`` identical, over full-precision and over int8 caches;
+   launch); then ``tiny_serving_model()`` at its defaults (head_dim 32)
+   on the card and on the CPU in forkkv, prefix and full_reuse under both
+   loops, identical greedy tokens; then the small f32 model's dense API:
+   ``forward(disagg=True)`` logits card vs CPU, and greedy tokens from
+   ``prefill`` + ``decode_step`` identical, over full-precision and over
+   int8 caches;
    then the same for a 6-layer f32 hybrid at head_dim 256 (the scan
    kernel and the dense kernels at D 256), with a prompt that wraps the
    local ring; then the tiers: tests/test_tiers.py's ReAct run of
@@ -71,7 +80,12 @@ error:
    hits; an ``export_pages`` → ``import_pages`` round trip of bf16 and of
    int8 pages (with scales) bit-identical on the card; and ``persist`` →
    a fresh engine → ``restore`` serving the same greedy tokens as the
-   uninterrupted run, from tier hits;
+   uninterrupted run, from tier hits; then the serve launcher as users
+   run it, ``python -m repro_torch.launch.serve --http --port 0`` as a
+   process of its own: its port line parsed, a 128-token stream opened,
+   SIGTERM sent, a fresh request refused with 503 ``draining``, the
+   stream finished, the process gone with exit code 0 and no watchdog
+   trip;
 5. Llama3-8B at full width and depth (random bf16 weights from seed 0)
    serving one 2048-token session with 8 staggered forks over 4 LoRA
    adapters, in forkkv and prefix mode under the mixed loop, then under
@@ -89,7 +103,13 @@ error:
    then the staggered serve in bf16 at ``max_pages`` 640 (between
    forkkv's peak of 169 base pages and prefix's 937) with a 4 GiB host
    tier, in both modes: every fork finishes, prefix demotes pages, tier
-   counters logged.  Then the dense model API on the same weights:
+   counters logged.  Then a forkkv server (mixed loop) in an in-process
+   ``HttpFrontend``: a completion, a streamed completion and a session
+   with 4 forks through ``ForkClient``, then the same requests through
+   the same server's in-process API after every page is evicted:
+   identical greedy tokens, its kernels launched, time to first token
+   and tokens per second of both logged.  Then the dense model API on
+   the same weights:
    ``forward(disagg=True)`` on 4 rows x 1000 tokens (adapters 0-3) must
    launch the dense prefill kernel once per layer (in bf16 its
    tensor-core kernel, on f32 copies the scalar one), and ``forward`` on one
@@ -131,6 +151,7 @@ error:
 import dataclasses
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -646,6 +667,39 @@ def check_edges(pra, ref, quantize):
         torch.cuda.empty_cache()
 
 
+# Head_dim 32, the width of ``tiny_serving_model()`` at its defaults (d_model
+# 256 over 8 heads): Llama-like groups of 2 and 4 query heads per kv head,
+# page 16, rank 8 (the reference's serve launcher)
+D32_GEOMS = {"D 32 G 2": dict(hq=8, hkv=4, d=32, r=8, page=16),
+             "D 32 G 4": dict(hq=8, hkv=2, d=32, r=8, page=16)}
+
+
+def check_d32(pra, ref, quantize):
+    """Phase 3, head_dim 32: the six paged kernels and their int8 variants
+    at ``D32_GEOMS`` on the fixed rows, f32 and bf16, without and with a
+    window, each against its plain version (int8 also within
+    ``QUANT_TOL`` of full precision), each naming the kernel that ran; the
+    bf16 cases without a window are timed.  Returns the timed records."""
+    timed = []
+    for (label, geom), (dtype, tol) in itertools.product(D32_GEOMS.items(),
+                                                        DTYPES):
+        for window, quant in itertools.product((0, 300), (False, True)):
+            cases = {k: make_case(k, dtype, window, seed=31 + window,
+                                  quantize=quantize if quant else None,
+                                  geom=geom, **FIXED[k]) for k in FIXED}
+            for name, (kind, _) in ALL_KERNELS.items():
+                if name.endswith("_int8") != quant:
+                    continue
+                c = cases[kind]
+                rec = compare(pra, ref, name, c, tol, f"{label} {kind}")
+                if dtype == torch.bfloat16 and not window:
+                    timed.append(measure(pra, ref, name, c, rec))
+                log("kernel_d32", **rec, ok=True)
+            del cases
+    torch.cuda.empty_cache()
+    return timed
+
+
 def time_decode_launches(pra, ref, quantize):
     """Phase 3, bf16, bf16 and int8 pages: a mixed-grid launch (#3) whose
     rows are all decode rows (the fixed decode rows, Sq 1) fills G of the
@@ -790,6 +844,43 @@ DENSE_DECODE = [
 DENSE_DECODE_BF16 = [
     ("decode D 256 R 32 ragged", (16, 1, 256, 32), 1, 300, *_RAGGED),
 ]
+
+
+# #7 and #8 at head_dim 32 (``D32_GEOMS``' heads at rank 8): the prefill on
+# a chunk at an offset and across the tile's edges, the decode at Sk 1 (one
+# range, its CTA finishes the row with 8 columns a warp) and at Sk 4096
+# (ranges and a combine), and on ragged rows; windows 0 and 100 (prefill)
+# or 300 (decode).  The "Sq=Sk=1024" prefill and the Sk 4096 decodes are
+# timed in bf16.
+DENSE_D32 = [
+    case for g, heads in (("G 2", (8, 4, 32, 8)), ("G 4", (8, 2, 32, 8)))
+    for case in (
+        (f"D 32 {g} Sq 130, Sk 200", heads, 130, 200, [70, 0], [200, 130]),
+        (f"D 32 {g} Sq 37, Sk 97", heads, 37, 97, [3, 60], [40, 97]),
+        (f"D 32 {g} Sq=Sk=1024", heads, 1024, 1024, [0], None),
+        (f"decode D 32 {g} Sk 1", heads, 1, 1, [0] * 4, [1] * 4),
+        (f"decode D 32 {g} Sk 4096", heads, 1, 4096, [4095] * 4, [4096] * 4),
+        (f"decode D 32 {g} ragged", heads, 1, 300, *_RAGGED))]
+
+
+def check_dense_d32(ra, ref):
+    """Phase 3, head_dim 32: the dense prefill (#7) and decode (#8) at
+    ``DENSE_D32``, f32 and bf16, against their plain version; returns the
+    timed bf16 records."""
+    timed = []
+    for (dtype, tol), (i, case) in itertools.product(DTYPES,
+                                                     enumerate(DENSE_D32)):
+        for window in ((0, 300) if case[2] == 1 else (0, 100)):
+            c = make_dense_case(*case, dtype=dtype, window=window,
+                                seed=140 + i)
+            rec = compare_dense(ra, ref, c, tol)
+            if dtype == torch.bfloat16 and not window and \
+                    case[0].endswith(("Sq=Sk=1024", "Sk 4096")):
+                timed.append(measure_dense(ra, ref, c, rec))
+            log("dense_kernel_d32", **rec, ok=True)
+            del c
+    torch.cuda.empty_cache()
+    return timed
 
 
 def rope_tables(bsz, sk, d, dtype, device="cuda"):
@@ -1876,6 +1967,171 @@ def check_broadcast(exact, n_prefill, n_layers, prompt_len, page):
                              f"({n_layers})")
 
 
+def http_vs_in_process(server, vocab, HttpFrontend, ForkClient,
+                       SamplingParams, max_new=16, seed=21):
+    """Phase 5, HTTP: ``server`` wrapped in an in-process ``HttpFrontend``
+    serves, through ``ForkClient``, a completion, a streamed completion
+    and a session of ``vocab``-sized random tokens with 4 forks (adapters
+    0-3), one request at a time; then, with the front end shut and every
+    cached page evicted, the same server serves the same requests in
+    process, in the same order, so every step has the same shapes.
+    Greedy tokens must be identical.  Returns the record to log: the
+    streamed completion's time to first token and tokens per second over
+    HTTP and in process (host clock, the client's view)."""
+    rng = np.random.default_rng(seed)
+    ints = lambda n: [int(t) for t in rng.integers(0, vocab, n)]  # noqa
+    prompt_a, prompt_b, ctx = ints(512), ints(512), ints(1024)
+    instrs = [ints(32) for _ in range(4)]
+    sp = SamplingParams(max_new_tokens=max_new)
+    fe = HttpFrontend(server).start_background()
+    client = ForkClient(port=fe.port, timeout=600)
+    http, timing = {}, {}
+    try:
+        http["completion"] = client.completion(
+            prompt_a, adapter_id=1, max_new_tokens=max_new)["tokens"]
+        t0, first, events = time.perf_counter(), None, []
+        for ev in client.stream_completion(prompt_b, adapter_id=2,
+                                           max_new_tokens=max_new):
+            if first is None:
+                first = time.perf_counter()
+            events.append(ev)
+        timing["http"] = (first - t0, time.perf_counter() - t0)
+        streamed = [e["token"] for e in events if not e.get("finished")]
+        if streamed != events[-1]["tokens"]:
+            raise AssertionError("SSE tokens differ from the terminal event")
+        http["stream"] = streamed
+        sid = client.create_session(ctx, adapter_id=0)
+        http["forks"] = [client.fork(sid, instr, adapter_id=i,
+                                     max_new_tokens=max_new)["tokens"]
+                         for i, instr in enumerate(instrs)]
+        client.close_session(sid)
+        http_requests = client.metrics()["http_requests_served"]
+    finally:
+        fe.shutdown()
+    eng = server.engine
+    eng._evict(eng.base_pool, eng.base_pool.num_pages)
+    if eng.mode == "forkkv":
+        eng._evict(eng.res_pool, eng.res_pool.num_pages)
+    local = {"completion": server.generate(1, prompt_a, sp).result().tokens}
+    t0, first, toks = time.perf_counter(), None, []
+    for ev in server.generate(2, prompt_b, sp).stream():
+        if ev.token is not None:
+            first = first or time.perf_counter()
+            toks.append(ev.token)
+    timing["in_process"] = (first - t0, time.perf_counter() - t0)
+    local["stream"] = toks
+    with server.session(ctx, adapter_id=0) as sess:
+        local["forks"] = [sess.fork(i, instr, sp).result().tokens
+                          for i, instr in enumerate(instrs)]
+    for key, want in local.items():
+        if http[key] != want:
+            raise AssertionError(f"HTTP {key} {http[key]} != in-process "
+                                 f"{want}")
+    rec = dict(max_new_tokens=max_new, prompt=512, context=1024, forks=4,
+               http_requests_served=http_requests, tokens=http["stream"])
+    for side, (ttft, total) in timing.items():
+        rec[f"ttft_ms_{side}"] = ttft * 1e3
+        rec[f"tokens_per_s_{side}"] = max_new / total
+    return rec
+
+
+# The port's serve launcher as users run it: ``python -m
+# repro_torch.launch.serve --http --port 0`` (tiny_serving_model(), head_dim
+# 32, on the card), its port line parsed as scripts parse it
+SERVE_LINE = re.compile(r"^serving mode=\S+ admission=\S+ on "
+                        r"http://[^:]+:(\d+)$")
+
+
+def cli_http_drain(ForkClient, HttpError, extra=(), timeout=300):
+    """Phase 4, the CLI: start the launcher with ``--http --port 0``
+    (``extra`` flags appended), parse its port line, open a 128-token
+    stream and, once a token has arrived, send SIGTERM: a fresh request
+    must get 503 with ``finish_reason="draining"``, the open stream must
+    finish to length, ``watchdog_trips`` must stay 0 (read from /healthz
+    while the process lives) and the process must exit 0.  The process is
+    killed if anything fails.  Returns the record to log."""
+    import signal
+    import threading
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--http",
+           "--port", "0", *extra]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        port = None
+        while port is None:
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError(f"launcher exited {proc.wait()}: "
+                                     f"{lines[-20:]}")
+            lines.append(line.rstrip())
+            m = SERVE_LINE.match(line.strip())
+            port = int(m[1]) if m else None
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"no port line: {lines[-20:]}")
+        ready_s = time.perf_counter() - t0
+        reader = threading.Thread(target=lambda: lines.extend(
+            ln.rstrip() for ln in proc.stdout), daemon=True)
+        reader.start()
+        client = ForkClient(port=port, timeout=timeout)
+        events = []
+
+        def consume():
+            for ev in client.stream_completion(list(range(1, 33)),
+                                               max_new_tokens=128):
+                events.append(ev)
+
+        stream = threading.Thread(target=consume, daemon=True)
+        stream.start()
+        deadline = time.perf_counter() + timeout
+        while not events and stream.is_alive() and \
+                time.perf_counter() < deadline:
+            time.sleep(0.005)
+        if not events or events[0].get("finished"):
+            raise AssertionError(f"no token before the drain: {events}")
+        proc.send_signal(signal.SIGTERM)
+        trips, state = 0, None
+        while state != "draining" and time.perf_counter() < deadline:
+            _, _, doc = client._request("GET", "/healthz")
+            state, trips = doc["state"], max(trips, doc["watchdog_trips"])
+            time.sleep(0.005)
+        try:
+            client.completion(list(range(2, 30)), max_new_tokens=4)
+            raise AssertionError("a request during the drain was admitted")
+        except HttpError as exc:
+            if exc.status != 503 or exc.doc.get("finish_reason") != \
+                    "draining":
+                raise AssertionError(f"drain refused with {exc.status} "
+                                     f"{exc.doc}") from exc
+        while stream.is_alive() and time.perf_counter() < deadline:
+            try:
+                _, _, doc = client._request("GET", "/healthz")
+                trips = max(trips, doc["watchdog_trips"])
+            except OSError:
+                break                   # drained: the process is leaving
+            time.sleep(0.02)
+        stream.join(timeout=max(1.0, deadline - time.perf_counter()))
+        final = events[-1]
+        if not (final.get("finished") and final["finish_reason"] == "length"
+                and len(final["tokens"]) == 128):
+            raise AssertionError(f"the open stream did not finish: {final}")
+        rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        reader.join(timeout=10)
+        if rc != 0 or trips != 0:
+            raise AssertionError(f"launcher exit {rc}, watchdog_trips "
+                                 f"{trips}: {lines[-20:]}")
+        return dict(cmd=" ".join(cmd[1:]), ready_s=ready_s, port=port,
+                    stream_tokens=len(final["tokens"]), exit_code=rc,
+                    watchdog_trips=trips, refused=503,
+                    drain_lines=[ln for ln in lines if "drain" in ln])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def reset_counts(*mods):
     for mod in mods:
         for k in mod.LAUNCHES:
@@ -1948,6 +2204,60 @@ def small_model_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig,
                                  f"path {paged}")
 
 
+# (mode, ServeConfig settings, entries that must launch) of the default
+# tiny model's card-vs-CPU serves: every mode in both loops
+D32_SERVES = tuple(
+    (mode, extra, tuple(e.replace("_mixed", "_prefill") if extra else e
+                        for e in expect))
+    for mode, expect in (("forkkv", LLAMA_SERVES[0][3]),
+                         ("prefix", LLAMA_SERVES[1][3]),
+                         ("full_reuse", LLAMA_SERVES[1][3]))
+    for extra in ({}, dict(mixed_batching=False)))
+
+
+def tiny_d32_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig, SamplingParams,
+                         pra):
+    """Phase 4: ``tiny_serving_model()`` at its defaults (4 f32 layers,
+    d_model 256, 8 heads over 4 kv heads: head_dim 32), the reference
+    serve launcher's model, served on the card and on the CPU from the
+    same weights in forkkv, prefix and full_reuse, under the mixed and the
+    phase-separated loop: identical greedy tokens, and on the card each
+    serve's kernels launched (``D32_SERVES``).  Returns {label: tokens}."""
+    cfg = tiny()
+    if cfg.resolved_head_dim != 32:
+        raise AssertionError(f"tiny_serving_model() has head_dim "
+                             f"{cfg.resolved_head_dim}, not 32")
+    params = tfm.init_params(cfg, 0, device="cpu")
+    lora = tfm.init_lora_stacks(cfg, 1, 8, device="cpu")
+    got = {}
+    for mode, extra, expect in D32_SERVES:
+        sc = ServeConfig(page_size=16, max_pages=128, max_batch=8,
+                         max_prefill_tokens=64, max_pages_per_req=16,
+                         mode=mode, **extra)
+        toks = {}
+        for dev in ("cuda", "cpu"):
+            p, lo = (tree_map(lambda t: t.to(dev), x) for x in (params, lora))
+            srv = ForkServer(cfg, p, lo, sc, device=dev)
+            reset_counts(pra)
+            outs, m, _ = serve(srv, cfg.vocab_size, 72, 4, 4, 9, 6, 4,
+                               SamplingParams)
+            check_serving(outs, m, 6, mixed=sc.mixed_batching)
+            ran = {k for k, v in pra.LAUNCHES.items() if v}
+            want = {pra.kernel_name(e, torch.float32, False) for e in expect}
+            if dev == "cuda" and not want <= ran:
+                raise AssertionError(f"D 32 {mode} {extra}: launched "
+                                     f"{sorted(ran)}, not {sorted(want)}")
+            toks[dev] = [o.tokens for o in outs]
+        if toks["cuda"] != toks["cpu"]:
+            raise AssertionError(f"D 32 {mode} {extra}: card {toks['cuda']} "
+                                 f"!= CPU {toks['cpu']}")
+        label = f"{mode}{' phase-separated' if extra else ''}"
+        got[label] = toks["cuda"]
+        log("tiny_d32", mode=mode, **extra, head_dim=cfg.resolved_head_dim,
+            launched=sorted(want), tokens=toks["cuda"], ok=True)
+    return got
+
+
 REACT_SC = dict(page_size=16, max_pages=26, max_batch=4,
                 max_prefill_tokens=64, mode="forkkv", max_pages_per_req=24,
                 host_tier_bytes=64 << 20)
@@ -1965,10 +2275,8 @@ def small_tiers_card_vs_cpu(tiny, tfm, Engine, ServeConfig, workflows, pra):
     tier on) with int8 bCache pages, on the card and on the CPU: greedy
     outputs and tier counters equal, pages demoted and promoted back
     (tier_hits > 0), and on the card only int8 variants launched.  The
-    model is the test's with 4 heads, so that head_dim is 64, a width the
-    kernels take."""
-    cfg = dataclasses.replace(tiny(rank=8, num_heads=4, num_kv_heads=2),
-                              kv_quant="int8")
+    model is the test's, ``tiny_serving_model(rank=8)`` (head_dim 32)."""
+    cfg = dataclasses.replace(tiny(rank=8), kv_quant="int8")
     params = tfm.init_params(cfg, 0, device="cpu")
     lora = tfm.init_lora_stacks(cfg, 1, 16, device="cpu")
     got = {}
@@ -2034,11 +2342,10 @@ def persist_restore(tiny, tfm, Engine, Request, ServeConfig):
     int8 bCache pages and a disk tier below the host tier (its files under
     the persist dir): an engine serves a context then a probe, persists
     every cached prefix; a fresh engine restores the manifest and serves
-    the probe with the same greedy tokens, from tier hits (head_dim 64, as
-    in ``small_tiers_card_vs_cpu``)."""
+    the probe with the same greedy tokens, from tier hits (the test's
+    model, head_dim 32)."""
     import tempfile
-    cfg = dataclasses.replace(tiny(rank=8, num_heads=4, num_kv_heads=2),
-                              kv_quant="int8")
+    cfg = dataclasses.replace(tiny(rank=8), kv_quant="int8")
     params = tfm.init_params(cfg, 0)
     lora = tfm.init_lora_stacks(cfg, 1, 16)
     rng = np.random.default_rng(0)
@@ -2103,6 +2410,8 @@ def main() -> int:
     from repro_torch.serving.api import ForkServer
     from repro_torch.serving.engine import Engine, Request
     from repro_torch.serving.executor import pool_bytes
+    from repro_torch.serving.frontend import ForkClient, HttpError, \
+        HttpFrontend
     from repro_torch.serving.sampling import SamplingParams
 
     t_start = time.perf_counter()
@@ -2135,16 +2444,28 @@ def main() -> int:
     time_decode_launches(pra, ref, tfm.quantize_kv)
     check_dense_kernels(ra, ref)
     check_scan_kernels(rg, ref)
+    # (a) every kernel at head_dim 32, the bf16 ones timed
+    log("d32_times", card=card, kernels=[
+        {k: r[k] for k in ("kernel", "ran", "case", "kernel_ms", "plain_ms",
+                           "library_ms", "bound_ms", "bound_by",
+                           "max_abs_err")}
+        for r in check_d32(pra, ref, tfm.quantize_kv) +
+        check_dense_d32(ra, ref)])
 
     # 4. small models: card vs CPU
     small_model_card_vs_cpu(tiny_serving_model, tfm, ForkServer,
                             ServeConfig, SamplingParams, pra)
+    # (b) tiny_serving_model() at its defaults, head_dim 32
+    tiny_d32_card_vs_cpu(tiny_serving_model, tfm, ForkServer, ServeConfig,
+                         SamplingParams, pra)
     small_dense_card_vs_cpu(tiny_serving_model, tfm, mods)
     small_hybrid_card_vs_cpu(hybrid, RG9B, mods)
     small_tiers_card_vs_cpu(tiny_serving_model, tfm, Engine, ServeConfig,
                             workflows, pra)
     page_round_trip(tiny_serving_model, tfm, Engine, ServeConfig)
     persist_restore(tiny_serving_model, tfm, Engine, Request, ServeConfig)
+    # (d) the serve launcher's HTTP drain, as a process of its own
+    log("cli_http_drain", **cli_http_drain(ForkClient, HttpError), ok=True)
 
     # 5. Llama3-8B, full width and depth, bf16, random weights
     cfg = LLAMA3_8B
@@ -2271,6 +2592,21 @@ def main() -> int:
         log("fanout_prefill", label=label, prefilled_tokens=exact,
             peak_base_pages=m["peak_base_pages"],
             peak_res_pages=m["peak_res_pages"], ok=True)
+
+    # (c) the forkkv server over HTTP against its own in-process API
+    server = ForkServer(cfg, params, lora, ServeConfig(mode="forkkv", **big))
+    reset_counts(*mods)
+    rec = http_vs_in_process(server, cfg.vocab_size, HttpFrontend,
+                             ForkClient, SamplingParams)
+    ran = check_counts(pra, ref, [
+        pra.kernel_name(e, cfg.activation_dtype, False)
+        for e in LLAMA_SERVES[0][3]], cfg.activation_dtype)
+    for k, v in ran.items():
+        launches[k] += v
+    log("http_vs_in_process", card=card, model=cfg.name, launches=ran,
+        **rec, ok=True)
+    del server
+    torch.cuda.empty_cache()
 
     # the dense model API on the same weights
     torch.cuda.reset_peak_memory_stats()

@@ -165,7 +165,8 @@ __device__ __forceinline__ void scores(float (&s)[BK / 8][4],
 // c += A . B for one warp, with A (16 x K) given as f32 accumulator
 // fragments (K/8 n-tiles), rounded here to bf16 A fragments, and B
 // (K x N) row-major in shared memory with row stride ``bs`` (read
-// transposed by ldmatrix).
+// transposed by ldmatrix; N a multiple of 8: an odd last n-tile, as at
+// #8's D 32 quarter of 8 columns, takes an x2 load).
 template <int K, int N>
 __device__ __forceinline__ void product(float (&c)[N / 8][4],
                                         const float (&a)[K / 8][4],
@@ -186,6 +187,12 @@ __device__ __forceinline__ void product(float (&c)[N / 8][4],
       ldmatrix_x4_trans(bf, row + n2 * 16);
       mma(c[2 * n2], af, bf[0], bf[1]);
       mma(c[2 * n2 + 1], af, bf[2], bf[3]);
+    }
+    if constexpr (N % 16 == 8) {
+      uint32_t bf[2];
+      ldmatrix_x2_trans(
+          bf, b + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * bs + N - 8);
+      mma(c[N / 8 - 1], af, bf[0], bf[1]);
     }
   }
 }

@@ -253,14 +253,17 @@ int launch_prefill_mma(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The bf16 base-only chunked prefill and mixed grid: D 64/128, tq * G <=
-// 128 rows, page 1..32, bf16 or int8 pages.
+// The bf16 base-only chunked prefill and mixed grid: D 32/64/128, tq * G
+// <= 128 rows, page 1..32, bf16 or int8 pages.
 int dispatch_prefill_mma(const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.tq < 1 ||
       a.tq * (a.hq / a.hkv) > flash::kRows || a.page < 1 || a.page > 32)
     return (int)cudaErrorInvalidValue;
   const bool int8 = a.kb_s != nullptr;
+  if (a.d == 32)
+    return int8 ? launch_prefill_mma<32, true>(a, bsz, s)
+                : launch_prefill_mma<32, false>(a, bsz, s);
   if (a.d == 64)
     return int8 ? launch_prefill_mma<64, true>(a, bsz, s)
                 : launch_prefill_mma<64, false>(a, bsz, s);
@@ -289,8 +292,9 @@ int dispatch_prefill_mma(const Args& a, int bsz, void* stream) {
 // one kv head, whose q rows (scaled by scale * log2(e)) and accumulators
 // stay in registers.  Each lane holds 8 columns of one key (16 bytes of
 // bf16 K, 32 of f32, 8 of int8 codes), so D / 8 lanes read one key's row
-// and a warp takes 32 / (D / 8) whole keys per step.  Per step a lane
-// copies the K and V columns of U keys (up to 128 bytes; a key past the
+// and a warp takes 32 / (D / 8) whole keys per step (8 at D 32, 4 at D
+// 64, 2 at D 128).  Per step a lane copies the K and V columns of U keys
+// (up to 128 bytes; a key past the
 // split copies the split's last key, whose score is masked, so no copy
 // branches) into its own slots of the warp's two shared-memory stages by
 // cp.async, so the next step's bytes fly while this one is computed
@@ -818,13 +822,14 @@ int launch_heads(const Args& a, cudaStream_t s) {
 
 template <typename T, typename TB>
 int launch_dims(const Args& a, cudaStream_t s) {
+  if (a.d == 32) return launch_heads<T, TB, 32>(a, s);
   if (a.d == 64) return launch_heads<T, TB, 64>(a, s);
   if (a.d == 128) return launch_heads<T, TB, 128>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // dtype: q's type (0 f32, 1 bf16); int8 pages exactly when scales given.
-// D 64/128, any G, page 1..32, n_split >= 1.
+// D 32/64/128, any G, page 1..32, n_split >= 1.
 int dispatch(int dtype, const Args& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.n_split < 1 ||

@@ -330,14 +330,15 @@ int launch_prefill_res_rank(const Args& a, int bsz, cudaStream_t s) {
 }
 
 // The bf16 disaggregated chunked prefill (q_len null) and mixed grid (q_len
-// given): D 64/128, R 1..32, tq * G <= 128 rows, page 1..32, bf16 or int8
-// pages, RoPE tables given.
+// given): D 32/64/128, R 1..32, tq * G <= 128 rows, page 1..32, bf16 or
+// int8 pages, RoPE tables given.
 int dispatch_prefill_res_mma(const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.tq < 1 ||
       a.tq * (a.hq / a.hkv) > flash::kRows || a.page < 1 || a.page > 32 ||
       a.r < 1 || a.r > 32 || a.sin == nullptr || a.cos == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (a.d == 32) return launch_prefill_res_rank<32>(a, bsz, s);
   if (a.d == 64) return launch_prefill_res_rank<64>(a, bsz, s);
   if (a.d == 128) return launch_prefill_res_rank<128>(a, bsz, s);
   return (int)cudaErrorInvalidValue;
@@ -871,7 +872,7 @@ inline int bt_entries(const Args& a) {
 }
 
 // dtype: q's type (0 f32, 1 bf16); int8 pages exactly when scales given.
-// D 64/128, R 1..32, page 1..32, n_split a multiple of kWarps.
+// D 32/64/128, R 1..32, page 1..32, n_split a multiple of kWarps.
 int dispatch(int dtype, Args a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.n_split < kWarps ||
@@ -886,6 +887,7 @@ int dispatch(int dtype, Args a, void* stream) {
     return int8 ? launch_f32<int8_t>(a, s) : launch_f32<float>(a, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   a.bt_slice = bt_entries(a);
+  if (a.d == 32) return launch_rank<32>(a, s);
   if (a.d == 64) return launch_rank<64>(a, s);
   if (a.d == 128) return launch_rank<128>(a, s);
   return (int)cudaErrorInvalidValue;

@@ -578,13 +578,16 @@ int launch_mma(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The bf16 prefill: D 64/128/256, R 1..32, tq * G <= 128 rows.
+// The bf16 prefill: D 32/64/128/256, R 1..32, tq * G <= 128 rows.
 int dispatch_mma(const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.r < 1 || a.r > 32 || a.tq < 1 || a.tq * (a.hq / a.hkv) > flash::kRows)
     return (int)cudaErrorInvalidValue;
   const bool r16 = a.r <= 16;
   switch (a.d) {
+    case 32:
+      return r16 ? launch_mma<32, 64, 16>(a, bsz, s)
+                 : launch_mma<32, 64, 32>(a, bsz, s);
     case 64:
       return r16 ? launch_mma<64, 64, 16>(a, bsz, s)
                  : launch_mma<64, 64, 32>(a, bsz, s);
@@ -975,6 +978,7 @@ residual_attention_decode_split_kernel(Args a) {
   if (finish) {
     // the row here: warp w takes columns [w D/4, (w + 1) D/4) of O + O_r .
     // B_v, O_r merged in f32 and rounded to bf16 as the MMA's A operand
+    // (at D 32 a quarter is one n-tile of 8 columns)
     constexpr int QD = D / 4;
     const int c0 = warp * QD;
     float om[QD / 8][4], orm[RP / 8][4], lsum[2];
@@ -1124,7 +1128,7 @@ int launch_rank(const Args& a, cudaStream_t s) {
   return a.r <= 16 ? launch<D, 16>(a, s) : launch<D, 32>(a, s);
 }
 
-// D 64/128/256, R 1..32, any G, n_split >= 1 (a workspace when > 1).
+// D 32/64/128/256, R 1..32, any G, n_split >= 1 (a workspace when > 1).
 int dispatch(const Args& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.n_split < 1 || a.r < 1 || a.r > 32 || a.hkv < 1 ||
@@ -1134,6 +1138,7 @@ int dispatch(const Args& a, void* stream) {
       (a.n_split > 1 && (a.ws_m == nullptr || a.ws_l == nullptr ||
                          a.ws_acc == nullptr || a.ws_accr == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (a.d == 32) return launch_rank<32>(a, s);
   if (a.d == 64) return launch_rank<64>(a, s);
   if (a.d == 128) return launch_rank<128>(a, s);
   if (a.d == 256) return launch_rank<256>(a, s);

@@ -116,6 +116,7 @@ SOURCES = (SOURCE, "paged_residual_disagg")
 _ENTRY_SOURCE = {"paged_residual_attention_prefill": SOURCES[1],
                  "paged_residual_attention_mixed": SOURCES[1],
                  "paged_residual_attention_decode": SOURCES[1]}
+HEAD_DIMS = (32, 64, 128)   # the head_dims each kernel has an instance of
 MAX_ROWS = 64          # query rows (positions x group heads) per CTA
 MMA_ROWS = 128         # the same for the tensor-core kernel (8 warps)
 MAX_PAGE = 32
@@ -184,6 +185,24 @@ def _check(name: str, t: Optional[torch.Tensor], device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_heads(hq: int, hkv: int, d: int, page: int) -> int:
+    """The head and page geometry every kernel takes: head_dim in
+    ``HEAD_DIMS``, Hq a multiple of Hkv with at most ``MAX_ROWS`` query heads
+    per kv head, pages of 1..``MAX_PAGE`` tokens.  Returns the group size;
+    raises ValueError for anything else."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported "
+                         f"({', '.join(map(str, HEAD_DIMS))})")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    g = hq // hkv
+    if g > MAX_ROWS:
+        raise ValueError(f"group size {g} > {MAX_ROWS}")
+    if not 1 <= page <= MAX_PAGE:
+        raise ValueError(f"page size {page} not in [1, {MAX_PAGE}]")
+    return g
+
+
 def _geometry(q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale,
               window, decode: bool):
     """Shared checks; returns (bsz, sq, hq, hkv, d, page, w, g, dtype code).
@@ -220,15 +239,7 @@ def _geometry(q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale,
     page, hkv = kb_pool.shape[1], kb_pool.shape[2]
     if kb_pool.shape[3] != d:
         raise ValueError("pool head_dim differs from q's")
-    if d not in (64, 128):
-        raise ValueError(f"head_dim {d} not supported (64 or 128)")
-    if hq % hkv:
-        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    g = hq // hkv
-    if g > MAX_ROWS:
-        raise ValueError(f"group size {g} > {MAX_ROWS}")
-    if not 1 <= page <= MAX_PAGE:
-        raise ValueError(f"page size {page} not in [1, {MAX_PAGE}]")
+    g = check_heads(hq, hkv, d, page)
     if bt_b.shape[0] != bsz or kv_len.shape[0] != bsz:
         raise ValueError("block table / kv_len batch differs from q's")
     if window < 0:

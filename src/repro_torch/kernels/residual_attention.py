@@ -30,7 +30,7 @@ several a second kernel combines the ranges from an f32 workspace.  Every
 f32 launch runs the first, scalar design, f32 FMAs on the CUDA cores (67
 TFLOP/s peak), which keeps f32 IEEE (the tensor cores have no such mode);
 its decode is one CTA per (kv head, row) over the whole cache.  Head
-dims 64, 128 and 256 are taken; a CTA of the
+dims 32, 64, 128 and 256 are taken; a CTA of the
 scalar kernel holds 64 query rows at D <= 128 and 32 at D 256
 (``ROWS_BY_HEAD_DIM``), so its shared memory stays inside the card's
 227 KB; the tensor-core kernel holds 128 (``MMA_ROWS``) at every
@@ -69,7 +69,7 @@ SOURCE = "residual_attention"
 # its Q tile, accumulator and a rebuilt key block in shared memory
 # (``Layout`` in the source), which at D 256 and 64 rows would need ~280 KB
 # of the H100's 227 KB; 32 rows need ~203 KB at R 16.
-ROWS_BY_HEAD_DIM = {64: 64, 128: 64, 256: 32}
+ROWS_BY_HEAD_DIM = {32: 64, 64: 64, 128: 64, 256: 32}
 # Query rows per CTA of the bf16 tensor-core prefill at every head_dim: 8
 # warps of 16 rows, its softmax state in registers.
 MMA_ROWS = 128

@@ -133,6 +133,10 @@ class PagedExecutor:
                  lora: Optional[Params], serve_cfg: ServeConfig,
                  disagg: bool, max_pages_per_req: int, device=None):
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # an explicit index, which a thread other than this one binds
+            # (``bind_thread``)
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.cfg = cfg
         self.params = params
         self.lora = lora
@@ -449,6 +453,14 @@ class PagedExecutor:
             self._i32(top_ks), torch.tensor(top_ps, **f32),
             self._i32(seeds), self._i32(spos), self._i32(poison),
             sampled=sampled)
+
+    def bind_thread(self) -> None:
+        """Make this executor's CUDA device the calling thread's current
+        one: a new thread starts on the default device whatever device the
+        executor was built on, and the kernels launch on the current one
+        (the HTTP front end's pump steps the engine from its own thread)."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
 
     def decode_cache_size(self) -> int:
         """Number of distinct decode shape buckets seen (the count of CUDA

@@ -23,10 +23,12 @@ half a bf16 ulp (<= 0.2% of max |value| here) on the card.  With f32
 inputs and no rounding it is the same algorithm in f32, held to the JAX
 package's ``repro.kernels.ref`` within 1e-5.
 
-Geometries: Llama3-8B's heads (Hq 32, Hkv 8, D 128, R 16) and
-RecurrentGemma-9B's (Hq 16, Hkv 1, D 256, R 16), Sq = Sk = 200, causal
+Geometries: Llama3-8B's heads (Hq 32, Hkv 8, D 128, R 16),
+RecurrentGemma-9B's (Hq 16, Hkv 1, D 256, R 16) and ``tiny_serving_model()``'s
+at its defaults (Hq 8, Hkv 4, D 32, R 8), Sq = Sk = 200, causal
 with and without a window that straddles key blocks; the paged cases at
-Llama3-8B's heads, page 16, bf16 and int8 pages, as the chunked prefill
+Llama3-8B's heads and at the tiny model's, page 16, bf16 and int8 pages, as
+the chunked prefill
 (#6: n_valid rows) and as the mixed grid (#3: explicit q_len, with a
 prefill row, decode rows of q_len 1 and a q_len 0 row), held to the
 prefill and the mixed plain versions; and the disaggregated chunked
@@ -58,7 +60,8 @@ from repro_torch.kernels import residual_attention as tra
 from repro_torch.models.transformer import quantize_kv
 
 LOG2E = 1.4426950408889634
-HEADS = {"llama3-8b": (32, 8, 128, 16), "recurrentgemma-9b": (16, 1, 256, 16)}
+HEADS = {"llama3-8b": (32, 8, 128, 16), "recurrentgemma-9b": (16, 1, 256, 16),
+         "tiny-serve": (8, 4, 32, 8)}
 SEQ = 200
 WINDOWS = (0, 77)
 SHARE = 0.005        # half of chip_smoke's BF16_RTOL
@@ -219,8 +222,16 @@ START, N_VALID = [0, 40], [SEQ, 150]     # a full chunk, a padded one
 MIXED = dict(start=[40, 199, 63, 0], n_valid=[160, 1, 1, 0], sq=160)
 
 
-def paged_inputs(seed, start=START, n_valid=N_VALID, sq=SEQ):
-    hq, hkv, d, _ = HEADS["llama3-8b"]
+def pages_and_heads(*pages):
+    """``pages`` at Llama3-8B's heads (ids as before) and at the tiny
+    model's (head_dim 32, G 2, R 8)."""
+    return [pytest.param(p, "llama3-8b", id=p) for p in pages] + \
+        [pytest.param(p, "tiny-serve", id=f"{p}-tiny-serve") for p in pages]
+
+
+def paged_inputs(seed, start=START, n_valid=N_VALID, sq=SEQ,
+                 heads="llama3-8b"):
+    hq, hkv, d, _ = HEADS[heads]
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     bsz = len(start)
@@ -265,9 +276,9 @@ def valid_rows(n_valid=N_VALID, sq=SEQ):
 
 
 @pytest.mark.parametrize("window", WINDOWS)
-@pytest.mark.parametrize("pages", ["bf16", "int8"])
-def test_paged_rounding_plan_holds_half_the_bf16_gate(pages, window):
-    inp = paged_inputs(seed=13)
+@pytest.mark.parametrize("pages,heads", pages_and_heads("bf16", "int8"))
+def test_paged_rounding_plan_holds_half_the_bf16_gate(pages, heads, window):
+    inp = paged_inputs(seed=13, heads=heads)
     t = {k: torch.from_numpy(v) for k, v in inp.items()}
     for k in ("q", "kb", "vb"):
         t[k] = t[k].to(torch.bfloat16)
@@ -286,9 +297,9 @@ def test_paged_rounding_plan_holds_half_the_bf16_gate(pages, window):
 
 
 @pytest.mark.parametrize("window", WINDOWS)
-@pytest.mark.parametrize("pages", ["f32", "int8"])
-def test_paged_algorithm_matches_jax_in_f32(pages, window):
-    inp = paged_inputs(seed=14)
+@pytest.mark.parametrize("pages,heads", pages_and_heads("f32", "int8"))
+def test_paged_algorithm_matches_jax_in_f32(pages, heads, window):
+    inp = paged_inputs(seed=14, heads=heads)
     t = {k: torch.from_numpy(v) for k, v in inp.items()}
     ks = vs = None
     if pages == "int8":
@@ -305,9 +316,9 @@ def test_paged_algorithm_matches_jax_in_f32(pages, window):
 
 
 
-def mixed_case(seed, pages, lowp):
+def mixed_case(seed, pages, lowp, heads="llama3-8b"):
     t = {k: torch.from_numpy(v)
-         for k, v in paged_inputs(seed, **MIXED).items()}
+         for k, v in paged_inputs(seed, **MIXED, heads=heads).items()}
     if lowp:
         for k in ("q", "kb", "vb"):
             t[k] = t[k].to(torch.bfloat16)
@@ -319,12 +330,13 @@ def mixed_case(seed, pages, lowp):
 
 
 @pytest.mark.parametrize("window", WINDOWS)
-@pytest.mark.parametrize("pages", ["bf16", "int8"])
-def test_paged_mixed_rounding_plan_holds_half_the_bf16_gate(pages, window):
+@pytest.mark.parametrize("pages,heads", pages_and_heads("bf16", "int8"))
+def test_paged_mixed_rounding_plan_holds_half_the_bf16_gate(pages, heads,
+                                                            window):
     """The tile on the mixed grid's rows (explicit q_len: a prefill row,
     decode rows, a q_len 0 row) against the plain mixed version, which
     zeroes the rows past q_len as the kernel does."""
-    t, ks, vs = mixed_case(15, pages, lowp=True)
+    t, ks, vs = mixed_case(15, pages, lowp=True, heads=heads)
     want = tref.paged_residual_attention_mixed_ref(
         t["q"], t["kb"], t["vb"], None, None, None, None, t["bt_b"], None,
         t["start"], t["q_len"], t["kv_len"], window=window, kb_scale=ks,
@@ -337,9 +349,9 @@ def test_paged_mixed_rounding_plan_holds_half_the_bf16_gate(pages, window):
 
 
 @pytest.mark.parametrize("window", WINDOWS)
-@pytest.mark.parametrize("pages", ["f32", "int8"])
-def test_paged_mixed_algorithm_matches_jax_in_f32(pages, window):
-    t, ks, vs = mixed_case(16, pages, lowp=False)
+@pytest.mark.parametrize("pages,heads", pages_and_heads("f32", "int8"))
+def test_paged_mixed_algorithm_matches_jax_in_f32(pages, heads, window):
+    t, ks, vs = mixed_case(16, pages, lowp=False, heads=heads)
     got = emulate_paged(t, window, lowp=False, ks=ks, vs=vs).numpy()
     j = lambda x: None if x is None else jnp.asarray(x.numpy())  # noqa
     want = np.asarray(jref.paged_residual_attention_mixed_ref(
@@ -350,20 +362,18 @@ def test_paged_mixed_algorithm_matches_jax_in_f32(pages, window):
 
 
 # --------------------------------------------- paged, disaggregated (#5)
-RANK = 16
-
-
-def res_paged_inputs(seed, **rows):
+def res_paged_inputs(seed, heads="llama3-8b", **rows):
     """``paged_inputs`` (on ``rows``) plus residual pools (Pr, page, R)
     behind their own block table and per-row B_k/B_v (B, R, Hkv * D)."""
-    t = paged_inputs(seed, **rows)
+    t = paged_inputs(seed, heads=heads, **rows)
+    rank = HEADS[heads][3]
     rng = np.random.default_rng(seed + 100)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     bsz, width = t["bt_b"].shape
     hkv, d = t["kb"].shape[2], t["kb"].shape[3]
     pool_r = bsz * width + 5
-    t.update(kr=f(pool_r, PAGE, RANK) * 0.3, vr=f(pool_r, PAGE, RANK) * 0.3,
-             b_k=f(bsz, RANK, hkv * d) * 0.3, b_v=f(bsz, RANK, hkv * d) * 0.3,
+    t.update(kr=f(pool_r, PAGE, rank) * 0.3, vr=f(pool_r, PAGE, rank) * 0.3,
+             b_k=f(bsz, rank, hkv * d) * 0.3, b_v=f(bsz, rank, hkv * d) * 0.3,
              bt_r=rng.permutation(pool_r)[:bsz * width].reshape(
                  bsz, width).astype(np.int32))
     return t
@@ -404,9 +414,9 @@ def emulate_paged_res(t, window, lowp, ks=None, vs=None):
 _RES = ("kr", "vr", "b_k", "b_v")
 
 
-def res_case(seed, pages, lowp, rows=None):
+def res_case(seed, pages, lowp, rows=None, heads="llama3-8b"):
     t = {k: torch.from_numpy(v)
-         for k, v in res_paged_inputs(seed, **(rows or {})).items()}
+         for k, v in res_paged_inputs(seed, heads, **(rows or {})).items()}
     if lowp:
         for k in ("q", "kb", "vb") + _RES:
             t[k] = t[k].to(torch.bfloat16)
@@ -418,9 +428,10 @@ def res_case(seed, pages, lowp, rows=None):
 
 
 @pytest.mark.parametrize("window", WINDOWS)
-@pytest.mark.parametrize("pages", ["bf16", "int8"])
-def test_paged_res_rounding_plan_holds_half_the_bf16_gate(pages, window):
-    t, ks, vs = res_case(17, pages, lowp=True)
+@pytest.mark.parametrize("pages,heads", pages_and_heads("bf16", "int8"))
+def test_paged_res_rounding_plan_holds_half_the_bf16_gate(pages, heads,
+                                                          window):
+    t, ks, vs = res_case(17, pages, lowp=True, heads=heads)
     want = tref.paged_residual_attention_prefill_ref(
         t["q"], t["kb"], t["vb"], *[t[k] for k in _RES], t["bt_b"],
         t["bt_r"], t["start"], t["kv_len"], window=window, kb_scale=ks,
@@ -433,9 +444,9 @@ def test_paged_res_rounding_plan_holds_half_the_bf16_gate(pages, window):
 
 
 @pytest.mark.parametrize("window", WINDOWS)
-@pytest.mark.parametrize("pages", ["f32", "int8"])
-def test_paged_res_algorithm_matches_jax_in_f32(pages, window):
-    t, ks, vs = res_case(18, pages, lowp=False)
+@pytest.mark.parametrize("pages,heads", pages_and_heads("f32", "int8"))
+def test_paged_res_algorithm_matches_jax_in_f32(pages, heads, window):
+    t, ks, vs = res_case(18, pages, lowp=False, heads=heads)
     got = emulate_paged_res(t, window, lowp=False, ks=ks, vs=vs).numpy()
     j = lambda x: None if x is None else jnp.asarray(x.numpy())  # noqa
     want = np.asarray(jref.paged_residual_attention_prefill_ref(
@@ -455,13 +466,13 @@ RES_MIXED = dict(start=[0, 0, 0, 16, 40, 199], n_valid=[0, 1, 17, 1, 160, 1],
 
 
 @pytest.mark.parametrize("window", WINDOWS)
-@pytest.mark.parametrize("pages", ["bf16", "int8"])
-def test_paged_res_mixed_rounding_plan_holds_half_the_bf16_gate(pages,
+@pytest.mark.parametrize("pages,heads", pages_and_heads("bf16", "int8"))
+def test_paged_res_mixed_rounding_plan_holds_half_the_bf16_gate(pages, heads,
                                                                 window):
     """#5's tile on #1's ragged rows against the plain mixed version,
     which zeroes the rows past q_len as the kernel does (the q_len 0 row
     at kv_len 0 too)."""
-    t, ks, vs = res_case(19, pages, lowp=True, rows=RES_MIXED)
+    t, ks, vs = res_case(19, pages, lowp=True, rows=RES_MIXED, heads=heads)
     want = tref.paged_residual_attention_mixed_ref(
         t["q"], t["kb"], t["vb"], *[t[k] for k in _RES], t["bt_b"],
         t["bt_r"], t["start"], t["q_len"], t["kv_len"], window=window,
@@ -474,9 +485,9 @@ def test_paged_res_mixed_rounding_plan_holds_half_the_bf16_gate(pages,
 
 
 @pytest.mark.parametrize("window", WINDOWS)
-@pytest.mark.parametrize("pages", ["f32", "int8"])
-def test_paged_res_mixed_algorithm_matches_jax_in_f32(pages, window):
-    t, ks, vs = res_case(20, pages, lowp=False, rows=RES_MIXED)
+@pytest.mark.parametrize("pages,heads", pages_and_heads("f32", "int8"))
+def test_paged_res_mixed_algorithm_matches_jax_in_f32(pages, heads, window):
+    t, ks, vs = res_case(20, pages, lowp=False, rows=RES_MIXED, heads=heads)
     got = emulate_paged_res(t, window, lowp=False, ks=ks, vs=vs).numpy()
     j = lambda x: None if x is None else jnp.asarray(x.numpy())  # noqa
     want = np.asarray(jref.paged_residual_attention_mixed_ref(
@@ -488,7 +499,7 @@ def test_paged_res_mixed_algorithm_matches_jax_in_f32(pages, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 32])
 def test_rope_table_is_the_plain_versions_sincos(d, dtype):
     """Row p of the table is ``rope_sincos(p)`` rounded to q's type, bit
     for bit, at every position a launch of W * page keys reads; it grows

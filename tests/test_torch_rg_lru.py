@@ -181,6 +181,7 @@ def test_dense_plain_at_head_dim_256_matches_jax_ref(case, window):
 
 @pytest.mark.parametrize("d,group,rows", [
     (64, 8, 64), (128, 4, 64), (128, 64, 64), (256, 16, 32), (256, 32, 32),
+    (32, 2, 64),
 ])
 def test_dense_kernels_take_head_dim_256(d, group, rows):
     """Rows per CTA by head_dim: 64 at D <= 128 (as before), 32 at D 256,
@@ -189,7 +190,7 @@ def test_dense_kernels_take_head_dim_256(d, group, rows):
 
 
 @pytest.mark.parametrize("d,group,match", [
-    (96, 4, "head_dim 96"), (32, 4, "head_dim 32"), (512, 1, "head_dim 512"),
+    (96, 4, "head_dim 96"), (48, 4, "head_dim 48"), (512, 1, "head_dim 512"),
     (256, 64, "group size 64 > 32"), (128, 128, "group size 128 > 64"),
 ])
 def test_dense_kernels_refuse_other_head_dims_and_groups(d, group, match):

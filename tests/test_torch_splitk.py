@@ -18,8 +18,11 @@ within 0.5% of the plain version's max |value|, half the 1% that
 ``chip_smoke.py`` holds the kernel to; with f32 inputs to the JAX
 package's ``repro.kernels.ref`` within 1e-5.  Rows: kv_len 0, 1, a
 non-multiple of the page and a long row; n_split 1, 3 and 7 (7 leaves
-shares empty); windows 0 and 77, which straddles shares.  Also
-``decode_splits`` and ``split_heads``, the wrapper's launch plan.
+shares empty); windows 0 and 77, which straddles shares; heads Hq 8 over
+Hkv 2 at D 64, and over Hkv 4 at D 32 (``tiny_serving_model()`` at its
+defaults: G 2, rank 8).  Also ``decode_splits`` and ``split_heads``, the
+wrapper's launch plan, and the head/page geometry the wrappers take
+(``check_heads``, ``tile_rows``).
 
 The split-K decode with the residual stream (#2,
 ``paged_residual_attention_decode``) is held the same way by
@@ -42,8 +45,9 @@ online softmax of its own (K rebuilt with the caller's sin/cos, rounded
 once to bf16; P in bf16), the CTA's warps merged, then the ranges (in the
 kernel itself with one range, the main path's Sk 1; by a combine with
 several), and out = (acc + bf16(acc_r) . B_v) / max(l, 1e-20); D 64, 128
-and 256, groups of 4 and 16, n_split 1, 3 and 7, Sk 1, 45 and 230, windows
-0 and 77; with bf16 inputs held within 0.5% to the plain version
+and 256 with groups of 4 and 16, D 32 with a group of 2 (where a warp
+finishes one n-tile of 8 columns), n_split 1, 3 and 7, Sk 1, 45 and 230,
+windows 0 and 77; with bf16 inputs held within 0.5% to the plain version
 evaluated in f32 on them (its bf16 evaluation rounds scores and P and
 moves up to ~0.7% at D 256 on rows of a few dozen keys), and with f32
 inputs to ``repro.kernels.ref`` within 1e-5.  Also ``decode_split_plan``,
@@ -64,6 +68,10 @@ LOG2E = 1.4426950408889634
 NEG_INIT = -1e30
 SHARE = 0.005        # half of chip_smoke's BF16_RTOL
 HQ, HKV, D, PAGE = 8, 2, 64, 16
+RANK = 16
+# head_dim 32 with a group of 2 at rank 8: tiny_serving_model() at its
+# defaults; ``None`` is the module's HQ/HKV/D at RANK
+D32 = dict(hq=8, hkv=4, d=32, rank=8)
 KV_LEN = [0, 1, 45, 230]      # 45: not a multiple of the page
 WIDTH = 16                    # 256 keys of table per row
 SPLITS = (1, 3, 7)
@@ -78,14 +86,27 @@ def _two_threads():
     torch.set_num_threads(old)
 
 
-def inputs(seed):
+def heads(geom):
+    """(Hq, Hkv, D, R) of ``geom`` (None: the module's)."""
+    g = geom or dict(hq=HQ, hkv=HKV, d=D, rank=RANK)
+    return g["hq"], g["hkv"], g["d"], g["rank"]
+
+
+def pages_and_heads(*pages):
+    """``pages`` at the module's heads (ids as before) and at ``D32``."""
+    return [pytest.param(p, None, id=p) for p in pages] + \
+        [pytest.param(p, D32, id=f"{p}-d32-g2") for p in pages]
+
+
+def inputs(seed, geom=None):
+    hq, hkv, d, _ = heads(geom)
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     bsz = len(KV_LEN)
     pool = bsz * WIDTH + 3
     bt = rng.permutation(pool)[:bsz * WIDTH].reshape(bsz, WIDTH)
-    return dict(q=f(bsz, HQ, D), kb=f(pool, PAGE, HKV, D),
-                vb=f(pool, PAGE, HKV, D), bt_b=bt.astype(np.int32),
+    return dict(q=f(bsz, hq, d), kb=f(pool, PAGE, hkv, d),
+                vb=f(pool, PAGE, hkv, d), bt_b=bt.astype(np.int32),
                 kv_len=np.asarray(KV_LEN, np.int32))
 
 
@@ -157,9 +178,9 @@ def seen_rows():
 
 @pytest.mark.parametrize("window", WINDOWS)
 @pytest.mark.parametrize("n_split", SPLITS)
-@pytest.mark.parametrize("pages", ["bf16", "int8"])
-def test_splitk_holds_half_the_bf16_gate(pages, n_split, window):
-    t = {k: torch.from_numpy(v) for k, v in inputs(seed=21).items()}
+@pytest.mark.parametrize("pages,geom", pages_and_heads("bf16", "int8"))
+def test_splitk_holds_half_the_bf16_gate(pages, geom, n_split, window):
+    t = {k: torch.from_numpy(v) for k, v in inputs(21, geom).items()}
     for k in ("q", "kb", "vb"):
         t[k] = t[k].to(torch.bfloat16)
     ks = vs = None
@@ -178,9 +199,9 @@ def test_splitk_holds_half_the_bf16_gate(pages, n_split, window):
 
 @pytest.mark.parametrize("window", WINDOWS)
 @pytest.mark.parametrize("n_split", SPLITS)
-@pytest.mark.parametrize("pages", ["f32", "int8"])
-def test_splitk_matches_jax_in_f32(pages, n_split, window):
-    t = {k: torch.from_numpy(v) for k, v in inputs(seed=22).items()}
+@pytest.mark.parametrize("pages,geom", pages_and_heads("f32", "int8"))
+def test_splitk_matches_jax_in_f32(pages, geom, n_split, window):
+    t = {k: torch.from_numpy(v) for k, v in inputs(22, geom).items()}
     ks = vs = None
     if pages == "int8":
         (t["kb"], ks), (t["vb"], vs) = quantize_kv(t["kb"]), \
@@ -250,19 +271,17 @@ def test_split_heads_tile_the_group(group, heads, ctas):
 
 
 # ------------------------------------------------- with the residual stream
-RANK = 16
-
-
-def res_inputs(seed):
+def res_inputs(seed, geom=None):
     """``inputs`` plus residual pools (Pr, page, R) addressed by their own
     block table, and per-row B_k/B_v (B, R, Hkv * D)."""
-    t = inputs(seed)
+    t = inputs(seed, geom)
+    _, hkv, d, r = heads(geom)
     rng = np.random.default_rng(seed + 100)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     bsz = len(KV_LEN)
     pool_r = bsz * WIDTH + 5
-    t.update(kr=f(pool_r, PAGE, RANK) * 0.3, vr=f(pool_r, PAGE, RANK) * 0.3,
-             b_k=f(bsz, RANK, HKV * D) * 0.3, b_v=f(bsz, RANK, HKV * D) * 0.3,
+    t.update(kr=f(pool_r, PAGE, r) * 0.3, vr=f(pool_r, PAGE, r) * 0.3,
+             b_k=f(bsz, r, hkv * d) * 0.3, b_v=f(bsz, r, hkv * d) * 0.3,
              bt_r=rng.permutation(pool_r)[:bsz * WIDTH].reshape(
                  bsz, WIDTH).astype(np.int32))
     return t
@@ -282,18 +301,19 @@ def rebuilt_k(t, ks, lowp):
     the wrapper's table in q's type; rounded once to bf16 (``lowp``)."""
     q = t["q"]
     bsz, width = t["bt_b"].shape
+    hkv, d = t["kb"].shape[2:]
     sk = width * PAGE
     bt, btr = t["bt_b"].long(), t["bt_r"].long()
-    kb = t["kb"][bt].reshape(bsz, sk, HKV, D)
+    kb = t["kb"][bt].reshape(bsz, sk, hkv, d)
     if ks is not None:
-        kb = (kb.float() * ks[bt].reshape(bsz, sk, HKV)[..., None]).to(
+        kb = (kb.float() * ks[bt].reshape(bsz, sk, hkv)[..., None]).to(
             q.dtype)
     kr = t["kr"][btr].reshape(bsz, sk, -1).float()
     kl = torch.einsum("bsr,brn->bsn", kr, t["b_k"].float()).reshape(
-        bsz, sk, HKV, D)
-    table = tpra.rope_table(torch.device("cpu"), D, 10_000.0, q.dtype, sk)
+        bsz, sk, hkv, d)
+    table = tpra.rope_table(torch.device("cpu"), d, 10_000.0, q.dtype, sk)
     sn, cs = (table[i, :sk].float()[None, :, None] for i in (0, 1))
-    x1, x2 = kl[..., :D // 2], kl[..., D // 2:]
+    x1, x2 = kl[..., :d // 2], kl[..., d // 2:]
     k = kb.float() + torch.cat([x1 * cs - x2 * sn, x2 * cs + x1 * sn], -1)
     return k.to(torch.bfloat16).float() if lowp else k
 
@@ -306,21 +326,22 @@ def emulate_res(t, n_split, window, ks=None, vs=None, lowp=True):
         (lambda x: x)
     q = t["q"]
     bsz, hq, d = q.shape
-    g = hq // HKV
+    hkv = t["kb"].shape[2]
+    g = hq // hkv
     width = t["bt_b"].shape[1]
     k = rebuilt_k(t, ks, lowp)
     bt, btr = t["bt_b"].long(), t["bt_r"].long()
-    v = t["vb"][bt].reshape(bsz, width * PAGE, HKV, d)
+    v = t["vb"][bt].reshape(bsz, width * PAGE, hkv, d)
     if vs is not None:
-        v = (v.float() * vs[bt].reshape(bsz, -1, HKV)[..., None]).to(q.dtype)
+        v = (v.float() * vs[bt].reshape(bsz, -1, hkv)[..., None]).to(q.dtype)
     v = v.float()
     vr = t["vr"][btr].reshape(bsz, width * PAGE, -1).float()
-    b_v = t["b_v"].float().reshape(bsz, -1, HKV, d)
+    b_v = t["b_v"].float().reshape(bsz, -1, hkv, d)
     c = d ** -0.5 * LOG2E
     out = torch.zeros(bsz, hq, d)
     for b in range(bsz):
         first, end = live_range(int(t["kv_len"][b]), width, window)
-        for h in range(HKV):
+        for h in range(hkv):
             qh = q[b, h * g:(h + 1) * g].float()                # (G, D)
             parts = []
             for lo, hi in res_shares(first, end, n_split):
@@ -356,8 +377,8 @@ def emulate_res(t, n_split, window, ks=None, vs=None, lowp=True):
 _RES = ("kr", "vr", "b_k", "b_v")
 
 
-def res_case(seed, pages, lowp):
-    t = {k: torch.from_numpy(v) for k, v in res_inputs(seed).items()}
+def res_case(seed, pages, lowp, geom=None):
+    t = {k: torch.from_numpy(v) for k, v in res_inputs(seed, geom).items()}
     if lowp:
         for k in ("q", "kb", "vb") + _RES:
             t[k] = t[k].to(torch.bfloat16)
@@ -370,9 +391,9 @@ def res_case(seed, pages, lowp):
 
 @pytest.mark.parametrize("window", WINDOWS)
 @pytest.mark.parametrize("n_split", SPLITS)
-@pytest.mark.parametrize("pages", ["bf16", "int8"])
-def test_res_splitk_holds_half_the_bf16_gate(pages, n_split, window):
-    t, ks, vs = res_case(23, pages, lowp=True)
+@pytest.mark.parametrize("pages,geom", pages_and_heads("bf16", "int8"))
+def test_res_splitk_holds_half_the_bf16_gate(pages, geom, n_split, window):
+    t, ks, vs = res_case(23, pages, lowp=True, geom=geom)
     want = tref.paged_residual_attention_ref(
         t["q"], t["kb"], t["vb"], t["kr"], t["vr"], t["b_k"], t["b_v"],
         t["bt_b"], t["bt_r"], t["kv_len"], window=window, kb_scale=ks,
@@ -386,9 +407,9 @@ def test_res_splitk_holds_half_the_bf16_gate(pages, n_split, window):
 
 @pytest.mark.parametrize("window", WINDOWS)
 @pytest.mark.parametrize("n_split", SPLITS)
-@pytest.mark.parametrize("pages", ["f32", "int8"])
-def test_res_splitk_matches_jax_in_f32(pages, n_split, window):
-    t, ks, vs = res_case(24, pages, lowp=False)
+@pytest.mark.parametrize("pages,geom", pages_and_heads("f32", "int8"))
+def test_res_splitk_matches_jax_in_f32(pages, geom, n_split, window):
+    t, ks, vs = res_case(24, pages, lowp=False, geom=geom)
     got = emulate_res(t, n_split, window, ks, vs, lowp=False).numpy()
     j = lambda x: None if x is None else jnp.asarray(x.numpy())  # noqa
     want = np.asarray(jref.paged_residual_attention_ref(
@@ -415,7 +436,8 @@ def test_res_shares_cover_the_live_range_once():
 
 @pytest.mark.parametrize("d,r,int8,ctas", [
     (128, 16, False, 1), (128, 32, False, 1), (128, 16, True, 2),
-    (128, 32, True, 1), (64, 16, False, 3), (64, 16, True, 3)])
+    (128, 32, True, 1), (64, 16, False, 3), (64, 16, True, 3),
+    (32, 8, False, 3), (32, 8, True, 3), (32, 32, False, 3)])
 def test_res_split_smem_fits_the_card(d, r, int8, ctas):
     """Each instance's shared memory fits a CTA of the H100 (227 KB), and
     as many CTAs per SM as the plan counts on fit together."""
@@ -432,6 +454,8 @@ def test_res_split_smem_fits_the_card(d, r, int8, ctas):
     (1, 2, 2, 64, 1, 16, False),       # one page
     (64, 32, 8, 128, 10, 16, False),   # more CTAs than the card holds
     (3, 64, 1, 64, 40, 8, True),       # a group of 64: 4 head tiles
+    (8, 8, 4, 32, 24, 16, False),      # tiny_serving_model(): D 32, G 2
+    (8, 8, 4, 32, 24, 16, True),
 ])
 def test_res_split_plan_stays_in_bounds(bsz, hq, hkv, d, w, page, int8):
     plan = tpra.res_split_plan(bsz, hq, hkv, d, RANK, w, page, int8, 132)
@@ -459,7 +483,7 @@ def test_res_split_plan_fills_the_card():
 # ------------------------------------------------------ dense decode (#8)
 # (D, G): head dims 64/128/256 with groups of 4 (Llama3-8B's) and 16
 # (RecurrentGemma-9B's, one whole m16 tile), two kv heads each
-DENSE_HEADS = [(d, g) for d in (64, 128, 256) for g in (4, 16)]
+DENSE_HEADS = [(d, g) for d in (64, 128, 256) for g in (4, 16)] + [(32, 2)]
 DENSE_SK = (1, 45, 230)
 
 
@@ -659,7 +683,7 @@ def test_dense_ranges_cover_the_live_range_once():
 
 @pytest.mark.parametrize("d,r,ctas", [
     (64, 16, 2), (64, 32, 2), (128, 16, 1), (128, 32, 1), (256, 16, 1),
-    (256, 32, 1)])
+    (256, 32, 1), (32, 16, 2), (32, 32, 2)])
 def test_dense_split_smem_fits_the_card(d, r, ctas):
     """Each instance's shared memory fits a CTA of the H100 (227 KB; at D
     256 with one stage per warp), and as many CTAs per SM as the plan
@@ -674,6 +698,7 @@ def test_dense_split_smem_fits_the_card(d, r, ctas):
     (4, 32, 8, 128, 1, 0),       # Llama3-8B's forward at S 1
     (4, 16, 1, 256, 1, 0),       # RecurrentGemma-9B's
     (4, 16, 1, 256, 1, 2048),
+    (4, 8, 4, 32, 1, 0),         # tiny_serving_model(): D 32, G 2
 ])
 def test_dense_split_plan_one_range_skips_the_combine(bsz, hq, hkv, d, sk,
                                                       window):
@@ -692,6 +717,7 @@ def test_dense_split_plan_one_range_skips_the_combine(bsz, hq, hkv, d, sk,
     (1, 8, 2, 64, 230, 0),
     (64, 32, 8, 128, 512, 0),    # more CTAs than the card holds
     (2, 128, 2, 128, 1000, 77),  # a group of 64: four head tiles
+    (4, 8, 4, 32, 4096, 0),      # tiny_serving_model(): D 32, G 2
 ])
 def test_dense_split_plan_stays_in_bounds(bsz, hq, hkv, d, sk, window):
     plan = tra.decode_split_plan(bsz, hq, hkv, d, RANK, sk, window, 132)
@@ -717,3 +743,30 @@ def test_dense_split_plan_fills_the_card():
     assert rg["n_split"] * 4 >= 128
     ll = tra.decode_split_plan(4, 32, 8, 128, RANK, 4096, 0, 132)
     assert ll["n_split"] == 4
+
+
+# ------------------------------------------------- the geometry checks
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_paged_wrappers_take_head_dims_32_64_128(d):
+    """Every paged kernel has an instance at head_dim 32 (the default
+    tiny model's), 64 and 128, at groups up to 64 and pages up to 32."""
+    assert tpra.check_heads(8, 4, d, 16) == 2
+    assert tpra.check_heads(64, 1, d, 32) == 64
+
+
+@pytest.mark.parametrize("hq,hkv,d,page,what", [
+    (8, 4, 48, 16, "head_dim 48"), (8, 4, 256, 16, "head_dim 256"),
+    (8, 4, 32, 64, "page size 64"), (8, 3, 32, 16, "multiple"),
+    (128, 1, 32, 16, "group size")])
+def test_paged_wrappers_refuse_other_geometry(hq, hkv, d, page, what):
+    with pytest.raises(ValueError, match=what):
+        tpra.check_heads(hq, hkv, d, page)
+
+
+def test_dense_wrappers_take_head_dim_32_and_refuse_48():
+    """The dense kernels take head_dims 32, 64, 128 and 256; 48 is
+    refused."""
+    for d in (32, 64, 128, 256):
+        assert tra.tile_rows(d, 2) == tra.ROWS_BY_HEAD_DIM[d]
+    with pytest.raises(ValueError, match="head_dim 48"):
+        tra.tile_rows(48, 2)
