@@ -59,7 +59,12 @@ error:
    page 16, rank 8 on the fixed rows, and the dense prefill and decode
    (``DENSE_D32``), f32 and bf16, with and without a window, each naming
    the kernel that ran; the bf16 cases are timed (the ``d32_times``
-   line);
+   line); then the dense prefill and decode at head_dim 120
+   (h2o-danube-3-4b's heads, ``DENSE_D120``: in bf16 D 128's tile in the
+   split-half layout), f32 and bf16, windows 0 and 300, ranks 5, 16 and
+   32, each naming the kernel that ran, the bf16 4 x 1000 prefill and Sk
+   4096 decode timed against their bound at D 120 and SDPA (the
+   ``d120_times`` line);
 4. a small f32 model served on the card and on the CPU: identical greedy
    tokens in forkkv and prefix mode, under the mixed and the
    phase-separated loop (``mixed_batching=False``), with broadcast fork
@@ -133,7 +138,26 @@ error:
    4096-slot cache (2048-slot local rings) + 16 ``decode_step`` s the scan
    26 times and no plain version; timed in bf16 with a profiled decode
    step, held in f32 (disaggregated vs unified, prefill/decode vs
-   ``forward``) within the same rtol 3e-4 / atol 5e-4;
+   ``forward``) within the same rtol 3e-4 / atol 5e-4.  Then the zoo
+   (``ZOO_MODELS``), one model at a time, each freed before the next,
+   bf16 at full width, random weights from seed 0, 4 adapters of rank 16:
+   dbrx-132b (2 of 40 layers: 16 experts top-4) and starcoder2-3b (30
+   layers, GELU, a group of 12) serve a 1024-token session with 4
+   staggered forks and 8 greedy tokens in forkkv (#1/#2) and prefix
+   (#3/#4) mode under the mixed loop, and run ``forward(disagg=True)`` on
+   4 x 1000 tokens (#7 once per layer) and at one token (#8 once per
+   layer); h2o-danube-3-4b (24 layers, head_dim 120, window 4096) runs the
+   same ``forward`` s (#7 and #8 at D 120) and ``prefill`` of 600 + 16
+   ``decode_step`` s, and a card server must be refused with a ValueError
+   naming head_dim 120 (the paged kernels do not take it yet);
+   llava-next-mistral-7b (32 layers) runs ``forward`` on 2880 patch
+   embeddings + 120 tokens, ``forward`` at one token (#8), and
+   ``prefill`` of the patches and tokens + 16 ``decode_step`` s;
+   llama4-maverick (2 of 48 layers: one dense and one MoE sublayer of 128
+   experts with the shared expert) the ``forward`` s and ``prefill`` 600
+   + 8 ``decode_step`` s.  Each ``zoo`` line logs init seconds, ms per
+   call, launches by counter, peak memory and, for the MoE models, the
+   share of assignments dropped at capacity factor 1.25;
 6. the kernels again, at every launch geometry the serves of 5. gave
    them (batch, query width, table width, per-row start and q_len), in
    f32 and bf16 against their plain versions (int8 pages for the int8
@@ -142,13 +166,16 @@ error:
    the inputs of their first launch in 5. (bf16), for each model, and on
    random f32 inputs of the same geometry; the scan kernel on the inputs
    of its first launch at each shape of 5. (f32, timed) and on the same
-   inputs in bf16;
+   inputs in bf16; the dense kernels also on the inputs of their first
+   launch by h2o-danube-3-4b (D 120);
 7. the kernels line (#1–#6, their int8 variants, #7–#9, each named by the
    counter of the kernel the bf16 main path ran: ``_mma`` for #1, #3, #5,
    #6, their int8 variants and #7, ``_splitk`` for #2, #4, their int8
-   variants and #8), the card line and the result line.
+   variants and #8; #7 and #8 at D 128, at D 256 (``_d256``) and at D 120
+   (``_d120``)), the card line and the result line.
 """
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -879,6 +906,48 @@ def check_dense_d32(ra, ref):
                 timed.append(measure_dense(ra, ref, c, rec))
             log("dense_kernel_d32", **rec, ok=True)
             del c
+    torch.cuda.empty_cache()
+    return timed
+
+
+# #7 and #8 at head_dim 120 (h2o-danube-3-4b's heads, Hq 32, Hkv 8; the bf16
+# kernels in D 128's tile with split halves): the prefill on a chunk at an
+# offset and across the tile's edges, and on 4 rows x 1000 tokens (the
+# zoo's ``forward``; timed in bf16), the decode at Sk 1 (one range, the
+# CTA finishes the row), at Sk 4096 (ranges and a combine; timed in bf16)
+# and on ragged rows; rank 16, and ranks 5 and 32 on the chunk and the
+# ragged decode; each with window 0 and 300.
+D120 = 120
+DENSE_D120 = [
+    (f"D 120 R {r} {label}", (32, 8, D120, r), *rest)
+    for r, label, *rest in (
+        (16, "Sq 130, Sk 200", 130, 200, [70, 0], [200, 130]),
+        (16, "Sq 37, Sk 97", 37, 97, [3, 60], [40, 97]),
+        (16, "Sq=Sk=1000", 1000, 1000, [0] * 4, None),
+        (16, "decode Sk 1", 1, 1, [0] * 4, [1] * 4),
+        (16, "decode Sk 4096", 1, 4096, [4095] * 4, [4096] * 4),
+        (16, "decode ragged", 1, 300, *_RAGGED),
+        (5, "Sq 37, Sk 97", 37, 97, [3, 60], [40, 97]),
+        (5, "decode ragged", 1, 300, *_RAGGED),
+        (32, "Sq 37, Sk 97", 37, 97, [3, 60], [40, 97]),
+        (32, "decode ragged", 1, 300, *_RAGGED))]
+
+
+def check_dense_d120(ra, ref):
+    """Phase 3, head_dim 120: the dense prefill (#7) and decode (#8) at
+    ``DENSE_D120``, f32 and bf16, windows 0 and 300, against their plain
+    version, each naming the kernel that ran; returns the timed bf16
+    records (window 0), whose bound is counted at D 120."""
+    timed = []
+    for (dtype, tol), (i, case), window in itertools.product(
+            DTYPES, enumerate(DENSE_D120), (0, 300)):
+        c = make_dense_case(*case, dtype=dtype, window=window, seed=170 + i)
+        rec = compare_dense(ra, ref, c, tol)
+        if dtype == torch.bfloat16 and not window and \
+                case[0].endswith(("Sq=Sk=1000", "Sk 4096")):
+            timed.append(measure_dense(ra, ref, c, rec))
+        log("dense_kernel_d120", **rec, ok=True)
+        del c
     torch.cuda.empty_cache()
     return timed
 
@@ -2385,6 +2454,265 @@ def persist_restore(tiny, tfm, Engine, Request, ServeConfig):
         ok=True)
 
 
+# ------------------------------------------------------------------ zoo
+# The transformer family of the model zoo at full width (bf16, random
+# weights from seed 0, 4 adapters of rank 16), one model at a time, each
+# freed before the next: (arch, layers run or None for all, what it runs).
+# Depth is cut where one card's 80 GB cannot hold the model: dbrx-132b's 40
+# layers would take ~254 GB of weights, 2 take ~15 GB; llama4-maverick's 48
+# ~37 GB per pair of layers (one dense, one MoE sublayer of 128 experts and
+# the shared expert), so one pair; llama3-405b's 126 ~6.3 GB each beside
+# ~8 GB of embeddings, so 2.
+ZOO_MODELS = (
+    ("dbrx-132b", 2, ("serve", "dense")),
+    ("starcoder2-3b", None, ("serve", "dense")),
+    ("internlm2-1.8b", None, ("serve", "dense")),
+    ("llama3-405b", 2, ("serve", "dense")),
+    ("h2o-danube-3-4b", None, ("refuse", "dense", "cache", "f32")),
+    ("llava-next-mistral-7b", None, ("patches",)),
+    ("llama4-maverick-400b-a17b", 2, ("dense", "cache")),
+)
+ZOO_SERVE = dict(ctx=1024, forks=4, adapters=4, instr=64, new=8)
+ZOO_SERVES = LLAMA_SERVES[:2]          # forkkv and prefix, mixed loop
+ZOO_SC = dict(max_pages=1024, max_pages_per_req=128)
+
+
+class DropShare:
+    """While entered, wraps ``tfm.moe_route`` (it calls through) to count
+    the (token, expert) assignments routed at every MoE layer call and
+    those dropped past an expert's capacity; the drops are summed on the
+    card and read once, at exit."""
+
+    def __init__(self, tfm):
+        self.tfm, self.routed, self.parts, self.dropped = tfm, 0, [], 0
+
+    def __enter__(self):
+        self.orig = self.tfm.moe_route
+
+        def route(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.routed += out[2].numel()
+            self.parts.append((~out[2]).sum())
+            return out
+        self.tfm.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.tfm.moe_route = self.orig
+        self.dropped = int(sum(int(p) for p in self.parts))
+
+    def share(self):
+        return self.dropped / self.routed if self.routed else None
+
+
+def zoo_model(arch, depth, runs, tfm, configs, mods, pra, ref, first,
+              ForkServer, ServeConfig, SamplingParams, card):
+    """One zoo model at full width (``depth`` layers where given): init,
+    then what ``runs`` names, each with the launch counts zeroed just
+    before it and checked just after:
+
+    * "serve": the staggered serve (``ZOO_SERVE``: a 1024-token session, 4
+      forks over 4 adapters, 8 greedy tokens) through ``ForkServer`` in
+      forkkv and prefix mode under the mixed loop, which must launch #1/#2
+      and #3/#4 (``check_counts``);
+    * "refuse": a card server must be refused at construction, naming the
+      head_dim (the paged kernels take no head_dim 120 yet);
+    * "dense": ``forward(disagg=True)`` on 4 x 1000 tokens over adapters
+      0-3 (#7 once per layer; for an MoE model the share of assignments
+      dropped at the default capacity factor) and at one token (#8 once
+      per layer);
+    * "cache": ``prefill`` of 600 tokens + 16 ``decode_step`` s (8 for an
+      MoE model) over a 1024-slot cache (no attention kernel: the model
+      API's cached attention is the gather path's plain torch);
+    * "f32": the model API again on f32 copies of the weights
+      (``dense_api``: the scalar kernels), where disaggregated ``forward``
+      must agree with the unified one, ``forward`` at one token with
+      position 0 and ``prefill`` + 16 ``decode_step`` s with ``forward``,
+      within ``MODEL_TOL``;
+    * "patches": the VLM's ``forward(disagg=True)`` on 2880 patch
+      embeddings (through ``mm_projector``) + 120 tokens (3000 positions:
+      the blocked flash path, no kernel), ``forward`` at one token (#8),
+      and ``prefill`` of the patches + 120 tokens + 16 ``decode_step`` s.
+
+    Logs one ``zoo`` line (times in ms, peak memory, launches by counter);
+    returns the dense kernels' launches."""
+    cfg = configs.get_config(arch)
+    full = cfg.num_layers
+    if depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, 0)
+    lora = tfm.init_lora_stacks(cfg, 1, 4)
+    torch.cuda.synchronize()
+    leaves = []
+    tree_map(leaves.append, params)
+    rec = dict(model=arch, layers=cfg.num_layers, full_layers=full,
+               d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
+               head_dim=cfg.resolved_head_dim, window=cfg.sliding_window,
+               experts=cfg.num_experts, mlp=cfg.mlp_activation,
+               init_seconds=time.perf_counter() - t0,
+               param_gib=sum(t.numel() * t.element_size()
+                             for t in leaves) / 2 ** 30)
+    del leaves
+    n, bsz = cfg.num_layers, 4
+    rng = np.random.default_rng(21)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (bsz, 1000))).cuda()
+    kw = dict(lora=lora, adapter_ids=torch.arange(bsz, device="cuda"))
+    launches, ms, dense = {}, {}, {}
+
+    def counted(label, fn, want, counter=dense):
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        with first:
+            out = fn()
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) * 1e3
+        got = expect_launches(mods, want)
+        launches[label] = got
+        for k, v in got.items():
+            counter[k] = counter.get(k, 0) + v
+        return out
+
+    if "serve" in runs:
+        for label, mode, extra, expect in ZOO_SERVES:
+            server = ForkServer(cfg, params, lora,
+                                ServeConfig(mode=mode, **ZOO_SC, **extra))
+            reset_counts(*mods)
+            z = ZOO_SERVE
+            outs, m, seconds = serve(server, cfg.vocab_size, z["ctx"],
+                                     z["forks"], z["adapters"], z["instr"],
+                                     z["new"], seed=22,
+                                     sampling_cls=SamplingParams)
+            launches[f"serve {label}"] = check_counts(
+                pra, ref, [pra.kernel_name(e, cfg.activation_dtype, False)
+                           for e in expect], cfg.activation_dtype)
+            check_serving(outs, m, z["new"])
+            ms[f"serve {label}"] = seconds * 1e3
+            rec[f"serve {label}"] = dict(
+                tokens_per_s=sum(len(o.tokens) for o in outs) / seconds,
+                ttft_p50_ms=m["ttft_p50_ms"], tpot_p50_ms=m["tpot_p50_ms"],
+                steps=m["steps"], mixed_steps=m["mixed_steps"],
+                tokens=[o.tokens for o in outs[:2]])
+            # the server holds the weights in reference cycles: collect them
+            # now, or every model's weights outlive it
+            del server, outs
+            gc.collect()
+            torch.cuda.empty_cache()
+    if "refuse" in runs:
+        try:
+            ForkServer(cfg, params, lora, ServeConfig(mode="forkkv",
+                                                      **ZOO_SC))
+        except ValueError as err:
+            if f"head_dim {cfg.resolved_head_dim}" not in str(err):
+                raise
+            rec["server_refused"] = str(err)
+        else:
+            raise AssertionError(f"{arch}: a card server took head_dim "
+                                 f"{cfg.resolved_head_dim}")
+    if "dense" in runs:
+        with DropShare(tfm) as drops:
+            counted("forward", lambda: tfm.forward(
+                params, tokens, cfg, disagg=True, **kw),
+                {dense_prefill(cfg): n})
+        if cfg.num_experts:
+            rec["moe_dropped_share"] = drops.share()
+            rec["moe_capacity_factor"] = cfg.moe_capacity_factor
+        counted("forward_s1", lambda: tfm.forward(
+            params, tokens[:, :1], cfg, disagg=True, **kw),
+            {dense_decode(cfg): n})
+    if "cache" in runs:
+        steps = 8 if cfg.num_experts else 16
+        out, times = prefill_decode(tfm, cfg, params, tokens, 600, steps,
+                                    1024, kw)
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"{arch}: non-finite prefill/decode logits")
+        ms.update(times)
+        del out
+    if "f32" in runs:
+        f32 = lambda t: tree_map(lambda x: x.float(), t)  # noqa: E731
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+        def counted32(fn, want):
+            label = "f32 forward" if dense_prefill(cfg32) in want else \
+                "f32 forward_s1"
+            return counted(label, fn, want, {}), ms[label]
+
+        out, times = dense_api(tfm, cfg32, f32(params), f32(lora), tokens,
+                               counted32, 600, 16)
+        gaps = dense_gaps(out, 600, 16)
+        del out
+        torch.cuda.empty_cache()
+        rec["f32"] = dict(gaps, tol=MODEL_TOL, **times)
+        for what, g in gaps.items():
+            if not g["within_model_tol"]:
+                raise AssertionError(f"{arch} f32 {what}: {g} not within "
+                                     f"{MODEL_TOL}")
+    if "patches" in runs:
+        b1 = dict(lora=lora, adapter_ids=torch.arange(1, device="cuda"))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(23)
+        patches = (torch.randn((1, cfg.num_patches, cfg.d_model),
+                               generator=gen, device="cuda") * 0.02).to(
+            cfg.activation_dtype)
+        logits = counted("forward_patches", lambda: tfm.forward(
+            params, tokens[:1, :120], cfg, extra_embeds=patches,
+            disagg=True, **b1), {})
+        if logits.shape != (1, cfg.num_patches + 120, cfg.vocab_size) or \
+                not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"{arch}: forward with patches gave "
+                                 f"{tuple(logits.shape)} / non-finite")
+        del logits
+        counted("forward_s1", lambda: tfm.forward(
+            params, tokens[:, :1], cfg, disagg=True, **kw),
+            {dense_decode(cfg): n})
+        cache = tfm.init_cache(cfg, 1, cfg.num_patches + 256, disagg=True)
+        t0 = time.perf_counter()
+        lg, cache = tfm.prefill(params, tokens[:1, :120], cache, cfg,
+                                extra_embeds=patches, disagg=True, **b1)
+        torch.cuda.synchronize()
+        ms["prefill_patches_ms"] = (time.perf_counter() - t0) * 1e3
+        kv_len = torch.full((1,), cfg.num_patches + 120, dtype=torch.int32,
+                            device="cuda")
+        t0 = time.perf_counter()
+        for t in range(16):
+            lg, cache = tfm.decode_step(params, lg.argmax(-1).reshape(1),
+                                        cache, kv_len, cfg, disagg=True,
+                                        **b1)
+            kv_len = kv_len + 1
+        torch.cuda.synchronize()
+        ms["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 16
+        if not torch.isfinite(lg.float()).all():
+            raise AssertionError(f"{arch}: non-finite decode logits")
+        del cache, lg
+    log("zoo", card=card, **rec, ms=ms, launches=launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, ok=True)
+    del params, lora, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dense
+
+
+def zoo(tfm, configs, mods, pra, ref, ra, ForkServer, ServeConfig,
+        SamplingParams, card):
+    """Phase 5, zoo: every ``ZOO_MODELS`` entry in turn (``zoo_model``).
+    Returns (the dense kernels' launches per model, the first dense
+    launches of the head_dim-120 model as phase 6's cases)."""
+    dense, d120 = {}, None
+    t0 = time.perf_counter()
+    for arch, depth, runs in ZOO_MODELS:
+        first = FirstLaunch(ra)
+        dense[arch] = zoo_model(arch, depth, runs, tfm, configs, mods, pra,
+                                ref, first, ForkServer, ServeConfig,
+                                SamplingParams, card)
+        if configs.get_config(arch).resolved_head_dim == D120:
+            d120 = first.cases
+    log("zoo_done", models=[m[0] for m in ZOO_MODELS],
+        seconds=time.perf_counter() - t0)
+    return dense, d120
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU "
@@ -2395,6 +2723,7 @@ def main() -> int:
               f"the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch import configs
     from repro_torch.configs.paper_models import (LLAMA3_8B,
                                                   tiny_serving_model)
     from repro_torch.configs.recurrentgemma_9b import CONFIG as RG9B
@@ -2451,6 +2780,13 @@ def main() -> int:
                            "max_abs_err")}
         for r in check_d32(pra, ref, tfm.quantize_kv) +
         check_dense_d32(ra, ref)])
+    # (e) the dense kernels at head_dim 120 (h2o-danube-3-4b's), the bf16
+    # ones timed, their bound counted at D 120
+    log("d120_times", card=card, kernels=[
+        {k: r[k] for k in ("kernel", "ran", "case", "kernel_ms", "plain_ms",
+                           "library_ms", "bound_ms", "bound_by",
+                           "max_abs_err")}
+        for r in check_dense_d120(ra, ref)])
 
     # 4. small models: card vs CPU
     small_model_card_vs_cpu(tiny_serving_model, tfm, ForkServer,
@@ -2619,6 +2955,11 @@ def main() -> int:
     rg_first, scans = FirstLaunch(ra), ScanLaunches(rg)
     rg_launches = rg_hybrid(RG9B, hybrid, mods, rg_first, scans)
 
+    # (f) the zoo: the transformer family's other archs at full width
+    zoo_launches, d120_cases = zoo(tfm, configs, mods, pra, ref, ra,
+                                   ForkServer, ServeConfig, SamplingParams,
+                                   card)
+
     # 6. kernels at the main paths' launch geometries
     recorded = shapes.launches()
     log("serve_launches", geometries={
@@ -2627,15 +2968,17 @@ def main() -> int:
     measured.update(check_dense_main_path(ra, ref, first.cases))
     measured.update({f"{n}_d256": rec for n, rec in check_dense_main_path(
         ra, ref, rg_first.cases).items()})
+    measured.update({f"{n}_d120": rec for n, rec in check_dense_main_path(
+        ra, ref, d120_cases).items()})
     measured["rg_lru_scan"] = check_scan_main_path(rg, ref, scans.cases)
 
     # 7. kernels line, card line, result line: the paged kernels at their
-    # heaviest serving launch, the dense kernels at Llama3-8B's (D 128) and
-    # at RecurrentGemma-9B's (D 256, "_d256") first main-path launch, the
-    # scan at the hybrid forward's.  Each kernel is named by its launch
-    # counter on the bf16 main path: #1, #3, #5, #6 and #7 by their
-    # tensor-core kernels ("_mma"), #2, #4 and #8 by their split-K decodes
-    # ("_splitk").
+    # heaviest serving launch, the dense kernels at Llama3-8B's (D 128), at
+    # RecurrentGemma-9B's (D 256, "_d256") and at h2o-danube-3-4b's (D 120,
+    # "_d120") first main-path launch, the scan at the hybrid forward's.
+    # Each kernel is named by its launch counter on the bf16 main path: #1,
+    # #3, #5, #6 and #7 by their tensor-core kernels ("_mma"), #2, #4 and #8
+    # by their split-K decodes ("_splitk").
     kernels = []
     entries = []              # (name, measured, launches, replaces, ...)
     for n, (_, r) in ALL_KERNELS.items():
@@ -2652,6 +2995,9 @@ def main() -> int:
                         "llama3-8b"))
         entries.append((f"{name}_d256", f"{n}_d256", rg_launches[name], r,
                         DENSE_SOURCE, RG9B.name))
+        entries.append((f"{name}_d120", f"{n}_d120",
+                        zoo_launches["h2o-danube-3-4b"][name], r,
+                        DENSE_SOURCE, "h2o-danube-3-4b"))
     entries.append(("rg_lru_scan", "rg_lru_scan", rg_launches["rg_lru_scan"],
                     SCAN_REPLACES, SCAN_SOURCE, RG9B.name))
     for name, key, n_launches, replaces, source, model in entries:

@@ -1,9 +1,10 @@
 """Configuration for the PyTorch/CUDA port of the ForkKV serving system.
 
-:class:`LoRAConfig`, :class:`ModelConfig` and :class:`ServeConfig` carry the
-same fields and defaults as the JAX package's configs, so one configuration
-describes the same model and server on either side; only
-``ModelConfig.activation_dtype`` returns a ``torch.dtype``.
+:class:`LoRAConfig`, :class:`ModelConfig`, :class:`ShapeConfig` (with
+``INPUT_SHAPES``) and :class:`ServeConfig` carry the same fields and
+defaults as the JAX package's configs, so one configuration describes the
+same model and server on either side; only ``ModelConfig.activation_dtype``
+returns a ``torch.dtype``.
 """
 from __future__ import annotations
 
@@ -158,6 +159,35 @@ class ModelConfig:
         dense_moe = self.num_experts * n_mats * d * eff_ff
         active_moe = self.num_experts_per_tok * n_mats * d * eff_ff
         return self.num_params - L_moe * (dense_moe - active_moe)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.mode == "decode"
+
+
+INPUT_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in INPUT_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown input shape {name!r}")
 
 
 # NVIDIA H100 SXM roofline constants (per card, dense, at the 700 W limit;

@@ -3,8 +3,9 @@
 // paged_residual_attention.cu (#6, #3) and paged_residual_disagg.cu (#5),
 // and by #2's split-K decode there: the MMA and softmax steps, the
 // rebuild of K = K_b + RoPE(K_r . B_k) on the tensor cores (#7, #5; its
-// MMA part for #2) and the int8 pages' dequantization to bf16 (#6, #3,
-// #5, #2).
+// MMA part for #2), the int8 pages' dequantization to bf16 (#6, #3,
+// #5, #2), and head rows narrower than their tile (``Cols``: head_dim 120
+// in D 128's tile, #7 and #8).
 //
 // A CTA holds kRows = 128 query rows, 16 per warp of its 8: on the H100
 // both kernels ran faster so than with 4 warps (64 rows), which load (and
@@ -50,6 +51,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
                "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::
+               "r"(smem_addr(dst)), "l"(src), "r"(valid ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -367,21 +374,102 @@ __device__ __forceinline__ void dequantize_rows(const unsigned char* codes,
   }
 }
 
+// Head rows of DR elements in a tile D columns wide (#7 and #8).  DR == D:
+// the row as it is, in 16-byte copies.  DR < D (head_dim 120 in D 128's
+// tile): the split-half layout.  RoPE pairs column c with c + DR/2 and the
+// tile's code pairs c with c + D/2, so the real columns [0, DR/2) go to
+// [0, DR/2) and [DR/2, DR) to [D/2, D/2 + DR/2); the kGap columns after
+// each half hold zeros (``zero_gaps``), add nothing to Q . K^T and are
+// never stored (``store_cols``).  A half of 60 elements starts at byte 120
+// of its row, which a 16-byte copy cannot address, so at DR < D every copy
+// is 8 bytes.  sin/cos rows of DR/2 elements fill the first DR/2 of the
+// tile's D/2 columns.
+template <int D, int DR>
+struct Cols {
+  static_assert(DR == D || (DR < D && (DR / 2) % 4 == 0 && (D - DR) % 4 == 0),
+                "split halves of whole 8-byte copies");
+  static constexpr int kVec = DR == D ? 8 : 4;     // elements per copy
+  static constexpr int kRow = DR / kVec;           // copies per head row
+  static constexpr int kHalf = DR / 2 / kVec;      // copies per sin/cos row
+  static constexpr int kGap = (D - DR) / 2;        // zero columns per half
+
+  // the tile column of a head row's element e
+  __device__ static __forceinline__ int col(int e) {
+    return e < DR / 2 ? e : e + kGap;
+  }
+  // is tile column c one of the gap columns?
+  __device__ static __forceinline__ bool gap(int c) {
+    return kGap > 0 && ((c >= DR / 2 && c < D / 2) || c >= D / 2 + DR / 2);
+  }
+  __device__ static __forceinline__ void copy(bf16* dst, const bf16* src,
+                                              bool ok) {
+    if constexpr (kVec == 8)
+      cp_async16(dst, src, ok);
+    else
+      cp_async8(dst, src, ok);
+  }
+  // copy i (of kRow) of the head row at src into the tile row at dst
+  __device__ static __forceinline__ void row(bf16* dst, const bf16* src,
+                                             int i, bool ok) {
+    copy(dst + col(i * kVec), src + i * kVec, ok);
+  }
+  // copy i (of kHalf) of the sin/cos row at src into the tile row at dst
+  __device__ static __forceinline__ void half(bf16* dst, const bf16* src,
+                                              int i, bool ok) {
+    copy(dst + i * kVec, src + i * kVec, ok);
+  }
+  // zero the gap columns of ``rows`` head rows (stride ``stride``), and
+  // of ``rows`` sin/cos rows (columns DR/2..D/2-1, stride ``hs``); thread
+  // ``tid`` of ``n``
+  __device__ static void zero_gaps(bf16* base, int rows, int stride, int tid,
+                                   int n) {
+    if constexpr (kGap > 0)
+      for (int e = tid; e < rows * 2 * kGap; e += n) {
+        const int r = e / (2 * kGap), j = e % (2 * kGap);
+        base[r * stride +
+             (j < kGap ? DR / 2 + j : D / 2 + DR / 2 + j - kGap)] =
+            __float2bfloat16(0.f);
+      }
+  }
+  __device__ static void zero_table_gaps(bf16* base, int rows, int hs,
+                                         int tid, int n) {
+    if constexpr (kGap > 0)
+      for (int e = tid; e < rows * kGap; e += n)
+        base[(e / kGap) * hs + DR / 2 + e % kGap] = __float2bfloat16(0.f);
+  }
+};
+
+// ``store_rows`` for the tile columns [c0, c0 + N) of head rows of DR
+// elements in a tile D wide (``Cols``): dst[h] points at the row's element
+// 0 (null for a padding row); gap columns are skipped.
+template <int N, int D, int DR>
+__device__ __forceinline__ void store_cols(const float (&o)[N / 8][4],
+                                           const float (&l)[2],
+                                           bf16* const (&dst)[2], int c0,
+                                           int lane) {
+  using C = Cols<D, DR>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (dst[h] == nullptr) continue;
+    const float inv = 1.f / fmaxf(l[h], 1e-20f);
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      // a column pair never straddles a gap: DR/2 and D/2 are even
+      const int c = c0 + n * 8 + 2 * (lane & 3);
+      if (C::gap(c)) continue;
+      *reinterpret_cast<uint32_t*>(dst[h] + (c < D / 2 ? c : c - C::kGap)) =
+          pack_bf16(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+    }
+  }
+}
+
 // Writes the warp's rows o / max(l, 1e-20) in bf16; row r (0..15 of the
 // warp) goes to dst[r] unless dst[r] is null (a padding row).
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&o)[D / 8][4],
                                            const float (&l)[2],
                                            bf16* const (&dst)[2], int lane) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (dst[h] == nullptr) continue;
-    const float inv = 1.f / fmaxf(l[h], 1e-20f);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst[h] + n * 8 + 2 * (lane & 3)) =
-          pack_bf16(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
-  }
+  store_cols<D, D, D>(o, l, dst, 0, lane);
 }
 
 }  // namespace flash

@@ -23,6 +23,17 @@
 // Decode has the query at kv_len - 1; a null kv_len pointer means all Sk
 // keys are valid.
 //
+// Head dims: the scalar kernel takes any even D as it is; the bf16 kernels
+// have instances at D 32, 64, 128 and 256, and run head_dim 120
+// (h2o-danube-3-4b) in D 128's tile in the split-half layout of
+// flash::Cols: RoPE pairs column c with c + 60, which is no multiple of an
+// 8-column n-tile, so the halves go to tile columns 0..59 and 64..123 and
+// the tile's own pairing c <-> c + 64 holds; columns 60..63 and 124..127
+// are zero on chip (in Q, K_b, V_b, B_k, B_v, and sin/cos 60..63), add
+// nothing to Q K^T and are never stored.  q and the cache are read as they
+// are, with 8-byte cp.async (a half starts at byte 120 of its row); no
+// copy is padded on the host.
+//
 // Three kernels, chosen by q's type: a bf16 prefill runs the tensor-core
 // flash tile (residual_attention_mma_kernel, below, on flash_tile.cuh), a
 // bf16 decode the split-K decode (residual_attention_decode_split_kernel,
@@ -370,12 +381,13 @@ struct MmaLayout {
       flash::kRows * sizeof(int) + (size_t)kElems * sizeof(__nv_bfloat16);
 };
 
-template <int D, int BK, int RP>
+template <int D, int BK, int RP, int DR>
 __global__ void __launch_bounds__(flash::kThreads, 1)
 residual_attention_mma_kernel(Args a, int bsz) {
   using flash::bf16;
   using L = MmaLayout<D, BK, RP>;
-  constexpr int DS = L::DS, RS = L::RS, HS = L::HS, HALF = D / 2;
+  using C = flash::Cols<D, DR>;           // head rows of DR in D columns
+  constexpr int DS = L::DS, RS = L::RS, HS = L::HS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* rowpos = reinterpret_cast<int*>(smem_raw);
   bf16* sm = reinterpret_cast<bf16*>(smem_raw + flash::kRows * sizeof(int));
@@ -396,7 +408,7 @@ residual_attention_mma_kernel(Args a, int bsz) {
   const int nq = min(a.tq, a.sq - q0);
   const int nrows = nq * G;                         // row = qi * G + g
   const long out_tile = ((long)b * a.sq + q0) * a.hq + (long)h * G;
-  const long hd = (long)a.hkv * D;
+  const long hd = (long)a.hkv * DR;
 
   const bf16* q = static_cast<const bf16*>(a.q);
   const bf16* kb = static_cast<const bf16*>(a.kb);
@@ -409,22 +421,26 @@ residual_attention_mma_kernel(Args a, int bsz) {
   const bf16* cos_tab = static_cast<const bf16*>(a.cos);
 
   // Q rows (zero past nrows), B_k and B_v rows (zero from R to RP)
-  for (int e = tid; e < flash::kRows * (D / 8); e += flash::kThreads) {
-    const int r = e / (D / 8), c = e % (D / 8);
+  for (int e = tid; e < flash::kRows * C::kRow; e += flash::kThreads) {
+    const int r = e / C::kRow, i = e % C::kRow;
     const bool ok = r < nrows;
     const bf16* src =
-        ok ? q + (out_tile + (long)(r / G) * a.hq + r % G) * D + c * 8 : q;
-    flash::cp_async16(Qs + r * DS + c * 8, src, ok);
+        ok ? q + (out_tile + (long)(r / G) * a.hq + r % G) * DR : q;
+    C::row(Qs + r * DS, src, i, ok);
   }
-  for (int e = tid; e < RP * (D / 8); e += flash::kThreads) {
-    const int rr = e / (D / 8), c = e % (D / 8);
+  for (int e = tid; e < RP * C::kRow; e += flash::kThreads) {
+    const int rr = e / C::kRow, i = e % C::kRow;
     const bool ok = rr < R;
-    const long src = ok ? ((long)b * R + rr) * hd + (long)h * D + c * 8 : 0;
-    flash::cp_async16(Bks + rr * DS + c * 8, bk + src, ok);
-    flash::cp_async16(Bvs + rr * DS + c * 8, bv + src, ok);
+    const long src = ok ? ((long)b * R + rr) * hd + (long)h * DR : 0;
+    C::row(Bks + rr * DS, bk + src, i, ok);
+    C::row(Bvs + rr * DS, bv + src, i, ok);
   }
   flash::cp_async_commit();
-  // K_r / V_r columns R..RP-1 stay zero in both stages
+  // the split-half layout's gap columns (DR < D) stay zero in Q, B_k, B_v
+  // and both stages, as do K_r / V_r columns R..RP-1
+  C::zero_gaps(Qs, flash::kRows, DS, tid, flash::kThreads);
+  C::zero_gaps(Bks, RP, DS, tid, flash::kThreads);
+  C::zero_gaps(Bvs, RP, DS, tid, flash::kThreads);
   for (int st = 0; st < 2; ++st) {
     bf16* base = sm + L::kStages + st * L::kStage;
     for (int e = tid; e < BK * (RP - R); e += flash::kThreads) {
@@ -432,6 +448,10 @@ residual_attention_mma_kernel(Args a, int bsz) {
       base[L::kKr + t * RS + rr] = __float2bfloat16(0.f);
       base[L::kVr + t * RS + rr] = __float2bfloat16(0.f);
     }
+    C::zero_gaps(base + L::kK, BK, DS, tid, flash::kThreads);
+    C::zero_gaps(base + L::kV, BK, DS, tid, flash::kThreads);
+    C::zero_table_gaps(base + L::kSin, BK, HS, tid, flash::kThreads);
+    C::zero_table_gaps(base + L::kCos, BK, HS, tid, flash::kThreads);
   }
   int qlo = INT_MAX, qhi = INT_MIN;
   for (int i = 0; i < nq; ++i) {
@@ -453,22 +473,21 @@ residual_attention_mma_kernel(Args a, int bsz) {
   auto load_block = [&](int blk, int st) {
     bf16* base = sm + L::kStages + st * L::kStage;
     const int j0 = blk * BK;
-    for (int e = tid; e < BK * (D / 8); e += flash::kThreads) {
-      const int t = e / (D / 8), c = e % (D / 8);
+    for (int e = tid; e < BK * C::kRow; e += flash::kThreads) {
+      const int t = e / C::kRow, i = e % C::kRow;
       const int kpos = j0 + t;
       const bool ok = kpos < kvlen;
-      const long src = ok ? (((long)b * sk + kpos) * a.hkv + h) * D + c * 8
-                          : 0;
-      flash::cp_async16(base + L::kK + t * DS + c * 8, kb + src, ok);
-      flash::cp_async16(base + L::kV + t * DS + c * 8, vb + src, ok);
+      const long src = ok ? (((long)b * sk + kpos) * a.hkv + h) * DR : 0;
+      C::row(base + L::kK + t * DS, kb + src, i, ok);
+      C::row(base + L::kV + t * DS, vb + src, i, ok);
     }
-    for (int e = tid; e < BK * (HALF / 8); e += flash::kThreads) {
-      const int t = e / (HALF / 8), c = e % (HALF / 8);
+    for (int e = tid; e < BK * C::kHalf; e += flash::kThreads) {
+      const int t = e / C::kHalf, i = e % C::kHalf;
       const int kpos = j0 + t;
       const bool ok = kpos < kvlen;
-      const long src = ok ? ((long)b * sk + kpos) * HALF + c * 8 : 0;
-      flash::cp_async16(base + L::kSin + t * HS + c * 8, sin_tab + src, ok);
-      flash::cp_async16(base + L::kCos + t * HS + c * 8, cos_tab + src, ok);
+      const long src = ok ? ((long)b * sk + kpos) * (DR / 2) : 0;
+      C::half(base + L::kSin + t * HS, sin_tab + src, i, ok);
+      C::half(base + L::kCos + t * HS, cos_tab + src, i, ok);
     }
     if (vec_res) {
       for (int e = tid; e < BK * (R / 8); e += flash::kThreads) {
@@ -559,16 +578,16 @@ residual_attention_mma_kernel(Args a, int bsz) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = warp * 16 + (lane >> 2) + 8 * hh;
-    dst[hh] = r < nrows ? out + (out_tile + (long)(r / G) * a.hq + r % G) * D
+    dst[hh] = r < nrows ? out + (out_tile + (long)(r / G) * a.hq + r % G) * DR
                         : nullptr;
   }
-  flash::store_rows<D>(o, l, dst, lane);
+  flash::store_cols<D, D, DR>(o, l, dst, 0, lane);
 }
 
-template <int D, int BK, int RP>
+template <int D, int BK, int RP, int DR = D>
 int launch_mma(const Args& a, int bsz, cudaStream_t stream) {
   using L = MmaLayout<D, BK, RP>;
-  auto kernel = residual_attention_mma_kernel<D, BK, RP>;
+  auto kernel = residual_attention_mma_kernel<D, BK, RP, DR>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (err != cudaSuccess) return (int)err;
@@ -578,7 +597,8 @@ int launch_mma(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The bf16 prefill: D 32/64/128/256, R 1..32, tq * G <= 128 rows.
+// The bf16 prefill: D 32/64/128/256, and 120 in D 128's tile (split
+// halves, ``flash::Cols``); R 1..32, tq * G <= 128 rows.
 int dispatch_mma(const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.r < 1 || a.r > 32 || a.tq < 1 || a.tq * (a.hq / a.hkv) > flash::kRows)
@@ -591,6 +611,9 @@ int dispatch_mma(const Args& a, int bsz, void* stream) {
     case 64:
       return r16 ? launch_mma<64, 64, 16>(a, bsz, s)
                  : launch_mma<64, 64, 32>(a, bsz, s);
+    case 120:
+      return r16 ? launch_mma<128, 64, 16, 120>(a, bsz, s)
+                 : launch_mma<128, 64, 32, 120>(a, bsz, s);
     case 128:
       return r16 ? launch_mma<128, 64, 16>(a, bsz, s)
                  : launch_mma<128, 64, 32>(a, bsz, s);
@@ -736,11 +759,12 @@ __device__ __forceinline__ float warp_weights(const unsigned char* parts,
   return lsum;
 }
 
-template <int D, int RP>
+template <int D, int RP, int DR>
 __global__ void __launch_bounds__(kThreads, 1)
 residual_attention_decode_split_kernel(Args a) {
   using flash::bf16;
   using L = Layout<D, RP>;
+  using C = flash::Cols<D, DR>;           // head rows of DR in D columns
   constexpr int DS = L::DS, RS = L::RS, HS = L::HS, HALF = D / 2;
   extern __shared__ __align__(16) unsigned char dyn[];
   bf16* Qs = reinterpret_cast<bf16*>(dyn + L::kQ);
@@ -755,38 +779,48 @@ residual_attention_decode_split_kernel(Args a) {
   const int g0 = (blockIdx.y % nht) * kHeads;
   const int ng = min(kHeads, G - g0);               // heads of this CTA
   const long head0 = (long)b * a.hq + (long)h * G + g0;
-  const long hd = (long)a.hkv * D;
+  const long hd = (long)a.hkv * DR;
   const bool finish = a.n_split == 1;               // no combine
   const Range range(a, b, blockIdx.x);
 
   // Q rows (zero past ng); B_k and, to finish here, B_v (zero past R)
   const bf16* q = static_cast<const bf16*>(a.q);
-  for (int e = tid; e < kHeads * (D / 8); e += kThreads) {
-    const int r = e / (D / 8), c = e % (D / 8);
+  for (int e = tid; e < kHeads * C::kRow; e += kThreads) {
+    const int r = e / C::kRow, i = e % C::kRow;
     const bool ok = r < ng;
-    flash::cp_async16(Qs + r * DS + c * 8, ok ? q + (head0 + r) * D + c * 8
-                                              : q, ok);
+    C::row(Qs + r * DS, ok ? q + (head0 + r) * DR : q, i, ok);
   }
   const bf16* bk = static_cast<const bf16*>(a.bk);
   const bf16* bv = static_cast<const bf16*>(a.bv);
-  for (int e = tid; e < RP * (D / 8); e += kThreads) {
-    const int rr = e / (D / 8), c = e % (D / 8);
+  for (int e = tid; e < RP * C::kRow; e += kThreads) {
+    const int rr = e / C::kRow, i = e % C::kRow;
     const bool ok = rr < R;
-    const long src = ok ? ((long)b * R + rr) * hd + (long)h * D + c * 8 : 0;
-    flash::cp_async16(Bks + rr * DS + c * 8, bk + src, ok);
-    if (finish) flash::cp_async16(Bvs + rr * DS + c * 8, bv + src, ok);
+    const long src = ok ? ((long)b * R + rr) * hd + (long)h * DR : 0;
+    C::row(Bks + rr * DS, bk + src, i, ok);
+    if (finish) C::row(Bvs + rr * DS, bv + src, i, ok);
   }
   flash::cp_async_commit();
-  // K_r / V_r columns R..RP-1 stay zero in the warp's stages
+  // the split-half layout's gap columns (DR < D) stay zero in Q, B_k, B_v
+  // and the warp's stages, as do K_r / V_r columns R..RP-1
+  C::zero_gaps(Qs, kHeads, DS, tid, kThreads);
+  C::zero_gaps(Bks, RP, DS, tid, kThreads);
+  C::zero_gaps(Bvs, RP, DS, tid, kThreads);
   unsigned char* mine = parts + warp * L::kWarp;
   for (int st = 0; st < L::kStages; ++st) {
-    bf16* kr_s = reinterpret_cast<bf16*>(mine + st * L::kStage + L::kKr);
-    bf16* vr_s = reinterpret_cast<bf16*>(mine + st * L::kStage + L::kVr);
+    unsigned char* s = mine + st * L::kStage;
+    bf16* kr_s = reinterpret_cast<bf16*>(s + L::kKr);
+    bf16* vr_s = reinterpret_cast<bf16*>(s + L::kVr);
     for (int e = lane; e < kKeys * (RP - R); e += 32) {
       const int t = e / (RP - R), rr = R + e % (RP - R);
       kr_s[t * RS + rr] = __float2bfloat16(0.f);
       vr_s[t * RS + rr] = __float2bfloat16(0.f);
     }
+    C::zero_gaps(reinterpret_cast<bf16*>(s + L::kK), kKeys, DS, lane, 32);
+    C::zero_gaps(reinterpret_cast<bf16*>(s + L::kV), kKeys, DS, lane, 32);
+    C::zero_table_gaps(reinterpret_cast<bf16*>(s + L::kSin), kKeys, HS, lane,
+                       32);
+    C::zero_table_gaps(reinterpret_cast<bf16*>(s + L::kCos), kKeys, HS, lane,
+                       32);
   }
   flash::cp_async_wait<0>();
   __syncthreads();
@@ -825,12 +859,12 @@ residual_attention_decode_split_kernel(Args a) {
     if (it < nsteps) {
       unsigned char* s = mine + (it % L::kStages) * L::kStage;
       const int k0 = first_key(it);
-      for (int e = lane; e < kKeys * (D / 8); e += 32) {
-        const int t = e / (D / 8), c = e % (D / 8);
+      for (int e = lane; e < kKeys * C::kRow; e += 32) {
+        const int t = e / C::kRow, i = e % C::kRow;
         const bool ok = k0 + t < range.hi;
-        const long src = ok ? ((tok0 + k0 + t) * a.hkv + h) * D + c * 8 : 0;
-        flash::cp_async16(s + L::kK + (t * DS + c * 8) * 2, kb + src, ok);
-        flash::cp_async16(s + L::kV + (t * DS + c * 8) * 2, vb + src, ok);
+        const long src = ok ? ((tok0 + k0 + t) * a.hkv + h) * DR : 0;
+        C::row(reinterpret_cast<bf16*>(s + L::kK) + t * DS, kb + src, i, ok);
+        C::row(reinterpret_cast<bf16*>(s + L::kV) + t * DS, vb + src, i, ok);
       }
       if (vec_res) {
         for (int e = lane; e < kKeys * (R / 8); e += 32) {
@@ -851,14 +885,14 @@ residual_attention_decode_split_kernel(Args a) {
           vr_s[t * RS + rr] = ok ? vr[src] : __float2bfloat16(0.f);
         }
       }
-      for (int e = lane; e < kKeys * (HALF / 8); e += 32) {
-        const int t = e / (HALF / 8), c = e % (HALF / 8);
+      for (int e = lane; e < kKeys * C::kHalf; e += 32) {
+        const int t = e / C::kHalf, i = e % C::kHalf;
         const bool ok = k0 + t < range.hi;
-        const long src = ok ? (tok0 + k0 + t) * HALF + c * 8 : 0;
-        flash::cp_async16(s + L::kSin + (t * HS + c * 8) * 2, sin_tab + src,
-                          ok);
-        flash::cp_async16(s + L::kCos + (t * HS + c * 8) * 2, cos_tab + src,
-                          ok);
+        const long src = ok ? (tok0 + k0 + t) * (DR / 2) : 0;
+        C::half(reinterpret_cast<bf16*>(s + L::kSin) + t * HS, sin_tab + src,
+                i, ok);
+        C::half(reinterpret_cast<bf16*>(s + L::kCos) + t * HS, cos_tab + src,
+                i, ok);
       }
     }
     flash::cp_async_commit();
@@ -1018,16 +1052,17 @@ residual_attention_decode_split_kernel(Args a) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = (lane >> 2) + 8 * hh;
-      dst[hh] = r < ng ? out + (head0 + r) * D + c0 : nullptr;
+      dst[hh] = r < ng ? out + (head0 + r) * DR : nullptr;
     }
-    flash::store_rows<QD>(om, lsum, dst, lane);
+    flash::store_cols<QD, D, DR>(om, lsum, dst, c0, lane);
     return;
   }
 
-  // the CTA's merged partial into the workspace, for the combine
-  for (int e = tid; e < ng * (D + RP); e += kThreads) {
-    const int r = e / (D + RP), col = e % (D + RP);
-    if (col >= D + R) continue;
+  // the CTA's merged partial into the workspace, for the combine: the DR
+  // real columns of O (tile columns ``C::col``), then R of O_r
+  for (int e = tid; e < ng * (DR + RP); e += kThreads) {
+    const int r = e / (DR + RP), col = e % (DR + RP);
+    if (col >= DR + R) continue;
     float wt[kWarps];
     const float lsum = warp_weights<D, RP>(parts, r, wt);
     const long row = (head0 + r) * a.n_split + blockIdx.x;
@@ -1035,13 +1070,13 @@ residual_attention_decode_split_kernel(Args a) {
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float* p = reinterpret_cast<const float*>(parts + w * L::kWarp);
-      v = fmaf(wt[w], col < D ? p[L::kPo + r * D + col]
-                              : p[L::kPr + r * RP + col - D], v);
+      v = fmaf(wt[w], col < DR ? p[L::kPo + r * D + C::col(col)]
+                               : p[L::kPr + r * RP + col - DR], v);
     }
-    if (col < D)
-      a.ws_acc[row * D + col] = v;
+    if (col < DR)
+      a.ws_acc[row * DR + col] = v;
     else
-      a.ws_accr[row * R + col - D] = v;
+      a.ws_accr[row * R + col - DR] = v;
     if (col == 0) {
       float mx = flash::kNegInit;
 #pragma unroll
@@ -1097,10 +1132,10 @@ residual_attention_decode_combine_kernel(Args a) {
   }
 }
 
-template <int D, int RP>
+template <int D, int RP, int DR>
 int launch(const Args& a, cudaStream_t stream) {
   using L = Layout<D, RP>;
-  auto kernel = residual_attention_decode_split_kernel<D, RP>;
+  auto kernel = residual_attention_decode_split_kernel<D, RP, DR>;
   // the shared-memory attribute, once per device (bit d of ``set``)
   static std::atomic<unsigned> set{0};
   int dev = 0;
@@ -1123,12 +1158,13 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DR = D>
 int launch_rank(const Args& a, cudaStream_t s) {
-  return a.r <= 16 ? launch<D, 16>(a, s) : launch<D, 32>(a, s);
+  return a.r <= 16 ? launch<D, 16, DR>(a, s) : launch<D, 32, DR>(a, s);
 }
 
-// D 32/64/128/256, R 1..32, any G, n_split >= 1 (a workspace when > 1).
+// D 32/64/128/256, and 120 in D 128's tile (split halves,
+// ``flash::Cols``); R 1..32, any G, n_split >= 1 (a workspace when > 1).
 int dispatch(const Args& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.n_split < 1 || a.r < 1 || a.r > 32 || a.hkv < 1 ||
@@ -1140,6 +1176,7 @@ int dispatch(const Args& a, void* stream) {
     return (int)cudaErrorInvalidValue;
   if (a.d == 32) return launch_rank<32>(a, s);
   if (a.d == 64) return launch_rank<64>(a, s);
+  if (a.d == 120) return launch_rank<128, 120>(a, s);
   if (a.d == 128) return launch_rank<128>(a, s);
   if (a.d == 256) return launch_rank<256>(a, s);
   return (int)cudaErrorInvalidValue;

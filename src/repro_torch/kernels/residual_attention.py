@@ -30,7 +30,14 @@ several a second kernel combines the ranges from an f32 workspace.  Every
 f32 launch runs the first, scalar design, f32 FMAs on the CUDA cores (67
 TFLOP/s peak), which keeps f32 IEEE (the tensor cores have no such mode);
 its decode is one CTA per (kv head, row) over the whole cache.  Head
-dims 32, 64, 128 and 256 are taken; a CTA of the
+dims 32, 64, 120, 128 and 256 are taken.  At 120 (h2o-danube-3-4b's) the
+bf16 kernels run D 128's tile in the split-half layout
+(``tile_columns``): RoPE pairs column c with c + 60, so the halves go to
+tile columns 0..59 and 64..123 and the tile's own pairing c <-> c + 64
+holds; the four columns after each half are zero on chip, add nothing to
+Q·Kᵀ and are never stored, and q and the cache are read as they are, in
+8-byte copies (a half starts at byte 120).  The scalar kernel takes any
+even D as it is.  A CTA of the
 scalar kernel holds 64 query rows at D <= 128 and 32 at D 256
 (``ROWS_BY_HEAD_DIM``), so its shared memory stays inside the card's
 227 KB; the tensor-core kernel holds 128 (``MMA_ROWS``) at every
@@ -69,7 +76,10 @@ SOURCE = "residual_attention"
 # its Q tile, accumulator and a rebuilt key block in shared memory
 # (``Layout`` in the source), which at D 256 and 64 rows would need ~280 KB
 # of the H100's 227 KB; 32 rows need ~203 KB at R 16.
-ROWS_BY_HEAD_DIM = {32: 64, 64: 64, 128: 64, 256: 32}
+ROWS_BY_HEAD_DIM = {32: 64, 64: 64, 120: 64, 128: 64, 256: 32}
+# The bf16 kernels' tile width by head_dim where it is wider than the head:
+# head_dim 120 runs in D 128's tile, its halves split (``tile_columns``).
+TILE_DIM = {120: 128}
 # Query rows per CTA of the bf16 tensor-core prefill at every head_dim: 8
 # warps of 16 rows, its softmax state in registers.
 MMA_ROWS = 128
@@ -136,6 +146,22 @@ def tile_rows(d: int, group: int) -> int:
     return rows
 
 
+def tile_dim(d: int) -> int:
+    """Columns of the bf16 kernels' tile for head_dim ``d``."""
+    return TILE_DIM.get(d, d)
+
+
+def tile_columns(d: int) -> torch.Tensor:
+    """The tile column of each of the ``d`` columns of a head row in the
+    bf16 kernels (``flash::Cols`` in ``csrc/flash_tile.cuh``): the identity
+    where the tile is ``d`` wide; the split-half layout where it is wider,
+    the first half at 0.. and the second at ``tile_dim(d) / 2``.., so RoPE's
+    pairs c <-> c + d/2 sit at c <-> c + tile_dim(d)/2.  sin/cos rows fill
+    the first d/2 of the tile's half.  The columns left out are zero."""
+    cols = torch.arange(d)
+    return torch.where(cols < d // 2, cols, cols + (tile_dim(d) - d) // 2)
+
+
 def prefill_kernel(dtype: torch.dtype) -> str:
     """The prefill kernel, by its launch counter, that q in ``dtype`` runs:
     the tensor-core kernel for bf16, the scalar one for f32 (IEEE f32; the
@@ -155,7 +181,9 @@ def decode_split_smem(d: int, r: int) -> int:
     """Shared-memory bytes of one CTA of the split-K decode (``Layout`` of
     ``splitk`` in the source): Q (16 rows), B_k and B_v (RP rows), and per
     warp two stages (one at D 256) of 16 keys' K, V, K_r, V_r, sin and cos
-    rows, all bf16, rows padded by 8 elements."""
+    rows, all bf16, rows padded by 8 elements; at the tile's width
+    (``tile_dim``)."""
+    d = tile_dim(d)
     rp = 16 if r <= 16 else 32
     ds, rs, hs, keys = d + 8, rp + 8, d // 2 + 8, SPLIT_KEYS
     stage = keys * 2 * (2 * ds + 2 * rs + 2 * hs)

@@ -3,8 +3,9 @@
 
 ``get_model(cfg)`` returns a :class:`ModelApi` with init_params / forward /
 init_cache / prefill / decode_step / init_lora_stacks, dispatched on
-``cfg.family``.  The dense and hybrid families are ported; the others
-raise, naming their ROADMAP item.  The logical-axis trees that the
+``cfg.family``.  The dense, MoE and VLM families (all served by
+:mod:`~repro_torch.models.transformer`) and the hybrid are ported; SSM and
+audio raise, naming their ROADMAP item.  The logical-axis trees that the
 reference's API also carries are for sharding, which goes with ROADMAP
 Queue 1, item 13.
 """
@@ -19,13 +20,11 @@ from repro_torch.models import transformer as tfm
 
 # ported families: the module whose functions serve each (both take the
 # same arguments), as in the reference's registry
-_FAMILIES = {"dense": tfm, "hybrid": hybrid}
+_FAMILIES = {"dense": tfm, "moe": tfm, "vlm": tfm, "hybrid": hybrid}
 
 # families of the reference's registry that are not ported yet, with the
 # ROADMAP Queue 1 item that ports each
 _UNPORTED = {
-    "moe": "item 11 (MoE)",
-    "vlm": "item 11 (the extra_embeds/VLM path)",
     "ssm": "item 11 (ssm.py)",
     "audio": "item 11 (encdec.py)",
 }

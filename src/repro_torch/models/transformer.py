@@ -1,9 +1,15 @@
-"""Llama-family transformer, dense variant (port of
+"""Llama-family transformer: dense, MoE and VLM-backbone variants (port of
 ``repro/models/transformer.py``).
 
-Parameter and LoRA-stack init for the dense SiLU family, the projections
-with per-row (BGMV-style) LoRA, the MLP, embedding and unembedding, one
-attention layer over unified or disaggregated caches, and the model API:
+Covers starcoder2, internlm2, h2o-danube (SWA), llama3-405b, the mistral
+backbone of llava-next, dbrx and llama4 (MoE), and the paper's own models.
+Parameter and LoRA-stack init, the projections with per-row (BGMV-style)
+LoRA, the feed-forward blocks (the SiLU-gated and the GELU MLP, the
+capacity MoE with top-k routing and an optional shared expert, and
+llama4's interleave of dense and MoE layers, ``layer_params``), embedding
+(with the VLM's projected ``extra_embeds`` before the tokens) and
+unembedding, one attention layer over unified or disaggregated caches,
+and the model API:
 
   * ``forward``      — full causal pass (training / teacher-forcing)
   * ``init_cache``   — contiguous per-request caches, ring buffers for SWA
@@ -23,8 +29,9 @@ Unlike the reference, whose arrays are immutable, ``prefill`` and
 one cache and not two.  With ``cfg.kv_quant == "int8"`` the caches hold int8
 K/V with f32 per-(position, head) scales (``k_scale``/``v_scale``),
 quantized on every write and dequantized before attention, as in the
-reference.  MoE layers and ``extra_embeds`` (VLM) raise
-``NotImplementedError``.
+reference.  The expert products are ``einsum`` s over the (E, capacity,
+d) dispatch buffer, plain matrix products that the reference also leaves
+to XLA.
 """
 from __future__ import annotations
 
@@ -51,17 +58,26 @@ def _generator(seed: int, device: torch.device) -> torch.Generator:
     return gen
 
 
+def _expert_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    """An (L, E, ...) expert stack drawn one expert at a time: f32 draws of
+    the whole stack would take 4 bytes per weight at once (21.5 GB for one
+    of llama4's)."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    for layer in out:
+        for expert in layer:
+            expert.copy_(base.dense_init(gen, expert.shape, dtype))
+    return out
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: Optional[Union[str, torch.device]] = None) -> Params:
-    """Random weights for the dense SiLU family, drawn from ``seed`` on
-    ``device`` (None: the CUDA device).  They do not reproduce JAX's draws;
-    the tests carry those across with :mod:`repro_torch.bridge`."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE params are not ported yet (ROADMAP Queue 1, item 11)")
-    if cfg.mlp_activation != "silu":
-        raise NotImplementedError(
-            "only the SiLU MLP is ported (ROADMAP Queue 1, item 11)")
+    """Random weights drawn from ``seed`` on ``device`` (None: the CUDA
+    device), with the reference's keys and shapes: the MoE keys (router,
+    expert stacks, the shared expert's ``*_s`` and, with ``moe_interleave``
+    > 1, the dense layers' MLP) for an MoE config, no ``w_gate`` for the
+    GELU MLP, ``mm_projector`` for the vision stub.  They do not reproduce
+    JAX's draws; the tests carry those across with
+    :mod:`repro_torch.bridge`."""
     dev = resolve_device(device)
     gen = _generator(seed, dev)
     dt = cfg.activation_dtype
@@ -73,10 +89,32 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
         "wk": base.dense_init(gen, (L, d, cfg.kv_dim), dt),
         "wv": base.dense_init(gen, (L, d, cfg.kv_dim), dt),
         "wo": base.dense_init(gen, (L, cfg.q_dim, d), dt),
-        "w_gate": base.dense_init(gen, (L, d, cfg.d_ff), dt),
-        "w_up": base.dense_init(gen, (L, d, cfg.d_ff), dt),
-        "w_down": base.dense_init(gen, (L, cfg.d_ff, d), dt),
     }
+    if cfg.num_experts:
+        ffe, E = cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
+        L_moe = L // cfg.moe_interleave
+        layers.update({
+            "router": base.dense_init(gen, (L_moe, d, E), dt),
+            "w_gate_e": _expert_init(gen, (L_moe, E, d, ffe), dt),
+            "w_up_e": _expert_init(gen, (L_moe, E, d, ffe), dt),
+            "w_down_e": _expert_init(gen, (L_moe, E, ffe, d), dt),
+        })
+        if cfg.moe_shared_expert:
+            layers["w_gate_s"] = base.dense_init(gen, (L_moe, d, ffe), dt)
+            layers["w_up_s"] = base.dense_init(gen, (L_moe, d, ffe), dt)
+            layers["w_down_s"] = base.dense_init(gen, (L_moe, ffe, d), dt)
+        if cfg.moe_interleave > 1:          # interleaved dense MLP layers
+            L_dense = L - L_moe
+            layers["w_gate"] = base.dense_init(gen, (L_dense, d, cfg.d_ff),
+                                               dt)
+            layers["w_up"] = base.dense_init(gen, (L_dense, d, cfg.d_ff), dt)
+            layers["w_down"] = base.dense_init(gen, (L_dense, cfg.d_ff, d),
+                                               dt)
+    else:
+        if cfg.mlp_activation == "silu":
+            layers["w_gate"] = base.dense_init(gen, (L, d, cfg.d_ff), dt)
+        layers["w_up"] = base.dense_init(gen, (L, d, cfg.d_ff), dt)
+        layers["w_down"] = base.dense_init(gen, (L, cfg.d_ff, d), dt)
     params: Params = {
         "embed": base.dense_init(gen, (cfg.vocab_size, d), dt),
         "final_norm": torch.zeros((d,), dtype=dt, device=dev),
@@ -84,6 +122,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     }
     if not cfg.tie_embeddings:
         params["unembed"] = base.dense_init(gen, (d, cfg.vocab_size), dt)
+    if cfg.frontend == "vision_stub":
+        # projector from (stubbed) vision features to d_model
+        params["mm_projector"] = base.dense_init(gen, (d, d), dt)
     return params
 
 
@@ -153,18 +194,92 @@ def _bgmv_down(x, a_l, scaling, adapter_ids):
 
 
 def mlp(p_l, x, cfg: ModelConfig):
-    if cfg.mlp_activation != "silu":
-        raise NotImplementedError(
-            "only the SiLU MLP is ported (ROADMAP Queue 1, item 11)")
-    h = F.silu(x @ p_l["w_gate"]) * (x @ p_l["w_up"])
+    """SwiGLU, or the plain two-matrix GELU MLP (starcoder2).  GELU is the
+    tanh form, which is what ``jax.nn.gelu`` computes by default."""
+    if cfg.mlp_activation == "silu":
+        h = F.silu(x @ p_l["w_gate"]) * (x @ p_l["w_up"])
+    else:
+        h = F.gelu(x @ p_l["w_up"], approximate="tanh")
     return h @ p_l["w_down"]
 
 
+def _top_k(probs: torch.Tensor, k: int):
+    """The k largest of the last dim, ties toward the lower index, as
+    ``jax.lax.top_k`` breaks them (``torch.topk`` does not say how it
+    does): a stable descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(p_l, xf, cfg: ModelConfig, capacity_factor: float = 0.0):
+    """Top-k routing of ``xf`` (t, d) into per-expert capacity slots, the
+    reference's arithmetic exactly: f32 softmax over the router logits,
+    top-k (ties to the lower expert), gates renormalised over the k;
+    capacity ``cap = max(8, ceil8(t·k/E·cf))``; the (t·k) assignments take
+    slots in flat order by cumsum, and one past ``cap`` overflows.  Returns
+    (gates (t·k,), dest (t·k,) slot in an (E·cap + 1)-row buffer whose last
+    row is the overflow, valid (t·k,) bool, cap)."""
+    capacity_factor = capacity_factor or cfg.moe_capacity_factor
+    t = xf.shape[0]
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    logits = (xf @ p_l["router"]).to(torch.float32)          # (t, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = _top_k(probs, k)                            # (t, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    cap = int(max(8, ((t * k / E) * capacity_factor + 7) // 8 * 8))
+    flat_e = idx.reshape(-1)                                 # (t*k,)
+    onehot = F.one_hot(flat_e, E)
+    pos = torch.cumsum(onehot, dim=0) - 1
+    pos = torch.gather(pos, 1, flat_e[:, None])[:, 0]
+    valid = pos < cap
+    dest = torch.where(valid, flat_e * cap + pos,
+                       torch.full_like(pos, E * cap))        # overflow slot
+    return gates.reshape(-1), dest, valid, cap
+
+
+def moe_ffn(p_l, x, cfg: ModelConfig, capacity_factor: float = 0.0):
+    """Scatter-based capacity MoE: tokens are dispatched to an (E, C, d)
+    buffer (``moe_route``), run through their experts' SwiGLU and gathered
+    back weighted by their gates; an assignment past its expert's capacity
+    adds nothing.  Plus the always-on shared expert where the layer has one
+    (llama4)."""
+    bsz, s, d = x.shape
+    t = bsz * s
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    xf = x.reshape(t, d)
+    gates, dest, valid, cap = moe_route(p_l, xf, cfg, capacity_factor)
+    token_of = torch.arange(t * k, device=x.device) // k
+    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[dest] = xf[token_of]
+    h = buf[:-1].reshape(E, cap, d)
+    a = F.silu(torch.einsum("ecd,edf->ecf", h, p_l["w_gate_e"]))
+    a = a * torch.einsum("ecd,edf->ecf", h, p_l["w_up_e"])
+    o = torch.einsum("ecf,efd->ecd", a, p_l["w_down_e"])
+    o_flat = torch.cat([o.reshape(E * cap, d),
+                        torch.zeros((1, d), dtype=x.dtype, device=x.device)])
+    y = o_flat[dest] * (gates * valid).to(x.dtype)[:, None]
+    y = y.reshape(t, k, d).sum(dim=1).reshape(bsz, s, d)
+    if "w_gate_s" in p_l:   # shared (always-on) expert, llama4-style
+        y = y + (F.silu(x @ p_l["w_gate_s"]) *
+                 (x @ p_l["w_up_s"])) @ p_l["w_down_s"]
+    return y
+
+
+def moe_aux_loss(p_l, x, cfg: ModelConfig) -> torch.Tensor:
+    """Switch-style load-balance loss for one layer."""
+    xf = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax((xf @ p_l["router"]).to(torch.float32), dim=-1)
+    _, idx = _top_k(probs, cfg.num_experts_per_tok)
+    frac_tokens = F.one_hot(idx, cfg.num_experts).to(torch.float32).mean(
+        dim=(0, 1))
+    frac_probs = probs.mean(dim=0)
+    return cfg.num_experts * torch.sum(frac_tokens * frac_probs)
+
+
 def ffn(p_l, x, cfg: ModelConfig):
-    if "router" in p_l:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP Queue 1, item 11)")
-    return mlp(p_l, x, cfg)
+    # dispatch on the params present, so an interleaved MoE stack (dense
+    # sublayers between MoE sublayers, llama4-style) runs one layer body
+    return moe_ffn(p_l, x, cfg) if "router" in p_l else mlp(p_l, x, cfg)
 
 
 def _qkv(p_l, x, cfg, lora, adapter_ids, positions):
@@ -449,11 +564,18 @@ def _layer_window(cfg: ModelConfig) -> int:
 def embed_tokens(params, tokens, cfg: ModelConfig,
                  extra_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
+    """Token embeddings, with ``extra_embeds`` (B, P, d) (the VLM's stubbed
+    patch embeddings, through ``mm_projector`` where the model has one)
+    before them.  The projection runs in the wider of the two types, as
+    JAX promotes a mixed product."""
+    x = params["embed"][tokens]
     if extra_embeds is not None:
-        raise NotImplementedError(
-            "extra_embeds (the VLM path) is not ported yet (ROADMAP Queue 1, "
-            "item 11)")
-    return params["embed"][tokens]
+        if "mm_projector" in params:
+            proj = params["mm_projector"]
+            wide = torch.promote_types(extra_embeds.dtype, proj.dtype)
+            extra_embeds = extra_embeds.to(wide) @ proj.to(wide)
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def unembed(params, x, cfg: ModelConfig) -> torch.Tensor:
@@ -476,20 +598,43 @@ def _layer_fn(x, p_l, cfg, *, positions, mode, cache_l, kv_len, lora_l,
     return x, new_cache
 
 
+_ATTN_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo")
+_DENSE_KEYS = ("w_gate", "w_up", "w_down")
+_MOE_KEYS = ("router", "w_gate_e", "w_up_e", "w_down_e",
+             "w_gate_s", "w_up_s", "w_down_s")
+
+
+def layer_params(params, cfg: ModelConfig, li: int) -> Params:
+    """Layer ``li``'s parameters, as the model's schedule runs it.  Every
+    layer has its own attention keys.  With ``moe_interleave`` = iv > 1
+    (llama4) the layers come in groups of iv: iv - 1 dense-MLP sublayers,
+    then one MoE sublayer, so layer li = g·iv + j takes dense MLP g·(iv-1) +
+    j for j < iv - 1 and MoE layer g for j = iv - 1 (the reference's
+    ``_apply_layers_interleaved``).  Otherwise every leaf is sliced at
+    ``li``."""
+    layers = params["layers"]
+    iv = cfg.moe_interleave if cfg.num_experts else 1
+    if iv == 1:
+        return {k: t[li] for k, t in layers.items()}
+    g, j = divmod(li, iv)
+    p_l = {k: layers[k][li] for k in _ATTN_KEYS}
+    if j == iv - 1:
+        p_l.update({k: layers[k][g] for k in _MOE_KEYS if k in layers})
+    else:
+        p_l.update({k: layers[k][g * (iv - 1) + j] for k in _DENSE_KEYS})
+    return p_l
+
+
 def apply_layers(params, x, cfg: ModelConfig, *, positions, mode: str,
                  cache=None, kv_len=None, lora=None, adapter_ids=None,
                  disagg: bool = False, chunk_start=None):
-    """The layer stack as a plain loop (the reference scans it, with remat
-    when training; running eagerly needs neither).  cache/lora leaves carry
-    a leading L dim; each layer writes its slice of the cache in place.
+    """The layer stack as a plain loop over ``layer_params`` (the reference
+    scans it, with remat when training, and scans interleaved MoE stacks
+    by group; running eagerly needs neither).  cache/lora leaves carry a
+    leading L dim; each layer writes its slice of the cache in place.
     Returns (x, cache)."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE layers (moe_ffn, moe_interleave) are not ported yet "
-            "(ROADMAP Queue 1, item 11)")
-    layers = params["layers"]
     for i in range(cfg.num_layers):
-        p_l = {k: t[i] for k, t in layers.items()}
+        p_l = layer_params(params, cfg, i)
         c_l = {k: t[i] for k, t in cache.items()} \
             if cache is not None else None
         l_l = {k: t[i] for k, t in lora.items()} if lora is not None else None
@@ -503,7 +648,9 @@ def apply_layers(params, x, cfg: ModelConfig, *, positions, mode: str,
 def forward(params, tokens, cfg: ModelConfig, *, extra_embeds=None,
             lora=None, adapter_ids=None, disagg: bool = False
             ) -> torch.Tensor:
-    """Full causal pass -> logits (B, S, V)."""
+    """Full causal pass -> logits (B, S_total, V): with ``extra_embeds``
+    (B, P, d) the P patch positions come first, and positions run over the
+    whole sequence."""
     x = embed_tokens(params, tokens, cfg, extra_embeds)
     bsz, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(bsz, s)

@@ -47,6 +47,7 @@ from repro_torch.core import rope as rope_lib
 from repro_torch.core.config import ModelConfig, ServeConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels import paged_residual_attention as pra
 from repro_torch.models import base
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.sampling import sample_tokens
@@ -133,6 +134,11 @@ class PagedExecutor:
                  lora: Optional[Params], serve_cfg: ServeConfig,
                  disagg: bool, max_pages_per_req: int, device=None):
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and serve_cfg.use_paged_kernel:
+            # the paged kernels' head and page geometry, refused here and
+            # not at the first step, whose errors the engine isolates
+            pra.check_heads(cfg.num_heads, cfg.num_kv_heads,
+                            cfg.resolved_head_dim, serve_cfg.page_size)
         if self.device.type == "cuda" and self.device.index is None:
             # an explicit index, which a thread other than this one binds
             # (``bind_thread``)
@@ -217,7 +223,10 @@ class PagedExecutor:
 
     # ------------------------------------------------------------ helpers
     def _layer_params(self, li):
-        return {k: v[li] for k, v in self.params["layers"].items()}
+        # the model's own schedule (``tfm.layer_params``): an interleaved
+        # MoE stack (llama4) runs its dense sublayers too; the reference
+        # slices every leaf at ``li``, which JAX clamps past the MoE stack
+        return tfm.layer_params(self.params, self.cfg, li)
 
     def _lora_layer(self, li):
         if self.lora is None:

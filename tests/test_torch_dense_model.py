@@ -266,7 +266,7 @@ def test_get_model_dense():
     assert lora["a_k"].shape == (2, 3, 64, 8)
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "ssm", "audio"])
+@pytest.mark.parametrize("family", ["ssm", "audio"])
 def test_get_model_refuses_unported_families(family):
     _, cfg = _cfgs(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
@@ -310,25 +310,6 @@ def test_recurrentgemma_9b_config_matches_jax():
     assert trg.CONFIG.num_params == jrg.CONFIG.num_params == 9_189_720_064
     assert thyb.layer_kinds(trg.CONFIG).count("local") == 12
     assert thyb.num_attention_layers(trg.CONFIG) == 12
-
-
-def test_moe_refused():
-    _, cfg = _cfgs(family="moe", num_experts=4, num_experts_per_tok=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttfm.init_params(cfg, 0, device="cpu")
-    jcfg = dataclasses.replace(_cfgs()[0], family="moe", num_experts=4,
-                               num_experts_per_tok=2)
-    jparams = _np(jtfm.init_params(jcfg, jax.random.PRNGKey(0)))
-    params = bridge.params_from_jax(jparams, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttfm.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg)
-
-
-def test_extra_embeds_refused():
-    m = Model()
-    with pytest.raises(NotImplementedError, match="extra_embeds"):
-        ttfm.forward(m.tparams, torch.zeros((1, 4), dtype=torch.long),
-                     m.tcfg, extra_embeds=torch.zeros((1, 2, 64)))
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(sliding_window=6)],

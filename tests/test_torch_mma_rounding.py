@@ -24,8 +24,10 @@ inputs and no rounding it is the same algorithm in f32, held to the JAX
 package's ``repro.kernels.ref`` within 1e-5.
 
 Geometries: Llama3-8B's heads (Hq 32, Hkv 8, D 128, R 16),
-RecurrentGemma-9B's (Hq 16, Hkv 1, D 256, R 16) and ``tiny_serving_model()``'s
-at its defaults (Hq 8, Hkv 4, D 32, R 8), Sq = Sk = 200, causal
+RecurrentGemma-9B's (Hq 16, Hkv 1, D 256, R 16), ``tiny_serving_model()``'s
+at its defaults (Hq 8, Hkv 4, D 32, R 8) and h2o-danube-3-4b's (Hq 32, Hkv
+8, D 120, R 16: the dense tile runs it in D 128's columns in the
+split-half layout, emulated by ``tile_layout``), Sq = Sk = 200, causal
 with and without a window that straddles key blocks; the paged cases at
 Llama3-8B's heads and at the tiny model's, page 16, bf16 and int8 pages, as
 the chunked prefill
@@ -61,7 +63,7 @@ from repro_torch.models.transformer import quantize_kv
 
 LOG2E = 1.4426950408889634
 HEADS = {"llama3-8b": (32, 8, 128, 16), "recurrentgemma-9b": (16, 1, 256, 16),
-         "tiny-serve": (8, 4, 32, 8)}
+         "tiny-serve": (8, 4, 32, 8), "h2o-danube-3-4b": (32, 8, 120, 16)}
 SEQ = 200
 WINDOWS = (0, 77)
 SHARE = 0.005        # half of chip_smoke's BF16_RTOL
@@ -161,13 +163,45 @@ def dense_inputs(model, seed):
 _CACHE = ("k_base", "v_base", "k_res", "v_res", "b_k", "b_v", "sin", "cos")
 
 
-def emulate_dense(t, window, lowp):
+def tile_layout(t):
+    """The dense inputs as the bf16 kernels hold them on chip: head rows
+    in the tile's columns (``tra.tile_columns``; at head_dim 120 the two
+    halves at tile columns 0.. and 64.. of 128, the rest zero), sin/cos in
+    the first d/2 of the tile's half.  The identity where the tile is the
+    head's width."""
     d = t["q"].shape[-1]
+    w = tra.tile_dim(d)
+    if w == d:
+        return t
+    cols = tra.tile_columns(d)
+
+    def spread(x):
+        out = torch.zeros(x.shape[:-1] + (w,), dtype=x.dtype)
+        out[..., cols] = x
+        return out
+
+    def heads(b):        # (B, R, Hkv*D)
+        return spread(b.reshape(b.shape[:2] + (-1, d))).reshape(
+            b.shape[:2] + (-1,))
+
+    half = lambda x: torch.cat([x, torch.zeros(  # noqa: E731
+        x.shape[:-1] + ((w - d) // 2,), dtype=x.dtype)], -1)
+    return dict(t, q=spread(t["q"]), k_base=spread(t["k_base"]),
+                v_base=spread(t["v_base"]), b_k=heads(t["b_k"]),
+                b_v=heads(t["b_v"]), sin=half(t["sin"]), cos=half(t["cos"]))
+
+
+def emulate_dense(t, window, lowp):
+    """#7's tile, in its layout (``tile_layout``); the real columns of
+    its output."""
+    d = t["q"].shape[-1]
+    t = tile_layout(t)
     k = rebuild_k(t["k_base"], t["k_res"], t["b_k"], t["sin"], t["cos"],
                   lowp)
-    return emulate(t["q"], k, t["v_base"].float(), t["qpos"].long(),
-                   t["kv_len"].long(), scale=d ** -0.5, window=window,
-                   res=(t["v_res"], t["b_v"]), lowp=lowp)
+    out = emulate(t["q"], k, t["v_base"].float(), t["qpos"].long(),
+                  t["kv_len"].long(), scale=d ** -0.5, window=window,
+                  res=(t["v_res"], t["b_v"]), lowp=lowp)
+    return out[..., tra.tile_columns(d)]
 
 
 def rows_seeing_a_key(t, window):
@@ -680,9 +714,24 @@ def test_dense_decode_routes_by_dtype(dtype, want):
     (128, 4, 1000, torch.float32, 16),     # and 64 at D 128
     (128, 64, 5, torch.bfloat16, 2),
     (64, 4, 3, torch.bfloat16, 3),         # at most Sq
+    (120, 4, 1000, torch.bfloat16, 32),    # h2o-danube-3-4b: D 128's tile
+    (120, 4, 1000, torch.float32, 16),
 ])
 def test_tile_positions_by_kernel(d, group, sq, dtype, positions):
     assert tra.tile_positions(d, group, sq, dtype) == positions
+
+
+def test_split_half_layout_keeps_ropes_pairs():
+    """At head_dim 120 the tile is 128 wide and column c's RoPE partner c +
+    60 sits at tile column c + 64, the tile's own pairing; 60..63 and
+    124..127 hold no column.  Every other head_dim is its own tile."""
+    cols = tra.tile_columns(120)
+    assert tra.tile_dim(120) == 128
+    assert cols.tolist() == list(range(60)) + list(range(64, 124))
+    assert torch.equal(cols[60:] - cols[:60], torch.full((60,), 64))
+    for d in (32, 64, 128, 256):
+        assert tra.tile_dim(d) == d
+        assert torch.equal(tra.tile_columns(d), torch.arange(d))
 
 
 @pytest.mark.parametrize("dtype,positions", [(torch.bfloat16, 32),

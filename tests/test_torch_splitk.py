@@ -483,7 +483,8 @@ def test_res_split_plan_fills_the_card():
 # ------------------------------------------------------ dense decode (#8)
 # (D, G): head dims 64/128/256 with groups of 4 (Llama3-8B's) and 16
 # (RecurrentGemma-9B's, one whole m16 tile), two kv heads each
-DENSE_HEADS = [(d, g) for d in (64, 128, 256) for g in (4, 16)] + [(32, 2)]
+DENSE_HEADS = [(d, g) for d in (64, 128, 256) for g in (4, 16)] + [(32, 2)] \
+    + [(120, 4)]          # h2o-danube-3-4b's head_dim and group
 DENSE_SK = (1, 45, 230)
 
 
@@ -535,8 +536,37 @@ def merge(parts):
             sum(wi * pt[3] for wi, pt in zip(w, seen)))
 
 
+def tile_layout(t):
+    """The decode's inputs as its CTA holds them on chip: head rows in the
+    tile's columns (``tra.tile_columns``; at head_dim 120 the halves at
+    tile columns 0.. and 64.. of 128, the rest zero), sin/cos in the first
+    d/2 of the tile's half.  The identity where the tile is the head's
+    width."""
+    d = t["q"].shape[-1]
+    w = tra.tile_dim(d)
+    if w == d:
+        return t
+    cols = tra.tile_columns(d)
+
+    def spread(x):
+        out = torch.zeros(x.shape[:-1] + (w,), dtype=x.dtype)
+        out[..., cols] = x
+        return out
+
+    def heads(b):        # (B, R, Hkv*D)
+        return spread(b.reshape(b.shape[:2] + (-1, d))).reshape(
+            b.shape[:2] + (-1,))
+
+    half = lambda x: torch.cat([x, torch.zeros(  # noqa: E731
+        x.shape[:-1] + ((w - d) // 2,), dtype=x.dtype)], -1)
+    return dict(t, q=spread(t["q"]), k_base=spread(t["k_base"]),
+                v_base=spread(t["v_base"]), b_k=heads(t["b_k"]),
+                b_v=heads(t["b_v"]), sin=half(t["sin"]), cos=half(t["cos"]))
+
+
 def emulate_dense(t, n_split, window, lowp=True):
-    """#8's split-K decode: per (row, kv head) and range, each of the
+    """#8's split-K decode, in its tile's layout (``tile_layout``; the
+    output's real columns come back): per (row, kv head) and range, each of the
     CTA's warps runs an online softmax over its 16-key steps (warp w takes
     steps w, w + 4, ...; K = K_b + RoPE(K_r . B_k) in f32 from the caller's
     sin/cos, rounded once to bf16; P rounded to bf16 for P . V_b and P .
@@ -546,6 +576,8 @@ def emulate_dense(t, n_split, window, lowp=True):
     D)."""
     rnd = (lambda x: x.to(torch.bfloat16).float()) if lowp else \
         (lambda x: x)
+    scale, cols = t["q"].shape[-1] ** -0.5, tra.tile_columns(t["q"].shape[-1])
+    t = tile_layout(t)
     q = t["q"]
     bsz, hq, d = q.shape
     sk, hkv = t["k_base"].shape[1], t["k_base"].shape[2]
@@ -558,7 +590,7 @@ def emulate_dense(t, n_split, window, lowp=True):
                                              x2 * cs + x1 * sn], -1))
     v, vr = t["v_base"].float(), t["v_res"].float()
     b_v = t["b_v"].float().reshape(bsz, -1, hkv, d)
-    c = d ** -0.5 * LOG2E
+    c = scale * LOG2E
     step = tra.SPLIT_KEYS
     out = torch.zeros(bsz, hq, d)
     for b in range(bsz):
@@ -595,7 +627,7 @@ def emulate_dense(t, n_split, window, lowp=True):
             o = acc + rnd(accr) @ b_v[b, :, h]
             out[b, h * g:(h + 1) * g] = o / torch.clamp(lsum, min=1e-20)[
                 :, None]
-    return out
+    return out[..., cols]
 
 
 def dense_case(seed, d, g, sk, lowp):
@@ -683,11 +715,12 @@ def test_dense_ranges_cover_the_live_range_once():
 
 @pytest.mark.parametrize("d,r,ctas", [
     (64, 16, 2), (64, 32, 2), (128, 16, 1), (128, 32, 1), (256, 16, 1),
-    (256, 32, 1), (32, 16, 2), (32, 32, 2)])
+    (256, 32, 1), (32, 16, 2), (32, 32, 2), (120, 16, 1), (120, 32, 1)])
 def test_dense_split_smem_fits_the_card(d, r, ctas):
     """Each instance's shared memory fits a CTA of the H100 (227 KB; at D
     256 with one stage per warp), and as many CTAs per SM as the plan
-    counts on fit together."""
+    counts on fit together.  Head_dim 120 runs in D 128's tile and takes
+    its memory."""
     smem = tra.decode_split_smem(d, r)
     assert smem <= 227 * 1024
     assert tra.decode_ctas_per_sm(d, r) == ctas
@@ -699,6 +732,7 @@ def test_dense_split_smem_fits_the_card(d, r, ctas):
     (4, 16, 1, 256, 1, 0),       # RecurrentGemma-9B's
     (4, 16, 1, 256, 1, 2048),
     (4, 8, 4, 32, 1, 0),         # tiny_serving_model(): D 32, G 2
+    (4, 32, 8, 120, 1, 4096),    # h2o-danube-3-4b: D 120, window 4096
 ])
 def test_dense_split_plan_one_range_skips_the_combine(bsz, hq, hkv, d, sk,
                                                       window):
@@ -718,6 +752,7 @@ def test_dense_split_plan_one_range_skips_the_combine(bsz, hq, hkv, d, sk,
     (64, 32, 8, 128, 512, 0),    # more CTAs than the card holds
     (2, 128, 2, 128, 1000, 77),  # a group of 64: four head tiles
     (4, 8, 4, 32, 4096, 0),      # tiny_serving_model(): D 32, G 2
+    (4, 32, 8, 120, 4096, 4096),  # h2o-danube-3-4b: workspace at D 120
 ])
 def test_dense_split_plan_stays_in_bounds(bsz, hq, hkv, d, sk, window):
     plan = tra.decode_split_plan(bsz, hq, hkv, d, RANK, sk, window, 132)
@@ -756,6 +791,7 @@ def test_paged_wrappers_take_head_dims_32_64_128(d):
 
 @pytest.mark.parametrize("hq,hkv,d,page,what", [
     (8, 4, 48, 16, "head_dim 48"), (8, 4, 256, 16, "head_dim 256"),
+    (32, 8, 120, 16, "head_dim 120"),     # h2o-danube-3-4b: ROADMAP Queue 3
     (8, 4, 32, 64, "page size 64"), (8, 3, 32, 16, "multiple"),
     (128, 1, 32, 16, "group size")])
 def test_paged_wrappers_refuse_other_geometry(hq, hkv, d, page, what):
@@ -764,9 +800,9 @@ def test_paged_wrappers_refuse_other_geometry(hq, hkv, d, page, what):
 
 
 def test_dense_wrappers_take_head_dim_32_and_refuse_48():
-    """The dense kernels take head_dims 32, 64, 128 and 256; 48 is
+    """The dense kernels take head_dims 32, 64, 120, 128 and 256; 48 is
     refused."""
-    for d in (32, 64, 128, 256):
+    for d in (32, 64, 120, 128, 256):
         assert tra.tile_rows(d, 2) == tra.ROWS_BY_HEAD_DIM[d]
     with pytest.raises(ValueError, match="head_dim 48"):
         tra.tile_rows(48, 2)
