@@ -64,7 +64,15 @@ error:
    split-half layout), f32 and bf16, windows 0 and 300, ranks 5, 16 and
    32, each naming the kernel that ran, the bf16 4 x 1000 prefill and Sk
    4096 decode timed against their bound at D 120 and SDPA (the
-   ``d120_times`` line);
+   ``d120_times`` line); the six paged kernels and their int8 variants at
+   h2o-danube-3-4b's heads (``DANUBE_GEOM``: D 120, run in D 128's tile
+   with the halves split, #4 in D 128's lane map) on the fixed rows, f32
+   and bf16, windows 4096 and 300 (the bf16 cases at window 4096 timed
+   into ``d120_times``), and at ``D120_EDGES`` (kv_len 0/1/17 rows, ragged
+   mixed rows, a 32768-key row, ranks 5 and 32); every paged kernel and
+   int8 variant at pages of 64 tokens (run as sub-pages of 32,
+   ``pra.sub_pages``); the dense prefill and decode without RoPE (identity
+   sin/cos tables) at whisper-large-v3's decoder heads (20 over 20, D 64);
 4. a small f32 model served on the card and on the CPU: identical greedy
    tokens in forkkv and prefix mode, under the mixed and the
    phase-separated loop (``mixed_batching=False``), with broadcast fork
@@ -77,6 +85,14 @@ error:
    ``forward(disagg=True)`` logits card vs CPU, and greedy tokens from
    ``prefill`` + ``decode_step`` identical, over full-precision and over
    int8 caches;
+   then a 2-layer f32 model at h2o-danube-3-4b's head geometry (Hq 32 over
+   Hkv 8, head_dim 120) card vs CPU in forkkv, prefix and full_reuse under
+   both loops, and over int8 pages in forkkv and prefix, identical greedy
+   tokens, each serve's D 120 kernels launched; mamba2-130m's and
+   whisper-large-v3's ``tiny()`` (whisper with frame embeddings, 4
+   adapters, ``disagg=True``) greedy ``prefill`` + ``decode_step`` tokens
+   identical card vs CPU, launching no kernel (neither reaches a Pallas
+   kernel in the reference);
    then the same for a 6-layer f32 hybrid at head_dim 256 (the scan
    kernel and the dense kernels at D 256), with a prompt that wraps the
    local ring; then the tiers: tests/test_tiers.py's ReAct run of
@@ -146,16 +162,25 @@ error:
    staggered forks and 8 greedy tokens in forkkv (#1/#2) and prefix
    (#3/#4) mode under the mixed loop, and run ``forward(disagg=True)`` on
    4 x 1000 tokens (#7 once per layer) and at one token (#8 once per
-   layer); h2o-danube-3-4b (24 layers, head_dim 120, window 4096) runs the
-   same ``forward`` s (#7 and #8 at D 120) and ``prefill`` of 600 + 16
-   ``decode_step`` s, and a card server must be refused with a ValueError
-   naming head_dim 120 (the paged kernels do not take it yet);
+   layer); h2o-danube-3-4b (24 layers, head_dim 120, window 4096) serves
+   the same session in forkkv and prefix mode under the mixed loop (#1/#2,
+   #3/#4 at D 120) and under the phase-separated loop (#5/#2, #6/#4), each
+   with tokens per second, TTFT and TPOT p50, peak pages and cache bytes,
+   and runs the same ``forward`` s (#7 and #8 at D 120) and ``prefill`` of
+   600 + 16 ``decode_step`` s;
    llava-next-mistral-7b (32 layers) runs ``forward`` on 2880 patch
    embeddings + 120 tokens, ``forward`` at one token (#8), and
    ``prefill`` of the patches and tokens + 16 ``decode_step`` s;
    llama4-maverick (2 of 48 layers: one dense and one MoE sublayer of 128
    experts with the shared expert) the ``forward`` s and ``prefill`` 600
-   + 8 ``decode_step`` s.  Each ``zoo`` line logs init seconds, ms per
+   + 8 ``decode_step`` s; mamba2-130m (24 layers, through the model API)
+   ``forward`` on 4 x 1000 tokens and ``prefill`` 600 + 32
+   ``decode_step`` s; whisper-large-v3 (32 encoder and 32 decoder layers,
+   1500 stub frame embeddings per row, 4 adapters, ``disagg=True``)
+   ``forward`` on 4 x 448 tokens and ``prefill`` of 64 tokens with the
+   frames + 32 ``decode_step`` s, neither launching a kernel (a
+   ``zoo_seconds`` line gives each model's time).  Each ``zoo`` line logs
+   init seconds, ms per
    call, launches by counter, peak memory and, for the MoE models, the
    share of assignments dropped at capacity factor 1.25;
 6. the kernels again, at every launch geometry the serves of 5. gave
@@ -167,12 +192,15 @@ error:
    random f32 inputs of the same geometry; the scan kernel on the inputs
    of its first launch at each shape of 5. (f32, timed) and on the same
    inputs in bf16; the dense kernels also on the inputs of their first
-   launch by h2o-danube-3-4b (D 120);
+   launch by h2o-danube-3-4b (D 120), and the six paged kernels at every
+   launch geometry of its serves (at its heads, D 120);
 7. the kernels line (#1–#6, their int8 variants, #7–#9, each named by the
    counter of the kernel the bf16 main path ran: ``_mma`` for #1, #3, #5,
    #6, their int8 variants and #7, ``_splitk`` for #2, #4, their int8
    variants and #8; #7 and #8 at D 128, at D 256 (``_d256``) and at D 120
-   (``_d120``)), the card line and the result line.
+   (``_d120``); #1–#6 also at D 120 (``_d120``), at h2o-danube-3-4b's
+   heaviest serving launch with its serves' launch counts), the card line
+   and the result line.
 """
 import dataclasses
 import gc
@@ -727,6 +755,98 @@ def check_d32(pra, ref, quantize):
     return timed
 
 
+# h2o-danube-3-4b's heads: head_dim 120, which the tensor-core tiles (#6,
+# #3, #5, #1) and #2's group tile run in D 128's columns with the halves
+# split, #4 in D 128's lane map; its window of 4096 (on rows of at most
+# 2048 keys it lets every key through, on the kernels' windowed path) and
+# 300, which straddles pages and shares
+DANUBE_GEOM = dict(hq=32, hkv=8, d=120, r=16, page=16)
+D120_WINDOWS = (4096, 300)
+# the edge lengths at D 120, windows 0 and 300: #5/#6 on rows at kv_len 0,
+# 1 and 17 beside a 512-token chunk, #1/#3 on ragged mixed rows, #2/#4 on
+# rows at kv_len 0, 1 and 17 beside a 2048 row and on one row at 32768,
+# and #5/#1/#2 at ranks 5 and 32
+_D120_DECODE_EDGE = dict(start=[2047, 0, 0, 16], qlen=[1, 0, 1, 1], sq=1,
+                         width=128)
+D120_EDGES = [
+    (entry, label, DANUBE_GEOM, rows)
+    for label, rows, entries in (
+        ("kv_len 0, 1, 17", dict(RES_PREFILL_ROWS, width=128),
+         ("paged_residual_attention_prefill", "paged_attention_prefill_base")),
+        ("q_len 0, 1, 17, 512; kv_len 0, 1, 17",
+         dict(RES_MIXED_ROWS, width=128),
+         ("paged_residual_attention_mixed", "paged_attention_mixed_base")),
+        ("kv_len 2048, 0, 1, 17", _D120_DECODE_EDGE,
+         ("paged_residual_attention_decode", "paged_attention_decode_base")),
+        ("long row", dict(start=[32767], qlen=[1], sq=1, width=2048),
+         ("paged_residual_attention_decode", "paged_attention_decode_base")))
+    for entry in entries] + [
+    (entry, f"R {r}", dict(DANUBE_GEOM, r=r), dict(FIXED[kind], width=128))
+    for r in (5, 32)
+    for entry, kind in (("paged_residual_attention_prefill", "prefill"),
+                        ("paged_residual_attention_mixed", "mixed"),
+                        ("paged_residual_attention_decode", "decode"))]
+
+
+def check_d120(pra, ref, quantize):
+    """Phase 3, head_dim 120: the six paged kernels and their int8 variants
+    at h2o-danube-3-4b's heads (``DANUBE_GEOM``) on the fixed rows, f32
+    and bf16, windows ``D120_WINDOWS``, each against its plain version
+    (int8 also within ``QUANT_TOL`` of full precision), each naming the
+    kernel that ran; then at ``D120_EDGES``, windows 0 and 300.  The bf16
+    cases over bf16 pages at window 4096 are timed, their bound counted at
+    D 120 (``work``).  Returns the timed records."""
+    timed = []
+    for (dtype, tol), window, quant in itertools.product(
+            DTYPES, D120_WINDOWS, (False, True)):
+        cases = {k: make_case(k, dtype, window, seed=41 + window,
+                              quantize=quantize if quant else None,
+                              geom=DANUBE_GEOM, **FIXED[k]) for k in FIXED}
+        for name, (kind, _) in ALL_KERNELS.items():
+            if name.endswith("_int8") != quant:
+                continue
+            c = cases[kind]
+            rec = compare(pra, ref, name, c, tol, f"D 120 {kind}")
+            if dtype == torch.bfloat16 and window == 4096 and not quant:
+                timed.append(measure(pra, ref, name, c, rec))
+            log("kernel_d120", **rec, ok=True)
+        del cases
+        torch.cuda.empty_cache()
+    for (entry, label, geom, rows), (dtype, tol), window, quant in \
+            itertools.product(D120_EDGES, DTYPES, (0, 300), (False, True)):
+        name = entry + ("_int8" if quant else "")
+        c = make_case(KERNELS[entry][0], dtype, window, seed=43,
+                      quantize=quantize if quant else None, geom=geom,
+                      **rows)
+        log("kernel_d120", **compare(pra, ref, name, c, tol,
+                                     f"D 120 edge {label}"), ok=True)
+        del c
+    torch.cuda.empty_cache()
+    return timed
+
+
+def check_page64(pra, ref, quantize):
+    """Phase 3, pages of 64 tokens, above the kernels' 32: each wrapper
+    serves them as sub-pages of 32 (``pra.sub_pages``: views of the pools,
+    tables expanded), every kernel and int8 variant at Llama3-8B's heads on
+    the fixed rows (tables of 32 pages of 64), f32 and bf16, windows 0 and
+    300, against its plain version on the 64-token pages."""
+    geom = dict(LLAMA_GEOM, page=64)
+    for (dtype, tol), window, quant in itertools.product(
+            DTYPES, (0, 300), (False, True)):
+        cases = {k: make_case(k, dtype, window, seed=47,
+                              quantize=quantize if quant else None,
+                              geom=geom, **dict(FIXED[k], width=32))
+                 for k in FIXED}
+        for name, (kind, _) in ALL_KERNELS.items():
+            if name.endswith("_int8") == quant:
+                log("kernel_page64", **compare(pra, ref, name, cases[kind],
+                                               tol, f"page 64 {kind}"),
+                    ok=True)
+        del cases
+    torch.cuda.empty_cache()
+
+
 def time_decode_launches(pra, ref, quantize):
     """Phase 3, bf16, bf16 and int8 pages: a mixed-grid launch (#3) whose
     rows are all decode rows (the fixed decode rows, Sq 1) fills G of the
@@ -760,10 +880,11 @@ def time_decode_launches(pra, ref, quantize):
             ok=True)
 
 
-def check_serving_shapes(pra, ref, recorded, quantize):
+def check_serving_shapes(pra, ref, recorded, quantize, geom=None):
     """Phase 6: each kernel at every distinct launch geometry of the
     serves, f32 and bf16, on random inputs (int8 pages for the int8
-    variants).  Of launches with the same
+    variants) at the serving model's heads (``geom``; Llama3-8B's by
+    default).  Of launches with the same
     (batch, query width, table width, window) the one with the most
     (query, key) pairs stands for them.  Each is timed in bf16, what the
     server runs; returns the record of the heaviest per kernel."""
@@ -784,7 +905,7 @@ def check_serving_shapes(pra, ref, recorded, quantize):
             for dtype, tol in DTYPES:
                 c = make_case(kind, dtype, window, seed=5, start=list(start),
                               qlen=list(qlen), sq=sq, width=width,
-                              quantize=quant)
+                              quantize=quant, geom=geom)
                 rec = compare(pra, ref, name, c, tol, case)
                 rec.update(start=list(start), q_len=list(qlen))
                 if dtype == torch.bfloat16:
@@ -950,6 +1071,35 @@ def check_dense_d120(ra, ref):
         del c
     torch.cuda.empty_cache()
     return timed
+
+
+# whisper-large-v3's decoder self-attention: 20 heads over 20 kv heads
+# (group 1) at head_dim 64, rank 16, no RoPE (identity sin 0 / cos 1
+# tables, as ``transformer._qkv`` gives them with ``use_rope=False``): a
+# 448-token prefill (its decoder length) and a decode over 512 keys
+WHISPER_HEADS = (20, 20, 64, 16)
+DENSE_IDENTITY = [
+    ("whisper prefill Sq=Sk=448", WHISPER_HEADS, 448, 448, [0] * 4, None),
+    ("whisper decode Sk 512", WHISPER_HEADS, 1, 512, [511, 300, 63, 0],
+     [512, 301, 64, 1]),
+]
+
+
+def check_dense_identity(ra, ref):
+    """Phase 3, no RoPE: the dense prefill (#7) and decode (#8) at
+    ``DENSE_IDENTITY`` with identity sin/cos tables, f32 and bf16, windows
+    0 and 100, against their plain version, each naming the kernel that
+    ran (the geometry and tables of whisper's decoder self-attention; the
+    reference's whisper model API itself reaches neither kernel)."""
+    for (dtype, tol), (i, case), window in itertools.product(
+            DTYPES, enumerate(DENSE_IDENTITY), (0, 100)):
+        c = make_dense_case(*case, dtype=dtype, window=window, seed=190 + i)
+        c["sin"] = torch.zeros_like(c["sin"])
+        c["cos"] = torch.ones_like(c["cos"])
+        log("dense_kernel_identity", **compare_dense(ra, ref, c, tol),
+            ok=True)
+        del c
+    torch.cuda.empty_cache()
 
 
 def rope_tables(bsz, sk, d, dtype, device="cuda"):
@@ -2284,22 +2434,19 @@ D32_SERVES = tuple(
     for extra in ({}, dict(mixed_batching=False)))
 
 
-def tiny_d32_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig, SamplingParams,
-                         pra):
-    """Phase 4: ``tiny_serving_model()`` at its defaults (4 f32 layers,
-    d_model 256, 8 heads over 4 kv heads: head_dim 32), the reference
-    serve launcher's model, served on the card and on the CPU from the
-    same weights in forkkv, prefix and full_reuse, under the mixed and the
-    phase-separated loop: identical greedy tokens, and on the card each
-    serve's kernels launched (``D32_SERVES``).  Returns {label: tokens}."""
-    cfg = tiny()
-    if cfg.resolved_head_dim != 32:
-        raise AssertionError(f"tiny_serving_model() has head_dim "
-                             f"{cfg.resolved_head_dim}, not 32")
+def serves_card_vs_cpu(cfg, phase, serves, tfm, ForkServer, ServeConfig,
+                       SamplingParams, pra):
+    """Phase 4: ``cfg`` served on the card and on the CPU from the same
+    weights in every (mode, settings, entries) of ``serves``: identical
+    greedy tokens, and on the card each serve's entries launched the
+    kernels an f32 model runs (``pra.kernel_name``; int8 variants for an
+    int8 model).  Logs one ``phase`` line per serve; returns {label:
+    tokens}."""
     params = tfm.init_params(cfg, 0, device="cpu")
     lora = tfm.init_lora_stacks(cfg, 1, 8, device="cpu")
+    int8 = cfg.kv_quant == "int8"
     got = {}
-    for mode, extra, expect in D32_SERVES:
+    for mode, extra, expect in serves:
         sc = ServeConfig(page_size=16, max_pages=128, max_batch=8,
                          max_prefill_tokens=64, max_pages_per_req=16,
                          mode=mode, **extra)
@@ -2312,19 +2459,117 @@ def tiny_d32_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig, SamplingParams,
                                SamplingParams)
             check_serving(outs, m, 6, mixed=sc.mixed_batching)
             ran = {k for k, v in pra.LAUNCHES.items() if v}
-            want = {pra.kernel_name(e, torch.float32, False) for e in expect}
+            want = {pra.kernel_name(e, torch.float32, int8) for e in expect}
             if dev == "cuda" and not want <= ran:
-                raise AssertionError(f"D 32 {mode} {extra}: launched "
+                raise AssertionError(f"{phase} {mode} {extra}: launched "
                                      f"{sorted(ran)}, not {sorted(want)}")
             toks[dev] = [o.tokens for o in outs]
         if toks["cuda"] != toks["cpu"]:
-            raise AssertionError(f"D 32 {mode} {extra}: card {toks['cuda']} "
-                                 f"!= CPU {toks['cpu']}")
+            raise AssertionError(f"{phase} {mode} {extra}: card "
+                                 f"{toks['cuda']} != CPU {toks['cpu']}")
         label = f"{mode}{' phase-separated' if extra else ''}"
         got[label] = toks["cuda"]
-        log("tiny_d32", mode=mode, **extra, head_dim=cfg.resolved_head_dim,
-            launched=sorted(want), tokens=toks["cuda"], ok=True)
+        log(phase, mode=mode, **extra, head_dim=cfg.resolved_head_dim,
+            kv_quant=cfg.kv_quant, launched=sorted(want),
+            tokens=toks["cuda"], ok=True)
     return got
+
+
+def tiny_d32_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig, SamplingParams,
+                         pra):
+    """Phase 4: ``tiny_serving_model()`` at its defaults (4 f32 layers,
+    d_model 256, 8 heads over 4 kv heads: head_dim 32), the reference
+    serve launcher's model, served on the card and on the CPU from the
+    same weights in forkkv, prefix and full_reuse, under the mixed and the
+    phase-separated loop: identical greedy tokens, and on the card each
+    serve's kernels launched (``D32_SERVES``).  Returns {label: tokens}."""
+    cfg = tiny()
+    if cfg.resolved_head_dim != 32:
+        raise AssertionError(f"tiny_serving_model() has head_dim "
+                             f"{cfg.resolved_head_dim}, not 32")
+    return serves_card_vs_cpu(cfg, "tiny_d32", D32_SERVES, tfm, ForkServer,
+                              ServeConfig, SamplingParams, pra)
+
+
+def small_d120_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig,
+                           SamplingParams, pra):
+    """Phase 4, head_dim 120: a 2-layer f32 model with h2o-danube-3-4b's
+    head geometry (Hq 32 over Hkv 8, head_dim 120; d_model 256) served on
+    the card and on the CPU in every mode and loop of ``D32_SERVES``, and
+    over int8 pages in forkkv and prefix under both loops: identical
+    greedy tokens, each serve's kernels launched at D 120."""
+    cfg = dataclasses.replace(tiny(num_layers=2, num_heads=32,
+                                   num_kv_heads=8, vocab_size=512),
+                              head_dim=120)
+    got = serves_card_vs_cpu(cfg, "small_d120", D32_SERVES, tfm, ForkServer,
+                             ServeConfig, SamplingParams, pra)
+    cfg8 = dataclasses.replace(cfg, kv_quant="int8")
+    got.update({f"{k} int8": v for k, v in serves_card_vs_cpu(
+        cfg8, "small_d120", [x for x in D32_SERVES if x[0] != "full_reuse"],
+        tfm, ForkServer, ServeConfig, SamplingParams, pra).items()})
+    return got
+
+
+def greedy_api(api, params, tokens, n_new, prompt_len, max_len, disagg,
+               prefill_kw, kw):
+    """``prefill`` of ``prompt_len`` tokens (with ``prefill_kw``, such as
+    whisper's frame embeddings) through the model API ``api``, then greedy
+    ``decode_step`` s up to ``n_new`` tokens; returns them (B, n_new)."""
+    dev = tokens.device
+    cache = api.init_cache(tokens.shape[0], max_len, disagg=disagg,
+                           device=dev)
+    lg, cache = api.prefill(params, tokens[:, :prompt_len], cache,
+                            **prefill_kw, **kw)
+    out = [lg[:, 0].argmax(-1)]
+    kv_len = torch.full((tokens.shape[0],), prompt_len, dtype=torch.int32,
+                        device=dev)
+    for _ in range(n_new - 1):
+        lg, cache = api.decode_step(params, out[-1], cache, kv_len, **kw)
+        out.append(lg.argmax(-1))
+        kv_len = kv_len + 1
+    return torch.stack(out, 1)
+
+
+def small_families_card_vs_cpu(configs, registry, mods):
+    """Phase 4, the SSM and audio families: ``mamba2-130m``'s and
+    ``whisper-large-v3``'s ``tiny()`` (f32) on the card and on the CPU from
+    the same weights, greedy ``prefill`` + ``decode_step`` tokens identical
+    (whisper with its frame embeddings, 4 LoRA adapters and
+    ``disagg=True``).  Neither launches a kernel, as neither reaches a
+    Pallas kernel in the reference (mamba2's scan is plain code; whisper's
+    cached self-attention is the gather path's plain attention and its
+    ``forward`` uses plain ``mha``)."""
+    for arch in ("mamba2-130m", "whisper-large-v3"):
+        cfg = configs.get_tiny_config(arch)
+        api = registry.get_model(cfg)
+        params = api.init_params(0, device="cpu")
+        rng = np.random.default_rng(9)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 24)))
+        frames = torch.from_numpy(rng.standard_normal(
+            (4, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        lora = api.init_lora_stacks(1, 4, device="cpu") \
+            if api.init_lora_stacks else None
+        toks = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda t: t.to(dev), params)
+            kw = {} if lora is None else dict(
+                lora=tree_map(lambda t: t.to(dev), lora),
+                adapter_ids=torch.arange(4, device=dev), disagg=True)
+            pre = {"extra_embeds": frames.to(dev)} \
+                if cfg.family == "audio" else {}
+            reset_counts(*mods)
+            toks[dev] = greedy_api(api, p, tokens.to(dev), 12, 16, 32,
+                                   lora is not None, pre, kw).cpu()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                expect_launches(mods, {})
+        if not torch.equal(toks["cuda"], toks["cpu"]):
+            raise AssertionError(f"{arch} tiny greedy tokens: card "
+                                 f"{toks['cuda'].tolist()} != CPU "
+                                 f"{toks['cpu'].tolist()}")
+        log("small_family", model=cfg.name, family=cfg.family,
+            disagg=lora is not None, launches={},
+            tokens=toks["cuda"].tolist(), ok=True)
 
 
 REACT_SC = dict(page_size=16, max_pages=26, max_batch=4,
@@ -2468,12 +2713,18 @@ ZOO_MODELS = (
     ("starcoder2-3b", None, ("serve", "dense")),
     ("internlm2-1.8b", None, ("serve", "dense")),
     ("llama3-405b", 2, ("serve", "dense")),
-    ("h2o-danube-3-4b", None, ("refuse", "dense", "cache", "f32")),
+    ("h2o-danube-3-4b", None, ("serve", "phase-separated", "dense", "cache",
+                               "f32")),
     ("llava-next-mistral-7b", None, ("patches",)),
     ("llama4-maverick-400b-a17b", 2, ("dense", "cache")),
+    ("mamba2-130m", None, ("ssm",)),
+    ("whisper-large-v3", None, ("audio",)),
 )
 ZOO_SERVE = dict(ctx=1024, forks=4, adapters=4, instr=64, new=8)
 ZOO_SERVES = LLAMA_SERVES[:2]          # forkkv and prefix, mixed loop
+# with "phase-separated": the same two under the phase-separated loop (#5
+# and #2, #6 and #4)
+ZOO_PHASE_SERVES = LLAMA_SERVES[2:4]
 ZOO_SC = dict(max_pages=1024, max_pages_per_req=128)
 
 
@@ -2506,7 +2757,7 @@ class DropShare:
 
 
 def zoo_model(arch, depth, runs, tfm, configs, mods, pra, ref, first,
-              ForkServer, ServeConfig, SamplingParams, card):
+              ForkServer, ServeConfig, SamplingParams, card, shapes):
     """One zoo model at full width (``depth`` layers where given): init,
     then what ``runs`` names, each with the launch counts zeroed just
     before it and checked just after:
@@ -2514,9 +2765,11 @@ def zoo_model(arch, depth, runs, tfm, configs, mods, pra, ref, first,
     * "serve": the staggered serve (``ZOO_SERVE``: a 1024-token session, 4
       forks over 4 adapters, 8 greedy tokens) through ``ForkServer`` in
       forkkv and prefix mode under the mixed loop, which must launch #1/#2
-      and #3/#4 (``check_counts``);
-    * "refuse": a card server must be refused at construction, naming the
-      head_dim (the paged kernels take no head_dim 120 yet);
+      and #3/#4 (``check_counts``), each logged with tokens per second,
+      TTFT and TPOT p50, peak base and residual pages and cache bytes;
+      at head_dim 120 every launch's geometry goes to ``shapes``;
+    * "phase-separated": the same serves under the phase-separated loop,
+      which must launch #5/#2 and #6/#4;
     * "dense": ``forward(disagg=True)`` on 4 x 1000 tokens over adapters
       0-3 (#7 once per layer; for an MoE model the share of assignments
       dropped at the default capacity factor) and at one token (#8 once
@@ -2535,7 +2788,8 @@ def zoo_model(arch, depth, runs, tfm, configs, mods, pra, ref, first,
       and ``prefill`` of the patches + 120 tokens + 16 ``decode_step`` s.
 
     Logs one ``zoo`` line (times in ms, peak memory, launches by counter);
-    returns the dense kernels' launches."""
+    returns the launches of its main path by counter (the serves' paged
+    kernels and the dense kernels)."""
     cfg = configs.get_config(arch)
     full = cfg.num_layers
     if depth:
@@ -2575,42 +2829,45 @@ def zoo_model(arch, depth, runs, tfm, configs, mods, pra, ref, first,
             counter[k] = counter.get(k, 0) + v
         return out
 
-    if "serve" in runs:
-        for label, mode, extra, expect in ZOO_SERVES:
-            server = ForkServer(cfg, params, lora,
-                                ServeConfig(mode=mode, **ZOO_SC, **extra))
-            reset_counts(*mods)
-            z = ZOO_SERVE
+    serves = (ZOO_SERVES if "serve" in runs else ()) + \
+        (ZOO_PHASE_SERVES if "phase-separated" in runs else ())
+    record = shapes if cfg.resolved_head_dim == D120 else None
+    for label, mode, extra, expect in serves:
+        server = ForkServer(cfg, params, lora,
+                            ServeConfig(mode=mode, **ZOO_SC, **extra))
+        reset_counts(*mods)
+        z = ZOO_SERVE
+        if record is not None:
+            record.__enter__()
+        try:
             outs, m, seconds = serve(server, cfg.vocab_size, z["ctx"],
                                      z["forks"], z["adapters"], z["instr"],
                                      z["new"], seed=22,
                                      sampling_cls=SamplingParams)
-            launches[f"serve {label}"] = check_counts(
-                pra, ref, [pra.kernel_name(e, cfg.activation_dtype, False)
-                           for e in expect], cfg.activation_dtype)
-            check_serving(outs, m, z["new"])
-            ms[f"serve {label}"] = seconds * 1e3
-            rec[f"serve {label}"] = dict(
-                tokens_per_s=sum(len(o.tokens) for o in outs) / seconds,
-                ttft_p50_ms=m["ttft_p50_ms"], tpot_p50_ms=m["tpot_p50_ms"],
-                steps=m["steps"], mixed_steps=m["mixed_steps"],
-                tokens=[o.tokens for o in outs[:2]])
-            # the server holds the weights in reference cycles: collect them
-            # now, or every model's weights outlive it
-            del server, outs
-            gc.collect()
-            torch.cuda.empty_cache()
-    if "refuse" in runs:
-        try:
-            ForkServer(cfg, params, lora, ServeConfig(mode="forkkv",
-                                                      **ZOO_SC))
-        except ValueError as err:
-            if f"head_dim {cfg.resolved_head_dim}" not in str(err):
-                raise
-            rec["server_refused"] = str(err)
-        else:
-            raise AssertionError(f"{arch}: a card server took head_dim "
-                                 f"{cfg.resolved_head_dim}")
+        finally:
+            if record is not None:
+                record.__exit__(None, None, None)
+        ran = check_counts(
+            pra, ref, [pra.kernel_name(e, cfg.activation_dtype, False)
+                       for e in expect], cfg.activation_dtype)
+        launches[f"serve {label}"] = ran
+        for k, v in ran.items():
+            dense[k] = dense.get(k, 0) + v
+        check_serving(outs, m, z["new"], mixed=server.engine.sc.mixed_batching)
+        ms[f"serve {label}"] = seconds * 1e3
+        rec[f"serve {label}"] = dict(
+            tokens_per_s=sum(len(o.tokens) for o in outs) / seconds,
+            ttft_p50_ms=m["ttft_p50_ms"], tpot_p50_ms=m["tpot_p50_ms"],
+            steps=m["steps"], mixed_steps=m["mixed_steps"],
+            peak_base_pages=m["peak_base_pages"],
+            peak_res_pages=m["peak_res_pages"],
+            peak_cache_bytes=m["peak_cache_bytes"],
+            tokens=[o.tokens for o in outs[:2]])
+        # the server holds the weights in reference cycles: collect them
+        # now, or every model's weights outlive it
+        del server, outs
+        gc.collect()
+        torch.cuda.empty_cache()
     if "dense" in runs:
         with DropShare(tfm) as drops:
             counted("forward", lambda: tfm.forward(
@@ -2694,23 +2951,125 @@ def zoo_model(arch, depth, runs, tfm, configs, mods, pra, ref, first,
     return dense
 
 
-def zoo(tfm, configs, mods, pra, ref, ra, ForkServer, ServeConfig,
+def zoo_family(arch, runs, configs, registry, mods, card):
+    """One zoo model of the SSM or audio family at full width and depth,
+    bf16, random weights from seed 0, through the model API
+    (``registry.get_model``), each call with the launch counts zeroed just
+    before it and checked just after (no kernel: neither family reaches a
+    Pallas kernel in the reference, see ``small_families_card_vs_cpu``):
+
+    * "ssm" (mamba2-130m, 24 layers): ``forward`` on 4 x 1000 tokens, then
+      ``prefill`` of 600 tokens + 32 ``decode_step`` s;
+    * "audio" (whisper-large-v3, 32 encoder and 32 decoder layers): 1500
+      stub frame embeddings per row from the seed, 4 LoRA adapters of rank
+      16, ``disagg=True``: ``forward`` on 4 x 448 tokens (the decoder's
+      length), ``prefill`` of a 64-token prompt with the frames (the
+      encoder and the cross cache) + 32 ``decode_step`` s.
+
+    Logs one ``zoo`` line (init seconds, ms per call, peak memory,
+    launches); returns its launches (none)."""
+    cfg = configs.get_config(arch)
+    api = registry.get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(0)
+    lora = api.init_lora_stacks(1, 4) if api.init_lora_stacks else None
+    torch.cuda.synchronize()
+    leaves = []
+    tree_map(leaves.append, params)
+    rec = dict(model=arch, family=cfg.family, layers=cfg.num_layers,
+               encoder_layers=cfg.num_encoder_layers, d_model=cfg.d_model,
+               init_seconds=time.perf_counter() - t0,
+               param_gib=sum(t.numel() * t.element_size()
+                             for t in leaves) / 2 ** 30)
+    del leaves
+    bsz = 4
+    rng = np.random.default_rng(21)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (bsz, 1000))).cuda()
+    kw = {} if lora is None else dict(
+        lora=lora, adapter_ids=torch.arange(bsz, device="cuda"), disagg=True)
+    pre = {}
+    if "audio" in runs:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(23)
+        pre["extra_embeds"] = (torch.randn(
+            (bsz, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device="cuda") * 0.02).to(cfg.activation_dtype)
+    fwd_len, prompt, steps = (448, 64, 32) if "audio" in runs else \
+        (1000, 600, 32)
+    ms, launches = {}, {}
+
+    def counted(label, fn):
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) * 1e3
+        launches[label] = expect_launches(mods, {})
+        return out
+
+    logits = counted("forward", lambda: api.forward(
+        params, tokens[:, :fwd_len], **pre, **kw))
+    if logits.shape != (bsz, fwd_len, cfg.vocab_size) or \
+            not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"{arch}: forward gave {tuple(logits.shape)} "
+                             f"/ non-finite")
+    del logits
+    cache = api.init_cache(bsz, prompt + steps, disagg=lora is not None)
+    lg, cache = counted("prefill", lambda: api.prefill(
+        params, tokens[:, :prompt], cache, **pre, **kw))
+
+    def decode():
+        kv_len = torch.full((bsz,), prompt, dtype=torch.int32, device="cuda")
+        out = None
+        for t in range(prompt, prompt + steps):
+            out, _ = api.decode_step(params, tokens[:, t], cache, kv_len,
+                                     **kw)
+            kv_len = kv_len + 1
+        return out
+
+    lg = counted("decode", decode)
+    ms["decode_ms_per_step"] = ms["decode"] / steps
+    if lg.shape != (bsz, cfg.vocab_size) or \
+            not torch.isfinite(lg.float()).all():
+        raise AssertionError(f"{arch}: decode gave {tuple(lg.shape)} / "
+                             f"non-finite")
+    log("zoo", card=card, **rec, forward_tokens=[bsz, fwd_len],
+        prompt=prompt, decode_steps=steps, ms=ms, launches=launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, ok=True)
+    del params, lora, tokens, cache, lg, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {}
+
+
+def zoo(tfm, configs, registry, mods, pra, ref, ra, ForkServer, ServeConfig,
         SamplingParams, card):
-    """Phase 5, zoo: every ``ZOO_MODELS`` entry in turn (``zoo_model``).
-    Returns (the dense kernels' launches per model, the first dense
-    launches of the head_dim-120 model as phase 6's cases)."""
+    """Phase 5, zoo: every ``ZOO_MODELS`` entry in turn (``zoo_model``; the
+    SSM and audio families ``zoo_family``).  Returns (the main path's
+    launches per model, the first dense launches of the head_dim-120 model
+    and the geometries of its serves' paged launches, as phase 6's
+    cases)."""
     dense, d120 = {}, None
+    shapes = LaunchShapes(pra)
     t0 = time.perf_counter()
     for arch, depth, runs in ZOO_MODELS:
-        first = FirstLaunch(ra)
-        dense[arch] = zoo_model(arch, depth, runs, tfm, configs, mods, pra,
-                                ref, first, ForkServer, ServeConfig,
-                                SamplingParams, card)
-        if configs.get_config(arch).resolved_head_dim == D120:
-            d120 = first.cases
+        t1 = time.perf_counter()
+        if configs.get_config(arch).family in ("ssm", "audio"):
+            dense[arch] = zoo_family(arch, runs, configs, registry, mods,
+                                     card)
+        else:
+            first = FirstLaunch(ra)
+            dense[arch] = zoo_model(arch, depth, runs, tfm, configs, mods,
+                                    pra, ref, first, ForkServer, ServeConfig,
+                                    SamplingParams, card, shapes)
+            if configs.get_config(arch).resolved_head_dim == D120:
+                d120 = first.cases
+        log("zoo_seconds", model=arch, seconds=time.perf_counter() - t1)
     log("zoo_done", models=[m[0] for m in ZOO_MODELS],
         seconds=time.perf_counter() - t0)
-    return dense, d120
+    return dense, d120, shapes.launches()
 
 
 def main() -> int:
@@ -2733,7 +3092,7 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.kernels import residual_attention as ra
     from repro_torch.kernels import rg_lru as rg
-    from repro_torch.models import hybrid
+    from repro_torch.models import hybrid, registry
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import workflows
     from repro_torch.serving.api import ForkServer
@@ -2786,7 +3145,12 @@ def main() -> int:
         {k: r[k] for k in ("kernel", "ran", "case", "kernel_ms", "plain_ms",
                            "library_ms", "bound_ms", "bound_by",
                            "max_abs_err")}
-        for r in check_dense_d120(ra, ref)])
+        for r in check_dense_d120(ra, ref) + check_d120(pra, ref,
+                                                        tfm.quantize_kv)])
+    # (g) pages of 64 tokens, run as sub-pages of 32
+    check_page64(pra, ref, tfm.quantize_kv)
+    # (h) the dense kernels without RoPE at whisper's decoder heads
+    check_dense_identity(ra, ref)
 
     # 4. small models: card vs CPU
     small_model_card_vs_cpu(tiny_serving_model, tfm, ForkServer,
@@ -2794,6 +3158,11 @@ def main() -> int:
     # (b) tiny_serving_model() at its defaults, head_dim 32
     tiny_d32_card_vs_cpu(tiny_serving_model, tfm, ForkServer, ServeConfig,
                          SamplingParams, pra)
+    # (i) head_dim 120 served in every mode and loop; the SSM and audio
+    # families' tiny models
+    small_d120_card_vs_cpu(tiny_serving_model, tfm, ForkServer, ServeConfig,
+                           SamplingParams, pra)
+    small_families_card_vs_cpu(configs, registry, mods)
     small_dense_card_vs_cpu(tiny_serving_model, tfm, mods)
     small_hybrid_card_vs_cpu(hybrid, RG9B, mods)
     small_tiers_card_vs_cpu(tiny_serving_model, tfm, Engine, ServeConfig,
@@ -2956,15 +3325,19 @@ def main() -> int:
     rg_launches = rg_hybrid(RG9B, hybrid, mods, rg_first, scans)
 
     # (f) the zoo: the transformer family's other archs at full width
-    zoo_launches, d120_cases = zoo(tfm, configs, mods, pra, ref, ra,
-                                   ForkServer, ServeConfig, SamplingParams,
-                                   card)
+    zoo_launches, d120_cases, d120_serves = zoo(
+        tfm, configs, registry, mods, pra, ref, ra, ForkServer, ServeConfig,
+        SamplingParams, card)
 
     # 6. kernels at the main paths' launch geometries
     recorded = shapes.launches()
     log("serve_launches", geometries={
         n: sorted({k[:4] for k in v}) for n, v in recorded.items()})
     measured = check_serving_shapes(pra, ref, recorded, tfm.quantize_kv)
+    log("serve_launches_d120", geometries={
+        n: sorted({k[:4] for k in v}) for n, v in d120_serves.items()})
+    measured.update({f"{n}_d120": rec for n, rec in check_serving_shapes(
+        pra, ref, d120_serves, tfm.quantize_kv, geom=DANUBE_GEOM).items()})
     measured.update(check_dense_main_path(ra, ref, first.cases))
     measured.update({f"{n}_d256": rec for n, rec in check_dense_main_path(
         ra, ref, rg_first.cases).items()})
@@ -2987,6 +3360,10 @@ def main() -> int:
         source = DISAGG_SOURCE if n.startswith("paged_residual") \
             else PAGED_SOURCE
         entries.append((name, n, launches[name], r, source, "llama3-8b"))
+        if f"{n}_d120" in measured:       # h2o-danube-3-4b's serves (bf16)
+            entries.append((f"{name}_d120", f"{n}_d120",
+                            zoo_launches["h2o-danube-3-4b"][name], r, source,
+                            "h2o-danube-3-4b"))
     for n, r in DENSE_KERNELS.items():
         name = ra.prefill_kernel(torch.bfloat16) \
             if n == "residual_attention_prefill" else \

@@ -5,7 +5,8 @@
 // rebuild of K = K_b + RoPE(K_r . B_k) on the tensor cores (#7, #5; its
 // MMA part for #2), the int8 pages' dequantization to bf16 (#6, #3,
 // #5, #2), and head rows narrower than their tile (``Cols``: head_dim 120
-// in D 128's tile, #7 and #8).
+// in D 128's tile, #7 and #8, the paged tiles of #6, #3, #5 and #1, and
+// #2's group tile).
 //
 // A CTA holds kRows = 128 query rows, 16 per warp of its 8: on the H100
 // both kernels ran faster so than with 4 warps (64 rows), which load (and
@@ -374,16 +375,20 @@ __device__ __forceinline__ void dequantize_rows(const unsigned char* codes,
   }
 }
 
-// Head rows of DR elements in a tile D columns wide (#7 and #8).  DR == D:
-// the row as it is, in 16-byte copies.  DR < D (head_dim 120 in D 128's
-// tile): the split-half layout.  RoPE pairs column c with c + DR/2 and the
-// tile's code pairs c with c + D/2, so the real columns [0, DR/2) go to
-// [0, DR/2) and [DR/2, DR) to [D/2, D/2 + DR/2); the kGap columns after
-// each half hold zeros (``zero_gaps``), add nothing to Q . K^T and are
-// never stored (``store_cols``).  A half of 60 elements starts at byte 120
-// of its row, which a 16-byte copy cannot address, so at DR < D every copy
-// is 8 bytes.  sin/cos rows of DR/2 elements fill the first DR/2 of the
-// tile's D/2 columns.
+// Head rows of DR elements in a tile D columns wide (#7 and #8; the paged
+// tiles #6, #3, #5, #1 and #2's group tile).  DR == D: the row as it is,
+// in 16-byte copies.  DR < D (head_dim 120 in D 128's tile): the
+// split-half layout.  RoPE pairs column c with c + DR/2 and the tile's code
+// pairs c with c + D/2, so the real columns [0, DR/2) go to [0, DR/2) and
+// [DR/2, DR) to [D/2, D/2 + DR/2); the kGap columns after each half hold
+// zeros (``zero_gaps``), add nothing to Q . K^T and are never stored
+// (``store_cols``).  A half of 60 elements starts at byte 120 of its row,
+// which a 16-byte copy cannot address, so at DR < D every copy is 8 bytes.
+// sin/cos rows of DR/2 elements fill the first DR/2 of the tile's D/2
+// columns.  int8 pages: a head row is DR codes, copied as they are into a
+// staging row D bytes wide (16-byte copies; 8-byte at DR < D, since a row
+// starts at a multiple of 120 bytes), and dequantized into the tile by
+// ``dequantize_cols``.
 template <int D, int DR>
 struct Cols {
   static_assert(DR == D || (DR < D && (DR / 2) % 4 == 0 && (D - DR) % 4 == 0),
@@ -392,6 +397,8 @@ struct Cols {
   static constexpr int kRow = DR / kVec;           // copies per head row
   static constexpr int kHalf = DR / 2 / kVec;      // copies per sin/cos row
   static constexpr int kGap = (D - DR) / 2;        // zero columns per half
+  static constexpr int kCodeVec = DR == D ? 16 : 8;  // int8 codes per copy
+  static constexpr int kCodeRow = DR / kCodeVec;     // copies per code row
 
   // the tile column of a head row's element e
   __device__ static __forceinline__ int col(int e) {
@@ -400,6 +407,20 @@ struct Cols {
   // is tile column c one of the gap columns?
   __device__ static __forceinline__ bool gap(int c) {
     return kGap > 0 && ((c >= DR / 2 && c < D / 2) || c >= D / 2 + DR / 2);
+  }
+  // the head row's element at tile column c; -1 for a gap column
+  __device__ static __forceinline__ int elem(int c) {
+    return gap(c) ? -1 : c < D / 2 ? c : c - kGap;
+  }
+  // copy i (of kCodeRow) of a row of DR int8 codes at src into the
+  // staging row at dst
+  __device__ static __forceinline__ void codes(unsigned char* dst,
+                                               const int8_t* src, int i,
+                                               bool ok) {
+    if constexpr (kCodeVec == 16)
+      cp_async16(dst + i * 16, src + i * 16, ok);
+    else
+      cp_async8(dst + i * 8, src + i * 8, ok);
   }
   __device__ static __forceinline__ void copy(bf16* dst, const bf16* src,
                                               bool ok) {
@@ -438,6 +459,35 @@ struct Cols {
         base[(e / kGap) * hs + DR / 2 + e % kGap] = __float2bfloat16(0.f);
   }
 };
+
+// ``dequantize_rows`` for staging rows of DR codes (stride D bytes) into
+// tile rows D wide (``Cols``).  DR == D: groups of 8 codes, as there.  DR
+// < D: the second half starts at code DR/2 (60: only 4-byte aligned), so
+// the codes go in groups of 4 (one 4-byte load, two bf16 pairs), which
+// never straddle a half; each lands at its tile column (``Cols::col``).
+// The gap columns are not written: the caller zeroes them once.
+template <int D, int DR>
+__device__ __forceinline__ void dequantize_cols(const unsigned char* codes,
+                                                const float* scales,
+                                                bf16* dst, int ds, int rows,
+                                                int tid, int nthreads) {
+  if constexpr (DR == D) {
+    dequantize_rows<D>(codes, scales, dst, ds, rows, tid, nthreads);
+  } else {
+    for (int e = tid; e < rows * (DR / 4); e += nthreads) {
+      const int t = e / (DR / 4), u = 4 * (e % (DR / 4));
+      const uint32_t raw =
+          *reinterpret_cast<const uint32_t*>(codes + t * D + u);
+      const float sc = scales[t];
+      *reinterpret_cast<uint2*>(dst + t * ds + Cols<D, DR>::col(u)) =
+          make_uint2(
+              pack_bf16(__fmul_rn((float)(int8_t)raw, sc),
+                        __fmul_rn((float)(int8_t)(raw >> 8), sc)),
+              pack_bf16(__fmul_rn((float)(int8_t)(raw >> 16), sc),
+                        __fmul_rn((float)(int8_t)(raw >> 24), sc)));
+    }
+  }
+}
 
 // ``store_rows`` for the tile columns [c0, c0 + N) of head rows of DR
 // elements in a tile D wide (``Cols``): dst[h] points at the row's element

@@ -72,6 +72,12 @@ namespace {
 // rounding the tensor cores add is P's.  (Scaling S's and P's columns
 // instead would need the scales in registers per key column and round P
 // after the V scale, a point the plain version does not have.)
+//
+// Head rows of DR elements run in a tile D wide (flash::Cols): DR == D at
+// head_dim 32, 64 and 128; head_dim 120 (h2o-danube-3-4b) in D 128's tile
+// in the split-half layout, q, the pages and out read and written as they
+// are (8-byte copies, int8 codes in groups of 4), the gap columns of Q and
+// of the K/V tiles zeroed once on chip.
 template <int D, bool INT8>
 struct PagedMmaLayout {
   static constexpr int BK = 64;
@@ -87,11 +93,12 @@ struct PagedMmaLayout {
       (size_t)kElems * sizeof(__nv_bfloat16) + (INT8 ? 2 * kStage8 : 0);
 };
 
-template <int D, bool INT8>
+template <int D, int DR, bool INT8>
 __global__ void __launch_bounds__(flash::kThreads, 1)
 paged_prefill_base_mma_kernel(Args a, int bsz) {
   using flash::bf16;
   using L = PagedMmaLayout<D, INT8>;
+  using C = flash::Cols<D, DR>;           // head rows of DR in D columns
   constexpr int BK = L::BK, DS = L::DS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sm = reinterpret_cast<bf16*>(smem_raw);
@@ -118,23 +125,27 @@ paged_prefill_base_mma_kernel(Args a, int bsz) {
   const long out_tile = ((long)b * a.sq + q0) * a.hq + (long)h * G;
 
   // rows at or past q_len: exact zeros
-  for (int e = tid; e < (npos - nq) * G * (D / 8); e += flash::kThreads) {
-    const int qi = nq + e / (G * (D / 8)), rest = e % (G * (D / 8));
-    *reinterpret_cast<uint4*>(out + (out_tile + (long)qi * a.hq) * D +
+  for (int e = tid; e < (npos - nq) * G * (DR / 8); e += flash::kThreads) {
+    const int qi = nq + e / (G * (DR / 8)), rest = e % (G * (DR / 8));
+    *reinterpret_cast<uint4*>(out + (out_tile + (long)qi * a.hq) * DR +
                               rest * 8) = make_uint4(0, 0, 0, 0);
   }
   if (nq == 0) return;
   const int nrows = nq * G;                         // row = qi * G + g
 
   const bf16* q = static_cast<const bf16*>(a.q);
-  for (int e = tid; e < flash::kRows * (D / 8); e += flash::kThreads) {
-    const int r = e / (D / 8), c = e % (D / 8);
+  for (int e = tid; e < flash::kRows * C::kRow; e += flash::kThreads) {
+    const int r = e / C::kRow, i = e % C::kRow;
     const bool ok = r < nrows;
     const bf16* src =
-        ok ? q + (out_tile + (long)(r / G) * a.hq + r % G) * D + c * 8 : q;
-    flash::cp_async16(Qs + r * DS + c * 8, src, ok);
+        ok ? q + (out_tile + (long)(r / G) * a.hq + r % G) * DR : q;
+    C::row(Qs + r * DS, src, i, ok);
   }
   flash::cp_async_commit();
+  // the split-half layout's gap columns (DR < D) stay zero in Q and in
+  // the K/V tiles (both stages; int8 pages: the one converted tile)
+  C::zero_gaps(Qs, flash::kRows, DS, tid, flash::kThreads);
+  C::zero_gaps(sm + L::kKV, (INT8 ? 2 : 4) * BK, DS, tid, flash::kThreads);
 
   const int klimit = min(kvlen, a.w * page);
   const int qpos_lo = start + q0, qpos_hi = start + q0 + nq - 1;
@@ -157,24 +168,24 @@ paged_prefill_base_mma_kernel(Args a, int bsz) {
       const bf16* vb = static_cast<const bf16*>(a.vb);
       bf16* Kd = sm + L::kKV + st * L::kTile;
       bf16* Vd = Kd + BK * DS;
-      for (int e = tid; e < BK * (D / 8); e += flash::kThreads) {
-        const int t = e / (D / 8), c = e % (D / 8);
+      for (int e = tid; e < BK * C::kRow; e += flash::kThreads) {
+        const int t = e / C::kRow, i = e % C::kRow;
         const bool ok = j0 + t < klimit;
-        const long src = ok ? token(j0 + t) * D + c * 8 : 0;
-        flash::cp_async16(Kd + t * DS + c * 8, kb + src, ok);
-        flash::cp_async16(Vd + t * DS + c * 8, vb + src, ok);
+        const long src = ok ? token(j0 + t) * DR : 0;
+        C::row(Kd + t * DS, kb + src, i, ok);
+        C::row(Vd + t * DS, vb + src, i, ok);
       }
     } else {
       const int8_t* kb = static_cast<const int8_t*>(a.kb);
       const int8_t* vb = static_cast<const int8_t*>(a.vb);
       unsigned char* s8 = staging + st * L::kStage8;
       float* ksc = reinterpret_cast<float*>(s8 + 2 * BK * D);
-      for (int e = tid; e < BK * (D / 16); e += flash::kThreads) {
-        const int t = e / (D / 16), c = e % (D / 16);
+      for (int e = tid; e < BK * C::kCodeRow; e += flash::kThreads) {
+        const int t = e / C::kCodeRow, i = e % C::kCodeRow;
         const bool ok = j0 + t < klimit;
-        const long src = ok ? token(j0 + t) * D + c * 16 : 0;
-        flash::cp_async16(s8 + t * D + c * 16, kb + src, ok);
-        flash::cp_async16(s8 + BK * D + t * D + c * 16, vb + src, ok);
+        const long src = ok ? token(j0 + t) * DR : 0;
+        C::codes(s8 + t * D, kb + src, i, ok);
+        C::codes(s8 + BK * D + t * D, vb + src, i, ok);
       }
       for (int t = tid; t < BK; t += flash::kThreads) {
         const bool ok = j0 + t < klimit;
@@ -211,7 +222,7 @@ paged_prefill_base_mma_kernel(Args a, int bsz) {
     const bf16* Ks = sm + L::kKV + (INT8 ? 0 : st * L::kTile);
     if constexpr (INT8) {      // stage st's codes into the one bf16 tile
       const unsigned char* s8 = staging + st * L::kStage8;
-      flash::dequantize_rows<D>(
+      flash::dequantize_cols<D, DR>(
           s8, reinterpret_cast<const float*>(s8 + 2 * BK * D), sm + L::kKV,
           DS, 2 * BK, tid, flash::kThreads);
       __syncthreads();
@@ -234,16 +245,16 @@ paged_prefill_base_mma_kernel(Args a, int bsz) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = warp * 16 + (lane >> 2) + 8 * hh;
-    dst[hh] = r < nrows ? out + (out_tile + (long)(r / G) * a.hq + r % G) * D
+    dst[hh] = r < nrows ? out + (out_tile + (long)(r / G) * a.hq + r % G) * DR
                         : nullptr;
   }
-  flash::store_rows<D>(o, l, dst, lane);
+  flash::store_cols<D, D, DR>(o, l, dst, 0, lane);
 }
 
-template <int D, bool INT8>
+template <int D, bool INT8, int DR = D>
 int launch_prefill_mma(const Args& a, int bsz, cudaStream_t stream) {
   using L = PagedMmaLayout<D, INT8>;
-  auto kernel = paged_prefill_base_mma_kernel<D, INT8>;
+  auto kernel = paged_prefill_base_mma_kernel<D, DR, INT8>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (err != cudaSuccess) return (int)err;
@@ -253,8 +264,9 @@ int launch_prefill_mma(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The bf16 base-only chunked prefill and mixed grid: D 32/64/128, tq * G
-// <= 128 rows, page 1..32, bf16 or int8 pages.
+// The bf16 base-only chunked prefill and mixed grid: D 32/64/128, and 120
+// in D 128's tile (split halves, ``flash::Cols``); tq * G <= 128 rows,
+// page 1..32, bf16 or int8 pages.
 int dispatch_prefill_mma(const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.tq < 1 ||
@@ -270,6 +282,9 @@ int dispatch_prefill_mma(const Args& a, int bsz, void* stream) {
   if (a.d == 128)
     return int8 ? launch_prefill_mma<128, true>(a, bsz, s)
                 : launch_prefill_mma<128, false>(a, bsz, s);
+  if (a.d == 120)
+    return int8 ? launch_prefill_mma<128, true, 120>(a, bsz, s)
+                : launch_prefill_mma<128, false, 120>(a, bsz, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -293,7 +308,12 @@ int dispatch_prefill_mma(const Args& a, int bsz, void* stream) {
 // stay in registers.  Each lane holds 8 columns of one key (16 bytes of
 // bf16 K, 32 of f32, 8 of int8 codes), so D / 8 lanes read one key's row
 // and a warp takes 32 / (D / 8) whole keys per step (8 at D 32, 4 at D
-// 64, 2 at D 128).  Per step a lane copies the K and V columns of U keys
+// 64, 2 at D 128).  Head rows of DR < D columns (head_dim 120) take D
+// 128's lane map with the columns in order: 15 lanes of a key hold its
+// 120 columns and the 16th holds none (it copies nothing, and its zero q
+// and K/V add nothing to the key's sums); no RoPE pairs columns here, and
+// every lane's 8 columns start at a 16-byte (bf16, f32) or 8-byte (int8)
+// boundary of its row, since a row of 120 starts at one.  Per step a lane copies the K and V columns of U keys
 // (up to 128 bytes; a key past the
 // split copies the split's last key, whose score is masked, so no copy
 // branches) into its own slots of the warp's two shared-memory stages by
@@ -499,7 +519,7 @@ __device__ __forceinline__ void copy_cols(Cols<TB>* dst, const TB* src) {
   }
 }
 
-template <typename T, typename TB, int D, int GT>
+template <typename T, typename TB, int D, int DR, int GT>
 __global__ void __launch_bounds__(kThreads, min_blocks(GT))
 paged_decode_split_kernel(Args a) {
   constexpr int LPK = D / kCols;         // lanes per key
@@ -551,6 +571,7 @@ paged_decode_split_kernel(Args a) {
     bt_s[i] = bt[j_lo + i];
   const int grp = warp * KPW + lane / LPK;   // key group
   const int c0 = (lane % LPK) * kCols;       // first column of the lane
+  const bool live = c0 < DR;                 // the lane holds columns
 
   // q rows of the CTA's heads, columns c0..c0+7, in f32
   float qf[GT][kCols];
@@ -558,8 +579,8 @@ paged_decode_split_kernel(Args a) {
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
     Cols<T> qc;
-    if (g < ng)
-      load_cols(qc, q + (head0 + g) * D + c0);
+    if (g < ng && live)
+      load_cols(qc, q + (head0 + g) * DR + c0);
     else
       zero_cols(qc);
     cols_f32<T, T>(qf[g], qc, 0.f);
@@ -657,8 +678,10 @@ paged_decode_split_kernel(Args a) {
         const long tok =
             ((long)bt_s[page_of(kp) - j_lo] * a.page + slot_of(kp)) *
                 a.hkv + h;
-        copy_cols(slot_k(st, u), kb + tok * D + c0);
-        copy_cols(slot_v(st, u), vb + tok * D + c0);
+        if (live) {
+          copy_cols(slot_k(st, u), kb + tok * DR + c0);
+          copy_cols(slot_v(st, u), vb + tok * DR + c0);
+        }
         if constexpr (INT8) {
           cp_async<4>(slot_s(st, u), a.kb_s + tok);
           cp_async<4>(slot_s(st, u) + 1, a.vb_s + tok);
@@ -677,8 +700,13 @@ paged_decode_split_kernel(Args a) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       f.ok[u] = k_lo + (it * U + u) * NG + grp < k_hi;
-      f.k[u] = *slot_k(st, u);
-      f.v[u] = *slot_v(st, u);
+      if (live) {
+        f.k[u] = *slot_k(st, u);
+        f.v[u] = *slot_v(st, u);
+      } else {
+        zero_cols(f.k[u]);
+        zero_cols(f.v[u]);
+      }
       if constexpr (INT8) {
         f.ks[u] = slot_s(st, u)[0];
         f.vs[u] = slot_s(st, u)[1];
@@ -722,9 +750,9 @@ paged_decode_split_kernel(Args a) {
   }
   __syncthreads();
 
-  // merge the warps and write the split's partials
-  for (int e = tid; e < ng * D; e += kThreads) {
-    const int g = e / D, col = e % D;
+  // merge the warps and write the split's partials (the DR real columns)
+  for (int e = tid; e < ng * DR; e += kThreads) {
+    const int g = e / DR, col = e % DR;
     float mx = cm[0][g];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, cm[w][g]);
@@ -736,7 +764,7 @@ paged_decode_split_kernel(Args a) {
       o = fmaf(wt, cacc[w][g][col], o);
     }
     const long row = (head0 + g) * a.n_split + split;
-    a.ws_acc[row * D + col] = o;
+    a.ws_acc[row * DR + col] = o;
     if (col == 0) {
       a.ws_m[row] = mx;
       a.ws_l[row] = lsum;
@@ -779,9 +807,9 @@ inline int bt_entries(const Args& a) {
   return (int)std::min<long>(a.w, share / a.page + 2);
 }
 
-template <typename T, typename TB, int D, int GT>
+template <typename T, typename TB, int D, int DR, int GT>
 int launch(const Args& a, cudaStream_t stream) {
-  auto kernel = paged_decode_split_kernel<T, TB, D, GT>;
+  auto kernel = paged_decode_split_kernel<T, TB, D, DR, GT>;
   constexpr int U = keys_per_step<TB, GT>();
   const size_t smem = (size_t)kWarps * kStages * stage_bytes<TB, U>() +
                       (size_t)bt_entries(a) * sizeof(int);
@@ -811,13 +839,13 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TB, int D>
+template <typename T, typename TB, int D, int DR = D>
 int launch_heads(const Args& a, cudaStream_t s) {
   const int G = a.hq / a.hkv;
-  if (G <= 1) return launch<T, TB, D, 1>(a, s);
-  if (G <= 2) return launch<T, TB, D, 2>(a, s);
-  if (G <= 4) return launch<T, TB, D, 4>(a, s);
-  return launch<T, TB, D, 8>(a, s);
+  if (G <= 1) return launch<T, TB, D, DR, 1>(a, s);
+  if (G <= 2) return launch<T, TB, D, DR, 2>(a, s);
+  if (G <= 4) return launch<T, TB, D, DR, 4>(a, s);
+  return launch<T, TB, D, DR, 8>(a, s);
 }
 
 template <typename T, typename TB>
@@ -825,11 +853,13 @@ int launch_dims(const Args& a, cudaStream_t s) {
   if (a.d == 32) return launch_heads<T, TB, 32>(a, s);
   if (a.d == 64) return launch_heads<T, TB, 64>(a, s);
   if (a.d == 128) return launch_heads<T, TB, 128>(a, s);
+  if (a.d == 120) return launch_heads<T, TB, 128, 120>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // dtype: q's type (0 f32, 1 bf16); int8 pages exactly when scales given.
-// D 32/64/128, any G, page 1..32, n_split >= 1.
+// D 32/64/128 and 120 (in D 128's lane map), any G, page 1..32,
+// n_split >= 1.
 int dispatch(int dtype, const Args& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.n_split < 1 ||

@@ -58,6 +58,11 @@ namespace {
 // D * 2 bytes in all).  Each q tile of a row repeats the rebuild of the blocks
 // it reads: 2 R D MMA flops per key against 4 * 128 * D for its QK and PV,
 // ~6% more tensor work at R 16; the rebuilt K never leaves the chip.
+// Head rows of DR < D (head_dim 120) run in D 128's tile in the split-half
+// layout of flash::Cols, as the dense prefill (#7) runs them: RoPE's
+// c <-> c + 60 becomes the tile's c <-> c + 64; Q, B_k, B_v, the K/V tiles
+// and the sin/cos rows keep zero gap columns, so the rebuilt K is zero
+// there; q, the pages and the tables are read as they are.
 template <int D, int RP, bool INT8>
 struct PagedResMmaLayout {
   static constexpr int BK = 64;
@@ -81,12 +86,13 @@ struct PagedResMmaLayout {
       (size_t)kElems * sizeof(__nv_bfloat16) + (INT8 ? 2 * kStage8 : 0);
 };
 
-template <int D, int RP, bool INT8>
+template <int D, int DR, int RP, bool INT8>
 __global__ void __launch_bounds__(flash::kThreads, 1)
 paged_prefill_res_mma_kernel(Args a, int bsz) {
   using flash::bf16;
   using L = PagedResMmaLayout<D, RP, INT8>;
-  constexpr int BK = L::BK, DS = L::DS, RS = L::RS, HS = L::HS, HALF = D / 2;
+  using C = flash::Cols<D, DR>;           // head rows of DR in D columns
+  constexpr int BK = L::BK, DS = L::DS, RS = L::RS, HS = L::HS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sm = reinterpret_cast<bf16*>(smem_raw);
   bf16* Qs = sm + L::kQ;
@@ -114,35 +120,42 @@ paged_prefill_res_mma_kernel(Args a, int bsz) {
   const long out_tile = ((long)b * a.sq + q0) * a.hq + (long)h * G;
 
   // rows at or past q_len: exact zeros
-  for (int e = tid; e < (npos - nq) * G * (D / 8); e += flash::kThreads) {
-    const int qi = nq + e / (G * (D / 8)), rest = e % (G * (D / 8));
-    *reinterpret_cast<uint4*>(out + (out_tile + (long)qi * a.hq) * D +
+  for (int e = tid; e < (npos - nq) * G * (DR / 8); e += flash::kThreads) {
+    const int qi = nq + e / (G * (DR / 8)), rest = e % (G * (DR / 8));
+    *reinterpret_cast<uint4*>(out + (out_tile + (long)qi * a.hq) * DR +
                               rest * 8) = make_uint4(0, 0, 0, 0);
   }
   if (nq == 0) return;
   const int nrows = nq * G;                         // row = qi * G + g
-  const long hd = (long)a.hkv * D;
+  const long hd = (long)a.hkv * DR;
 
   // Q rows (zero past nrows), B_k and B_v rows (zero from R to RP)
   const bf16* q = static_cast<const bf16*>(a.q);
   const bf16* bk = static_cast<const bf16*>(a.bk);
   const bf16* bv = static_cast<const bf16*>(a.bv);
-  for (int e = tid; e < flash::kRows * (D / 8); e += flash::kThreads) {
-    const int r = e / (D / 8), c = e % (D / 8);
+  for (int e = tid; e < flash::kRows * C::kRow; e += flash::kThreads) {
+    const int r = e / C::kRow, i = e % C::kRow;
     const bool ok = r < nrows;
     const bf16* src =
-        ok ? q + (out_tile + (long)(r / G) * a.hq + r % G) * D + c * 8 : q;
-    flash::cp_async16(Qs + r * DS + c * 8, src, ok);
+        ok ? q + (out_tile + (long)(r / G) * a.hq + r % G) * DR : q;
+    C::row(Qs + r * DS, src, i, ok);
   }
-  for (int e = tid; e < RP * (D / 8); e += flash::kThreads) {
-    const int rr = e / (D / 8), c = e % (D / 8);
+  for (int e = tid; e < RP * C::kRow; e += flash::kThreads) {
+    const int rr = e / C::kRow, i = e % C::kRow;
     const bool ok = rr < R;
-    const long src = ok ? ((long)b * R + rr) * hd + (long)h * D + c * 8 : 0;
-    flash::cp_async16(Bks + rr * DS + c * 8, bk + src, ok);
-    flash::cp_async16(Bvs + rr * DS + c * 8, bv + src, ok);
+    const long src = ok ? ((long)b * R + rr) * hd + (long)h * DR : 0;
+    C::row(Bks + rr * DS, bk + src, i, ok);
+    C::row(Bvs + rr * DS, bv + src, i, ok);
   }
   flash::cp_async_commit();
-  // K_r / V_r columns R..RP-1 stay zero in both stages
+  // the split-half layout's gap columns (DR < D) stay zero in Q, B_k, B_v,
+  // the K/V tiles and the sin/cos rows of both stages (int8 pages: the one
+  // converted tile), as do K_r / V_r columns R..RP-1
+  C::zero_gaps(Qs, flash::kRows, DS, tid, flash::kThreads);
+  C::zero_gaps(Bks, RP, DS, tid, flash::kThreads);
+  C::zero_gaps(Bvs, RP, DS, tid, flash::kThreads);
+  if constexpr (INT8)
+    C::zero_gaps(sm + L::kKV8, 2 * BK, DS, tid, flash::kThreads);
   for (int st = 0; st < 2; ++st) {
     bf16* base = sm + L::kStages + st * L::kStage;
     for (int e = tid; e < BK * (RP - R); e += flash::kThreads) {
@@ -150,6 +163,9 @@ paged_prefill_res_mma_kernel(Args a, int bsz) {
       base[L::kKr + t * RS + rr] = __float2bfloat16(0.f);
       base[L::kVr + t * RS + rr] = __float2bfloat16(0.f);
     }
+    if constexpr (!INT8) C::zero_gaps(base, 2 * BK, DS, tid, flash::kThreads);
+    C::zero_table_gaps(base + L::kSin, BK, HS, tid, flash::kThreads);
+    C::zero_table_gaps(base + L::kCos, BK, HS, tid, flash::kThreads);
   }
 
   const int klimit = min(kvlen, a.w * page);
@@ -182,24 +198,24 @@ paged_prefill_res_mma_kernel(Args a, int bsz) {
     if constexpr (!INT8) {
       const bf16* kb = static_cast<const bf16*>(a.kb);
       const bf16* vb = static_cast<const bf16*>(a.vb);
-      for (int e = tid; e < BK * (D / 8); e += flash::kThreads) {
-        const int t = e / (D / 8), c = e % (D / 8);
+      for (int e = tid; e < BK * C::kRow; e += flash::kThreads) {
+        const int t = e / C::kRow, i = e % C::kRow;
         const bool ok = j0 + t < klimit;
-        const long src = ok ? token(j0 + t) * D + c * 8 : 0;
-        flash::cp_async16(base + t * DS + c * 8, kb + src, ok);
-        flash::cp_async16(base + BK * DS + t * DS + c * 8, vb + src, ok);
+        const long src = ok ? token(j0 + t) * DR : 0;
+        C::row(base + t * DS, kb + src, i, ok);
+        C::row(base + BK * DS + t * DS, vb + src, i, ok);
       }
     } else {
       const int8_t* kb = static_cast<const int8_t*>(a.kb);
       const int8_t* vb = static_cast<const int8_t*>(a.vb);
       unsigned char* s8 = staging + st * L::kStage8;
       float* ksc = reinterpret_cast<float*>(s8 + 2 * BK * D);
-      for (int e = tid; e < BK * (D / 16); e += flash::kThreads) {
-        const int t = e / (D / 16), c = e % (D / 16);
+      for (int e = tid; e < BK * C::kCodeRow; e += flash::kThreads) {
+        const int t = e / C::kCodeRow, i = e % C::kCodeRow;
         const bool ok = j0 + t < klimit;
-        const long src = ok ? token(j0 + t) * D + c * 16 : 0;
-        flash::cp_async16(s8 + t * D + c * 16, kb + src, ok);
-        flash::cp_async16(s8 + BK * D + t * D + c * 16, vb + src, ok);
+        const long src = ok ? token(j0 + t) * DR : 0;
+        C::codes(s8 + t * D, kb + src, i, ok);
+        C::codes(s8 + BK * D + t * D, vb + src, i, ok);
       }
       for (int t = tid; t < BK; t += flash::kThreads) {
         const bool ok = j0 + t < klimit;
@@ -208,12 +224,12 @@ paged_prefill_res_mma_kernel(Args a, int bsz) {
         flash::cp_async4(ksc + BK + t, a.vb_s + src, ok);
       }
     }
-    for (int e = tid; e < BK * (HALF / 8); e += flash::kThreads) {
-      const int t = e / (HALF / 8), c = e % (HALF / 8);
+    for (int e = tid; e < BK * C::kHalf; e += flash::kThreads) {
+      const int t = e / C::kHalf, i = e % C::kHalf;
       const bool ok = j0 + t < klimit;
-      const long src = ok ? (long)(j0 + t) * HALF + c * 8 : 0;
-      flash::cp_async16(base + L::kSin + t * HS + c * 8, sin_tab + src, ok);
-      flash::cp_async16(base + L::kCos + t * HS + c * 8, cos_tab + src, ok);
+      const long src = ok ? (long)(j0 + t) * (DR / 2) : 0;
+      C::half(base + L::kSin + t * HS, sin_tab + src, i, ok);
+      C::half(base + L::kCos + t * HS, cos_tab + src, i, ok);
     }
     if (vec_res) {
       for (int e = tid; e < BK * (R / 8); e += flash::kThreads) {
@@ -264,7 +280,7 @@ paged_prefill_res_mma_kernel(Args a, int bsz) {
     bf16* Ks = INT8 ? sm + L::kKV8 : sm + L::kStages + st * L::kStage;
     if constexpr (INT8) {      // stage st's codes into the one bf16 tile
       const unsigned char* s8 = staging + st * L::kStage8;
-      flash::dequantize_rows<D>(
+      flash::dequantize_cols<D, DR>(
           s8, reinterpret_cast<const float*>(s8 + 2 * BK * D), Ks, DS,
           2 * BK, tid, flash::kThreads);
       __syncthreads();
@@ -300,16 +316,16 @@ paged_prefill_res_mma_kernel(Args a, int bsz) {
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = warp * 16 + (lane >> 2) + 8 * hh;
-    dst[hh] = r < nrows ? out + (out_tile + (long)(r / G) * a.hq + r % G) * D
+    dst[hh] = r < nrows ? out + (out_tile + (long)(r / G) * a.hq + r % G) * DR
                         : nullptr;
   }
-  flash::store_rows<D>(o, l, dst, lane);
+  flash::store_cols<D, D, DR>(o, l, dst, 0, lane);
 }
 
-template <int D, int RP, bool INT8>
+template <int D, int DR, int RP, bool INT8>
 int launch_prefill_res_mma(const Args& a, int bsz, cudaStream_t stream) {
   using L = PagedResMmaLayout<D, RP, INT8>;
-  auto kernel = paged_prefill_res_mma_kernel<D, RP, INT8>;
+  auto kernel = paged_prefill_res_mma_kernel<D, DR, RP, INT8>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (err != cudaSuccess) return (int)err;
@@ -319,19 +335,20 @@ int launch_prefill_res_mma(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DR = D>
 int launch_prefill_res_rank(const Args& a, int bsz, cudaStream_t s) {
   const bool int8 = a.kb_s != nullptr;
   if (a.r <= 16)
-    return int8 ? launch_prefill_res_mma<D, 16, true>(a, bsz, s)
-                : launch_prefill_res_mma<D, 16, false>(a, bsz, s);
-  return int8 ? launch_prefill_res_mma<D, 32, true>(a, bsz, s)
-              : launch_prefill_res_mma<D, 32, false>(a, bsz, s);
+    return int8 ? launch_prefill_res_mma<D, DR, 16, true>(a, bsz, s)
+                : launch_prefill_res_mma<D, DR, 16, false>(a, bsz, s);
+  return int8 ? launch_prefill_res_mma<D, DR, 32, true>(a, bsz, s)
+              : launch_prefill_res_mma<D, DR, 32, false>(a, bsz, s);
 }
 
 // The bf16 disaggregated chunked prefill (q_len null) and mixed grid (q_len
-// given): D 32/64/128, R 1..32, tq * G <= 128 rows, page 1..32, bf16 or
-// int8 pages, RoPE tables given.
+// given): D 32/64/128, and 120 in D 128's tile (split halves,
+// ``flash::Cols``); R 1..32, tq * G <= 128 rows, page 1..32, bf16 or int8
+// pages, RoPE tables given.
 int dispatch_prefill_res_mma(const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.tq < 1 ||
@@ -341,6 +358,7 @@ int dispatch_prefill_res_mma(const Args& a, int bsz, void* stream) {
   if (a.d == 32) return launch_prefill_res_rank<32>(a, bsz, s);
   if (a.d == 64) return launch_prefill_res_rank<64>(a, bsz, s);
   if (a.d == 128) return launch_prefill_res_rank<128>(a, bsz, s);
+  if (a.d == 120) return launch_prefill_res_rank<128, 120>(a, bsz, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -384,6 +402,12 @@ int dispatch_prefill_res_mma(const Args& a, int bsz, void* stream) {
 // pass.  (One buffer of table rows per warp, refilled once the rebuild has
 // read it, fits two CTAs at D 128: 15% faster on ragged rows, 5% slower at
 // the serves' heaviest launch, scripts/res_decode_variants.py.)
+// Head rows of DR < D (head_dim 120) run in D 128's group tile, whose
+// MMAs take k = 16, in the split-half layout of flash::Cols: B_k, the K/V
+// rows and the sin/cos rows of each stage (int8 pages: the warp's V tile)
+// keep zero gap columns, Q's fragments read zeros there, the int8 K codes
+// are dequantized from the real columns only, and the partials carry the
+// DR real columns.
 // f32 launches run the template share by share (one CTA per share,
 // IEEE f32 FMAs, RoPE from the f32 tables) into the same workspace, and
 // the same combine.
@@ -447,11 +471,12 @@ struct Layout {
   static constexpr int kBytes = kBk + kWarps * kWarp;
 };
 
-template <int D, int RP, bool INT8>
+template <int D, int DR, int RP, bool INT8>
 __global__ void __launch_bounds__(kThreads, 1)
 paged_decode_res_split_kernel(Args a) {
   using flash::bf16;
   using L = Layout<D, RP, INT8>;
+  using C = flash::Cols<D, DR>;           // head rows of DR in D columns
   constexpr int DS = L::DS, RS = L::RS, HS = L::HS, HALF = D / 2;
   extern __shared__ __align__(16) unsigned char dyn[];
   bf16* Bks = reinterpret_cast<bf16*>(dyn);
@@ -464,7 +489,7 @@ paged_decode_res_split_kernel(Args a) {
   const int g0 = (blockIdx.y % nht) * kHeads;
   const int ng = min(kHeads, G - g0);               // heads of this CTA
   const long head0 = (long)b * a.hq + (long)h * G + g0;
-  const long hd = (long)a.hkv * D;
+  const long hd = (long)a.hkv * DR;
 
   // this warp's share, and the CTA's keys (its kWarps shares)
   const int kvlen = a.kv_len[b];
@@ -489,24 +514,38 @@ paged_decode_res_split_kernel(Args a) {
   }
   // B_k of kv head h (rows R..RP-1 zero)
   const bf16* bk = static_cast<const bf16*>(a.bk);
-  for (int e = tid; e < RP * (D / 8); e += kThreads) {
-    const int rr = e / (D / 8), c = e % (D / 8);
+  for (int e = tid; e < RP * C::kRow; e += kThreads) {
+    const int rr = e / C::kRow, i = e % C::kRow;
     const bool ok = rr < R;
-    const long src = ok ? ((long)b * R + rr) * hd + (long)h * D + c * 8 : 0;
-    flash::cp_async16(Bks + rr * DS + c * 8, bk + src, ok);
+    const long src = ok ? ((long)b * R + rr) * hd + (long)h * DR : 0;
+    C::row(Bks + rr * DS, bk + src, i, ok);
   }
   flash::cp_async_commit();
-  // K_r / V_r columns R..RP-1 stay zero in both of the warp's stages
+  C::zero_gaps(Bks, RP, DS, tid, kThreads);
+  // K_r / V_r columns R..RP-1 stay zero in both of the warp's stages, as
+  // do the split-half layout's gap columns (DR < D) of its K/V and sin/cos
+  // rows (int8 pages: of its V tile)
   unsigned char* mine = dyn + L::kBk + warp * L::kWarp;
   for (int st = 0; st < 2; ++st) {
-    bf16* kr_s = reinterpret_cast<bf16*>(mine + st * L::kStage + L::kKr);
-    bf16* vr_s = reinterpret_cast<bf16*>(mine + st * L::kStage + L::kVr);
+    unsigned char* sb = mine + st * L::kStage;
+    bf16* kr_s = reinterpret_cast<bf16*>(sb + L::kKr);
+    bf16* vr_s = reinterpret_cast<bf16*>(sb + L::kVr);
     for (int e = lane; e < kKeys * (RP - R); e += 32) {
       const int t = e / (RP - R), rr = R + e % (RP - R);
       kr_s[t * RS + rr] = __float2bfloat16(0.f);
       vr_s[t * RS + rr] = __float2bfloat16(0.f);
     }
+    if constexpr (!INT8) {
+      C::zero_gaps(reinterpret_cast<bf16*>(sb + L::kK), kKeys, DS, lane, 32);
+      C::zero_gaps(reinterpret_cast<bf16*>(sb + L::kV), kKeys, DS, lane, 32);
+    }
+    C::zero_table_gaps(reinterpret_cast<bf16*>(sb + L::kSin), kKeys, HS,
+                       lane, 32);
+    C::zero_table_gaps(reinterpret_cast<bf16*>(sb + L::kCos), kKeys, HS,
+                       lane, 32);
   }
+  if constexpr (INT8)
+    C::zero_gaps(reinterpret_cast<bf16*>(mine + L::kVt), kKeys, DS, lane, 32);
   flash::cp_async_wait<0>();
   __syncthreads();                  // the last CTA-wide barrier
 
@@ -518,15 +557,17 @@ paged_decode_res_split_kernel(Args a) {
     return;
   }
 
-  // Q's A fragments: rows = the CTA's heads (zero past ng)
+  // Q's A fragments: rows = the CTA's heads (zero past ng and in the gap
+  // columns)
   const bf16* q = static_cast<const bf16*>(a.q);
   uint32_t qf[D / 16][4];
   {
     const int r0 = lane >> 2, c0 = 2 * (lane & 3);
-    auto ld = [&](int r, int c) {
-      return r < ng ? *reinterpret_cast<const uint32_t*>(
-                          q + (head0 + r) * D + c)
-                    : 0u;
+    auto ld = [&](int r, int c) {      // tile columns c, c + 1
+      const int e = C::elem(c);
+      return r < ng && e >= 0 ? *reinterpret_cast<const uint32_t*>(
+                                    q + (head0 + r) * DR + e)
+                              : 0u;
     };
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -560,22 +601,24 @@ paged_decode_res_split_kernel(Args a) {
       if constexpr (!INT8) {
         const bf16* kb = static_cast<const bf16*>(a.kb);
         const bf16* vb = static_cast<const bf16*>(a.vb);
-        for (int e = lane; e < kKeys * (D / 8); e += 32) {
-          const int t = e / (D / 8), c = e % (D / 8);
+        bf16* ks_ = reinterpret_cast<bf16*>(s + L::kK);
+        bf16* vs_ = reinterpret_cast<bf16*>(s + L::kV);
+        for (int e = lane; e < kKeys * C::kRow; e += 32) {
+          const int t = e / C::kRow, i = e % C::kRow;
           const bool ok = k0 + t < k_hi;
-          const long src = ok ? tok(k0 + t) * D + c * 8 : 0;
-          flash::cp_async16(s + L::kK + (t * DS + c * 8) * 2, kb + src, ok);
-          flash::cp_async16(s + L::kV + (t * DS + c * 8) * 2, vb + src, ok);
+          const long src = ok ? tok(k0 + t) * DR : 0;
+          C::row(ks_ + t * DS, kb + src, i, ok);
+          C::row(vs_ + t * DS, vb + src, i, ok);
         }
       } else {
         const int8_t* kb = static_cast<const int8_t*>(a.kb);
         const int8_t* vb = static_cast<const int8_t*>(a.vb);
-        for (int e = lane; e < kKeys * (D / 16); e += 32) {
-          const int t = e / (D / 16), c = e % (D / 16);
+        for (int e = lane; e < kKeys * C::kCodeRow; e += 32) {
+          const int t = e / C::kCodeRow, i = e % C::kCodeRow;
           const bool ok = k0 + t < k_hi;
-          const long src = ok ? tok(k0 + t) * D + c * 16 : 0;
-          flash::cp_async16(s + L::kK + t * D + c * 16, kb + src, ok);
-          flash::cp_async16(s + L::kV + t * D + c * 16, vb + src, ok);
+          const long src = ok ? tok(k0 + t) * DR : 0;
+          C::codes(s + L::kK + t * D, kb + src, i, ok);
+          C::codes(s + L::kV + t * D, vb + src, i, ok);
         }
         {                               // lanes 0-15 K's scales, 16-31 V's
           const int t = lane & (kKeys - 1);
@@ -604,14 +647,14 @@ paged_decode_res_split_kernel(Args a) {
           vr_s[t * RS + rr] = ok ? vr[src] : __float2bfloat16(0.f);
         }
       }
-      for (int e = lane; e < kKeys * (HALF / 8); e += 32) {
-        const int t = e / (HALF / 8), c = e % (HALF / 8);
+      bf16* sn_ = reinterpret_cast<bf16*>(s + L::kSin);
+      bf16* cs_ = reinterpret_cast<bf16*>(s + L::kCos);
+      for (int e = lane; e < kKeys * C::kHalf; e += 32) {
+        const int t = e / C::kHalf, i = e % C::kHalf;
         const bool ok = k0 + t < k_hi;
-        const long src = ok ? (long)(k0 + t) * HALF + c * 8 : 0;
-        flash::cp_async16(s + L::kSin + (t * HS + c * 8) * 2, sin_tab + src,
-                          ok);
-        flash::cp_async16(s + L::kCos + (t * HS + c * 8) * 2, cos_tab + src,
-                          ok);
+        const long src = ok ? (long)(k0 + t) * (DR / 2) : 0;
+        C::half(sn_ + t * HS, sin_tab + src, i, ok);
+        C::half(cs_ + t * HS, cos_tab + src, i, ok);
       }
     }
     flash::cp_async_commit();
@@ -637,7 +680,7 @@ paged_decode_res_split_kernel(Args a) {
     if constexpr (INT8) {
       // the warp's V tile: bf16(code * scale), as the plain version rounds
       bf16* Vt = reinterpret_cast<bf16*>(mine + L::kVt);
-      flash::dequantize_rows<D>(
+      flash::dequantize_cols<D, DR>(
           s + L::kV, reinterpret_cast<const float*>(s + L::kScale) + kKeys,
           Vt, DS, kKeys, lane, 32);
       __syncwarp();
@@ -669,8 +712,12 @@ paged_decode_res_split_kernel(Args a) {
         if constexpr (INT8) {
           const float sc = reinterpret_cast<const float*>(s + L::kScale)[t];
           const unsigned char* row = s + L::kK + t * D;
-          auto deq = [&](int col) {     // bf16(code * scale) of a pair
-            const uint16_t w2 = *reinterpret_cast<const uint16_t*>(row + col);
+          // bf16(code * scale) of the pair at tile columns c, c + 1 (zero
+          // in a gap: the codes are the DR real columns)
+          auto deq = [&](int c) {
+            const int e = C::elem(c);
+            if (e < 0) return make_float2(0.f, 0.f);
+            const uint16_t w2 = *reinterpret_cast<const uint16_t*>(row + e);
             return __bfloat1622float2(__floats2bfloat162_rn(
                 __fmul_rn((float)(int8_t)(w2 & 0xff), sc),
                 __fmul_rn((float)(int8_t)(w2 >> 8), sc)));
@@ -730,10 +777,13 @@ paged_decode_res_split_kernel(Args a) {
       a.ws_l[row] = l[hh];
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(a.ws_acc + row * D + 8 * n +
-                                 2 * (lane & 3)) =
-          make_float2(o[n][2 * hh], o[n][2 * hh + 1]);
+    for (int n = 0; n < D / 8; ++n) {
+      // the DR real columns; a pair never straddles a gap
+      const int e = C::elem(8 * n + 2 * (lane & 3));
+      if (e >= 0)
+        *reinterpret_cast<float2*>(a.ws_acc + row * DR + e) =
+            make_float2(o[n][2 * hh], o[n][2 * hh + 1]);
+    }
 #pragma unroll
     for (int n = 0; n < RP / 8; ++n)
 #pragma unroll
@@ -808,10 +858,10 @@ int launch_combine(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D, int RP, bool INT8>
+template <int D, int DR, int RP, bool INT8>
 int launch(const Args& a, cudaStream_t stream) {
   using L = Layout<D, RP, INT8>;
-  auto kernel = paged_decode_res_split_kernel<D, RP, INT8>;
+  auto kernel = paged_decode_res_split_kernel<D, DR, RP, INT8>;
   const size_t smem = (size_t)L::kBytes + 2 * (size_t)a.bt_slice * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -825,12 +875,13 @@ int launch(const Args& a, cudaStream_t stream) {
   return launch_combine<__nv_bfloat16>(a, stream);
 }
 
-template <int D>
+template <int D, int DR = D>
 int launch_rank(const Args& a, cudaStream_t s) {
   const bool int8 = a.kb_s != nullptr;
   if (a.r <= 16)
-    return int8 ? launch<D, 16, true>(a, s) : launch<D, 16, false>(a, s);
-  return int8 ? launch<D, 32, true>(a, s) : launch<D, 32, false>(a, s);
+    return int8 ? launch<D, DR, 16, true>(a, s)
+                : launch<D, DR, 16, false>(a, s);
+  return int8 ? launch<D, DR, 32, true>(a, s) : launch<D, DR, 32, false>(a, s);
 }
 
 // f32: the template (HAS_RES) one CTA per share into the same workspace,
@@ -872,7 +923,8 @@ inline int bt_entries(const Args& a) {
 }
 
 // dtype: q's type (0 f32, 1 bf16); int8 pages exactly when scales given.
-// D 32/64/128, R 1..32, page 1..32, n_split a multiple of kWarps.
+// D 32/64/128 and 120 (bf16: in D 128's tile; f32: the template takes any
+// even D), R 1..32, page 1..32, n_split a multiple of kWarps.
 int dispatch(int dtype, Args a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.n_split < kWarps ||
@@ -890,6 +942,7 @@ int dispatch(int dtype, Args a, void* stream) {
   if (a.d == 32) return launch_rank<32>(a, s);
   if (a.d == 64) return launch_rank<64>(a, s);
   if (a.d == 128) return launch_rank<128>(a, s);
+  if (a.d == 120) return launch_rank<128, 120>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

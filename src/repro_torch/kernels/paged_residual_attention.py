@@ -45,6 +45,21 @@ replace the template where it lost most, in the entries that run them:
   (counted as ``<entry>[_int8]_splitk``).  A CUDA tensor never reaches the
   template through these entries.
 
+Head dims 32, 64, 120 and 128 are taken.  At 120 (h2o-danube-3-4b's) the
+bf16 tiles (#6, #3, #5, #1) and #2's group tile run D 128's columns in the
+split-half layout of the dense kernels (``residual_attention.tile_columns``,
+``flash::Cols``): RoPE pairs c with c + 60, so the halves go to tile
+columns 0.. and 64.. and the gap columns are zero on chip; q, the pages and
+the RoPE table (rows of 60) are read as they are, with 8-byte copies, and
+int8 codes are dequantized in groups of 4 (``flash::dequantize_cols``),
+since the second half of a row of 120 codes starts at byte 60.  #4 gives
+each lane 8 columns in order, 16 lanes to a key as at D 128, the last of
+them idle.
+The f32 template takes any even head_dim as it is.  Pages of more than
+``MAX_PAGE`` tokens run as sub-pages (``sub_pages``): the pools are viewed
+as pages of the largest divisor of the page up to ``MAX_PAGE`` and the
+block tables expanded, with no page copied.
+
 f32 launches of the tensor-core entries stay on the template; wgmma and
 TMA are later work.  The chunked prefill is bound like the mixed grid:
 operations for long chunks, bytes for short ones.  Unlike the Pallas
@@ -69,6 +84,7 @@ from repro_torch.core import rope as rope_lib
 from repro_torch.core.device import SMEM_PER_CTA_RESERVED, SMEM_PER_SM, \
     sm_count
 from repro_torch.kernels import _build
+from repro_torch.kernels import residual_attention as ra
 
 ENTRIES = ("paged_residual_attention_mixed",
            "paged_residual_attention_decode",
@@ -116,10 +132,12 @@ SOURCES = (SOURCE, "paged_residual_disagg")
 _ENTRY_SOURCE = {"paged_residual_attention_prefill": SOURCES[1],
                  "paged_residual_attention_mixed": SOURCES[1],
                  "paged_residual_attention_decode": SOURCES[1]}
-HEAD_DIMS = (32, 64, 128)   # the head_dims each kernel has an instance of
+# the head_dims each kernel has an instance of (120 in D 128's tile,
+# ``residual_attention.tile_dim``)
+HEAD_DIMS = (32, 64, 120, 128)
 MAX_ROWS = 64          # query rows (positions x group heads) per CTA
 MMA_ROWS = 128         # the same for the tensor-core kernel (8 warps)
-MAX_PAGE = 32
+MAX_PAGE = 32          # tokens per page a kernel takes; larger: sub-pages
 MAX_RANK = 32
 SPLIT_KEYS = 64        # a decode split's share of keys: multiples of this
 SPLIT_HEADS = 8        # query heads per split-K CTA, at most
@@ -186,10 +204,11 @@ def _check(name: str, t: Optional[torch.Tensor], device: torch.device,
 
 
 def check_heads(hq: int, hkv: int, d: int, page: int) -> int:
-    """The head and page geometry every kernel takes: head_dim in
+    """The head and page geometry every wrapper takes: head_dim in
     ``HEAD_DIMS``, Hq a multiple of Hkv with at most ``MAX_ROWS`` query heads
-    per kv head, pages of 1..``MAX_PAGE`` tokens.  Returns the group size;
-    raises ValueError for anything else."""
+    per kv head, pages of at least one token (above ``MAX_PAGE``, as
+    ``sub_pages``).  Returns the group size; raises ValueError for anything
+    else."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported "
                          f"({', '.join(map(str, HEAD_DIMS))})")
@@ -198,9 +217,47 @@ def check_heads(hq: int, hkv: int, d: int, page: int) -> int:
     g = hq // hkv
     if g > MAX_ROWS:
         raise ValueError(f"group size {g} > {MAX_ROWS}")
-    if not 1 <= page <= MAX_PAGE:
-        raise ValueError(f"page size {page} not in [1, {MAX_PAGE}]")
+    if page < 1:
+        raise ValueError(f"page size {page} < 1")
     return g
+
+
+def sub_page(page: int) -> int:
+    """Tokens per page that the kernels run a page of ``page`` at: the
+    page itself up to ``MAX_PAGE``, else its largest divisor up to it."""
+    if page <= MAX_PAGE:
+        return page
+    return max(s for s in range(1, MAX_PAGE + 1) if page % s == 0)
+
+
+def sub_pages(kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool, bt_b,
+              bt_r):
+    """Pages of p > ``MAX_PAGE`` tokens as p/s pages of s = ``sub_page(p)``
+    tokens, without copying a page: the pools (and the int8 scale pools)
+    viewed as (P·p/s, s, ...), and each block table entry e expanded on
+    the pools' device to e·(p/s) + j, j = 0..p/s-1.  Anything else comes
+    back as it is (absent tensors as None; a pool that is not contiguous
+    as it is, for the wrapper's checks to refuse)."""
+    p = kb_pool.shape[1]
+    s = sub_page(p)
+    if s == p or not all(t is None or t.is_contiguous() for t in (
+            kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool)):
+        return kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool, \
+            bt_b, bt_r
+    n = p // s
+
+    def view(t):
+        return None if t is None else t.view(
+            (t.shape[0] * n, s) + tuple(t.shape[2:]))
+
+    def expand(bt):
+        if bt is None:
+            return None
+        j = torch.arange(n, device=bt.device, dtype=bt.dtype)
+        return (bt[:, :, None] * n + j).reshape(bt.shape[0], -1)
+
+    return (view(kb_pool), view(vb_pool), view(kb_scale), view(vb_scale),
+            view(kr_pool), view(vr_pool), expand(bt_b), expand(bt_r))
 
 
 def _geometry(q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale,
@@ -333,7 +390,9 @@ def res_split_smem(d: int, r: int, int8: bool) -> int:
     residual stream, block-table slices aside (``Layout`` of
     ``splitk_res`` in the source): B_k (RP rows), and per warp two stages
     of 16 keys' K, V, K_r, V_r and RoPE rows (+ a bf16 V tile for int8
-    pages).  Rows are padded by 8 elements."""
+    pages).  Rows are padded by 8 elements; at the tile's width
+    (``residual_attention.tile_dim``)."""
+    d = ra.tile_dim(d)
     rp = 16 if r <= 16 else 32
     ds, rs, hs, keys = d + 8, rp + 8, d // 2 + 8, RES_SPLIT_KEYS
     row = d if int8 else 2 * ds
@@ -440,6 +499,9 @@ def paged_residual_attention_mixed(q, kb_pool, vb_pool, kr_pool, vr_pool,
     ``rope_table``; a tile with no row below q_len only zeroes its rows),
     f32 the template.  Returns (B, Sq, Hq, D).  Bound: bytes for decode
     rows, operations for long prefill rows (module docstring)."""
+    kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool, bt_b, bt_r = \
+        sub_pages(kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool,
+                  bt_b, bt_r)
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
         decode=False)
@@ -478,6 +540,9 @@ def paged_residual_attention_decode(q, kb_pool, vb_pool, kr_pool, vr_pool,
 
     q: (B, Hq, D); pools and tables as the mixed kernel; kv_len: (B,)
     int32.  Returns (B, Hq, D).  Bound: bytes (module docstring)."""
+    kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool, bt_b, bt_r = \
+        sub_pages(kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool,
+                  bt_b, bt_r)
     bsz, _, hq, hkv, d, page, w, _, code = _geometry(
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
         decode=True)
@@ -522,6 +587,9 @@ def paged_residual_attention_prefill(q, kb_pool, vb_pool, kr_pool, vr_pool,
     ignores: they come back as zeros and their tiles are skipped.  Returns
     (B, chunk, Hq, D).  Bound: operations for long chunks, bytes for short
     ones (module docstring)."""
+    kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool, bt_b, bt_r = \
+        sub_pages(kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool,
+                  bt_b, bt_r)
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
         decode=False)
@@ -553,6 +621,8 @@ def paged_attention_mixed_base(q, kb_pool, vb_pool, bt_b, start, q_len,
     :func:`paged_residual_attention_mixed` minus the residual stream.  In
     bf16 it runs #6's tensor-core tile with each row's q_len given.
     Bound: bytes for decode rows, operations for long prefill rows."""
+    kb_pool, vb_pool, kb_scale, vb_scale, _, _, bt_b, _ = sub_pages(
+        kb_pool, vb_pool, kb_scale, vb_scale, None, None, bt_b, None)
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
         decode=False)
@@ -577,6 +647,8 @@ def paged_attention_decode_base(q, kb_pool, vb_pool, bt_b, kv_len, *,
     :func:`paged_residual_attention_decode` minus the residual stream.
     Runs the split-K decode (``split_plan``) and its combine, with a
     workspace of ``split_plan(...)["workspace_bytes"]``.  Bound: bytes."""
+    kb_pool, vb_pool, kb_scale, vb_scale, _, _, bt_b, _ = sub_pages(
+        kb_pool, vb_pool, kb_scale, vb_scale, None, None, bt_b, None)
     bsz, _, hq, hkv, d, page, w, _, code = _geometry(
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
         decode=True)
@@ -605,6 +677,8 @@ def paged_attention_prefill_base(q, kb_pool, vb_pool, bt_b, start, kv_len,
     ``kb_scale``/``vb_scale`` its int8 branch (:645).  Shapes as
     :func:`paged_residual_attention_prefill` minus the residual stream.
     Bound: operations for long chunks, bytes for short ones."""
+    kb_pool, vb_pool, kb_scale, vb_scale, _, _, bt_b, _ = sub_pages(
+        kb_pool, vb_pool, kb_scale, vb_scale, None, None, bt_b, None)
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
         q, kb_pool, vb_pool, bt_b, kv_len, kb_scale, vb_scale, window,
         decode=False)

@@ -3,9 +3,9 @@
 
 ``get_model(cfg)`` returns a :class:`ModelApi` with init_params / forward /
 init_cache / prefill / decode_step / init_lora_stacks, dispatched on
-``cfg.family``.  The dense, MoE and VLM families (all served by
-:mod:`~repro_torch.models.transformer`) and the hybrid are ported; SSM and
-audio raise, naming their ROADMAP item.  The logical-axis trees that the
+``cfg.family``: the dense, MoE and VLM families (all served by
+:mod:`~repro_torch.models.transformer`), the hybrid, the SSM (mamba2) and
+the audio encoder-decoder (whisper).  The logical-axis trees that the
 reference's API also carries are for sharding, which goes with ROADMAP
 Queue 1, item 13.
 """
@@ -15,19 +15,17 @@ import dataclasses
 from typing import Callable, Optional
 
 from repro_torch.core.config import ModelConfig
-from repro_torch.models import hybrid
+from repro_torch.models import encdec, hybrid, ssm
 from repro_torch.models import transformer as tfm
 
-# ported families: the module whose functions serve each (both take the
-# same arguments), as in the reference's registry
-_FAMILIES = {"dense": tfm, "moe": tfm, "vlm": tfm, "hybrid": hybrid}
-
-# families of the reference's registry that are not ported yet, with the
-# ROADMAP Queue 1 item that ports each
-_UNPORTED = {
-    "ssm": "item 11 (ssm.py)",
-    "audio": "item 11 (encdec.py)",
-}
+# the module whose functions serve each family (all take the same
+# arguments), as in the reference's registry
+_FAMILIES = {"dense": tfm, "moe": tfm, "vlm": tfm, "hybrid": hybrid,
+             "ssm": ssm, "audio": encdec}
+# the LoRA-stack init of a family where it is not its module's own: none
+# for the attention-free SSM, the transformer's over the decoder's layers
+# for the audio encoder-decoder
+_LORA_INIT = {"ssm": None, "audio": tfm.init_lora_stacks}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +44,8 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     fam = cfg.family
     if fam in _FAMILIES:
         mod = _FAMILIES[fam]
+        init = _LORA_INIT[fam] if fam in _LORA_INIT else \
+            mod.init_lora_stacks
         return ModelApi(
             cfg=cfg,
             init_params=lambda seed=0, **kw: mod.init_params(cfg, seed, **kw),
@@ -57,11 +57,9 @@ def get_model(cfg: ModelConfig) -> ModelApi:
                 params, tokens, cache, cfg, **kw),
             decode_step=lambda params, tokens, cache, kv_len, **kw:
                 mod.decode_step(params, tokens, cache, kv_len, cfg, **kw),
-            init_lora_stacks=lambda seed, n, **kw: mod.init_lora_stacks(
-                cfg, seed, n, **kw),
-            supports_forkkv=True)
-    if fam in _UNPORTED:
-        raise NotImplementedError(
-            f"family {fam!r} is not ported yet (ROADMAP Queue 1, "
-            f"{_UNPORTED[fam]})")
+            init_lora_stacks=None if init is None else (
+                lambda seed, n, **kw: init(cfg, seed, n, **kw)),
+            # attention-free: ForkKV does not apply to mamba2; whisper's
+            # applies to its decoder self-attention
+            supports_forkkv=fam != "ssm")
     raise ValueError(f"unknown family {fam!r}")

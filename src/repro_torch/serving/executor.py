@@ -126,6 +126,17 @@ def _from_numpy(a: np.ndarray, dtype: torch.dtype,
     return torch.from_numpy(a).to(device)
 
 
+def check_card_geometry(cfg: ModelConfig, serve_cfg: ServeConfig,
+                        disagg: bool) -> None:
+    """The paged kernels' geometry, which a card server must fit: the head
+    and page geometry (``pra.check_heads``) and, with the residual stream,
+    a LoRA rank of at most ``pra.MAX_RANK``.  Raises ValueError."""
+    pra.check_heads(cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                    serve_cfg.page_size)
+    if disagg and not 1 <= cfg.lora.rank <= pra.MAX_RANK:
+        raise ValueError(f"rank {cfg.lora.rank} not in [1, {pra.MAX_RANK}]")
+
+
 class PagedExecutor:
     """Paged decode, prefill and mixed prefill/decode for llama-family
     models."""
@@ -135,10 +146,9 @@ class PagedExecutor:
                  disagg: bool, max_pages_per_req: int, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and serve_cfg.use_paged_kernel:
-            # the paged kernels' head and page geometry, refused here and
-            # not at the first step, whose errors the engine isolates
-            pra.check_heads(cfg.num_heads, cfg.num_kv_heads,
-                            cfg.resolved_head_dim, serve_cfg.page_size)
+            # refused here and not at the first step, whose errors the
+            # engine isolates
+            check_card_geometry(cfg, serve_cfg, disagg and lora is not None)
         if self.device.type == "cuda" and self.device.index is None:
             # an explicit index, which a thread other than this one binds
             # (``bind_thread``)

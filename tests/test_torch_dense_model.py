@@ -266,11 +266,30 @@ def test_get_model_dense():
     assert lora["a_k"].shape == (2, 3, 64, 8)
 
 
-@pytest.mark.parametrize("family", ["ssm", "audio"])
-def test_get_model_refuses_unported_families(family):
-    _, cfg = _cfgs(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        registry.get_model(cfg)
+@pytest.mark.parametrize("family,arch,module", [
+    ("ssm", "mamba2-130m", "ssm"), ("audio", "whisper-large-v3", "encdec")])
+def test_get_model_serves_the_ssm_and_audio_families(family, arch, module):
+    """``family="ssm"`` and ``family="audio"`` are served by their modules
+    (``models/ssm.py``, ``models/encdec.py``): the API's ``forward`` and
+    ``init_cache`` are the module's (their parity with JAX is held in
+    tests/test_torch_ssm.py and tests/test_torch_encdec.py)."""
+    import importlib
+    from repro_torch import configs as tconfigs
+    mod = importlib.import_module(f"repro_torch.models.{module}")
+    cfg = tconfigs.get_tiny_config(arch)
+    assert cfg.family == family
+    api = registry.get_model(cfg)
+    params = api.init_params(0, device="cpu")
+    tok = torch.from_numpy(_tokens((B, 6))).long() % cfg.vocab_size
+    kw = {}
+    if family == "audio":
+        kw["extra_embeds"] = torch.zeros(B, cfg.encoder_seq, cfg.d_model)
+    assert torch.equal(api.forward(params, tok, **kw),
+                       mod.forward(params, tok, cfg, **kw))
+    cache = api.init_cache(B, 8, device="cpu")
+    want = mod.init_cache(cfg, B, 8, device="cpu")
+    assert {k: v.shape for k, v in cache.items()} == \
+        {k: v.shape for k, v in want.items()}
 
 
 def test_get_model_serves_the_hybrid_family():

@@ -257,10 +257,62 @@ MIXED = dict(start=[40, 199, 63, 0], n_valid=[160, 1, 1, 0], sq=160)
 
 
 def pages_and_heads(*pages):
-    """``pages`` at Llama3-8B's heads (ids as before) and at the tiny
-    model's (head_dim 32, G 2, R 8)."""
+    """``pages`` at Llama3-8B's heads (ids as before), at the tiny model's
+    (head_dim 32, G 2, R 8) and at h2o-danube-3-4b's (head_dim 120 in D
+    128's tile)."""
     return [pytest.param(p, "llama3-8b", id=p) for p in pages] + \
-        [pytest.param(p, "tiny-serve", id=f"{p}-tiny-serve") for p in pages]
+        [pytest.param(p, "tiny-serve", id=f"{p}-tiny-serve")
+         for p in pages] + \
+        [pytest.param(p, "h2o-danube-3-4b", id=f"{p}-d120") for p in pages]
+
+
+def to_tile(x, d):
+    """Head rows of ``d`` columns (the last dim) in the paged tiles'
+    columns (``tra.tile_dim``): the split-half layout at head_dim 120,
+    the gap columns zero; the identity where the tile is ``d`` wide."""
+    w = tra.tile_dim(d)
+    if w == d:
+        return x
+    out = torch.zeros(x.shape[:-1] + (w,), dtype=x.dtype)
+    out[..., tra.tile_columns(d)] = x
+    return out
+
+
+def heads_to_tile(b, d):
+    """(B, R, Hkv * d) rows of B_k/B_v with each head in the tile."""
+    return to_tile(b.reshape(b.shape[:2] + (-1, d)), d).reshape(
+        b.shape[:2] + (-1,))
+
+
+def half_to_tile(x, d):
+    """sin/cos rows of d/2 in the first d/2 of the tile's half."""
+    w = tra.tile_dim(d)
+    return torch.cat([x, torch.zeros(x.shape[:-1] + ((w - d) // 2,),
+                                     dtype=x.dtype)], -1)
+
+
+def int8_groups(d):
+    """How the tensor-core kernels dequantize a head row of ``d`` int8
+    codes into the tile (``flash::dequantize_cols``): (first code, tile
+    column, codes) of each group.  Groups of 8 where the tile is ``d``
+    wide; at head_dim 120 groups of 4, so none straddles the second half,
+    which starts at code 60 (a 4-byte boundary only) and lands at tile
+    column 64."""
+    n = 8 if tra.tile_dim(d) == d else 4
+    cols = tra.tile_columns(d)
+    return [(u, int(cols[u]), n) for u in range(0, d, n)]
+
+
+def dequant_tile(codes, sc, dtype):
+    """int8 codes (..., d) with scales (...,) dequantized into the tile as
+    the kernels do it (``int8_groups``: groups of 8, or of 4 split at the
+    second half at head_dim 120), each element bf16(code * scale)."""
+    d = codes.shape[-1]
+    out = torch.zeros(codes.shape[:-1] + (tra.tile_dim(d),), dtype=dtype)
+    for u, col, n in int8_groups(d):
+        out[..., col:col + n] = (codes[..., u:u + n].float() *
+                                 sc[..., None]).to(dtype)
+    return out
 
 
 def paged_inputs(seed, start=START, n_valid=N_VALID, sq=SEQ,
@@ -281,10 +333,11 @@ def paged_inputs(seed, start=START, n_valid=N_VALID, sq=SEQ,
 
 
 def emulate_paged(t, window, lowp, ks=None, vs=None):
-    """The paged kernel: pages gathered by position (int8: dequantized to
-    q's type first, as the plain version's gather does), then ``emulate``
-    without the residual stream; rows at or past n_valid (the mixed grid's
-    q_len) are zeros."""
+    """The paged kernel in its tile's columns (``to_tile``): pages gathered
+    by position (int8: dequantized to q's type into the tile first, group
+    by group, ``dequant_tile``), then ``emulate`` without the residual
+    stream; the head's real columns of the output, rows at or past n_valid
+    (the mixed grid's q_len) zeros."""
     bsz, sq, _, d = t["q"].shape
     hkv = t["kb"].shape[2]
     bt = t["bt_b"].long()
@@ -293,14 +346,15 @@ def emulate_paged(t, window, lowp, ks=None, vs=None):
     def gather(pool, sc):
         x = pool[bt].reshape(bsz, sk, hkv, d)
         if sc is not None:
-            x = (x.float() * sc[bt].reshape(bsz, sk, hkv)[..., None]).to(
-                t["q"].dtype)
-        return x.float()
+            return dequant_tile(x, sc[bt].reshape(bsz, sk, hkv),
+                                t["q"].dtype).float()
+        return to_tile(x, d).float()
 
     qpos = t["start"].long()[:, None] + torch.arange(sq)[None]
-    out = emulate(t["q"], gather(t["kb"], ks), gather(t["vb"], vs), qpos,
-                  t["kv_len"].long(), scale=d ** -0.5, window=window,
-                  lowp=lowp)
+    out = emulate(to_tile(t["q"], d), gather(t["kb"], ks),
+                  gather(t["vb"], vs), qpos, t["kv_len"].long(),
+                  scale=d ** -0.5, window=window, lowp=lowp)
+    out = out[..., tra.tile_columns(d)]
     valid = torch.arange(sq)[None] < t["q_len"][:, None]
     return out * valid[:, :, None, None]
 
@@ -427,20 +481,23 @@ def emulate_paged_res(t, window, lowp, ks=None, vs=None):
     def gather(pool, sc):
         x = pool[bt].reshape(bsz, sk, hkv, d)
         if sc is not None:
-            x = (x.float() * sc[bt].reshape(bsz, sk, hkv)[..., None]).to(
-                t["q"].dtype)
-        return x
+            return dequant_tile(x, sc[bt].reshape(bsz, sk, hkv),
+                                t["q"].dtype)
+        return to_tile(x, d)
 
     table = tpra.rope_table(torch.device("cpu"), d, 10_000.0, t["q"].dtype,
                             sk)
-    sin, cos = (table[i, :sk].expand(bsz, sk, d // 2) for i in (0, 1))
+    sin, cos = (half_to_tile(table[i, :sk], d).expand(
+        bsz, sk, tra.tile_dim(d) // 2) for i in (0, 1))
     k = rebuild_k(gather(t["kb"], ks), t["kr"][btr].reshape(bsz, sk, -1),
-                  t["b_k"], sin, cos, lowp)
+                  heads_to_tile(t["b_k"], d), sin, cos, lowp)
     qpos = t["start"].long()[:, None] + torch.arange(sq)[None]
-    out = emulate(t["q"], k, gather(t["vb"], vs).float(), qpos,
+    out = emulate(to_tile(t["q"], d), k, gather(t["vb"], vs).float(), qpos,
                   t["kv_len"].long(), scale=d ** -0.5, window=window,
-                  res=(t["vr"][btr].reshape(bsz, sk, -1), t["b_v"]),
+                  res=(t["vr"][btr].reshape(bsz, sk, -1),
+                       heads_to_tile(t["b_v"], d)),
                   lowp=lowp)
+    out = out[..., tra.tile_columns(d)]
     valid = torch.arange(sq)[None] < t["q_len"][:, None]
     return out * valid[:, :, None, None]
 
@@ -532,8 +589,32 @@ def test_paged_res_mixed_algorithm_matches_jax_in_f32(pages, heads, window):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
+def test_int8_groups_cover_each_code_once(d):
+    """The kernels' int8 groups (``int8_groups``) take every code of a
+    head row once, in groups that never straddle the second half (at
+    head_dim 120: groups of 4, the half starting at code 60), each landing
+    at its tile column; a whole row dequantized so equals the plain
+    version's dequantized row in the tile, bit for bit."""
+    groups = int8_groups(d)
+    codes = [u + i for u, _, n in groups for i in range(n)]
+    assert codes == list(range(d))
+    cols = tra.tile_columns(d)
+    for u, col, n in groups:
+        assert (u < d // 2) == (u + n - 1 < d // 2)      # one half each
+        assert list(cols[u:u + n]) == list(range(col, col + n))
+        if tra.tile_dim(d) != d:
+            assert n == 4 and u % 4 == 0
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((5, 3, d)).astype(np.float32))
+    q, sc = quantize_kv(x)
+    plain = (q.float() * sc[..., None]).to(torch.bfloat16)
+    assert torch.equal(dequant_tile(q, sc, torch.bfloat16),
+                       to_tile(plain, d))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [64, 128, 32])
+@pytest.mark.parametrize("d", [64, 128, 32, 120])
 def test_rope_table_is_the_plain_versions_sincos(d, dtype):
     """Row p of the table is ``rope_sincos(p)`` rounded to q's type, bit
     for bit, at every position a launch of W * page keys reads; it grows

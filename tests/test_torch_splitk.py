@@ -19,8 +19,11 @@ within 0.5% of the plain version's max |value|, half the 1% that
 package's ``repro.kernels.ref`` within 1e-5.  Rows: kv_len 0, 1, a
 non-multiple of the page and a long row; n_split 1, 3 and 7 (7 leaves
 shares empty); windows 0 and 77, which straddles shares; heads Hq 8 over
-Hkv 2 at D 64, and over Hkv 4 at D 32 (``tiny_serving_model()`` at its
-defaults: G 2, rank 8).  Also ``decode_splits`` and ``split_heads``, the
+Hkv 2 at D 64, over Hkv 4 at D 32 (``tiny_serving_model()`` at its
+defaults: G 2, rank 8), and over Hkv 2 at D 120 (h2o-danube-3-4b's head
+dim, in the kernels' columns: #4's in order with the last lane of a key
+idle, ``in_order``; #2's group tile in the split-half layout,
+``split_halves``).  Also pages above 32 tokens (``sub_pages``).  Also ``decode_splits`` and ``split_heads``, the
 wrapper's launch plan, and the head/page geometry the wrappers take
 (``check_heads``, ``tile_rows``).
 
@@ -72,6 +75,10 @@ RANK = 16
 # head_dim 32 with a group of 2 at rank 8: tiny_serving_model() at its
 # defaults; ``None`` is the module's HQ/HKV/D at RANK
 D32 = dict(hq=8, hkv=4, d=32, rank=8)
+# head_dim 120 (h2o-danube-3-4b's) with its group of 4: #4 runs it in D
+# 128's lane map, the columns in order and the last lane of a key idle;
+# #2 in D 128's group tile in the split-half layout
+D120 = dict(hq=8, hkv=2, d=120, rank=16)
 KV_LEN = [0, 1, 45, 230]      # 45: not a multiple of the page
 WIDTH = 16                    # 256 keys of table per row
 SPLITS = (1, 3, 7)
@@ -93,9 +100,25 @@ def heads(geom):
 
 
 def pages_and_heads(*pages):
-    """``pages`` at the module's heads (ids as before) and at ``D32``."""
+    """``pages`` at the module's heads (ids as before), at ``D32`` and at
+    ``D120``."""
     return [pytest.param(p, None, id=p) for p in pages] + \
-        [pytest.param(p, D32, id=f"{p}-d32-g2") for p in pages]
+        [pytest.param(p, D32, id=f"{p}-d32-g2") for p in pages] + \
+        [pytest.param(p, D120, id=f"{p}-d120-g4") for p in pages]
+
+
+def in_order(x, d):
+    """#4's columns: the head's in order, then zeros to the tile's width
+    (the idle lanes)."""
+    return torch.nn.functional.pad(x, (0, tra.tile_dim(d) - d))
+
+
+def split_halves(x, d):
+    """#2's group tile: the halves at tile columns 0.. and tile_dim/2..,
+    the gap columns zero (``tra.tile_columns``)."""
+    out = torch.zeros(x.shape[:-1] + (tra.tile_dim(d),), dtype=x.dtype)
+    out[..., tra.tile_columns(d)] = x
+    return out
 
 
 def inputs(seed, geom=None):
@@ -144,9 +167,11 @@ def emulate(t, n_split, window, ks=None, vs=None):
                 q.dtype)
         return x.float()
 
-    k, v = gather(t["kb"], ks), gather(t["vb"], vs)
-    qs = q.float() * (d ** -0.5 * LOG2E)
-    out = torch.zeros(bsz, hq, d)
+    # in the kernel's columns (``in_order``); the real ones come back
+    k, v = in_order(gather(t["kb"], ks), d), in_order(gather(t["vb"], vs), d)
+    qs = in_order(q.float(), d) * (d ** -0.5 * LOG2E)
+    w = tra.tile_dim(d)
+    out = torch.zeros(bsz, hq, w)
     for b in range(bsz):
         first, end = live_range(int(t["kv_len"][b]), width, window)
         for h in range(hkv):
@@ -169,7 +194,7 @@ def emulate(t, n_split, window, ks=None, vs=None):
             acc = sum(torch.exp2(m - mx)[:, None] * a for m, _, a in seen)
             out[b, h * g:(h + 1) * g] = acc / torch.clamp(lsum, min=1e-20)[
                 :, None]
-    return out
+    return out[..., :d]
 
 
 def seen_rows():
@@ -297,23 +322,29 @@ def res_shares(first, end, n_split):
 
 
 def rebuilt_k(t, ks, lowp):
-    """(B, W * page, Hkv, D) f32: K = K_b + RoPE(K_r . B_k), sin/cos from
-    the wrapper's table in q's type; rounded once to bf16 (``lowp``)."""
+    """(B, W * page, Hkv, tile) f32 in the group tile's columns
+    (``split_halves``): K = K_b + RoPE(K_r . B_k), sin/cos from the
+    wrapper's table in q's type (zero past its d/2 columns); rounded once
+    to bf16 (``lowp``)."""
     q = t["q"]
     bsz, width = t["bt_b"].shape
     hkv, d = t["kb"].shape[2:]
+    w = tra.tile_dim(d)
     sk = width * PAGE
     bt, btr = t["bt_b"].long(), t["bt_r"].long()
     kb = t["kb"][bt].reshape(bsz, sk, hkv, d)
     if ks is not None:
         kb = (kb.float() * ks[bt].reshape(bsz, sk, hkv)[..., None]).to(
             q.dtype)
+    kb = split_halves(kb, d)
     kr = t["kr"][btr].reshape(bsz, sk, -1).float()
-    kl = torch.einsum("bsr,brn->bsn", kr, t["b_k"].float()).reshape(
-        bsz, sk, hkv, d)
+    b_k = split_halves(t["b_k"].float().reshape(bsz, -1, hkv, d), d)
+    kl = torch.einsum("bsr,brn->bsn", kr, b_k.reshape(bsz, -1, hkv * w)
+                      ).reshape(bsz, sk, hkv, w)
     table = tpra.rope_table(torch.device("cpu"), d, 10_000.0, q.dtype, sk)
-    sn, cs = (table[i, :sk].float()[None, :, None] for i in (0, 1))
-    x1, x2 = kl[..., :d // 2], kl[..., d // 2:]
+    sn, cs = (torch.nn.functional.pad(table[i, :sk].float(), (
+        0, (w - d) // 2))[None, :, None] for i in (0, 1))
+    x1, x2 = kl[..., :w // 2], kl[..., w // 2:]
     k = kb.float() + torch.cat([x1 * cs - x2 * sn, x2 * cs + x1 * sn], -1)
     return k.to(torch.bfloat16).float() if lowp else k
 
@@ -324,8 +355,8 @@ def emulate_res(t, n_split, window, ks=None, vs=None, lowp=True):
     combine with B_v.  Returns the f32 output (B, Hq, D)."""
     rnd = (lambda x: x.to(torch.bfloat16).float()) if lowp else \
         (lambda x: x)
-    q = t["q"]
-    bsz, hq, d = q.shape
+    bsz, hq, d = t["q"].shape
+    q = split_halves(t["q"], d)                     # the group tile's columns
     hkv = t["kb"].shape[2]
     g = hq // hkv
     width = t["bt_b"].shape[1]
@@ -333,12 +364,14 @@ def emulate_res(t, n_split, window, ks=None, vs=None, lowp=True):
     bt, btr = t["bt_b"].long(), t["bt_r"].long()
     v = t["vb"][bt].reshape(bsz, width * PAGE, hkv, d)
     if vs is not None:
-        v = (v.float() * vs[bt].reshape(bsz, -1, hkv)[..., None]).to(q.dtype)
-    v = v.float()
+        v = (v.float() * vs[bt].reshape(bsz, -1, hkv)[..., None]).to(
+            t["q"].dtype)
+    v = split_halves(v.float(), d)
     vr = t["vr"][btr].reshape(bsz, width * PAGE, -1).float()
-    b_v = t["b_v"].float().reshape(bsz, -1, hkv, d)
+    b_v = split_halves(t["b_v"].float().reshape(bsz, -1, hkv, d), d)
     c = d ** -0.5 * LOG2E
-    out = torch.zeros(bsz, hq, d)
+    tw = tra.tile_dim(d)
+    out = torch.zeros(bsz, hq, tw)
     for b in range(bsz):
         first, end = live_range(int(t["kv_len"][b]), width, window)
         for h in range(hkv):
@@ -349,7 +382,8 @@ def emulate_res(t, n_split, window, ks=None, vs=None, lowp=True):
                     continue                # m = -1e30, l = 0: weight 0
                 m = torch.full((g,), NEG_INIT)
                 l = torch.zeros(g)
-                acc, accr = torch.zeros(g, d), torch.zeros(g, vr.shape[-1])
+                acc, accr = torch.zeros(g, tw), torch.zeros(g,
+                                                            vr.shape[-1])
                 for k0 in range(lo, hi, tpra.RES_SPLIT_KEYS):
                     sl = slice(k0, min(k0 + tpra.RES_SPLIT_KEYS, hi))
                     s = qh @ k[b, sl, h].T                      # (G, keys)
@@ -371,7 +405,7 @@ def emulate_res(t, n_split, window, ks=None, vs=None, lowp=True):
             o = acc + accr @ b_v[b, :, h]
             out[b, h * g:(h + 1) * g] = o / torch.clamp(lsum, min=1e-20)[
                 :, None]
-    return out
+    return out[..., tra.tile_columns(d)]
 
 
 _RES = ("kr", "vr", "b_k", "b_v")
@@ -781,18 +815,20 @@ def test_dense_split_plan_fills_the_card():
 
 
 # ------------------------------------------------- the geometry checks
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 120])
 def test_paged_wrappers_take_head_dims_32_64_128(d):
     """Every paged kernel has an instance at head_dim 32 (the default
-    tiny model's), 64 and 128, at groups up to 64 and pages up to 32."""
+    tiny model's), 64 and 128, and runs 120 (h2o-danube-3-4b's) in D 128's
+    tile, at groups up to 64 and any page size (above 32 as sub-pages)."""
     assert tpra.check_heads(8, 4, d, 16) == 2
     assert tpra.check_heads(64, 1, d, 32) == 64
+    assert tpra.check_heads(32, 8, d, 64) == 4
 
 
 @pytest.mark.parametrize("hq,hkv,d,page,what", [
     (8, 4, 48, 16, "head_dim 48"), (8, 4, 256, 16, "head_dim 256"),
-    (32, 8, 120, 16, "head_dim 120"),     # h2o-danube-3-4b: ROADMAP Queue 3
-    (8, 4, 32, 64, "page size 64"), (8, 3, 32, 16, "multiple"),
+    (32, 8, 96, 16, "head_dim 96"),
+    (8, 4, 32, 0, "page size 0"), (8, 3, 32, 16, "multiple"),
     (128, 1, 32, 16, "group size")])
 def test_paged_wrappers_refuse_other_geometry(hq, hkv, d, page, what):
     with pytest.raises(ValueError, match=what):
@@ -806,3 +842,69 @@ def test_dense_wrappers_take_head_dim_32_and_refuse_48():
         assert tra.tile_rows(d, 2) == tra.ROWS_BY_HEAD_DIM[d]
     with pytest.raises(ValueError, match="head_dim 48"):
         tra.tile_rows(48, 2)
+
+
+# ------------------------------------------------- pages above MAX_PAGE
+@pytest.mark.parametrize("page,sub", [(48, 24), (64, 32), (37, 1), (32, 32)])
+def test_sub_page_is_the_largest_divisor_up_to_max_page(page, sub):
+    assert tpra.sub_page(page) == sub
+
+
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("page", [48, 64])
+def test_sub_pages_equal_the_original_pages(page, pages):
+    """A page of ``page`` > MAX_PAGE tokens served as ``sub_page(page)``-
+    token pages: the pools (and int8 scale pools) are views of the same
+    memory, the tables expanded, and the plain versions of the decode, the
+    chunked prefill and the mixed grid, disaggregated and base-only, give
+    the same output bit for bit on the views as on the original pools."""
+    rng = np.random.default_rng(page)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    bsz, width = 3, 4
+    pool = bsz * width + 2
+    t = dict(kb=f(pool, page, HKV, D), vb=f(pool, page, HKV, D),
+             kr=f(pool, page, RANK) * 0.3, vr=f(pool, page, RANK) * 0.3,
+             b_k=f(bsz, RANK, HKV * D) * 0.3, b_v=f(bsz, RANK, HKV * D) * 0.3)
+    for name in ("bt_b", "bt_r"):
+        t[name] = torch.from_numpy(rng.permutation(pool)[:bsz * width]
+                                   .reshape(bsz, width).astype(np.int32))
+    ks = vs = None
+    if pages == "int8":
+        (t["kb"], ks), (t["vb"], vs) = quantize_kv(t["kb"]), \
+            quantize_kv(t["vb"])
+    kb, vb, ks2, vs2, kr, vr, bt_b, bt_r = tpra.sub_pages(
+        t["kb"], t["vb"], ks, vs, t["kr"], t["vr"], t["bt_b"], t["bt_r"])
+    s = tpra.sub_page(page)
+    assert kb.shape[1] == s and kb.data_ptr() == t["kb"].data_ptr()
+    assert bt_b.shape == (bsz, width * page // s)
+    assert torch.equal(bt_b[:, :page // s],
+                       t["bt_b"][:, :1] * (page // s) +
+                       torch.arange(page // s, dtype=torch.int32))
+    start = torch.tensor([0, 70, page * width - 20], dtype=torch.int32)
+    q_len = torch.tensor([page + 5, 33, 20], dtype=torch.int32)
+    kv_len = start + q_len
+    q = f(bsz, int(q_len.max()), HQ, D)
+    kw = dict(window=0, kb_scale=ks, vb_scale=vs)
+    kw2 = dict(window=0, kb_scale=ks2, vb_scale=vs2)
+    for res in (True, False):
+        ra = [t["kr"], t["vr"], t["b_k"], t["b_v"]] if res else [None] * 4
+        rb = [kr, vr, t["b_k"], t["b_v"]] if res else [None] * 4
+        tr, tr2 = (t["bt_r"], bt_r) if res else (None, None)
+        pairs = [
+            (tref.paged_residual_attention_ref(
+                q[:, 0], t["kb"], t["vb"], *ra, t["bt_b"], tr, kv_len, **kw),
+             tref.paged_residual_attention_ref(
+                 q[:, 0], kb, vb, *rb, bt_b, tr2, kv_len, **kw2)),
+            (tref.paged_residual_attention_prefill_ref(
+                q, t["kb"], t["vb"], *ra, t["bt_b"], tr, start, kv_len,
+                **kw),
+             tref.paged_residual_attention_prefill_ref(
+                 q, kb, vb, *rb, bt_b, tr2, start, kv_len, **kw2)),
+            (tref.paged_residual_attention_mixed_ref(
+                q, t["kb"], t["vb"], *ra, t["bt_b"], tr, start, q_len,
+                kv_len, **kw),
+             tref.paged_residual_attention_mixed_ref(
+                 q, kb, vb, *rb, bt_b, tr2, start, q_len, kv_len, **kw2))]
+        for want, got in pairs:
+            assert torch.equal(got, want)

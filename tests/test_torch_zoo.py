@@ -15,8 +15,9 @@ ring wrapping) are held to JAX's logits at the reference's tolerance
 computed once per module.  Also: ports of ``tests/test_archs.py``'s
 serve-step smoke for the seven archs and of its assignment table for all
 ten, every config field for field, ``input_specs`` against the
-reference's 33 applicable pairs, and the bridge's round trip of every
-family's keys.
+reference's 33 applicable pairs, the registry over every config, the serve
+step also for mamba2 and whisper, and the bridge's round trip of every
+family's keys, the SSM's and the encoder-decoder's included.
 """
 import dataclasses
 import functools
@@ -28,7 +29,9 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro.models import encdec as jenc
 from repro.models import hybrid as jhyb
+from repro.models import ssm as jssm
 from repro.models import transformer as jtfm
 from repro_torch import bridge
 from repro_torch import configs as tconfigs
@@ -41,6 +44,9 @@ B, S, SPLIT, MAX_LEN = 2, 24, 19, 48
 ARCHS = ("starcoder2-3b", "internlm2-1.8b", "h2o-danube-3-4b", "llama3-405b",
          "dbrx-132b", "llama4-maverick-400b-a17b", "llava-next-mistral-7b")
 IDS = [0, 3]
+# the families the model API serves beyond the transformer's: the serve
+# step runs over these too
+SERVE_ARCHS = ARCHS + ("mamba2-130m", "whisper-large-v3")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -168,21 +174,29 @@ def test_prefill_decode_matches_jax(arch, setting):
         :, off + SPLIT - 1:off + S], **TOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_smoke_serve_step(arch):
     """``tests/test_archs.py::test_smoke_serve_step`` through the port's
-    registry: one disaggregated prefill and decode step against a small
-    cache, shapes and finiteness."""
+    registry: one prefill (whisper's with its frame embeddings) and decode
+    step against a small cache, disaggregated where the family supports
+    ForkKV (mamba2 has no LoRA stacks), shapes and finiteness."""
     cfg = tconfigs.get_tiny_config(arch)
     api = registry.get_model(cfg)
-    assert api.supports_forkkv
+    assert api.supports_forkkv == (cfg.family != "ssm")
     params = api.init_params(0, device="cpu")
-    lora = api.init_lora_stacks(2, 4, device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 16)))
-    kw = dict(lora=lora, adapter_ids=torch.tensor([0, 3]), disagg=True)
-    cache = api.init_cache(2, 32, disagg=True, device="cpu")
-    logits, cache = api.prefill(params, tokens, cache, **kw)
+    kw = {}
+    if api.init_lora_stacks is not None:
+        kw = dict(lora=api.init_lora_stacks(2, 4, device="cpu"),
+                  adapter_ids=torch.tensor([0, 3]), disagg=True)
+    extra = {}
+    if cfg.frontend == "audio_stub":
+        extra["extra_embeds"] = torch.from_numpy(
+            np.random.default_rng(2).standard_normal(
+                (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    cache = api.init_cache(2, 32, disagg=api.supports_forkkv, device="cpu")
+    logits, cache = api.prefill(params, tokens, cache, **kw, **extra)
     assert logits.shape[0] == 2 and logits.shape[-1] == cfg.vocab_size
     step, cache = api.decode_step(params, tokens[:, -1], cache,
                                   torch.full((2,), 16, dtype=torch.int32),
@@ -232,6 +246,19 @@ def test_full_configs_match_assignment():
         "llama4-maverick-400b-a17b").num_experts_per_tok == 1
     assert tconfigs.get_config("mamba2-130m").ssm_state == 128
     assert tconfigs.get_config("h2o-danube-3-4b").resolved_head_dim == 120
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS + ("llama3-8b",))
+def test_get_model_builds_every_config(arch):
+    """``registry.get_model`` builds the API of each of the repo's 11
+    configs (the ten archs and the paper's Llama3-8B), at full size (no
+    weights are drawn), with the reference's ``supports_forkkv``."""
+    from repro_torch.configs.paper_models import LLAMA3_8B
+    cfg = LLAMA3_8B if arch == "llama3-8b" else tconfigs.get_config(arch)
+    api = registry.get_model(cfg)
+    assert api.cfg is cfg
+    assert api.supports_forkkv == (cfg.family != "ssm")
+    assert (api.init_lora_stacks is None) == (cfg.family == "ssm")
 
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
@@ -301,19 +328,28 @@ def test_concrete_inputs_follow_the_specs(arch):
 def _family_params(family):
     """A reference pytree of each family the port serves, by its keys:
     dense SiLU, dense GELU, MoE, interleaved MoE with a shared expert, the
-    VLM (with ``mm_projector``), the hybrid (a list of layer dicts)."""
+    VLM (with ``mm_projector``), the hybrid (a list of layer dicts), the
+    SSM (no LoRA stacks: an empty tree) and the audio encoder-decoder
+    (encoder and decoder stacks, LoRA over the decoder)."""
     arch = {"dense": "llama3-405b", "gelu": "starcoder2-3b",
             "moe": "dbrx-132b", "interleaved": "llama4-maverick-400b-a17b",
             "vlm": "llava-next-mistral-7b"}.get(family)
     if arch:
         return model(arch)[1:3]
+    if family == "ssm":
+        cfg = jconfigs.get_tiny_config("mamba2-130m")
+        return jssm.init_params(cfg, jax.random.PRNGKey(0)), {}
+    if family == "audio":
+        cfg = jconfigs.get_tiny_config("whisper-large-v3")
+        return (jenc.init_params(cfg, jax.random.PRNGKey(0)),
+                jtfm.init_lora_stacks(cfg, jax.random.PRNGKey(1), 2))
     cfg = jconfigs.get_tiny_config("recurrentgemma-9b")
     return (jhyb.init_params(cfg, jax.random.PRNGKey(0)),
             jhyb.init_lora_stacks(cfg, jax.random.PRNGKey(1), 2))
 
 
 @pytest.mark.parametrize("family", ["dense", "gelu", "moe", "interleaved",
-                                    "vlm", "hybrid"])
+                                    "vlm", "hybrid", "ssm", "audio"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bridge_round_trips_every_familys_keys(family, dtype):
     """params/lora -> torch -> numpy, bit for bit, every key kept (bf16
@@ -333,21 +369,33 @@ def test_bridge_round_trips_every_familys_keys(family, dtype):
             assert a.view(np.uint8).tobytes() == b.view(np.uint8).tobytes()
 
 
-def test_card_server_refuses_head_dim_120():
-    """h2o-danube-3-4b's head_dim 120 runs the dense kernels (#7/#8) but
-    not yet the paged ones (ROADMAP Queue 3): a server on the card is
-    refused at construction, before any CUDA call, naming the head_dim;
-    on the CPU the plain versions serve it."""
+def test_card_geometry_takes_head_dim_120_and_refuses_rank_above_32():
+    """h2o-danube-3-4b's head_dim 120 now runs the paged kernels too: the
+    wrappers' ``check_heads`` and the executor's card geometry take it
+    (Hq 32 over Hkv 8 at page 16, as the full config serves), in forkkv and
+    in prefix mode; a LoRA rank above ``MAX_RANK`` is still refused, before
+    any CUDA call, naming the rank; on the CPU the plain versions serve
+    head_dim 120."""
+    from repro_torch.kernels import paged_residual_attention as tpra
     from repro_torch.serving.api import ForkServer
-    from repro_torch.serving.executor import PagedExecutor
+    from repro_torch.serving.executor import PagedExecutor, \
+        check_card_geometry
 
-    cfg = dataclasses.replace(tconfigs.get_tiny_config("h2o-danube-3-4b"),
-                              head_dim=120)
-    params = ttfm.init_params(cfg, 0, device="cpu")
+    full = tconfigs.get_config("h2o-danube-3-4b")
     sc = tcore.ServeConfig(max_pages=16, max_pages_per_req=8)
-    with pytest.raises(ValueError, match="head_dim 120"):
-        PagedExecutor(cfg, params, None, sc, disagg=False,
+    assert tpra.check_heads(full.num_heads, full.num_kv_heads,
+                            full.resolved_head_dim, sc.page_size) == 4
+    for disagg in (True, False):
+        check_card_geometry(full, sc, disagg)
+    wide = dataclasses.replace(full, lora=tcore.LoRAConfig(rank=64))
+    check_card_geometry(wide, sc, False)     # prefix mode: no residual
+    with pytest.raises(ValueError, match="rank 64"):
+        check_card_geometry(wide, sc, True)
+    cfg = dataclasses.replace(tconfigs.get_tiny_config("h2o-danube-3-4b"),
+                              head_dim=120, lora=tcore.LoRAConfig(rank=64))
+    params = ttfm.init_params(cfg, 0, device="cpu")
+    lora = ttfm.init_lora_stacks(cfg, 1, 2, device="cpu")
+    with pytest.raises(ValueError, match="rank 64"):
+        PagedExecutor(cfg, params, lora, sc, disagg=True,
                       max_pages_per_req=8, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 120"):
-        ForkServer(cfg, params, None, sc, device="cuda")
     ForkServer(cfg, params, None, sc, device="cpu")
