@@ -73,6 +73,18 @@ error:
    int8 variant at pages of 64 tokens (run as sub-pages of 32,
    ``pra.sub_pages``); the dense prefill and decode without RoPE (identity
    sin/cos tables) at whisper-large-v3's decoder heads (20 over 20, D 64);
+   then LoRA ranks above 32, which run the RP 64 instances: #5, #1 and #2
+   with their int8 variants at Llama3-8B's, h2o-danube-3-4b's and D 32's
+   heads, #7 and #8 also at RecurrentGemma-9B's (D 256: the tensor-core
+   prefill in 64 query rows, the f32 scalar kernel in 16), on the fixed
+   rows, f32 and bf16, windows 0 and 300, ranks 33, 48 and 64 (the f32
+   dense kernels at D 256 also at 32), each naming its kernel and RP; the
+   bf16 cases at D 128 timed at ranks 32 and 64 with their bound and SDPA
+   (the ``rank64_times`` line); the RG-LRU scan's backward kernel against
+   ``rg_lru_scan_bwd_ref`` at the scan's shapes, at S 1 and at
+   RecurrentGemma-9B's width (B 4, S 1000, W 4096; timed), f32 and bf16,
+   h0 non-zero; and the grad guard: #7 on an input that requires grad
+   must raise;
 4. a small f32 model served on the card and on the CPU: identical greedy
    tokens in forkkv and prefix mode, under the mixed and the
    phase-separated loop (``mixed_batching=False``), with broadcast fork
@@ -81,7 +93,8 @@ error:
    again with int8 bCache pages (``kv_quant="int8"``: only int8 variants
    launch); then ``tiny_serving_model()`` at its defaults (head_dim 32)
    on the card and on the CPU in forkkv, prefix and full_reuse under both
-   loops, identical greedy tokens; then the small f32 model's dense API:
+   loops, identical greedy tokens; the same at rank 64 in forkkv under
+   both loops; then the small f32 model's dense API:
    ``forward(disagg=True)`` logits card vs CPU, and greedy tokens from
    ``prefill`` + ``decode_step`` identical, over full-precision and over
    int8 caches;
@@ -182,7 +195,25 @@ error:
    ``zoo_seconds`` line gives each model's time).  Each ``zoo`` line logs
    init seconds, ms per
    call, launches by counter, peak memory and, for the MoE models, the
-   share of assignments dropped at capacity factor 1.25;
+   share of assignments dropped at capacity factor 1.25.  Training, each
+   through the port's entry points: Llama3-8B's LoRA fine-tune on the
+   serving weights (4 adapters of rank 16, 5 steps of B 4 x S 512:
+   losses, ms per step, tokens/s, peak memory; the held-out loss must
+   fall and the base weights stay bit-equal; no kernel launches); after
+   RecurrentGemma-9B's model API, its LoRA fine-tune at full width and
+   depth (3 steps of B 2 x S 1000: each step launches the forward kernel
+   26 times, once per RG-LRU layer, the backward 24, once per RG-LRU
+   layer after the first adapter's, and under the config's remat the
+   forward 24 times more; the first local layer's adapter gradient
+   non-zero; the gradients with the plain scan patched in logged in bf16
+   beside bf16's one-ulp floor and held within 1% in f32); after
+   the zoo, internlm2-1.8b's full-parameter training through ``python -m
+   repro_torch.launch.train`` as a process of its own (5 steps of B 8 x S
+   128, bf16, AdamW: finite lines, exit 0), and a small f32 hybrid
+   (remat on) and dense model trained 3 AdamW steps on card and CPU from
+   the same weights: losses within 1e-5, gradient norms within 1e-4 and
+   parameters within AdamW's noise bound at lr 1e-3, parameters within
+   1e-4 at lr 1e-5 (the ``train_summary`` line);
 6. the kernels again, at every launch geometry the serves of 5. gave
    them (batch, query width, table width, per-row start and q_len), in
    f32 and bf16 against their plain versions (int8 pages for the int8
@@ -193,8 +224,11 @@ error:
    of its first launch at each shape of 5. (f32, timed) and on the same
    inputs in bf16; the dense kernels also on the inputs of their first
    launch by h2o-danube-3-4b (D 120), and the six paged kernels at every
-   launch geometry of its serves (at its heads, D 120);
-7. the kernels line (#1–#6, their int8 variants, #7–#9, each named by the
+   launch geometry of its serves (at its heads, D 120); the scan's
+   backward on the inputs of its first launch in the RecurrentGemma-9B
+   fine-tune (f32, timed) and on the same inputs in bf16;
+7. the kernels line (#1–#6, their int8 variants, #7–#9 and #9's backward
+   ``rg_lru_scan_bwd`` with its launches in the fine-tune, each named by the
    counter of the kernel the bf16 main path ran: ``_mma`` for #1, #3, #5,
    #6, their int8 variants and #7, ``_splitk`` for #2, #4, their int8
    variants and #8; #7 and #8 at D 128, at D 256 (``_d256``) and at D 120
@@ -1490,6 +1524,240 @@ def check_scan_main_path(rg, ref, cases):
     return first
 
 
+# ------------------------------------------------------- LoRA rank 64
+# Ranks above 32 run the RP 64 instances: #5, #1 and #2 (and their int8
+# variants) at Llama3-8B's heads (D 128), h2o-danube-3-4b's (D 120) and D
+# 32 (G 4), #7 and #8 also at RecurrentGemma-9B's (D 256, G 16: the
+# tensor-core prefill in 64 query rows, the scalar kernel in 16), on the
+# fixed rows, windows 0 and 300, at ranks 33, 48 and 64
+RANK64_RANKS = (33, 48, 64)
+RANK64_GEOMS = {"D 128": LLAMA_GEOM, "D 120": DANUBE_GEOM,
+                "D 32": D32_GEOMS["D 32 G 4"]}
+RANK64_PAGED = ("paged_residual_attention_mixed",
+                "paged_residual_attention_decode",
+                "paged_residual_attention_prefill")
+RANK64_DENSE_HEADS = {"D 128": (32, 8, 128), "D 120": (32, 8, D120),
+                      "D 32": (8, 2, 32), "D 256": (16, 1, 256)}
+# (label, sq, sk, start, kv_len) of the dense cases: a chunk at an offset
+# across the tile's edges, and a ragged decode
+RANK64_DENSE_ROWS = (("Sq 130, Sk 200", 130, 200, [70, 0], [200, 130]),
+                     ("decode ragged", 1, 300, *_RAGGED))
+# the timed rows (bf16, D 128, window 0) at ranks 32 and 64: 4 x 1000
+# prefill rows (a forward's) and a decode over 4096 keys
+RANK64_TIMED = (("Sq=Sk=1000", 1000, 1000, [0] * 4, None),
+                ("decode Sk 4096", 1, 4096, [4095] * 4, [4096] * 4))
+
+
+def rp_of(r):
+    """The RP instance a rank runs in (``rank_instance`` of the port)."""
+    return next(rp for rp in (16, 32, 64) if r <= rp)
+
+
+def check_rank64(pra, ref, ra, quantize):
+    """Phase 3, LoRA ranks above 32: the paged kernels (#5, #1, #2 and
+    their int8 variants) at ``RANK64_GEOMS`` and the dense ones (#7, #8) at
+    ``RANK64_DENSE_HEADS`` on ``RANK64_DENSE_ROWS``, ranks
+    ``RANK64_RANKS``, f32 and bf16, windows 0 and 300, each against its
+    plain version, naming the kernel and its RP instance; the f32 dense
+    kernels at D 256 also at rank 32; then the bf16 cases at D 128, window
+    0, timed at ranks 32 and 64 (the paged kernels on the fixed rows over
+    bf16 pages, the dense ones on ``RANK64_TIMED``).  Returns the timed
+    records."""
+    n = 0
+    for (glabel, geom), r, (dtype, tol), window, quant in itertools.product(
+            RANK64_GEOMS.items(), RANK64_RANKS, DTYPES, (0, 300),
+            (False, True)):
+        g = dict(geom, r=r)
+        cases = {k: make_case(k, dtype, window, seed=61 + r,
+                              quantize=quantize if quant else None, geom=g,
+                              **FIXED[k]) for k in FIXED}
+        for entry in RANK64_PAGED:
+            name = entry + ("_int8" if quant else "")
+            rec = compare(pra, ref, name, cases[KERNELS[entry][0]], tol,
+                          f"rank {r} {glabel}")
+            log("kernel_rank64", **rec, rank=r, rp=rp_of(r), ok=True)
+            n += 1
+        del cases
+        torch.cuda.empty_cache()
+    dense = [(f"{hl} R {r} {label}", heads + (r,), *rest)
+             for hl, heads in RANK64_DENSE_HEADS.items()
+             for r in RANK64_RANKS for label, *rest in RANK64_DENSE_ROWS]
+    dense += [(f"D 256 R 32 {label}", (16, 1, 256, 32), *rest)
+              for label, *rest in RANK64_DENSE_ROWS]
+    for (i, case), (dtype, tol), window in itertools.product(
+            enumerate(dense), DTYPES, (0, 300)):
+        if case[0].startswith("D 256 R 32") and dtype != torch.float32:
+            continue            # bf16 at D 256 R 32: phase 3's DENSE_EDGES
+        c = make_dense_case(*case, dtype=dtype, window=window, seed=200 + i)
+        rec = compare_dense(ra, ref, c, tol)
+        r = case[1][3]
+        if dtype == torch.float32:
+            rec["rows_per_cta"] = ra.tile_rows(case[1][2],
+                                               case[1][0] // case[1][1], r)
+        elif not c["decode"]:
+            rec["rows_per_cta"] = ra.mma_rows(case[1][2], r)
+        log("dense_kernel_rank64", **rec, rank=r, rp=rp_of(r), ok=True)
+        n += 1
+        del c
+    torch.cuda.empty_cache()
+    timed = []
+    for r in (32, 64):
+        g = dict(LLAMA_GEOM, r=r)
+        for entry in RANK64_PAGED:
+            kind = KERNELS[entry][0]
+            c = make_case(kind, torch.bfloat16, 0, seed=71, geom=g,
+                          **FIXED[kind])
+            rec = compare(pra, ref, entry, c, BF16_RTOL, f"rank {r} timed")
+            timed.append(dict(measure(pra, ref, entry, c, rec), rank=r))
+            del c
+        for i, (label, *rest) in enumerate(RANK64_TIMED):
+            c = make_dense_case(f"D 128 R {r} {label}", (32, 8, 128, r),
+                                *rest, dtype=torch.bfloat16, window=0,
+                                seed=80 + i)
+            rec = compare_dense(ra, ref, c, BF16_RTOL)
+            timed.append(dict(measure_dense(ra, ref, c, rec), rank=r))
+            del c
+        torch.cuda.empty_cache()
+    log("rank64_checked", cases=n, ok=True)
+    return timed
+
+
+# ------------------------------------------------ RG-LRU scan backward
+# the Pallas package has no backward kernel: in training the reference
+# differentiates its associative scan (``_rglru_scan``) with jax.grad
+SCAN_BWD_REPLACES = "src/repro/models/hybrid.py:105"
+SCAN_BWD_F32_RTOL = 1e-5    # f32: a share of the plain version's max
+                            # |value| (one FMA per step against a multiply
+                            # and an add)
+# tests/test_kernels.py's shapes, S 1, and RecurrentGemma-9B's width (B 4,
+# S 1000, W 4096; timed)
+SCAN_BWD_FIXED = SCAN_FIXED[:3] + [("RecurrentGemma-9B B4 S1000 W4096", 4,
+                                    1000, 4096)]
+
+
+def make_scan_bwd_case(ref, label, bsz, s, w, dtype, seed):
+    """A scan case (``make_scan_case``, h0 non-zero) with the forward's
+    states from the plain version and random gradients of both outputs."""
+    c = make_scan_case(label, bsz, s, w, dtype, seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    c["states"] = ref.rg_lru_scan_ref(c["a"], c["b"], c["h0"])[0]
+    c["dstates"] = torch.randn((bsz, s, w), generator=gen,
+                               device="cuda").to(dtype)
+    c["dh_last"] = torch.randn((bsz, w), generator=gen,
+                               device="cuda").to(dtype)
+    return c
+
+
+def _bwd_args(c):
+    return (c["a"], c["states"], c["h0"], c["dstates"], c["dh_last"])
+
+
+def compare_scan_bwd(rg, ref, c):
+    """The backward kernel against ``rg_lru_scan_bwd_ref`` on ``c``: da,
+    db and dh0 each within ``SCAN_BWD_F32_RTOL`` (f32) or ``BF16_RTOL``
+    (bf16) of the plain version's max |value|.  Returns the record."""
+    before = dict(rg.LAUNCHES)
+    got = rg.rg_lru_scan_bwd(*_bwd_args(c))
+    if launched(rg, before) != {"rg_lru_scan_bwd": 1}:
+        raise AssertionError(f"rg_lru_scan_bwd {c['label']}: ran "
+                             f"{launched(rg, before)}")
+    want = ref.rg_lru_scan_bwd_ref(*_bwd_args(c))
+    torch.cuda.synchronize()
+    rtol = BF16_RTOL if c["dtype"] == torch.bfloat16 else SCAN_BWD_F32_RTOL
+    rec = dict(kernel="rg_lru_scan_bwd", dtype=str(c["dtype"]).split(".")[1],
+               case=c["label"], shape=list(c["a"].shape), rtol=rtol)
+    err = 0.0
+    for name, g, w in zip(("da", "db", "dh0"), got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"rg_lru_scan_bwd {c['label']}: "
+                                 f"non-finite {name}")
+        e = (g.float() - w.float()).abs().max().item()
+        m = w.float().abs().max().item()
+        rec[f"{name}_err"], rec[f"{name}_max"] = e, m
+        err = max(err, e)
+        if e > rtol * m:
+            log("scan_bwd_kernel", **rec, ok=False)
+            raise AssertionError(f"rg_lru_scan_bwd {c['label']} "
+                                 f"{c['dtype']}: {name} err {e} > {rtol} * "
+                                 f"{m}")
+    rec["max_abs_err"] = err
+    return rec
+
+
+def scan_bwd_work(c):
+    """Bytes and operations of the backward on these inputs: a, the states
+    and their gradient read once, h0 and dh_last read, da and db written
+    once, dh0 written (``rg_lru_scan_bwd``'s arguments and outputs); an add, a multiply and an FMA (4 operations, f32 on
+    the CUDA cores) per element.  b is not an input: h_{t-1} comes from the
+    states."""
+    esize = c["a"].element_size()
+    bsz, s, w = c["a"].shape
+    nbytes = 5 * bsz * s * w * esize + 3 * bsz * w * esize
+    ops = 4 * bsz * s * w
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = ops / PEAK[torch.float32] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def measure_scan_bwd(rg, ref, c, rec):
+    """Adds the kernel's and the plain version's times and the bound (no
+    PyTorch call computes the reverse recurrence: no library time)."""
+    args = _bwd_args(c)
+    rec["kernel_ms"] = time_ms(lambda: rg.rg_lru_scan_bwd(*args))
+    rec["plain_ms"] = time_ms(lambda: ref.rg_lru_scan_bwd_ref(*args),
+                              reps=3, warmup=1)
+    rec["library_ms"] = None
+    (rec["bound_ms"], rec["bound_by"], rec["bytes"],
+     rec["ops"]) = scan_bwd_work(c)
+    return rec
+
+
+def check_scan_bwd_kernels(rg, ref):
+    """Phase 3, the scan's backward: the kernel against its plain version
+    at ``SCAN_BWD_FIXED``, f32 and bf16, h0 and dh_last non-zero; the
+    RecurrentGemma-9B case timed.  Returns its f32 record."""
+    out = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(SCAN_BWD_FIXED):
+            c = make_scan_bwd_case(ref, *case, dtype=dtype, seed=90 + i)
+            rec = compare_scan_bwd(rg, ref, c)
+            if case[0].startswith("RecurrentGemma"):
+                measure_scan_bwd(rg, ref, c, rec)
+                if dtype == torch.float32:
+                    out = rec
+            log("scan_bwd_kernel", **rec, ok=True)
+            del c
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_grad_guard(ra):
+    """Phase 3: the dense prefill (#7) on an input that requires grad,
+    with grad mode on, must raise (it has no backward, as the Pallas
+    kernel has none), naming the kernel; under ``torch.no_grad`` the same
+    call launches."""
+    c = make_dense_case("guard", (32, 8, 128, 16), 37, 97, [3, 60],
+                        [40, 97], dtype=torch.bfloat16, window=0, seed=99)
+    c["q"].requires_grad_(True)
+    before = dict(ra.LAUNCHES)
+    try:
+        dense_kernel_call(ra, c)()
+    except RuntimeError as e:
+        if "residual_attention_prefill" not in str(e):
+            raise
+        msg = str(e)
+    else:
+        raise AssertionError("#7 took an input that requires grad")
+    if launched(ra, before):
+        raise AssertionError("the refused call launched")
+    with torch.no_grad():
+        dense_kernel_call(ra, c)()
+    log("grad_guard", kernel="residual_attention_prefill", raised=msg,
+        no_grad_launches=launched(ra, before), ok=True)
+
+
 # f32 logits, held as tests/test_models.py holds the reference's
 MODEL_TOL = dict(rtol=3e-4, atol=5e-4)
 
@@ -1938,6 +2206,348 @@ def rg_hybrid(cfg, hybrid, mods, first, scans):
     del params, lora
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------- training
+class ScanBwdLaunches:
+    """While entered, keeps a copy of the inputs of the first launch of the
+    scan's backward kernel, as a case for ``compare_scan_bwd`` /
+    ``measure_scan_bwd``.  It wraps the module's function and calls
+    through, so the launch counter is untouched."""
+
+    def __init__(self, rg):
+        self.rg, self.case, self.orig = rg, None, None
+
+    def __enter__(self):
+        self.orig = self.rg.rg_lru_scan_bwd
+        self.rg.rg_lru_scan_bwd = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.rg.rg_lru_scan_bwd = self.orig
+
+    def _call(self, a, states, h0, dstates, dh_last):
+        if self.case is None:
+            self.case = dict(
+                label="main path B={} S={} W={}".format(*a.shape),
+                dtype=a.dtype, a=a.clone(), states=states.clone(),
+                h0=h0.clone(), dstates=dstates.clone(),
+                dh_last=dh_last.clone())
+        return self.orig(a, states, h0, dstates, dh_last)
+
+
+class PlainScan:
+    """While entered, the scan's forward and backward on the card run their
+    plain versions: the kernel wrappers that ``RgLruScan`` calls are
+    replaced by ``ref``'s (restored on exit)."""
+
+    def __init__(self, rg, ref):
+        self.rg, self.ref, self.orig = rg, ref, None
+
+    def __enter__(self):
+        self.orig = (self.rg.rg_lru_scan, self.rg.rg_lru_scan_bwd)
+        self.rg.rg_lru_scan = self._fwd
+        self.rg.rg_lru_scan_bwd = self.ref.rg_lru_scan_bwd_ref
+        return self
+
+    def __exit__(self, *exc):
+        self.rg.rg_lru_scan, self.rg.rg_lru_scan_bwd = self.orig
+
+    def _fwd(self, a, b, h0):
+        states, _ = self.ref.rg_lru_scan_ref(a, b, h0)
+        return states, states[:, -1].clone()
+
+
+def check_scan_bwd_main_path(rg, ref, case):
+    """Phase 6, the scan's backward on the inputs of its first launch in
+    the RecurrentGemma-9B fine-tune, in f32 as the model runs it, and the
+    same inputs cast to bf16, each timed with its bound.  Returns the f32
+    record."""
+    rec = compare_scan_bwd(rg, ref, case)
+    log("scan_bwd_kernel", **measure_scan_bwd(rg, ref, case, rec), ok=True)
+    bf = dict(case, dtype=torch.bfloat16, **{
+        k: case[k].to(torch.bfloat16)
+        for k in ("a", "states", "h0", "dstates", "dh_last")})
+    rec_bf = compare_scan_bwd(rg, ref, bf)
+    log("scan_bwd_kernel", **measure_scan_bwd(rg, ref, bf, rec_bf), ok=True)
+    del bf
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lora_grads(api, base, params, lora, batch, adapter_id):
+    """The LoRA fine-tune's loss (``train_loop``'s, disagg=False) and its
+    gradient w.r.t. every adapter leaf on one batch, base weights frozen."""
+    tracked = tree_map(lambda t: t.detach().requires_grad_(True), lora)
+    tokens = torch.as_tensor(batch["tokens"]).cuda()
+    ids = torch.full((tokens.shape[0],), adapter_id, dtype=torch.long,
+                     device="cuda")
+    loss = base.cross_entropy(
+        api.forward(params, tokens, lora=tracked, adapter_ids=ids),
+        torch.as_tensor(batch["labels"]).cuda())
+    loss.backward()
+    return float(loss.detach()), tree_map(lambda t: t.grad, tracked)
+
+
+def grad_gap(got, want):
+    """max |got - want| over max |want| of one gradient leaf."""
+    want = want.float()
+    return (got.float() - want).abs().max().item() / max(
+        want.abs().max().item(), 1e-30)
+
+
+def lora_finetune(cfg, api, params, lora, train_loop, data, base, mods,
+                  steps, bsz, seq, expect, capture=None):
+    """Phase 5, training: ``steps`` steps of ``make_lora_train_step``
+    (AdamW, adapter 0, base frozen) on the synthetic stream (seed 0), B x
+    S tokens each, the counts zeroed before each step and read after it
+    (``expect``: the launches one step must make, every other counter 0);
+    the loss on a held-out batch (the stream at seed 1) before and after;
+    the base weights bit-equal after the steps (held on the host).
+    Returns the run's record and the trained stacks."""
+    init, step = train_loop.make_lora_train_step(cfg, lr=1e-3, adapter_id=0)
+    stream = data.make_stream(cfg.vocab_size, seq, bsz, seed=0)
+    held = data.make_stream(cfg.vocab_size, seq, bsz, seed=1)._batch(0)
+    ids = torch.zeros(bsz, dtype=torch.long, device="cuda")
+    before = [t.cpu() for t in base.leaves(params)]
+    loss0 = float(train_loop.eval_loss(cfg, params, held, lora=lora,
+                                       adapter_ids=ids))
+    opt = init(lora)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, launches = [], [], {}
+    for _, batch in zip(range(steps), stream):
+        reset_counts(*mods)
+        t0 = time.perf_counter()
+        if capture is not None:
+            with capture:
+                lora, opt, m = step(lora, opt, params, batch)
+        else:
+            lora, opt, m = step(lora, opt, params, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for k, v in expect_launches(mods, expect).items():
+            launches[k] = launches.get(k, 0) + v
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss1 = float(train_loop.eval_loss(cfg, params, held, lora=lora,
+                                       adapter_ids=ids))
+    unchanged = all(torch.equal(a, b.cpu())
+                    for a, b in zip(before, base.leaves(params)))
+    del before
+    steady = sorted(ms[1:]) if len(ms) > 1 else ms
+    ms_step = steady[len(steady) // 2]
+    rec = dict(model=cfg.name, dtype=str(cfg.activation_dtype).split(".")[1],
+               layers=cfg.num_layers, batch=bsz, seq=seq, steps=steps,
+               rank=cfg.lora.rank, adapters=lora["a_q"].shape[1],
+               losses=losses, step_ms=ms, ms_per_step=ms_step,
+               tokens_per_s=bsz * seq / (ms_step / 1e3),
+               held_out_loss_before=loss0, held_out_loss_after=loss1,
+               peak_mem_gib=peak, base_unchanged=unchanged,
+               launches=launches)
+    if not all(np.isfinite(losses)) or not loss1 < loss0 or not unchanged:
+        log("train", **rec, ok=False)
+        raise AssertionError(f"{cfg.name} LoRA fine-tune: held-out loss "
+                             f"{loss0} -> {loss1}, base unchanged "
+                             f"{unchanged}, losses {losses}")
+    return rec, lora
+
+
+def train_llama_lora(cfg, params, lora, registry, train_loop, data, base,
+                     mods, card):
+    """Phase 5, training (1): Llama3-8B's LoRA fine-tune at full width and
+    depth on the serving phase's bf16 weights and 4 adapters of rank 16:
+    5 steps of B 4 x S 512; the dense family's training reaches no kernel
+    (its loss runs disagg=False, as the reference's) and no plain
+    version."""
+    rec, _ = lora_finetune(cfg, registry.get_model(cfg), params, lora,
+                           train_loop, data, base, mods, steps=5, bsz=4,
+                           seq=512, expect={})
+    log("train", run="llama3-8b lora", card=card, **rec, ok=True)
+    return rec
+
+
+def train_rg_lora(cfg, hybrid, registry, rg, ref, train_loop, data, base,
+                  mods, card, capture):
+    """Phase 5, training (3): RecurrentGemma-9B's LoRA fine-tune at full
+    width and depth (random bf16 weights from seed 0, 4 adapters of rank
+    16 on the 12 local-attention layers): 3 steps of B 2 x S 1000.  Each
+    step launches the forward kernel once per RG-LRU layer (26) and the
+    backward kernel once per RG-LRU layer after the first local layer
+    (24: the gradient reaches only the adapters, so layers 0 and 1 need
+    none, as under ``jax.grad``); under the config's remat the recompute
+    runs each of those 24 layers' forward again.  Then,
+    on one batch, the adapter gradients: the first local layer's (layer 2;
+    24 RG-LRU layers lie between it and the loss) non-zero; in bf16 their
+    gap to the same gradients with the plain scan patched in
+    (``PlainScan``) is logged beside bf16's own floor (the kernel's
+    gradients with the embedding one ulp off: bf16 through 38 random
+    layers is chaotic), and on f32 copies of the weights and stacks every
+    leaf must be within 1% of its max |value| of the plain scan's.
+    Returns the run's record."""
+    t0 = time.perf_counter()
+    params = hybrid.init_params(cfg, 0)
+    lora = hybrid.init_lora_stacks(cfg, 1, 4)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kinds = hybrid.layer_kinds(cfg)
+    n_lru = kinds.count("rglru")
+    n_bwd = kinds[kinds.index("local"):].count("rglru")
+    api = registry.get_model(cfg)
+    rec, lora = lora_finetune(
+        cfg, api, params, lora, train_loop, data, base, mods, steps=3,
+        bsz=2, seq=1000, expect={
+            "rg_lru_scan": n_lru + (n_bwd if cfg.remat else 0),
+            "rg_lru_scan_bwd": n_bwd}, capture=capture)
+    batch = data.make_stream(cfg.vocab_size, 1000, 2, seed=0)._batch(0)
+    reset_counts(*mods)
+    loss_k, g_k = lora_grads(api, base, params, lora, batch, 0)
+    with PlainScan(rg, ref):
+        loss_p, g_p = lora_grads(api, base, params, lora, batch, 0)
+    # bf16's own floor: the kernel's gradients with the embedding one ulp
+    # off (bf16 through 38 random layers moves ~6% on a one-ulp change)
+    nudged = dict(params, embed=params["embed"].clone())
+    nudged["embed"].view(torch.int16).add_(1)
+    _, g_n = lora_grads(api, base, nudged, lora, batch, 0)
+    del nudged
+    torch.cuda.synchronize()
+    counts = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+    layer2 = {k: g_k[k][0, 0].float().abs().max().item()
+              for k in ("a_q", "b_q", "a_k", "b_k", "a_v", "b_v")}
+    bf16 = {k: dict(kernel_vs_plain=grad_gap(g_k[k], g_p[k]),
+                    one_ulp_embed=grad_gap(g_n[k], g_k[k])) for k in g_k}
+    del g_k, g_p, g_n
+    # the gate, on f32 copies of the same weights and trained stacks
+    params = tree_map(lambda t: t.float(), params)
+    lora = tree_map(lambda t: t.float(), lora)
+    torch.cuda.empty_cache()
+    api32 = registry.get_model(dataclasses.replace(cfg, dtype="float32"))
+    loss_k32, g_k = lora_grads(api32, base, params, lora, batch, 0)
+    with PlainScan(rg, ref):
+        loss_p32, g_p = lora_grads(api32, base, params, lora, batch, 0)
+    f32 = {k: grad_gap(g_k[k], g_p[k]) for k in g_k}
+    layer2_f32 = {k: g_k[k][0, 0].abs().max().item() for k in layer2}
+    ok = all(v > 0 for v in list(layer2.values()) + list(
+        layer2_f32.values())) and all(v <= BF16_RTOL for v in f32.values())
+    rec.update(init_seconds=init_s, rg_lru_layers=n_lru,
+               rg_lru_layers_with_gradient=n_bwd, remat=cfg.remat,
+               grad_loss_bf16=dict(kernel=loss_k, plain=loss_p),
+               grad_loss_f32=dict(kernel=loss_k32, plain=loss_p32),
+               layer2_adapter_grad_max=layer2,
+               layer2_adapter_grad_max_f32=layer2_f32,
+               bf16_grad_gaps=bf16, f32_kernel_vs_plain_grad_gaps=f32,
+               f32_grad_tol=BF16_RTOL, grad_launches=counts)
+    log("train", run="recurrentgemma-9b lora", card=card, **rec, ok=ok)
+    if not ok:
+        raise AssertionError(f"RecurrentGemma-9B gradients: layer 2 "
+                             f"{layer2} / {layer2_f32}, f32 kernel vs "
+                             f"plain {f32}")
+    del params, lora, g_k, g_p
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_launcher(card, timeout=900):
+    """Phase 5, training (2): internlm2-1.8b full-parameter training at
+    full width and depth (bf16, AdamW) through ``python -m
+    repro_torch.launch.train`` as users run it, a process of its own: 5
+    steps of B 8 x S 128, every step's line finite, exit code 0; its peak
+    device memory from its last line.  Returns the record."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "internlm2-1.8b", "--steps", "5", "--batch", "8", "--seq", "128",
+           "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    steps = [re.match(r"step\s+(\d+) loss=(\S+) gnorm=(\S+) "
+                      r"\((\S+)s/step\)$", ln) for ln in lines]
+    steps = [m for m in steps if m]
+    peak = [float(ln.split("=")[1]) for ln in lines
+            if ln.startswith("peak_memory_gib=")]
+    # each line gives the mean over the steps so far (the reference's
+    # format, 2 decimals): step i took (i + 1) avg_i - i avg_{i-1}
+    avg = [float(m[4]) for m in steps]
+    step_s = [(i + 1) * a - i * (avg[i - 1] if i else 0.0)
+              for i, a in enumerate(avg)]
+    steady = sorted(step_s[1:]) or step_s
+    rec = dict(cmd=" ".join(cmd[1:]), returncode=proc.returncode,
+               seconds=seconds, lines=lines,
+               losses=[float(m[2]) for m in steps],
+               grad_norms=[float(m[3]) for m in steps],
+               s_per_step=avg, step_s=step_s,
+               ms_per_step=1e3 * steady[len(steady) // 2],
+               tokens_per_s=8 * 128 / steady[len(steady) // 2],
+               peak_mem_gib=peak[0] if peak else None)
+    ok = proc.returncode == 0 and len(steps) == 5 and all(
+        np.isfinite(rec["losses"] + rec["grad_norms"]))
+    log("train", run="internlm2-1.8b launcher", card=card, **rec,
+        stderr=proc.stderr[-2000:] if not ok else "", ok=ok)
+    if not ok:
+        raise AssertionError(f"train launcher: exit {proc.returncode}, "
+                             f"{len(steps)} step lines")
+    return rec
+
+
+def small_training_card_vs_cpu(cfgs, registry, train_loop, data, base,
+                               mods, steps=3):
+    """Phase 5, training (4): small f32 models trained on the card and on
+    the CPU from the same weights, ``steps`` AdamW steps of B 4 x S 64.
+    At lr 1e-3 (the reference tests' rate): the losses within 1e-5 of each
+    other (relative), each step's gradient norm within 1e-4, and every
+    parameter within AdamW's own bound for rounding noise, 2 * steps * lr:
+    AdamW moves an element by ~lr g / (|g| + 1e-8), so an element whose
+    gradient lies within rounding of zero moves up to lr either way, and
+    the two devices round their sums differently.  Then the same steps at
+    lr 1e-5, where that bound is 6e-5: every parameter within 1e-4.  The
+    hybrid's card runs launch the scan once per RG-LRU layer per forward
+    pass (its remat on: the recompute too) and the backward once per layer
+    per step."""
+    for label, cfg, lru in cfgs:
+        params = registry.get_model(cfg).init_params(0, device="cpu")
+        rec = dict(model=label, layers=cfg.num_layers, d_model=cfg.d_model,
+                   remat=cfg.remat, steps=steps)
+        for lr in (1e-3, 1e-5):
+            out = {}
+            for dev in ("cuda", "cpu"):
+                p = tree_map(lambda t: t.to(dev), params)
+                init, step = train_loop.make_train_step(cfg, lr=lr,
+                                                        device=dev)
+                opt = init(p)
+                losses, norms = [], []
+                reset_counts(*mods)
+                for _, b in zip(range(steps), data.make_stream(
+                        cfg.vocab_size, 64, 4, seed=2)):
+                    p, opt, m = step(p, opt, b)
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    want = {} if not lru else {
+                        "rg_lru_scan": steps * lru * (2 if cfg.remat else 1),
+                        "rg_lru_scan_bwd": steps * lru}
+                    rec["launches"] = expect_launches(mods, want)
+                out[dev] = (losses, norms, [t.cpu() for t in base.leaves(p)])
+            gaps = [(a - b).abs() for a, b in zip(out["cuda"][2],
+                                                   out["cpu"][2])]
+            rec[f"lr {lr:g}"] = dict(
+                losses=out["cuda"][0], cpu_losses=out["cpu"][0],
+                loss_rel_gap=max(abs(a - b) / abs(b) for a, b in zip(
+                    out["cuda"][0], out["cpu"][0])),
+                grad_norm_rel_gap=max(abs(a - b) / abs(b) for a, b in zip(
+                    out["cuda"][1], out["cpu"][1])),
+                param_max_abs_gap=max(g.max().item() for g in gaps),
+                params_past_1e_4=sum(int((g > 1e-4).sum()) for g in gaps),
+                params=sum(g.numel() for g in gaps))
+        hi, lo = rec["lr 0.001"], rec["lr 1e-05"]
+        ok = hi["loss_rel_gap"] <= 1e-5 and hi["grad_norm_rel_gap"] <= 1e-4 \
+            and hi["param_max_abs_gap"] <= 2 * steps * 1e-3 and \
+            lo["loss_rel_gap"] <= 1e-5 and lo["param_max_abs_gap"] <= 1e-4
+        log("train_card_vs_cpu", **rec, ok=ok)
+        if not ok:
+            raise AssertionError(f"{label} trained on card vs CPU: {rec}")
 
 
 def check_dense_main_path(ra, ref, cases):
@@ -3092,6 +3702,8 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.kernels import residual_attention as ra
     from repro_torch.kernels import rg_lru as rg
+    from repro_torch.configs.recurrentgemma_9b import tiny as rg_tiny
+    from repro_torch.models import base as tbase
     from repro_torch.models import hybrid, registry
     from repro_torch.models import transformer as tfm
     from repro_torch.serving import workflows
@@ -3101,6 +3713,8 @@ def main() -> int:
     from repro_torch.serving.frontend import ForkClient, HttpError, \
         HttpFrontend
     from repro_torch.serving.sampling import SamplingParams
+    from repro_torch.training import data as tdata
+    from repro_torch.training import train_loop
 
     t_start = time.perf_counter()
     # 1. environment
@@ -3132,6 +3746,15 @@ def main() -> int:
     time_decode_launches(pra, ref, tfm.quantize_kv)
     check_dense_kernels(ra, ref)
     check_scan_kernels(rg, ref)
+    # (j) LoRA ranks 33-64 (the RP 64 instances), the bf16 cases at D 128
+    # timed at ranks 32 and 64; the scan's backward; the grad guard
+    log("rank64_times", card=card, kernels=[
+        {k: r[k] for k in ("kernel", "ran", "case", "rank", "kernel_ms",
+                           "plain_ms", "library_ms", "bound_ms", "bound_by",
+                           "max_abs_err")}
+        for r in check_rank64(pra, ref, ra, tfm.quantize_kv)])
+    check_scan_bwd_kernels(rg, ref)
+    check_grad_guard(ra)
     # (a) every kernel at head_dim 32, the bf16 ones timed
     log("d32_times", card=card, kernels=[
         {k: r[k] for k in ("kernel", "ran", "case", "kernel_ms", "plain_ms",
@@ -3158,6 +3781,10 @@ def main() -> int:
     # (b) tiny_serving_model() at its defaults, head_dim 32
     tiny_d32_card_vs_cpu(tiny_serving_model, tfm, ForkServer, ServeConfig,
                          SamplingParams, pra)
+    # (j) tiny_serving_model() at rank 64: forkkv under both loops
+    serves_card_vs_cpu(tiny_serving_model(rank=64), "tiny_rank64",
+                       D32_SERVES[:2], tfm, ForkServer, ServeConfig,
+                       SamplingParams, pra)
     # (i) head_dim 120 served in every mode and loop; the SSM and audio
     # families' tiny models
     small_d120_card_vs_cpu(tiny_serving_model, tfm, ForkServer, ServeConfig,
@@ -3317,17 +3944,39 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     first = FirstLaunch(ra)
     launches.update(llama_dense(cfg, params, lora, tfm, mods, first))
+    # training (1): the LoRA fine-tune on the same weights
+    trained = {"llama3-8b lora": train_llama_lora(
+        cfg, params, lora, registry, train_loop, tdata, tbase, mods, card)}
     del params, lora
     torch.cuda.empty_cache()
 
     # RecurrentGemma-9B, full width and depth, once Llama3-8B is freed
     rg_first, scans = FirstLaunch(ra), ScanLaunches(rg)
     rg_launches = rg_hybrid(RG9B, hybrid, mods, rg_first, scans)
+    # training (3): its LoRA fine-tune through the scan's two kernels
+    bwd_first = ScanBwdLaunches(rg)
+    trained["recurrentgemma-9b lora"] = train_rg_lora(
+        RG9B, hybrid, registry, rg, ref, train_loop, tdata, tbase, mods, card,
+        bwd_first)
 
     # (f) the zoo: the transformer family's other archs at full width
     zoo_launches, d120_cases, d120_serves = zoo(
         tfm, configs, registry, mods, pra, ref, ra, ForkServer, ServeConfig,
         SamplingParams, card)
+
+    # training (2): internlm2-1.8b through the launcher; (4) small f32
+    # models trained on card and CPU
+    trained["internlm2-1.8b launcher"] = train_launcher(card)
+    small_training_card_vs_cpu(
+        (("hybrid", dataclasses.replace(rg_tiny(), remat=True), 2),
+         ("dense", tiny_serving_model(), 0)),
+        registry, train_loop, tdata, tbase, mods)
+    log("train_summary", card=card, runs={
+        run: {k: r.get(k) for k in ("ms_per_step", "tokens_per_s",
+                                    "peak_mem_gib",
+                                    "held_out_loss_before",
+                                    "held_out_loss_after", "losses")}
+        for run, r in trained.items()})
 
     # 6. kernels at the main paths' launch geometries
     recorded = shapes.launches()
@@ -3344,6 +3993,8 @@ def main() -> int:
     measured.update({f"{n}_d120": rec for n, rec in check_dense_main_path(
         ra, ref, d120_cases).items()})
     measured["rg_lru_scan"] = check_scan_main_path(rg, ref, scans.cases)
+    measured["rg_lru_scan_bwd"] = check_scan_bwd_main_path(rg, ref,
+                                                           bwd_first.case)
 
     # 7. kernels line, card line, result line: the paged kernels at their
     # heaviest serving launch, the dense kernels at Llama3-8B's (D 128), at
@@ -3377,6 +4028,10 @@ def main() -> int:
                         DENSE_SOURCE, "h2o-danube-3-4b"))
     entries.append(("rg_lru_scan", "rg_lru_scan", rg_launches["rg_lru_scan"],
                     SCAN_REPLACES, SCAN_SOURCE, RG9B.name))
+    entries.append(("rg_lru_scan_bwd", "rg_lru_scan_bwd",
+                    trained["recurrentgemma-9b lora"]["launches"][
+                        "rg_lru_scan_bwd"], SCAN_BWD_REPLACES,
+                    SCAN_SOURCE, RG9B.name))
     for name, key, n_launches, replaces, source, model in entries:
         rec = measured[key]
         kernels.append(dict(

@@ -37,6 +37,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;     // query rows per CTA
 constexpr int kPad = 8;                // bf16 elements of padding per row
+constexpr int kMaxRank = 64;           // LoRA rank of the largest RP instance
 constexpr float kNegInit = -1e30f;     // running max before any key
 constexpr float kLog2e = 1.4426950408889634f;
 

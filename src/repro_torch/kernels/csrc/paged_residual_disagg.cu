@@ -44,7 +44,8 @@ namespace {
 //     rounded to q's type as the plain version rounds them (built once by
 //     the wrapper; a row per position, so a block is contiguous).
 // Keys at or past min(kv_len, W * page) are zero-filled, never read.
-// K = K_b + RoPE(K_r . B_k): K_r (64 x RP, RP = 16 or 32) . B_k (RP x D)
+// K = K_b + RoPE(K_r . B_k): K_r (64 x RP, RP = 16, 32 or 64; the
+// smallest that holds R) . B_k (RP x D)
 // as MMAs whose accumulator holds columns c and c + D/2 in one thread, so
 // RoPE rotates in registers; K_b is added in f32 and the sum rounded once
 // to bf16 into the K tile.  Then #6's S = Q K^T, masks on blocks that
@@ -335,25 +336,30 @@ int launch_prefill_res_mma(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// RP: the smallest instance (16, 32, 64) that holds the rank
 template <int D, int DR = D>
 int launch_prefill_res_rank(const Args& a, int bsz, cudaStream_t s) {
   const bool int8 = a.kb_s != nullptr;
   if (a.r <= 16)
     return int8 ? launch_prefill_res_mma<D, DR, 16, true>(a, bsz, s)
                 : launch_prefill_res_mma<D, DR, 16, false>(a, bsz, s);
-  return int8 ? launch_prefill_res_mma<D, DR, 32, true>(a, bsz, s)
-              : launch_prefill_res_mma<D, DR, 32, false>(a, bsz, s);
+  if (a.r <= 32)
+    return int8 ? launch_prefill_res_mma<D, DR, 32, true>(a, bsz, s)
+                : launch_prefill_res_mma<D, DR, 32, false>(a, bsz, s);
+  return int8 ? launch_prefill_res_mma<D, DR, 64, true>(a, bsz, s)
+              : launch_prefill_res_mma<D, DR, 64, false>(a, bsz, s);
 }
 
 // The bf16 disaggregated chunked prefill (q_len null) and mixed grid (q_len
 // given): D 32/64/128, and 120 in D 128's tile (split halves,
-// ``flash::Cols``); R 1..32, tq * G <= 128 rows, page 1..32, bf16 or int8
+// ``flash::Cols``); R 1..64, tq * G <= 128 rows, page 1..32, bf16 or int8
 // pages, RoPE tables given.
 int dispatch_prefill_res_mma(const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.tq < 1 ||
       a.tq * (a.hq / a.hkv) > flash::kRows || a.page < 1 || a.page > 32 ||
-      a.r < 1 || a.r > 32 || a.sin == nullptr || a.cos == nullptr)
+      a.r < 1 || a.r > flash::kMaxRank || a.sin == nullptr ||
+      a.cos == nullptr)
     return (int)cudaErrorInvalidValue;
   if (a.d == 32) return launch_prefill_res_rank<32>(a, bsz, s);
   if (a.d == 64) return launch_prefill_res_rank<64>(a, bsz, s);
@@ -802,7 +808,7 @@ __global__ void __launch_bounds__(kThreads)
 paged_decode_res_combine_kernel(Args a) {
   // wait for the split kernel's grid and its writes
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  __shared__ float accr[32];
+  __shared__ float accr[flash::kMaxRank];
   const long row = blockIdx.x;                  // b * Hq + head
   const int b = (int)(row / a.hq), head = (int)(row % a.hq);
   const int h = head / (a.hq / a.hkv);
@@ -881,7 +887,10 @@ int launch_rank(const Args& a, cudaStream_t s) {
   if (a.r <= 16)
     return int8 ? launch<D, DR, 16, true>(a, s)
                 : launch<D, DR, 16, false>(a, s);
-  return int8 ? launch<D, DR, 32, true>(a, s) : launch<D, DR, 32, false>(a, s);
+  if (a.r <= 32)
+    return int8 ? launch<D, DR, 32, true>(a, s)
+                : launch<D, DR, 32, false>(a, s);
+  return int8 ? launch<D, DR, 64, true>(a, s) : launch<D, DR, 64, false>(a, s);
 }
 
 // f32: the template (HAS_RES) one CTA per share into the same workspace,
@@ -924,12 +933,13 @@ inline int bt_entries(const Args& a) {
 
 // dtype: q's type (0 f32, 1 bf16); int8 pages exactly when scales given.
 // D 32/64/128 and 120 (bf16: in D 128's tile; f32: the template takes any
-// even D), R 1..32, page 1..32, n_split a multiple of kWarps.
+// even D), R 1..64, page 1..32, n_split a multiple of kWarps.
 int dispatch(int dtype, Args a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.n_split < kWarps ||
       a.n_split % kWarps != 0 || a.page < 1 || a.page > 32 || a.r < 1 ||
-      a.r > 32 || a.hkv < 1 || a.hq % a.hkv != 0 || a.bsz > 65535 ||
+      a.r > flash::kMaxRank || a.hkv < 1 || a.hq % a.hkv != 0 ||
+      a.bsz > 65535 ||
       (long)a.hkv * ((a.hq / a.hkv + kHeads - 1) / kHeads) > 65535 ||
       (long)a.bsz * a.hq > INT_MAX)
     return (int)cudaErrorInvalidValue;

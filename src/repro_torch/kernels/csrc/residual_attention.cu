@@ -45,12 +45,14 @@
 //   * one CTA per (query tile, kv head, request row).  A query tile is `tq`
 //     query positions times the G heads of the group, so each key block of
 //     K/V is read once for all G heads, and a long prefill spreads over
-//     CTAs.  The wrapper sets tq from a row budget per head dim (tq*G <= 64
-//     rows at D <= 128, <= 32 at D 256) so that the shared-memory Layout
-//     below fits the 227 KB a CTA may use: at D 256, G 16 and R 16 a tile
-//     is 2 positions and needs 51,906 words (~203 KB); 64 rows would need
-//     ~280 KB.  Any D that is even works in the code itself;
-//   * B_k and B_v for head h (R x D) are loaded into shared memory once;
+//     CTAs.  The wrapper sets tq from a row budget (tq*G <= 64 rows at
+//     D <= 128; at D 256 32 rows, or 16 where the rank leaves no room for
+//     32: ``scalar_rows`` in residual_attention.py repeats the Layout
+//     below) so that the shared-memory Layout fits the 227 KB a CTA may
+//     use: at D 256, G 16 and R 64 a tile is 1 position and needs 54,897
+//     words (~214 KB).  Any D that is even works in the code itself;
+//   * B_k for head h (R x D) is loaded into shared memory once, B_v after
+//     the key loop, over the key block's buffers;
 //   * the key loop runs over blocks of 32 keys, from the first block inside
 //     the window of the tile's earliest query to the last block that is
 //     valid and (causal) not after the tile's latest query.  Any Sq and Sk
@@ -138,9 +140,12 @@ struct Layout {
     kr = o;    o += kBlockK * r;
     vr = o;    o += kBlockK * r;
     bk = o;    o += r * d;
-    bv = o;    o += r * d;
     qpos = o;  o += tq;                 // ints
     total = o;
+    // B_v (r x d) is read only after the key loop: it is loaded then over
+    // the key block's k, v, sn and cs (kBlockK (3 d + 1) words, room for
+    // r up to 96), which keeps rank 64 inside the 227 KB at D 256
+    bv = k;
   }
 };
 
@@ -198,9 +203,7 @@ residual_attention_kernel(Args a) {
   const long hd = (long)a.hkv * D;
   for (int e = tid; e < R * D; e += kThreads) {
     const int rr = e / D, dd = e % D;
-    const long src = ((long)b * R + rr) * hd + (long)h * D + dd;
-    Bk[e] = to_f32(bk[src]);
-    Bv[e] = to_f32(bv[src]);
+    Bk[e] = to_f32(bk[((long)b * R + rr) * hd + (long)h * D + dd]);
   }
   for (int e = tid; e < rows * R; e += kThreads) accr[e] = 0.f;
   __syncthreads();
@@ -312,6 +315,12 @@ residual_attention_kernel(Args a) {
     __syncthreads();
   }
 
+  // B_v over the last key block (the loop ended on a barrier)
+  for (int e = tid; e < R * D; e += kThreads) {
+    const int rr = e / D, dd = e % D;
+    Bv[e] = to_f32(bv[((long)b * R + rr) * hd + (long)h * D + dd]);
+  }
+  __syncthreads();
   // epilogue: (acc + acc_r . B_v) / max(l, 1e-20)
   for (int e = tid; e < rows * D; e += kThreads) {
     const int row = e / D, dd = e % D;
@@ -338,9 +347,10 @@ int launch(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// f32 only: every bf16 launch runs a tensor-core kernel.
+// f32 only: every bf16 launch runs a tensor-core kernel.  R 1..64.
 int dispatch(int dtype, const Args& a, int bsz, void* stream) {
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || a.r < 1 || a.r > flash::kMaxRank)
+    return (int)cudaErrorInvalidValue;
   return launch<float>(a, bsz, static_cast<cudaStream_t>(stream));
 }
 
@@ -354,7 +364,7 @@ int dispatch(int dtype, const Args& a, int bsz, void* stream) {
 //   * cp.async brings K_b, V_b, sin, cos and (R a multiple of 8) K_r, V_r
 //     into the other of two shared-memory stages while this one is used;
 //     keys at or past kv_len are zero-filled, never read;
-//   * K_r (BK x R, zero-padded to RP = 16 or 32) . B_k (RP x D) runs as
+//   * K_r (BK x R, zero-padded to RP = 16, 32 or 64) . B_k (RP x D) runs as
 //     MMAs whose accumulator holds columns c and c + D/2 in one thread
 //     (n-tiles j and j + D/16), so RoPE rotates in registers with sin/cos
 //     read from the tables; K_b is added in f32 and the sum rounded once
@@ -364,8 +374,13 @@ int dispatch(int dtype, const Args& a, int bsz, void* stream) {
 //     O += P V_b and O_r += P V_r, P rounded to bf16;
 // then O += O_r . B_v (O_r rounded to bf16) and O / max(l, 1e-20).
 // The latest query tiles, the heaviest under a causal mask, launch first.
+// ROWS query rows per CTA: 128 (all 8 warps), except at D 256 with RP 64,
+// where B_k and B_v of 64 rows and the two stages leave no room for a Q
+// tile of 128 rows in the 227 KB (250.5 KB); there the CTA holds 64 rows
+// (217.3 KB), warps 4..7 load and rebuild the key blocks with the others
+// and take no query rows.
 
-template <int D, int BK, int RP>
+template <int D, int BK, int RP, int ROWS = flash::kRows>
 struct MmaLayout {
   static constexpr int DS = D + flash::kPad;       // Q, K, V, B_k, B_v rows
   static constexpr int RS = RP + flash::kPad;      // K_r, V_r rows
@@ -373,29 +388,33 @@ struct MmaLayout {
   static constexpr int kK = 0, kV = kK + BK * DS, kKr = kV + BK * DS,
                        kVr = kKr + BK * RS, kSin = kVr + BK * RS,
                        kCos = kSin + BK * HS, kStage = kCos + BK * HS;
-  static constexpr int kQ = 0, kBk = kQ + flash::kRows * DS,
+  static constexpr int kQ = 0, kBk = kQ + ROWS * DS,
                        kBv = kBk + RP * DS, kStages = kBv + RP * DS,
                        kElems = kStages + 2 * kStage;
-  // rowpos (flash::kRows ints) first, then kElems bf16
+  // rowpos (ROWS ints) first, then kElems bf16
   static constexpr size_t kBytes =
-      flash::kRows * sizeof(int) + (size_t)kElems * sizeof(__nv_bfloat16);
+      ROWS * sizeof(int) + (size_t)kElems * sizeof(__nv_bfloat16);
+  static_assert(ROWS % 16 == 0 && ROWS <= flash::kRows, "whole warps");
+  static_assert(kBytes <= 232448, "a CTA's shared memory on the H100");
 };
 
-template <int D, int BK, int RP, int DR>
+template <int D, int BK, int RP, int DR, int ROWS>
 __global__ void __launch_bounds__(flash::kThreads, 1)
 residual_attention_mma_kernel(Args a, int bsz) {
   using flash::bf16;
-  using L = MmaLayout<D, BK, RP>;
+  using L = MmaLayout<D, BK, RP, ROWS>;
   using C = flash::Cols<D, DR>;           // head rows of DR in D columns
   constexpr int DS = L::DS, RS = L::RS, HS = L::HS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* rowpos = reinterpret_cast<int*>(smem_raw);
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw + flash::kRows * sizeof(int));
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw + ROWS * sizeof(int));
   bf16* Qs = sm + L::kQ;
   bf16* Bks = sm + L::kBk;
   bf16* Bvs = sm + L::kBv;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // a warp with query rows (all of them unless ROWS < kRows)
+  const bool rows_warp = warp * 16 < ROWS;
   const int G = a.hq / a.hkv, R = a.r;
   const int ntiles = (a.sq + a.tq - 1) / a.tq;
   const int per_tile = a.hkv * bsz;
@@ -421,7 +440,7 @@ residual_attention_mma_kernel(Args a, int bsz) {
   const bf16* cos_tab = static_cast<const bf16*>(a.cos);
 
   // Q rows (zero past nrows), B_k and B_v rows (zero from R to RP)
-  for (int e = tid; e < flash::kRows * C::kRow; e += flash::kThreads) {
+  for (int e = tid; e < ROWS * C::kRow; e += flash::kThreads) {
     const int r = e / C::kRow, i = e % C::kRow;
     const bool ok = r < nrows;
     const bf16* src =
@@ -438,7 +457,7 @@ residual_attention_mma_kernel(Args a, int bsz) {
   flash::cp_async_commit();
   // the split-half layout's gap columns (DR < D) stay zero in Q, B_k, B_v
   // and both stages, as do K_r / V_r columns R..RP-1
-  C::zero_gaps(Qs, flash::kRows, DS, tid, flash::kThreads);
+  C::zero_gaps(Qs, ROWS, DS, tid, flash::kThreads);
   C::zero_gaps(Bks, RP, DS, tid, flash::kThreads);
   C::zero_gaps(Bvs, RP, DS, tid, flash::kThreads);
   for (int st = 0; st < 2; ++st) {
@@ -459,7 +478,7 @@ residual_attention_mma_kernel(Args a, int bsz) {
     qlo = min(qlo, p);
     qhi = max(qhi, p);
   }
-  for (int r = tid; r < flash::kRows; r += flash::kThreads) {
+  for (int r = tid; r < ROWS; r += flash::kThreads) {
     const int i = min(r, nrows - 1) / G;
     rowpos[r] = a.qpos ? a.qpos[(long)b * a.sq + q0 + i] : kvlen - 1;
   }
@@ -524,9 +543,12 @@ residual_attention_mma_kernel(Args a, int bsz) {
   flash::cp_async_commit();
   flash::cp_async_wait<1>();                        // Q, B_k, B_v
   __syncthreads();                                  // and rowpos
-  const int pos[2] = {rowpos[warp * 16 + (lane >> 2)],
-                      rowpos[warp * 16 + (lane >> 2) + 8]};
-  const bf16* Qw = Qs + warp * 16 * DS;
+  // a warp without query rows reads row 0's position and Q rows, and
+  // uses neither
+  const int wrow = rows_warp ? warp * 16 : 0;
+  const int pos[2] = {rowpos[wrow + (lane >> 2)],
+                      rowpos[wrow + (lane >> 2) + 8]};
+  const bf16* Qw = Qs + wrow * DS;
   // Q's A fragments stay in registers up to D 128; at D 256 the
   // accumulator takes 128 registers and Q is read again per key block
   constexpr bool kQInRegisters = D <= 128;
@@ -550,25 +572,29 @@ residual_attention_mma_kernel(Args a, int bsz) {
                                 lane);
     __syncthreads();
 
-    const int j0 = (jb0 + it) * BK;
-    float s[BK / 8][4];
-    if constexpr (kQInRegisters)
-      flash::scores<D, BK>(s, qf, Ks, DS, lane);
-    else
-      flash::scores<D, BK>(s, Qw, DS, Ks, DS, lane);
-    const bool full = j0 + BK <= kvlen && (!a.causal || j0 + BK - 1 <= qlo) &&
-                      (a.window <= 0 || j0 > qhi - a.window);
-    if (!full)
-      flash::mask<BK>(s, j0, pos, kvlen, a.causal != 0, a.window, lane);
-    float alpha[2];
-    flash::softmax_step<BK>(s, m, l, alpha, scale_log2);
-    flash::rescale<D / 8>(o, alpha);
-    flash::rescale<RP / 8>(orr, alpha);
-    flash::product<BK, D>(o, s, base + L::kV, DS, lane);
-    flash::product<BK, RP>(orr, s, base + L::kVr, RS, lane);
+    if (rows_warp) {
+      const int j0 = (jb0 + it) * BK;
+      float s[BK / 8][4];
+      if constexpr (kQInRegisters)
+        flash::scores<D, BK>(s, qf, Ks, DS, lane);
+      else
+        flash::scores<D, BK>(s, Qw, DS, Ks, DS, lane);
+      const bool full = j0 + BK <= kvlen &&
+                        (!a.causal || j0 + BK - 1 <= qlo) &&
+                        (a.window <= 0 || j0 > qhi - a.window);
+      if (!full)
+        flash::mask<BK>(s, j0, pos, kvlen, a.causal != 0, a.window, lane);
+      float alpha[2];
+      flash::softmax_step<BK>(s, m, l, alpha, scale_log2);
+      flash::rescale<D / 8>(o, alpha);
+      flash::rescale<RP / 8>(orr, alpha);
+      flash::product<BK, D>(o, s, base + L::kV, DS, lane);
+      flash::product<BK, RP>(orr, s, base + L::kVr, RS, lane);
+    }
     __syncthreads();
   }
   flash::cp_async_wait<0>();
+  if (!rows_warp) return;
 
   // epilogue: (O + O_r . B_v) / max(l, 1e-20)
   flash::product<RP, D>(o, orr, Bvs, DS, lane);
@@ -584,10 +610,11 @@ residual_attention_mma_kernel(Args a, int bsz) {
   flash::store_cols<D, D, DR>(o, l, dst, 0, lane);
 }
 
-template <int D, int BK, int RP, int DR = D>
+template <int D, int BK, int RP, int DR = D, int ROWS = flash::kRows>
 int launch_mma(const Args& a, int bsz, cudaStream_t stream) {
-  using L = MmaLayout<D, BK, RP>;
-  auto kernel = residual_attention_mma_kernel<D, BK, RP, DR>;
+  using L = MmaLayout<D, BK, RP, ROWS>;
+  auto kernel = residual_attention_mma_kernel<D, BK, RP, DR, ROWS>;
+  if (a.tq * (a.hq / a.hkv) > ROWS) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (err != cudaSuccess) return (int)err;
@@ -597,29 +624,28 @@ int launch_mma(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// RP: the smallest instance (16, 32, 64) that holds the rank
+template <int D, int BK, int DR = D>
+int launch_mma_rank(const Args& a, int bsz, cudaStream_t s) {
+  if (a.r <= 16) return launch_mma<D, BK, 16, DR>(a, bsz, s);
+  if (a.r <= 32) return launch_mma<D, BK, 32, DR>(a, bsz, s);
+  // 64 query rows at D 256 (MmaLayout)
+  return launch_mma<D, BK, 64, DR, D == 256 ? 64 : flash::kRows>(a, bsz, s);
+}
+
 // The bf16 prefill: D 32/64/128/256, and 120 in D 128's tile (split
-// halves, ``flash::Cols``); R 1..32, tq * G <= 128 rows.
+// halves, ``flash::Cols``); R 1..64, tq * G <= the instance's ROWS (128;
+// 64 at D 256 above rank 32).
 int dispatch_mma(const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.r < 1 || a.r > 32 || a.tq < 1 || a.tq * (a.hq / a.hkv) > flash::kRows)
+  if (a.r < 1 || a.r > flash::kMaxRank || a.tq < 1)
     return (int)cudaErrorInvalidValue;
-  const bool r16 = a.r <= 16;
   switch (a.d) {
-    case 32:
-      return r16 ? launch_mma<32, 64, 16>(a, bsz, s)
-                 : launch_mma<32, 64, 32>(a, bsz, s);
-    case 64:
-      return r16 ? launch_mma<64, 64, 16>(a, bsz, s)
-                 : launch_mma<64, 64, 32>(a, bsz, s);
-    case 120:
-      return r16 ? launch_mma<128, 64, 16, 120>(a, bsz, s)
-                 : launch_mma<128, 64, 32, 120>(a, bsz, s);
-    case 128:
-      return r16 ? launch_mma<128, 64, 16>(a, bsz, s)
-                 : launch_mma<128, 64, 32>(a, bsz, s);
-    case 256:
-      return r16 ? launch_mma<256, 32, 16>(a, bsz, s)
-                 : launch_mma<256, 32, 32>(a, bsz, s);
+    case 32: return launch_mma_rank<32, 64>(a, bsz, s);
+    case 64: return launch_mma_rank<64, 64>(a, bsz, s);
+    case 120: return launch_mma_rank<128, 64, 120>(a, bsz, s);
+    case 128: return launch_mma_rank<128, 64>(a, bsz, s);
+    case 256: return launch_mma_rank<256, 32>(a, bsz, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1095,7 +1121,7 @@ residual_attention_decode_split_kernel(Args a) {
 // ranges with l_s > 0: one CTA per (row, head), threads over R, then D.
 __global__ void __launch_bounds__(kThreads)
 residual_attention_decode_combine_kernel(Args a) {
-  __shared__ float accr[32];
+  __shared__ float accr[flash::kMaxRank];
   const long row = blockIdx.x;                  // b * Hq + head
   const int b = (int)(row / a.hq), head = (int)(row % a.hq);
   const int h = head / (a.hq / a.hkv);
@@ -1158,16 +1184,19 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// RP: the smallest instance (16, 32, 64) that holds the rank
 template <int D, int DR = D>
 int launch_rank(const Args& a, cudaStream_t s) {
-  return a.r <= 16 ? launch<D, 16, DR>(a, s) : launch<D, 32, DR>(a, s);
+  if (a.r <= 16) return launch<D, 16, DR>(a, s);
+  if (a.r <= 32) return launch<D, 32, DR>(a, s);
+  return launch<D, 64, DR>(a, s);
 }
 
 // D 32/64/128/256, and 120 in D 128's tile (split halves,
-// ``flash::Cols``); R 1..32, any G, n_split >= 1 (a workspace when > 1).
+// ``flash::Cols``); R 1..64, any G, n_split >= 1 (a workspace when > 1).
 int dispatch(const Args& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.n_split < 1 || a.r < 1 || a.r > 32 || a.hkv < 1 ||
+  if (a.n_split < 1 || a.r < 1 || a.r > flash::kMaxRank || a.hkv < 1 ||
       a.hq % a.hkv != 0 || a.bsz > 65535 ||
       (long)a.hkv * ((a.hq / a.hkv + kHeads - 1) / kHeads) > 65535 ||
       (long)a.bsz * a.hq > INT_MAX || a.sk < 1 ||

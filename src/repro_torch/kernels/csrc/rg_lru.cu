@@ -2,6 +2,8 @@
 //
 // Hand-written CUDA port of the Pallas kernel in repro/kernels/rg_lru.py:
 //   rg_lru_scan (entry :48, body _rglru_kernel :27)
+// and, below it, the scan's backward (rg_lru_scan_bwd_kernel), which the
+// Pallas package does not have.
 //
 // It computes the Griffin / RecurrentGemma recurrence
 //   h_t = a_t * h_{t-1} + b_t        a, b: (B, S, W), h0: (B, W)
@@ -111,7 +113,121 @@ int launch(const void* a, const void* b, const void* h0, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// The backward of the scan, for training (the Pallas package has no
+// backward kernel: jax.grad differentiates the reference's associative
+// scan).  A linear recurrence has a linear recurrence run in reverse as its
+// gradient: with g the gradient reaching h_t,
+//   g_S = dstates_S + dh_last,   g_t = dstates_t + a_{t+1} g_{t+1},
+//   db_t = g_t,   da_t = g_t h_{t-1} (h_0 := h0),   dh0 = a_1 g_1
+// (steps numbered 1..S).  Same design as the forward: one thread per (row,
+// lane of W) walks S backwards with the carry g in f32 in a register, and
+// keeps the next group of kUnroll steps' loads (a, dstates and the states
+// one step earlier) in flight while it steps through the current one.
+// h_{t-1} is read from the forward's saved states, not recomputed: the
+// carry would have to be rebuilt from a, b and h0 in a forward pass and
+// stored anyway, and the hybrid runs the scan in f32 (a and the gated
+// input are f32 there), where the saved states are the carry exactly; in
+// bf16 da carries the states' rounding (2^-9 relative), as the plain
+// version rg_lru_scan_bwd_ref does.
+// Bound on an H100: bytes (3.35 TB/s): a, the states and dstates read once,
+// da and db written once, plus the (B, W) rows h0, dh_last and dh0.
+
+// Loads steps t0, t0-1, .., t0-kUnroll+1 (those >= 0) of one lane: a_t,
+// dstates_t and h_{t-1} (the state one step earlier, or h0 at t = 0).
+template <typename T>
+__device__ __forceinline__ void load_group_rev(
+    const T* __restrict__ a, const T* __restrict__ states,
+    const T* __restrict__ dstates, T h0v, long off, long stride, int t0,
+    T (&av)[kUnroll], T (&gv)[kUnroll], T (&hv)[kUnroll]) {
+#pragma unroll
+  for (int i = 0; i < kUnroll; ++i) {
+    const int t = t0 - i;
+    if (t >= 0) {
+      const long e = off + (long)t * stride;
+      av[i] = a[e];
+      gv[i] = dstates[e];
+      hv[i] = t > 0 ? states[e - stride] : h0v;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLanes)
+rg_lru_scan_bwd_kernel(const T* __restrict__ a, const T* __restrict__ states,
+                       const T* __restrict__ h0,
+                       const T* __restrict__ dstates,
+                       const T* __restrict__ dh_last, T* __restrict__ da,
+                       T* __restrict__ db, T* __restrict__ dh0, int s,
+                       int w) {
+  const int lane = blockIdx.x * kLanes + threadIdx.x;
+  const int row = blockIdx.y;
+  if (lane >= w) return;
+  const long off = (long)row * s * w + lane;     // element (row, 0, lane)
+  const long r = (long)row * w + lane;
+  const T h0v = h0[r];
+  float c = to_f32(dh_last[r]);                  // a_{t+1} g_{t+1}
+  T ca[kUnroll], cg[kUnroll], chh[kUnroll];
+  T na[kUnroll], ng[kUnroll], nh[kUnroll];
+  load_group_rev(a, states, dstates, h0v, off, w, s - 1, ca, cg, chh);
+  for (int t0 = s - 1; t0 >= 0; t0 -= kUnroll) {
+    load_group_rev(a, states, dstates, h0v, off, w, t0 - kUnroll, na, ng,
+                   nh);
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const int t = t0 - i;
+      if (t >= 0) {
+        const float g = to_f32(cg[i]) + c;
+        const long e = off + (long)t * w;
+        db[e] = from_f32<T>(g);
+        da[e] = from_f32<T>(g * to_f32(chh[i]));
+        c = to_f32(ca[i]) * g;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      ca[i] = na[i];
+      cg[i] = ng[i];
+      chh[i] = nh[i];
+    }
+  }
+  dh0[r] = from_f32<T>(c);
+}
+
+template <typename T>
+int launch_bwd(const void* a, const void* states, const void* h0,
+               const void* dstates, const void* dh_last, void* da, void* db,
+               void* dh0, int bsz, int s, int w, cudaStream_t stream) {
+  const dim3 grid((w + kLanes - 1) / kLanes, bsz);
+  rg_lru_scan_bwd_kernel<T><<<grid, kLanes, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(states),
+      static_cast<const T*>(h0), static_cast<const T*>(dstates),
+      static_cast<const T*>(dh_last), static_cast<T*>(da),
+      static_cast<T*>(db), static_cast<T*>(dh0), s, w);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  a, states, dstates, da, db: (B, S,
+// W); h0, dh_last, dh0: (B, W), all contiguous and of one dtype.
+// Returns cudaGetLastError() after the launch (0 = success).
+extern "C" int rg_lru_scan_bwd(int dtype, const void* a, const void* states,
+                               const void* h0, const void* dstates,
+                               const void* dh_last, void* da, void* db,
+                               void* dh0, int bsz, int s, int w,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bsz < 1 || bsz > 65535 || s < 1 || w < 1)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_bwd<float>(a, states, h0, dstates, dh_last, da, db, dh0,
+                             bsz, s, w, st);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(a, states, h0, dstates, dh_last, da, db,
+                                     dh0, bsz, s, w, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 = float32, 1 = bfloat16.  a, b, out: (B, S, W); h0, h_last:
 // (B, W), all contiguous and of one dtype.  Returns cudaGetLastError()

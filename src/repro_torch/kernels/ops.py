@@ -65,11 +65,13 @@ def residual_attention(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos,
 
 def rg_lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     """h_t = a_t * h_{t-1} + b_t with an f32 state; a, b: (B, S, W), h0:
-    (B, W).  Returns (states in a's dtype, states[:, -1])."""
-    if _on_cpu(a):
-        return ref_mod.rg_lru_scan_ref(a, b, h0)
-    return rg_lru.rg_lru_scan(a.contiguous(), b.contiguous(),
-                              h0.to(a.dtype).contiguous())
+    (B, W).  Returns (states in a's dtype, states[:, -1]).  Always through
+    :class:`~repro_torch.kernels.rg_lru.RgLruScan`, so a gradient reaches
+    a, b and h0: on the card by the forward and backward kernels, on the
+    CPU by their plain versions."""
+    _on_cpu(a)
+    return rg_lru.RgLruScan.apply(a.contiguous(), b.contiguous(),
+                                  h0.to(a.dtype).contiguous())
 
 
 def paged_residual_attention(q, kb_pool, vb_pool, kr_pool, vr_pool, b_k,

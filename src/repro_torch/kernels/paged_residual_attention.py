@@ -138,7 +138,7 @@ HEAD_DIMS = (32, 64, 120, 128)
 MAX_ROWS = 64          # query rows (positions x group heads) per CTA
 MMA_ROWS = 128         # the same for the tensor-core kernel (8 warps)
 MAX_PAGE = 32          # tokens per page a kernel takes; larger: sub-pages
-MAX_RANK = 32
+MAX_RANK = ra.MAX_RANK   # LoRA ranks 1..64, in instances of RP 16/32/64
 SPLIT_KEYS = 64        # a decode split's share of keys: multiples of this
 SPLIT_HEADS = 8        # query heads per split-K CTA, at most
 # resident split-K CTAs per SM, by query heads per CTA: the kernel's
@@ -317,8 +317,7 @@ def _check_residual(q, kr_pool, vr_pool, b_k, b_v, bt_r, bsz, hkv, d, page,
     r = kr_pool.shape[2]
     if vr_pool.shape != kr_pool.shape or kr_pool.shape[1] != page:
         raise ValueError("residual pools must be (Pr, page, R), equal")
-    if not 1 <= r <= MAX_RANK:
-        raise ValueError(f"rank {r} not in [1, {MAX_RANK}]")
+    ra.rank_instance(r)
     for name, t in (("b_k", b_k), ("b_v", b_v)):
         if tuple(t.shape) != (bsz, r, hkv * d):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
@@ -393,7 +392,7 @@ def res_split_smem(d: int, r: int, int8: bool) -> int:
     pages).  Rows are padded by 8 elements; at the tile's width
     (``residual_attention.tile_dim``)."""
     d = ra.tile_dim(d)
-    rp = 16 if r <= 16 else 32
+    rp = ra.rank_instance(r)
     ds, rs, hs, keys = d + 8, rp + 8, d // 2 + 8, RES_SPLIT_KEYS
     row = d if int8 else 2 * ds
     stage = keys * (2 * row + (8 if int8 else 0) + 4 * rs + 4 * hs)
@@ -499,6 +498,8 @@ def paged_residual_attention_mixed(q, kb_pool, vb_pool, kr_pool, vr_pool,
     ``rope_table``; a tile with no row below q_len only zeroes its rows),
     f32 the template.  Returns (B, Sq, Hq, D).  Bound: bytes for decode
     rows, operations for long prefill rows (module docstring)."""
+    ra.refuse_grad("paged_residual_attention_mixed", q, kb_pool, vb_pool,
+                   kr_pool, vr_pool, b_k, b_v)
     kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool, bt_b, bt_r = \
         sub_pages(kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool,
                   bt_b, bt_r)
@@ -540,6 +541,8 @@ def paged_residual_attention_decode(q, kb_pool, vb_pool, kr_pool, vr_pool,
 
     q: (B, Hq, D); pools and tables as the mixed kernel; kv_len: (B,)
     int32.  Returns (B, Hq, D).  Bound: bytes (module docstring)."""
+    ra.refuse_grad("paged_residual_attention_decode", q, kb_pool, vb_pool,
+                   kr_pool, vr_pool, b_k, b_v)
     kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool, bt_b, bt_r = \
         sub_pages(kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool,
                   bt_b, bt_r)
@@ -587,6 +590,8 @@ def paged_residual_attention_prefill(q, kb_pool, vb_pool, kr_pool, vr_pool,
     ignores: they come back as zeros and their tiles are skipped.  Returns
     (B, chunk, Hq, D).  Bound: operations for long chunks, bytes for short
     ones (module docstring)."""
+    ra.refuse_grad("paged_residual_attention_prefill", q, kb_pool, vb_pool,
+                   kr_pool, vr_pool, b_k, b_v)
     kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool, bt_b, bt_r = \
         sub_pages(kb_pool, vb_pool, kb_scale, vb_scale, kr_pool, vr_pool,
                   bt_b, bt_r)
@@ -621,6 +626,7 @@ def paged_attention_mixed_base(q, kb_pool, vb_pool, bt_b, start, q_len,
     :func:`paged_residual_attention_mixed` minus the residual stream.  In
     bf16 it runs #6's tensor-core tile with each row's q_len given.
     Bound: bytes for decode rows, operations for long prefill rows."""
+    ra.refuse_grad("paged_attention_mixed_base", q, kb_pool, vb_pool)
     kb_pool, vb_pool, kb_scale, vb_scale, _, _, bt_b, _ = sub_pages(
         kb_pool, vb_pool, kb_scale, vb_scale, None, None, bt_b, None)
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(
@@ -647,6 +653,7 @@ def paged_attention_decode_base(q, kb_pool, vb_pool, bt_b, kv_len, *,
     :func:`paged_residual_attention_decode` minus the residual stream.
     Runs the split-K decode (``split_plan``) and its combine, with a
     workspace of ``split_plan(...)["workspace_bytes"]``.  Bound: bytes."""
+    ra.refuse_grad("paged_attention_decode_base", q, kb_pool, vb_pool)
     kb_pool, vb_pool, kb_scale, vb_scale, _, _, bt_b, _ = sub_pages(
         kb_pool, vb_pool, kb_scale, vb_scale, None, None, bt_b, None)
     bsz, _, hq, hkv, d, page, w, _, code = _geometry(
@@ -677,6 +684,7 @@ def paged_attention_prefill_base(q, kb_pool, vb_pool, bt_b, start, kv_len,
     ``kb_scale``/``vb_scale`` its int8 branch (:645).  Shapes as
     :func:`paged_residual_attention_prefill` minus the residual stream.
     Bound: operations for long chunks, bytes for short ones."""
+    ra.refuse_grad("paged_attention_prefill_base", q, kb_pool, vb_pool)
     kb_pool, vb_pool, kb_scale, vb_scale, _, _, bt_b, _ = sub_pages(
         kb_pool, vb_pool, kb_scale, vb_scale, None, None, bt_b, None)
     bsz, sq, hq, hkv, d, page, w, g, code = _geometry(

@@ -31,6 +31,7 @@ LAUNCHES: Dict[str, int] = {
     "paged_residual_attention_prefill_ref": 0,
     "residual_attention_ref": 0,
     "rg_lru_scan_ref": 0,
+    "rg_lru_scan_bwd_ref": 0,
 }
 
 
@@ -233,20 +234,53 @@ def paged_residual_attention_mixed_ref(q, kb_pool, vb_pool, kr_pool,
                        torch.zeros_like(out))
 
 
+def _carry_dtype(a: torch.Tensor) -> torch.dtype:
+    """The scan's carry: f32, or f64 for f64 inputs (``gradcheck``)."""
+    return torch.promote_types(a.dtype, torch.float32)
+
+
 def rg_lru_scan_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     """The linear recurrence h_t = a_t * h_{t-1} + b_t, one step at a time
-    with an f32 state, as the Pallas kernel ``repro/kernels/rg_lru.py``
+    with an f32 state (f64 for f64 inputs), as the Pallas kernel
+    ``repro/kernels/rg_lru.py``
     steps through its blocks.
 
     a, b: (B, S, W); h0: (B, W).  Returns (states (B, S, W) in a's dtype,
     states[:, -1]), as the Pallas entry returns them.
     """
     LAUNCHES["rg_lru_scan_ref"] += 1
-    af, bf = a.to(torch.float32), b.to(torch.float32)
-    h = h0.to(torch.float32)
-    states = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    acc = _carry_dtype(a)
+    af, bf = a.to(acc), b.to(acc)
+    h = h0.to(acc)
+    states = torch.empty(a.shape, dtype=acc, device=a.device)
     for t in range(a.shape[1]):
         h = af[:, t] * h + bf[:, t]
         states[:, t] = h
     states = states.to(a.dtype)
     return states, states[:, -1]
+
+
+def rg_lru_scan_bwd_ref(a: torch.Tensor, states: torch.Tensor,
+                        h0: torch.Tensor, dstates: torch.Tensor,
+                        dh_last: torch.Tensor):
+    """The gradient of :func:`rg_lru_scan_ref`, one step at a time
+    backwards with an f32 carry (f64 for f64 inputs; the plain version of
+    ``csrc/rg_lru.cu``'s ``rg_lru_scan_bwd_kernel``): with g the gradient
+    reaching h_t, g_S = dstates_S + dh_last, g_t = dstates_t + a_{t+1}
+    g_{t+1}, db_t = g_t, da_t = g_t h_{t-1} (h_0 := h0, h_{t-1} read from
+    the forward's ``states``) and dh0 = a_1 g_1.
+
+    a, states, dstates: (B, S, W); h0 and dh_last: (B, W).  Returns (da,
+    db, dh0) in a's, a's and h0's dtypes."""
+    LAUNCHES["rg_lru_scan_bwd_ref"] += 1
+    acc = _carry_dtype(a)
+    af, hf, gs = a.to(acc), states.to(acc), dstates.to(acc)
+    c = dh_last.to(acc)
+    da = torch.empty_like(af)
+    db = torch.empty_like(af)
+    for t in range(a.shape[1] - 1, -1, -1):
+        g = gs[:, t] + c
+        db[:, t] = g
+        da[:, t] = g * (hf[:, t - 1] if t > 0 else h0.to(acc))
+        c = af[:, t] * g
+    return da.to(a.dtype), db.to(a.dtype), c.to(h0.dtype)

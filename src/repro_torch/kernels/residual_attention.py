@@ -39,11 +39,12 @@ Q·Kᵀ and are never stored, and q and the cache are read as they are, in
 8-byte copies (a half starts at byte 120).  The scalar kernel takes any
 even D as it is.  A CTA of the
 scalar kernel holds 64 query rows at D <= 128 and 32 at D 256
-(``ROWS_BY_HEAD_DIM``), so its shared memory stays inside the card's
-227 KB; the tensor-core kernel holds 128 (``MMA_ROWS``) at every
-head_dim.  A rank too large for the scalar kernel's budget at D 256
-(above ~26) is refused by its launcher, and the wrapper raises; the
-tensor-core kernels take ranks up to 32 at every head_dim.
+(``ROWS_BY_HEAD_DIM``), or 16 at D 256 where the rank leaves no room for
+32 (``scalar_rows``), so its shared memory stays inside the card's
+227 KB; the tensor-core kernel holds 128 (``MMA_ROWS``), or 64 at D 256
+above rank 32 (``mma_rows``).  Every kernel takes ranks 1..``MAX_RANK``
+(64) at every head_dim, through instances of RP = 16, 32 and 64 padded
+rank columns (``rank_instance``).
 Unlike the Pallas prefill, which pads Sq and Sk to multiples of 128 with
 copies, the kernel takes any Sq and Sk and masks the ragged edge itself.
 """
@@ -83,7 +84,12 @@ TILE_DIM = {120: 128}
 # Query rows per CTA of the bf16 tensor-core prefill at every head_dim: 8
 # warps of 16 rows, its softmax state in registers.
 MMA_ROWS = 128
-MAX_RANK = 32
+# LoRA ranks the kernels take: each launch runs the instance of the
+# smallest RP in RANK_INSTANCES at least the rank (its K_r/V_r columns from
+# R to RP are zero)
+MAX_RANK = 64
+RANK_INSTANCES = (16, 32, 64)
+SMEM_PER_CTA = 227 * 1024  # dynamic shared memory one CTA may have
 # The bf16 split-K decode: a CTA of SPLIT_WARPS warps takes up to
 # SPLIT_HEADS query heads (one m16 tile) and one range of each row's live
 # keys, a multiple of SPLIT_KEYS * SPLIT_WARPS keys; each warp 16-key steps.
@@ -132,10 +138,58 @@ def _check(name: str, t: Optional[torch.Tensor], device: torch.device,
         raise ValueError(f"{name} must be contiguous")
 
 
-def tile_rows(d: int, group: int) -> int:
-    """Query rows per CTA at head_dim ``d`` for ``group`` query heads per
-    kv head; raises for a head_dim the kernels do not take or a group
-    larger than the row budget."""
+def refuse_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """The attention kernels have no backward, as the Pallas kernels they
+    replace have none (``jax.grad`` through those fails too).  With grad
+    mode on, an input that requires grad would silently get no gradient
+    through the kernel's output: raise RuntimeError naming the kernel."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: an input requires grad; call it "
+            f"under torch.no_grad() (the serving paths do) or train through "
+            f"the plain attention (disagg=False)")
+
+
+def rank_instance(r: int) -> int:
+    """RP, the padded rank of the kernel instance that a LoRA rank ``r``
+    runs in; raises ValueError naming a rank outside 1..``MAX_RANK``."""
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"rank {r} not in [1, {MAX_RANK}]")
+    return next(rp for rp in RANK_INSTANCES if r <= rp)
+
+
+def scalar_smem(rows: int, tq: int, d: int, r: int) -> int:
+    """Shared-memory bytes of one CTA of the scalar kernel (``Layout`` in
+    the source): rows of Q, acc, scores and softmax state, a 32-key block
+    of K, V, sin, cos, K_r and V_r, acc_r, B_k and tq positions (B_v is
+    loaded over the key block after the key loop)."""
+    blk = 32
+    words = rows * (d + 1) + rows * d + rows * (blk + 1) + 3 * rows \
+        + blk * (d + 1) + blk * d + 2 * blk * (d // 2) + rows * r \
+        + 2 * blk * r + r * d + tq
+    return 4 * words
+
+
+def scalar_rows(d: int, group: int, r: int) -> int:
+    """Query rows per CTA of the scalar kernel: ``ROWS_BY_HEAD_DIM[d]``,
+    halved (down to 16) until a tile of whole groups fits the CTA's shared
+    memory at rank ``r``.  Raises ValueError where none does."""
+    rows = ROWS_BY_HEAD_DIM[d]
+    while rows >= max(group, 16):
+        tq = rows // group
+        if scalar_smem(tq * group, tq, d, r) <= SMEM_PER_CTA:
+            return rows
+        rows //= 2
+    raise ValueError(f"group size {group} at head_dim {d} and rank {r}: "
+                     f"no query tile fits the scalar kernel's shared memory")
+
+
+def tile_rows(d: int, group: int, r: int = 16) -> int:
+    """Query rows per CTA of the scalar kernel at head_dim ``d`` for
+    ``group`` query heads per kv head at rank ``r`` (``scalar_rows``);
+    raises for a head_dim the kernels do not take, a group larger than the
+    head_dim's row budget or a rank outside 1..``MAX_RANK``."""
     if d not in ROWS_BY_HEAD_DIM:
         raise ValueError(f"head_dim {d} not supported "
                          f"({', '.join(map(str, ROWS_BY_HEAD_DIM))})")
@@ -143,7 +197,16 @@ def tile_rows(d: int, group: int) -> int:
     if group > rows:
         raise ValueError(f"group size {group} > {rows} query rows per CTA "
                          f"at head_dim {d}")
-    return rows
+    rank_instance(r)
+    return scalar_rows(d, group, r)
+
+
+def mma_rows(d: int, r: int) -> int:
+    """Query rows per CTA of the tensor-core prefill: ``MMA_ROWS``, or 64
+    at D 256 above rank 32, where B_k and B_v of 64 rank rows leave no room
+    for a Q tile of 128 (``MmaLayout`` in the source)."""
+    return MMA_ROWS // 2 if tile_dim(d) == 256 and rank_instance(r) == 64 \
+        else MMA_ROWS
 
 
 def tile_dim(d: int) -> int:
@@ -184,7 +247,7 @@ def decode_split_smem(d: int, r: int) -> int:
     rows, all bf16, rows padded by 8 elements; at the tile's width
     (``tile_dim``)."""
     d = tile_dim(d)
-    rp = 16 if r <= 16 else 32
+    rp = rank_instance(r)
     ds, rs, hs, keys = d + 8, rp + 8, d // 2 + 8, SPLIT_KEYS
     stage = keys * 2 * (2 * ds + 2 * rs + 2 * hs)
     stages = 1 if d > 128 else 2
@@ -221,12 +284,13 @@ def decode_split_plan(bsz: int, hq: int, hkv: int, d: int, r: int, sk: int,
                 if combine else 0)
 
 
-def tile_positions(d: int, group: int, sq: int, dtype: torch.dtype) -> int:
-    """Query positions per CTA of the prefill kernel that ``dtype`` runs:
-    its row budget over the group, at most Sq."""
+def tile_positions(d: int, group: int, sq: int, dtype: torch.dtype,
+                   r: int = 16) -> int:
+    """Query positions per CTA of the prefill kernel that ``dtype`` runs
+    at rank ``r``: its row budget over the group, at most Sq."""
     mma = prefill_kernel(dtype).endswith("_mma")
-    return max(1, min(sq, (MMA_ROWS if mma else tile_rows(d, group)) //
-                      group))
+    rows = mma_rows(d, r) if mma else tile_rows(d, group, r)
+    return max(1, min(sq, rows // group))
 
 
 def _geometry(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len,
@@ -254,9 +318,11 @@ def _geometry(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len,
     r = k_res.shape[2]
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    tile_rows(d, hq // hkv)
-    if not 1 <= r <= MAX_RANK:
-        raise ValueError(f"rank {r} not in [1, {MAX_RANK}]")
+    rank_instance(r)
+    tile_rows(d, hq // hkv, r)
+    if hq // hkv > mma_rows(d, r):
+        raise ValueError(f"group size {hq // hkv} > {mma_rows(d, r)} query "
+                         f"rows per CTA at head_dim {d} and rank {r}")
     if sk < 1:
         raise ValueError("the cache holds no key")
     if window < 0:
@@ -310,11 +376,13 @@ def residual_attention_prefill(q, k_base, v_base, k_res, v_res, b_k, b_v,
     (``window`` > 0).  A row that sees no key comes back as zeros.
     Returns (B, Sq, Hq, D).  Bound: operations for long prefills (module
     docstring)."""
+    refuse_grad("residual_attention_prefill", q, k_base, v_base, k_res,
+                v_res, b_k, b_v, sin, cos)
     bsz, sq, sk, hq, hkv, d, r, code = _geometry(
         q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len, window,
         decode=False)
     _check("qpos", qpos, q.device, torch.int32, (bsz, sq))
-    tq = tile_positions(d, hq // hkv, sq, q.dtype)
+    tq = tile_positions(d, hq // hkv, sq, q.dtype, r)
     out = torch.empty_like(q)
     _run("residual_attention_prefill", prefill_kernel(q.dtype), code,
          _ptr(q), _ptr(k_base),
@@ -337,6 +405,8 @@ def residual_attention_decode(q, k_base, v_base, k_res, v_res, b_k, b_v,
 
     q: (B, Hq, D); the cache as :func:`residual_attention_prefill`.
     Returns (B, Hq, D).  Bound: bytes (module docstring)."""
+    refuse_grad("residual_attention_decode", q, k_base, v_base, k_res,
+                v_res, b_k, b_v, sin, cos)
     bsz, _, sk, hq, hkv, d, r, code = _geometry(
         q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len, window,
         decode=True)

@@ -116,15 +116,20 @@ def encode(params, frame_embeds, cfg: ModelConfig) -> torch.Tensor:
     x = frame_embeds + params["enc_pos"][None, :frame_embeds.shape[1]]
     hd = cfg.resolved_head_dim
     layers = params["enc_layers"]
-    for i in range(cfg.num_encoder_layers):
-        p_l = {k: t[i] for k, t in layers.items()}
+
+    def layer(x, p_l):
         h = base.rms_norm(x, p_l["ln1"], cfg.norm_eps)
         q = _heads(h, p_l["wq"], cfg.num_heads, hd)
         k = _heads(h, p_l["wk"], cfg.num_kv_heads, hd)
         v = _heads(h, p_l["wv"], cfg.num_kv_heads, hd)
         a = attn_lib.mha(q, k, v, causal=False)
         x = x + a.reshape(h.shape[:2] + (-1,)) @ p_l["wo"]
-        x = _mlp(p_l, x, cfg)
+        return _mlp(p_l, x, cfg)
+
+    for i in range(cfg.num_encoder_layers):
+        # the reference checkpoints every encoder layer under cfg.remat
+        x = base.remat(layer, x, {k: t[i] for k, t in layers.items()},
+                       on=cfg.remat)
     return base.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -152,9 +157,11 @@ def _apply_decoder(params, x, cfg: ModelConfig, *, positions, mode, cache,
         p_l = {k: t[i] for k, t in layers.items()}
         c_l = {k: t[i] for k, t in cache.items()}
         l_l = {k: t[i] for k, t in lora.items()} if lora is not None else None
-        x = _dec_layer(p_l, x, cfg, positions=positions, mode=mode,
-                       cache_l=c_l, kv_len=kv_len, lora_l=l_l,
-                       adapter_ids=adapter_ids, disagg=disagg)
+        x = base.remat(
+            lambda x, p_l=p_l, c_l=c_l, l_l=l_l: _dec_layer(
+                p_l, x, cfg, positions=positions, mode=mode, cache_l=c_l,
+                kv_len=kv_len, lora_l=l_l, adapter_ids=adapter_ids,
+                disagg=disagg), x, on=cfg.remat and mode == "full")
     return x, cache
 
 
@@ -221,16 +228,21 @@ def forward(params, tokens, cfg: ModelConfig, *, extra_embeds=None,
         cfg, bsz, 1, dtype=x.dtype, device=x.device), cfg)
     hd = cfg.resolved_head_dim
     layers = params["dec_layers"]
-    for i in range(cfg.num_layers):
-        p_l = {k: t[i] for k, t in layers.items()}
+
+    def layer(x, p_l, xk, xv):
         h = base.rms_norm(x, p_l["ln1"], cfg.norm_eps)
         q, k, v = (_heads(h, p_l[w], n, hd) for w, n in (
             ("wq", cfg.num_heads), ("wk", cfg.num_kv_heads),
             ("wv", cfg.num_kv_heads)))
         a = attn_lib.mha(q, k, v, causal=True)
         x = x + a.reshape(h.shape[:2] + (-1,)) @ p_l["wo"]
-        x = _cross(p_l, x, cache["xk"][i], cache["xv"][i], cfg)
-        x = _mlp(p_l, x, cfg)
+        x = _cross(p_l, x, xk, xv, cfg)
+        return _mlp(p_l, x, cfg)
+
+    for i in range(cfg.num_layers):
+        # checkpointed under cfg.remat, as the reference's full pass is
+        x = base.remat(layer, x, {k: t[i] for k, t in layers.items()},
+                       cache["xk"][i], cache["xv"][i], on=cfg.remat)
     x = base.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["embed"].T                     # tied unembedding
 

@@ -176,9 +176,10 @@ def _layer(p_l, kind: str, x, cfg: ModelConfig, *, positions, mode: str,
 
 def _apply(params, x, cfg: ModelConfig, *, positions, mode: str, cache,
            kv_len, lora, adapter_ids, disagg: bool, chunk_start=None):
-    """The layers as a plain loop (the reference checkpoints them when
-    training; running eagerly needs no remat).  The LoRA stacks are indexed
-    by a running count of attention layers.  Returns (x, cache)."""
+    """The layers as a plain loop; with ``cfg.remat`` in mode "full", while
+    grad mode is on, each layer runs under ``torch.utils.checkpoint``, as
+    the reference wraps it in ``jax.checkpoint``.  The LoRA stacks are
+    indexed by a running count of attention layers.  Returns (x, cache)."""
     attn_idx = 0
     for li, (p_l, kind) in enumerate(zip(params["layers"],
                                          layer_kinds(cfg))):
@@ -187,10 +188,14 @@ def _apply(params, x, cfg: ModelConfig, *, positions, mode: str, cache,
             if lora is not None:
                 l_l = {k: t[attn_idx] for k, t in lora.items()}
             attn_idx += 1
-        x = _layer(p_l, kind, x, cfg, positions=positions, mode=mode,
-                   cache_l=cache[li] if cache is not None else None,
-                   kv_len=kv_len, lora_l=l_l, adapter_ids=adapter_ids,
-                   disagg=disagg, chunk_start=chunk_start)
+
+        def run(x, p_l=p_l, kind=kind, l_l=l_l, li=li):
+            return _layer(p_l, kind, x, cfg, positions=positions, mode=mode,
+                          cache_l=cache[li] if cache is not None else None,
+                          kv_len=kv_len, lora_l=l_l, adapter_ids=adapter_ids,
+                          disagg=disagg, chunk_start=chunk_start)
+
+        x = base.remat(run, x, on=cfg.remat and mode == "full")
     return x, cache
 
 

@@ -213,13 +213,17 @@ def _layer(p_l, x, cfg: ModelConfig, cache_l, mode: str):
 
 def _apply(params, x, cfg: ModelConfig, cache, mode: str):
     """The layer stack as a loop over the stacked leaves; each layer writes
-    its slice of the cache in place.  Returns (x, cache)."""
+    its slice of the cache in place.  With ``cfg.remat`` in mode "full",
+    while grad mode is on, each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).
+    Returns (x, cache)."""
     lp = params["layers"]
     for i in range(cfg.num_layers):
         p_l = {k: t[i] for k, t in lp.items()}
         c_l = {k: t[i] for k, t in cache.items()} \
             if cache is not None else None
-        x, _ = _layer(p_l, x, cfg, c_l, mode)
+        x = base.remat(lambda x, p_l=p_l, c_l=c_l: _layer(
+            p_l, x, cfg, c_l, mode)[0], x, on=cfg.remat and mode == "full")
     return x, cache
 
 

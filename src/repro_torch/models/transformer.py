@@ -625,23 +625,46 @@ def layer_params(params, cfg: ModelConfig, li: int) -> Params:
     return p_l
 
 
+def remat_unit(cfg: ModelConfig) -> int:
+    """Layers per ``jax.checkpoint`` unit of the reference's layer scan:
+    one layer; a group of ``moe_interleave`` layers for interleaved MoE
+    stacks; L / ``scan_groups`` layers under the two-level scan."""
+    iv = cfg.moe_interleave if cfg.num_experts else 1
+    if iv > 1:
+        return iv
+    g = cfg.scan_groups
+    if cfg.scan_layers and g and g > 1 and cfg.num_layers % g == 0:
+        return cfg.num_layers // g
+    return 1
+
+
 def apply_layers(params, x, cfg: ModelConfig, *, positions, mode: str,
                  cache=None, kv_len=None, lora=None, adapter_ids=None,
                  disagg: bool = False, chunk_start=None):
     """The layer stack as a plain loop over ``layer_params`` (the reference
-    scans it, with remat when training, and scans interleaved MoE stacks
-    by group; running eagerly needs neither).  cache/lora leaves carry a
-    leading L dim; each layer writes its slice of the cache in place.
-    Returns (x, cache)."""
-    for i in range(cfg.num_layers):
-        p_l = layer_params(params, cfg, i)
-        c_l = {k: t[i] for k, t in cache.items()} \
-            if cache is not None else None
-        l_l = {k: t[i] for k, t in lora.items()} if lora is not None else None
-        x, _ = _layer_fn(x, p_l, cfg, positions=positions, mode=mode,
-                         cache_l=c_l, kv_len=kv_len, lora_l=l_l,
-                         adapter_ids=adapter_ids, disagg=disagg,
-                         chunk_start=chunk_start)
+    scans it, and scans interleaved MoE stacks by group; running eagerly
+    needs neither).  With ``cfg.remat`` in mode "full", while grad mode is
+    on, each of the reference's checkpoint units (``remat_unit``) runs
+    under ``torch.utils.checkpoint``.  cache/lora leaves carry a leading L
+    dim; each layer writes its slice of the cache in place.  Returns (x,
+    cache)."""
+    def run(lo: int, hi: int, x):
+        for i in range(lo, hi):
+            p_l = layer_params(params, cfg, i)
+            c_l = {k: t[i] for k, t in cache.items()} \
+                if cache is not None else None
+            l_l = {k: t[i] for k, t in lora.items()} \
+                if lora is not None else None
+            x, _ = _layer_fn(x, p_l, cfg, positions=positions, mode=mode,
+                             cache_l=c_l, kv_len=kv_len, lora_l=l_l,
+                             adapter_ids=adapter_ids, disagg=disagg,
+                             chunk_start=chunk_start)
+        return x
+
+    unit = remat_unit(cfg)
+    for lo in range(0, cfg.num_layers, unit):
+        x = base.remat(run, lo, min(lo + unit, cfg.num_layers), x,
+                       on=cfg.remat and mode == "full")
     return x, cache
 
 

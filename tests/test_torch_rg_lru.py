@@ -106,7 +106,8 @@ def test_dispatch_on_cpu_takes_the_plain_version():
     got, last = tops.rg_lru_scan(a, b, h0)
     want, _ = tref.rg_lru_scan_ref(a, b, h0)
     assert torch.equal(got, want) and torch.equal(last, got[:, -1])
-    assert trg.LAUNCHES == kernel_before == {"rg_lru_scan": 0}
+    assert trg.LAUNCHES == kernel_before == {"rg_lru_scan": 0,
+                                              "rg_lru_scan_bwd": 0}
     assert tref.LAUNCHES["rg_lru_scan_ref"] == plain_before + 2
 
 

@@ -56,6 +56,8 @@ moves up to ~0.7% at D 256 on rows of a few dozen keys), and with f32
 inputs to ``repro.kernels.ref`` within 1e-5.  Also ``decode_split_plan``,
 including the one-range case that skips the combine.
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -908,3 +910,188 @@ def test_sub_pages_equal_the_original_pages(page, pages):
                  q, kb, vb, *rb, bt_b, tr2, start, q_len, kv_len, **kw2))]
         for want, got in pairs:
             assert torch.equal(got, want)
+
+
+# ------------------------------------------------------- LoRA rank 64
+SMEM_PER_CTA = 227 * 1024
+RANKS = (1, 5, 16, 17, 32, 33, 48, 64)
+
+
+def res_mma_smem(d, r, int8):
+    """Shared-memory bytes of one CTA of #5's tensor-core tile, which #1
+    shares (``PagedResMmaLayout`` in ``paged_residual_disagg.cu``): Q
+    (``MMA_ROWS`` rows), B_k and B_v (RP rows each), two stages of a
+    64-key block's K/V tile (int8 pages share one converted tile and stage
+    codes and scales apart), K_r, V_r, sin and cos; rows padded by 8
+    elements, at the tile's width."""
+    d, rp = tra.tile_dim(d), tra.rank_instance(r)
+    ds, rs, hs, bk = d + 8, rp + 8, d // 2 + 8, 64
+    tile = 2 * bk * ds
+    stage = (0 if int8 else tile) + 2 * bk * rs + 2 * bk * hs
+    elems = tpra.MMA_ROWS * ds + 2 * rp * ds + (tile if int8 else 0) + \
+        2 * stage
+    return 2 * elems + (2 * (2 * bk * d + 2 * bk * 4) if int8 else 0)
+
+
+def template_smem(rows, d, r, page):
+    """Bytes of one CTA of the f32 template with the residual stream
+    (``Layout`` of ``paged_template.cuh``, f32 words): Q, acc, scores and
+    softmax state of ``rows`` rows, a page of K and V, the inverse
+    frequencies, acc_r, a page of K_r and V_r, B_k and B_v."""
+    return 4 * (rows * (d + 1) + rows * d + rows * (page + 1) + 3 * rows +
+                page * (d + 1) + page * d + d // 2 + rows * r +
+                2 * page * r + 2 * r * d)
+
+
+def mma_smem(d, r):
+    """Bytes of one CTA of #7's tensor-core tile (``MmaLayout`` in
+    ``residual_attention.cu``): the rows' positions, Q (``mma_rows``
+    rows), B_k and B_v (RP rows each) and two stages of a key block (64
+    keys; 32 at D 256) of K, V, K_r, V_r, sin and cos, bf16."""
+    rows, td, rp = tra.mma_rows(d, r), tra.tile_dim(d), tra.rank_instance(r)
+    bk = 32 if td == 256 else 64
+    ds, rs, hs = td + 8, rp + 8, td // 2 + 8
+    return 4 * rows + 2 * (rows * ds + 2 * rp * ds +
+                           2 * bk * (2 * ds + 2 * rs + 2 * hs))
+
+
+@pytest.mark.parametrize("fn,args,nbytes", [
+    (res_mma_smem, (128, 64, False), 212992),
+    (res_mma_smem, (128, 64, True), 211968),
+    (template_smem, (64, 128, 64, 32), 206464),
+    (mma_smem, (256, 64), 222464),
+    (mma_smem, (256, 32), 214528)])
+def test_layout_bytes_at_rank_64(fn, args, nbytes):
+    """The layouts' bytes at the largest instances, as the sources' layout
+    structs add them up (fixed here so a change to either side shows)."""
+    assert fn(*args) == nbytes
+
+
+@pytest.mark.parametrize("r,rp", [(1, 16), (16, 16), (17, 32), (32, 32),
+                                  (33, 64), (48, 64), (64, 64)])
+def test_rank_instance_is_the_smallest_that_holds_the_rank(r, rp):
+    assert tra.rank_instance(r) == rp
+    assert tpra.MAX_RANK == tra.MAX_RANK == 64
+
+
+@pytest.mark.parametrize("r", [0, 65, 128])
+def test_ranks_outside_1_to_64_are_refused_by_name(r):
+    with pytest.raises(ValueError, match=f"rank {r} not in"):
+        tra.rank_instance(r)
+
+
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
+def test_paged_rank_plans_fit_the_card(d):
+    """#5/#1's tile, #2's split-K decode and the f32 template (rows of 64
+    at the largest page) fit a CTA at every rank up to 64, bf16 and int8
+    pages; #2's plan counts on no more resident CTAs than fit an SM."""
+    for r, int8 in itertools.product(RANKS, (False, True)):
+        assert res_mma_smem(d, r, int8) <= SMEM_PER_CTA
+        smem = tpra.res_split_smem(d, r, int8)
+        assert smem + 2048 <= SMEM_PER_CTA
+        ctas = tpra.res_ctas_per_sm(d, r, int8)
+        assert ctas * (smem + tpra.SMEM_PER_CTA_RESERVED) <= tpra.SMEM_PER_SM
+        assert template_smem(tpra.MAX_ROWS, d, r, tpra.MAX_PAGE) <= \
+            SMEM_PER_CTA
+
+
+@pytest.mark.parametrize("d", [32, 64, 120, 128, 256])
+def test_dense_rank_plans_fit_the_card(d):
+    """#7's tensor-core prefill (128 query rows, 64 at D 256 above rank
+    32), #8's split-K decode and the scalar kernel (its rows for every
+    group up to 16, and up to 32 at D <= 128) fit a CTA at every rank up
+    to 64."""
+    for r in RANKS:
+        assert mma_smem(d, r) <= SMEM_PER_CTA
+        assert tra.decode_split_smem(d, r) <= SMEM_PER_CTA
+        for g in (1, 2, 4, 8, 16, 32):
+            if g > (16 if d == 256 else 32):
+                continue
+            rows = tra.tile_rows(d, g, r)
+            tq = rows // g
+            assert tra.scalar_smem(tq * g, tq, d, r) <= SMEM_PER_CTA
+    assert tra.mma_rows(d, 64) == (64 if d == 256 else 128)
+    assert tra.mma_rows(d, 32) == 128
+
+
+@pytest.mark.parametrize("r,rows", [(16, 32), (26, 32), (32, 32), (33, 32),
+                                    (48, 16), (64, 16)])
+def test_scalar_kernel_takes_every_rank_at_head_dim_256(r, rows):
+    """RecurrentGemma-9B's heads (G 16, D 256) in f32: 32 query rows a CTA
+    up to rank 33 (B_v now loads over the key block after the key loop,
+    which ends the old limit of ~26), 16 above; no rank up to 64 is
+    refused, and a tile holds one whole group."""
+    assert tra.tile_rows(256, 16, r) == rows
+    assert tra.tile_positions(256, 16, 300, torch.float32, r) == rows // 16
+
+
+def test_scalar_kernel_refuses_a_group_of_32_at_head_dim_256_rank_64():
+    """A tile holds whole groups: 32 heads of 256 columns at rank 64 need
+    ~253 KB, more than a CTA has; the wrapper says so, naming the group,
+    the head_dim and the rank (at rank 32 the same group takes 32 rows)."""
+    with pytest.raises(ValueError, match="group size 32 at head_dim 256 "
+                                         "and rank 64"):
+        tra.tile_rows(256, 32, 64)
+    assert tra.tile_rows(256, 32, 32) == 32
+
+
+@pytest.mark.parametrize("d,r,tq", [(128, 64, 32), (256, 64, 16),
+                                    (256, 32, 32), (120, 48, 32)])
+def test_mma_tile_positions_follow_its_rows(d, r, tq):
+    assert tra.tile_positions(d, 4, 1000, torch.bfloat16, r) == tq
+
+
+# ---------------------------------------------- no silent gradient
+def _guard_calls():
+    """Each of the eight attention wrappers (#1-#8) on tiny CPU tensors
+    whose q requires grad, with the kernel's name."""
+    q4 = torch.zeros(1, 2, 2, 32, requires_grad=True)
+    q3 = torch.zeros(1, 2, 32, requires_grad=True)
+    kb = torch.zeros(2, 16, 1, 32)
+    kr = torch.zeros(2, 16, 4)
+    bk = torch.zeros(1, 4, 32)
+    bt = torch.zeros(1, 1, dtype=torch.int32)
+    one = torch.ones(1, dtype=torch.int32)
+    ck = torch.zeros(1, 8, 1, 32)
+    cr = torch.zeros(1, 8, 4)
+    sc = torch.zeros(1, 8, 16)
+    qpos = torch.zeros(1, 2, dtype=torch.int32)
+    kw = dict(scale=0.1)
+    return [
+        ("paged_residual_attention_mixed", lambda q=q4: tpra.
+         paged_residual_attention_mixed(q, kb, kb, kr, kr, bk, bk, bt, bt,
+                                        one, one, one, **kw)),
+        ("paged_residual_attention_decode", lambda q=q3: tpra.
+         paged_residual_attention_decode(q, kb, kb, kr, kr, bk, bk, bt, bt,
+                                         one, **kw)),
+        ("paged_residual_attention_prefill", lambda q=q4: tpra.
+         paged_residual_attention_prefill(q, kb, kb, kr, kr, bk, bk, bt, bt,
+                                          one, one, **kw)),
+        ("paged_attention_mixed_base", lambda q=q4: tpra.
+         paged_attention_mixed_base(q, kb, kb, bt, one, one, one, **kw)),
+        ("paged_attention_decode_base", lambda q=q3: tpra.
+         paged_attention_decode_base(q, kb, kb, bt, one, **kw)),
+        ("paged_attention_prefill_base", lambda q=q4: tpra.
+         paged_attention_prefill_base(q, kb, kb, bt, one, one, **kw)),
+        ("residual_attention_prefill", lambda q=q4: tra.
+         residual_attention_prefill(q, ck, ck, cr, cr, bk, bk, sc, sc, qpos,
+                                    **kw)),
+        ("residual_attention_decode", lambda q=q3: tra.
+         residual_attention_decode(q, ck, ck, cr, cr, bk, bk, sc, sc,
+                                   **kw)),
+    ]
+
+
+@pytest.mark.parametrize("i", range(8))
+def test_attention_wrappers_refuse_an_input_that_requires_grad(i):
+    """The kernels have no backward (nor have the Pallas kernels they
+    replace): with grad mode on, an input that requires grad is refused
+    with a RuntimeError naming the kernel, before any device check; under
+    ``torch.no_grad`` the call gets past the guard to the wrapper's own
+    checks (which refuse these CPU tensors: the kernels take CUDA
+    tensors)."""
+    name, call = _guard_calls()[i]
+    with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+        call()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensors"):
+        call()

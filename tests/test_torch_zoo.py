@@ -369,13 +369,13 @@ def test_bridge_round_trips_every_familys_keys(family, dtype):
             assert a.view(np.uint8).tobytes() == b.view(np.uint8).tobytes()
 
 
-def test_card_geometry_takes_head_dim_120_and_refuses_rank_above_32():
-    """h2o-danube-3-4b's head_dim 120 now runs the paged kernels too: the
-    wrappers' ``check_heads`` and the executor's card geometry take it
-    (Hq 32 over Hkv 8 at page 16, as the full config serves), in forkkv and
-    in prefix mode; a LoRA rank above ``MAX_RANK`` is still refused, before
-    any CUDA call, naming the rank; on the CPU the plain versions serve
-    head_dim 120."""
+def test_card_geometry_takes_head_dim_120_and_rank_64_and_refuses_65():
+    """h2o-danube-3-4b's head_dim 120 runs the paged kernels: the wrappers'
+    ``check_heads`` and the executor's card geometry take it (Hq 32 over
+    Hkv 8 at page 16, as the full config serves), in forkkv and in prefix
+    mode; a LoRA rank of 64 (the kernels' RP 64 instances) is taken, and a
+    rank above ``MAX_RANK`` (64) is refused, before any CUDA call, naming
+    the rank; on the CPU the plain versions serve head_dim 120."""
     from repro_torch.kernels import paged_residual_attention as tpra
     from repro_torch.serving.api import ForkServer
     from repro_torch.serving.executor import PagedExecutor, \
@@ -387,15 +387,19 @@ def test_card_geometry_takes_head_dim_120_and_refuses_rank_above_32():
                             full.resolved_head_dim, sc.page_size) == 4
     for disagg in (True, False):
         check_card_geometry(full, sc, disagg)
-    wide = dataclasses.replace(full, lora=tcore.LoRAConfig(rank=64))
+    assert tpra.MAX_RANK == 64
+    for rank in (33, 64):
+        check_card_geometry(dataclasses.replace(
+            full, lora=tcore.LoRAConfig(rank=rank)), sc, True)
+    wide = dataclasses.replace(full, lora=tcore.LoRAConfig(rank=65))
     check_card_geometry(wide, sc, False)     # prefix mode: no residual
-    with pytest.raises(ValueError, match="rank 64"):
+    with pytest.raises(ValueError, match="rank 65"):
         check_card_geometry(wide, sc, True)
     cfg = dataclasses.replace(tconfigs.get_tiny_config("h2o-danube-3-4b"),
-                              head_dim=120, lora=tcore.LoRAConfig(rank=64))
+                              head_dim=120, lora=tcore.LoRAConfig(rank=65))
     params = ttfm.init_params(cfg, 0, device="cpu")
     lora = ttfm.init_lora_stacks(cfg, 1, 2, device="cpu")
-    with pytest.raises(ValueError, match="rank 64"):
+    with pytest.raises(ValueError, match="rank 65"):
         PagedExecutor(cfg, params, lora, sc, disagg=True,
                       max_pages_per_req=8, device="cuda")
     ForkServer(cfg, params, None, sc, device="cpu")
