@@ -80,7 +80,14 @@ error:
    rows, f32 and bf16, windows 0 and 300, ranks 33, 48 and 64 (the f32
    dense kernels at D 256 also at 32), each naming its kernel and RP; the
    bf16 cases at D 128 timed at ranks 32 and 64 with their bound and SDPA
-   (the ``rank64_times`` line); the RG-LRU scan's backward kernel against
+   (the ``rank64_times`` line); then ranks above 64, which run the
+   chunked instances (``_rchunk``): #5, #1 and #2 with their int8
+   variants at Llama3-8B's heads (ranks 65, 128, 256), h2o-danube-3-4b's
+   (128) and D 32's (65), #7 and #8 at D 128 and D 256 (65, 128, 256) and
+   D 120 (128), f32 and bf16, windows 0 and 300, and the f32 scalar
+   kernel at D 256 with a group of 32 heads at rank 64; the bf16 cases at
+   D 128 timed at ranks 64, 128 and 256 with their bound and SDPA (the
+   ``rchunk_times`` line); the RG-LRU scan's backward kernel against
    ``rg_lru_scan_bwd_ref`` at the scan's shapes, at S 1 and at
    RecurrentGemma-9B's width (B 4, S 1000, W 4096; timed), f32 and bf16,
    h0 non-zero; and the grad guard: #7 on an input that requires grad
@@ -93,8 +100,9 @@ error:
    again with int8 bCache pages (``kv_quant="int8"``: only int8 variants
    launch); then ``tiny_serving_model()`` at its defaults (head_dim 32)
    on the card and on the CPU in forkkv, prefix and full_reuse under both
-   loops, identical greedy tokens; the same at rank 64 in forkkv under
-   both loops; then the small f32 model's dense API:
+   loops, identical greedy tokens; the same at rank 64 and at rank 128
+   (the chunked instances) in forkkv under both loops; then the small f32
+   model's dense API:
    ``forward(disagg=True)`` logits card vs CPU, and greedy tokens from
    ``prefill`` + ``decode_step`` identical, over full-precision and over
    int8 caches;
@@ -213,7 +221,19 @@ error:
    (remat on) and dense model trained 3 AdamW steps on card and CPU from
    the same weights: losses within 1e-5, gradient norms within 1e-4 and
    parameters within AdamW's noise bound at lr 1e-3, parameters within
-   1e-4 at lr 1e-5 (the ``train_summary`` line);
+   1e-4 at lr 1e-5 (the ``train_summary`` line).  Also on Llama3-8B: the
+   forkkv mixed-loop serve with 4 adapters of rank 128 (#1's and #2's
+   chunked instances, ``_rchunk``; ``serve_rank128`` beside the rank-16
+   serve), and ``launch/steps.py``'s steps on ``make_local_mesh()`` (the
+   1x1 mesh on the card): the prefill step (B 4 x S 4096) and the serve
+   step (B 32 over a 4096-token cache), 8 adapters of rank 16,
+   disaggregated; after the launcher, internlm2-1.8b's train step (B 16 x
+   S 512 in ``accum_for``'s 16 microbatches): ms, launches, the analytic
+   bound on the 1x1 mesh and its share, the FLOP counter beside the
+   analytic FLOPs (``built_step``).  The dry run (``python -m
+   repro_torch.launch.dryrun --arch all --shape all --mesh both``, no card
+   visible) runs as a process of its own after phase 6, so that it
+   overlaps no timing, and must exit 0 with 66 pairs ok (``dryrun``);
 6. the kernels again, at every launch geometry the serves of 5. gave
    them (batch, query width, table width, per-row start and q_len), in
    f32 and bf16 against their plain versions (int8 pages for the int8
@@ -224,7 +244,9 @@ error:
    of its first launch at each shape of 5. (f32, timed) and on the same
    inputs in bf16; the dense kernels also on the inputs of their first
    launch by h2o-danube-3-4b (D 120), and the six paged kernels at every
-   launch geometry of its serves (at its heads, D 120); the scan's
+   launch geometry of its serves (at its heads, D 120), and #1 and #2 at
+   every launch geometry of the rank-128 serve (their chunked
+   instances); the scan's
    backward on the inputs of its first launch in the RecurrentGemma-9B
    fine-tune (f32, timed) and on the same inputs in bf16;
 7. the kernels line (#1–#6, their int8 variants, #7–#9 and #9's backward
@@ -496,7 +518,9 @@ def work(name, c):
     pages one byte per element plus an f32 scale per token and head), the
     q rows below q_len and B_k/B_v read once, all of out (padding rows are
     zeroed) written once; one QK and one PV product per unmasked
-    (query, key) pair and head, plus the rank-R reconstruction."""
+    (query, key) pair and head, plus the rank-R reconstruction: K_r.B_k
+    per live key, and V's residual by the cheaper of two routes, P.V_r
+    per pair then acc_r.B_v per row, or V_r.B_v per live key."""
     g = c["geom"]
     res = "residual" in name
     esize = torch.tensor([], dtype=c["dtype"]).element_size()
@@ -525,8 +549,8 @@ def work(name, c):
         nbytes += len(pages) * page * r * esize * 2
         nbytes += 2 * c["b_k"].numel() * esize
         ops += live_tokens * hkv * 2 * r * d                # K_r . B_k
-        ops += pairs * hq * 2 * r                           # P . V_r
-        ops += rows * hq * 2 * r * d                        # acc_r . B_v
+        ops += min(pairs * hq * 2 * r + rows * hq * 2 * r * d,
+                   live_tokens * hkv * 2 * r * d)           # V's residual
     t_bytes, t_ops = nbytes / HBM_BW * 1e3, ops / PEAK[c["dtype"]] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, ops)
@@ -586,7 +610,7 @@ def compare(pra, ref, name, c, tol, case):
     got = kernel_call(pra, name, c)()
     ran = launched(pra, before)
     kernel = pra.kernel_name(name.removesuffix("_int8"), c["dtype"],
-                             c["ks"] is not None)
+                             c["ks"] is not None, c["geom"]["r"])
     if ran != {kernel: 1}:
         raise AssertionError(f"{name} {case} {c['dtype']}: ran {ran}, "
                              f"not {kernel}")
@@ -1239,7 +1263,8 @@ def dense_work(c):
     B_v (and the prefill's qpos) read once, out written once, and of the
     cache only the keys some query row sees (K_b, V_b, K_r, V_r, sin,
     cos); one QK and one PV product per visible (query, key) pair and
-    head, the rank-R rebuild of each visible key, P.V_r and acc_r.B_v."""
+    head, the rank-R rebuild of each visible key's K, and V's residual by
+    the cheaper of P.V_r then acc_r.B_v, or V_r.B_v per visible key."""
     hq, d = c["q"].shape[2], c["q"].shape[3]
     hkv, r = c["k_base"].shape[2], c["k_res"].shape[2]
     esize = torch.tensor([], dtype=c["dtype"]).element_size()
@@ -1252,8 +1277,8 @@ def dense_work(c):
     nbytes += 2 * c["b_k"].numel() * esize               # sin/cos; B_k/B_v
     if not c["decode"]:
         nbytes += c["qpos"].numel() * 4
-    ops = pairs * hq * (4 * d + 2 * r) + live * hkv * 2 * r * d + \
-        rows * hq * 2 * r * d
+    ops = pairs * hq * 4 * d + live * hkv * 2 * r * d + min(
+        pairs * hq * 2 * r + rows * hq * 2 * r * d, live * hkv * 2 * r * d)
     t_bytes, t_ops = nbytes / HBM_BW * 1e3, ops / PEAK[c["dtype"]] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, ops)
@@ -1271,8 +1296,10 @@ def compare_dense(ra, ref, c, tol):
     want = dense_plain_call(ref, c)()
     torch.cuda.synchronize()
     name = dense_name(c)
-    kernel = ra.decode_kernel(c["dtype"]) if c["decode"] else \
-        ra.prefill_kernel(c["dtype"])
+    hq, hkv = c["q"].shape[2], c["k_base"].shape[2]
+    at = (c["k_res"].shape[2], c["q"].shape[3], hq // hkv)
+    kernel = ra.decode_kernel(c["dtype"], *at) if c["decode"] else \
+        ra.prefill_kernel(c["dtype"], *at)
     if launched(ra, before) != {kernel: 1}:
         raise AssertionError(f"{name} {c['label']} {c['dtype']}: ran "
                              f"{launched(ra, before)}, not {kernel}")
@@ -1619,6 +1646,270 @@ def check_rank64(pra, ref, ra, quantize):
             del c
         torch.cuda.empty_cache()
     log("rank64_checked", cases=n, ok=True)
+    return timed
+
+
+# ------------------------------------- the dry run and the built steps
+DRYRUN_PAIRS = 66     # the 33 applicable (arch, shape) pairs on both meshes
+
+
+def run_dryrun(card, timeout=600):
+    """Runs ``python -m repro_torch.launch.dryrun --arch all --shape all
+    --mesh both`` as a process of its own with no card visible (it needs
+    none: its steps run on meta tensors, its meshes over the fake
+    backend), after the card's phases, so that it overlaps no timing.  It
+    must exit 0 with every applicable pair ``ok`` and the rest
+    ``skipped``.  Logs its counts, its own seconds (its last line) and
+    those of the process, and, per (arch, shape) on the single-pod mesh,
+    the counted and analytic FLOPs and the analytic roofline's dominant
+    term."""
+    out = ROOT / "build" / "dryrun.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "all", "--shape", "all", "--mesh", "both", "--out", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    stdout, stderr = proc.stdout, proc.stderr
+    seconds = time.perf_counter() - t0
+    recs = json.loads(out.read_text()) if out.exists() else []
+    counts = {k: sum(r["status"] == k for r in recs)
+              for k in ("ok", "skipped", "error")}
+    ok = proc.returncode == 0 and counts["error"] == 0 and \
+        counts["ok"] == DRYRUN_PAIRS
+    done = re.search(r"== done: .* in ([0-9.]+)s", stdout or "")
+    log("dryrun", card=card, cmd="python -m repro_torch.launch.dryrun "
+        "--arch all --shape all --mesh both", returncode=proc.returncode,
+        own_seconds=float(done[1]) if done else None,
+        process_seconds=seconds, ok_pairs=counts["ok"],
+        skipped_pairs=counts["skipped"], failed_pairs=counts["error"],
+        last_line=stdout.strip().splitlines()[-2:] if stdout else [],
+        pairs=[{k: r.get(k) for k in ("arch", "shape", "flops")} | {
+            "analytic_flops": r["analytic"]["flops_global"],
+            "dominant": r["analytic"]["terms"]["dominant"],
+            "bound_s": r["analytic"]["terms"]["bound_s"]}
+            for r in recs if r["status"] == "ok" and r["mesh"] == "single"],
+        stderr=stderr[-2000:] if not ok else "", ok=ok)
+    if not ok:
+        raise AssertionError(f"dry run: exit {proc.returncode}, {counts}")
+
+
+def run_built_step(label, cfg, shape, built, call, abstract, mods, rf,
+                   ana, card, reps=5):
+    """One built step on the card: ``call`` once to warm up, then ``reps``
+    times, each on the host clock up to a synchronise; the launches of the
+    first timed run (the counts zeroed before it; no plain version may
+    run); its analytic costs on the 1x1 mesh and their roofline on the
+    card's constants, the bound's share of the measured median, and the
+    FLOP counter's count (``roofline.step_flops`` over ``abstract``, the
+    same step built on meta tensors) beside the analytic FLOPs.
+    Returns (record, the last call's outputs)."""
+    out = call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = [], {}
+    for i in range(reps):
+        out = None              # a train step's last outputs: 20 GB
+        if i == 0:
+            reset_counts(*mods)
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()
+                        if v}
+    if any(k.endswith("_ref") for k in launches):
+        raise AssertionError(f"{label}: a plain version ran: {launches}")
+    ms = 1e3 * sorted(times)[reps // 2]
+    costs = ana.analytic_costs(cfg, shape, {"data": 1, "model": 1})
+    terms = rf.roofline_terms(costs["flops_dev"], costs["bytes_dev"],
+                              costs["coll_bytes_dev"], 1)
+    counted = rf.step_flops(abstract.step_fn, *abstract.abstract_args)[0]
+    rec = dict(step=label, model=cfg.name, description=built.description,
+               batch=shape.global_batch, seq=shape.seq_len,
+               ms=ms, ms_all=[1e3 * t for t in times], launches=launches,
+               analytic_flops=costs["flops_global"],
+               analytic_bytes=costs["bytes_dev"],
+               dominant=terms["dominant"], bound_ms=1e3 * terms["bound_s"],
+               bound_share=1e3 * terms["bound_s"] / ms,
+               counted_flops=counted,
+               counted_over_analytic=counted / costs["flops_global"],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log("built_step", card=card, **rec, ok=True)
+    return rec, out
+
+
+def built_steps_llama(cfg, params, tfm, steps_lib, mesh_lib, rf, ana,
+                      ShapeConfig, mods, card):
+    """Phase 5: ``launch/steps.py``'s Llama3-8B prefill step (B 4 x S
+    4096) and serve step (B 32 over a 4096-token cache, ~17 GB beside the
+    16 GB of weights), each with 8 adapters of rank 16 and ``disagg``, on
+    ``make_local_mesh()`` (the 1x1 mesh on the card), on the serving
+    phase's weights (``run_built_step``).  The prefill's argmax ids must
+    lie in the vocabulary; the serve step writes every row's new key."""
+    mesh = mesh_lib.make_local_mesh()
+    lora8 = tfm.init_lora_stacks(cfg, 2, 8)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    ids8 = torch.arange(32, dtype=torch.int32, device="cuda") % 8
+    recs = {}
+    shape = ShapeConfig("prefill_4k", 4096, 4, "prefill")
+    built = steps_lib.build_prefill_step(cfg, mesh, shape, disagg=True)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 4096), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    recs["prefill"], (ids, cache) = run_built_step(
+        "prefill_step", cfg, shape, built,
+        lambda: built.step_fn(params, lora8, {"tokens": tokens}, ids8[:4]),
+        steps_lib.build_step(cfg, {"data": 1, "model": 1}, shape,
+                             disagg=True),
+        mods, rf, ana, card)
+    if not bool(((ids >= 0) & (ids < cfg.vocab_size)).all()):
+        raise AssertionError(f"prefill_step ids out of range: {ids}")
+    del cache
+    torch.cuda.empty_cache()
+    shape = ShapeConfig("decode_4k", 4096, 32, "decode")
+    built = steps_lib.build_serve_step(cfg, mesh, shape, disagg=True)
+    cache = tfm.init_cache(cfg, 32, 4096, disagg=True)
+    for t in cache.values():
+        t.normal_(0.0, 0.3, generator=gen)
+    tok = torch.randint(0, cfg.vocab_size, (32,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    kv_len = torch.full((32,), 4095, dtype=torch.int32, device="cuda")
+    recs["serve"], (ids, cache) = run_built_step(
+        "serve_step", cfg, shape, built,
+        lambda: built.step_fn(params, lora8, cache, tok, kv_len, ids8),
+        steps_lib.build_step(cfg, {"data": 1, "model": 1}, shape,
+                             disagg=True),
+        mods, rf, ana, card)
+    if not bool(((ids >= 0) & (ids < cfg.vocab_size)).all()):
+        raise AssertionError(f"serve_step ids out of range: {ids}")
+    del cache, lora8
+    torch.cuda.empty_cache()
+    return recs
+
+
+def built_step_train(configs, registry, optimizer, steps_lib, mesh_lib, rf,
+                     ana, ShapeConfig, mods, card):
+    """Phase 5: ``launch/steps.py``'s internlm2-1.8b train step (B 16 x S
+    512, ``accum_for``'s 16 microbatches, AdamW) on ``make_local_mesh()``
+    (``run_built_step``), from random bf16 weights; the loss must be
+    finite."""
+    cfg = configs.get_config("internlm2-1.8b")
+    mesh = mesh_lib.make_local_mesh()
+    shape = ShapeConfig("train_512", 512, 16, "train")
+    built = steps_lib.build_train_step(cfg, mesh, shape)
+    params = registry.get_model(cfg).init_params(0)
+    opt = optimizer.get_optimizer(cfg.optimizer)[0](params)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    batch = {k: torch.randint(0, cfg.vocab_size, (16, 512), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    rec, (_, _, metrics) = run_built_step(
+        "train_step", cfg, shape, built,
+        lambda: built.step_fn(params, opt, batch),
+        steps_lib.build_step(cfg, {"data": 1, "model": 1}, shape, accum=1),
+        mods, rf, ana, card)
+    if not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError(f"train_step loss {metrics['loss']}")
+    rec["loss"] = float(metrics["loss"])
+    del params, opt
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()      # make_local_mesh's
+    return rec
+
+
+# ------------------------------------------------ LoRA ranks above 64
+# Ranks above 64 run the chunked instances (``csrc/rank_chunk.cuh``,
+# counted as ``<counter>_rchunk``): #5, #1 and #2 with their int8 variants
+# at Llama3-8B's heads (ranks 65, 128, 256), h2o-danube-3-4b's (128) and D
+# 32's (65); #7 and #8 at D 128 and D 256 (G 16), ranks 65, 128 and 256,
+# and at D 120 (128); f32 and bf16, windows 0 and 300, on the fixed rows;
+# the f32 scalar kernel at D 256 with a group of 32 heads at rank 64 (its
+# chunked instance: the unchunked layout cannot hold 32 rows there); then
+# the bf16 cases at D 128, window 0, timed at ranks 64, 128 and 256
+RCHUNK_RANKS = (65, 128, 256)
+RCHUNK_GEOMS = [("D 128", LLAMA_GEOM, RCHUNK_RANKS),
+                ("D 120", DANUBE_GEOM, (128,)),
+                ("D 32", D32_GEOMS["D 32 G 4"], (65,))]
+RCHUNK_DENSE = [("D 128", (32, 8, 128), RCHUNK_RANKS),
+                ("D 256", (16, 1, 256), RCHUNK_RANKS),
+                ("D 120", (32, 8, D120), (128,))]
+
+
+def check_rank_chunks(pra, ref, ra, quantize):
+    """Phase 3, LoRA ranks above 64 (``RCHUNK_GEOMS``, ``RCHUNK_DENSE``),
+    each kernel against its plain version and naming the chunked instance
+    that ran; the f32 scalar kernel at D 256, G 32, rank 64; the timed bf16
+    cases at D 128 at ranks 64, 128 and 256.  Returns the timed records."""
+    n = 0
+    for (glabel, geom, ranks), (dtype, tol), window, quant in \
+            itertools.product(RCHUNK_GEOMS, DTYPES, (0, 300), (False, True)):
+        for r in ranks:
+            g = dict(geom, r=r)
+            cases = {k: make_case(k, dtype, window, seed=91 + r,
+                                  quantize=quantize if quant else None,
+                                  geom=g, **FIXED[k]) for k in FIXED}
+            for entry in RANK64_PAGED:
+                name = entry + ("_int8" if quant else "")
+                rec = compare(pra, ref, name, cases[KERNELS[entry][0]], tol,
+                              f"rank {r} {glabel}")
+                if not rec["ran"].endswith("_rchunk"):
+                    raise AssertionError(f"{name} rank {r}: ran "
+                                         f"{rec['ran']}, not a chunked "
+                                         f"instance")
+                log("kernel_rchunk", **rec, rank=r, ok=True)
+                n += 1
+            del cases
+            torch.cuda.empty_cache()
+    dense = [(f"{hl} R {r} {label}", heads + (r,), *rest)
+             for hl, heads, ranks in RCHUNK_DENSE for r in ranks
+             for label, *rest in RANK64_DENSE_ROWS]
+    for (i, case), (dtype, tol), window in itertools.product(
+            enumerate(dense), DTYPES, (0, 300)):
+        c = make_dense_case(*case, dtype=dtype, window=window, seed=300 + i)
+        rec = compare_dense(ra, ref, c, tol)
+        if not rec["ran"].endswith("_rchunk"):
+            raise AssertionError(f"{case[0]}: ran {rec['ran']}, not a "
+                                 f"chunked instance")
+        log("dense_kernel_rchunk", **rec, rank=case[1][3], ok=True)
+        n += 1
+        del c
+    # a group of 32 heads at D 256 and rank 64 in f32 (refused before)
+    for i, (label, *rest) in enumerate(RANK64_DENSE_ROWS):
+        c = make_dense_case(f"D 256 G 32 R 64 {label}", (32, 1, 256, 64),
+                            *rest, dtype=torch.float32, window=0,
+                            seed=330 + i)
+        rec = compare_dense(ra, ref, c, F32_TOL)
+        if rec["ran"] != ("residual_attention_decode_rchunk" if c["decode"]
+                          else "residual_attention_prefill_rchunk"):
+            raise AssertionError(f"{label}: ran {rec['ran']}")
+        rec["rows_per_cta"] = ra.tile_rows(256, 32, 64)
+        log("dense_kernel_g32", **rec, ok=True)
+        n += 1
+        del c
+    torch.cuda.empty_cache()
+    timed = []
+    for r in (64,) + RCHUNK_RANKS[1:]:
+        g = dict(LLAMA_GEOM, r=r)
+        for entry in RANK64_PAGED:
+            kind = KERNELS[entry][0]
+            c = make_case(kind, torch.bfloat16, 0, seed=71, geom=g,
+                          **FIXED[kind])
+            rec = compare(pra, ref, entry, c, BF16_RTOL, f"rank {r} timed")
+            timed.append(dict(measure(pra, ref, entry, c, rec), rank=r))
+            del c
+        for i, (label, *rest) in enumerate(RANK64_TIMED):
+            c = make_dense_case(f"D 128 R {r} {label}", (32, 8, 128, r),
+                                *rest, dtype=torch.bfloat16, window=0,
+                                seed=80 + i)
+            rec = compare_dense(ra, ref, c, BF16_RTOL)
+            timed.append(dict(measure_dense(ra, ref, c, rec), rank=r))
+            del c
+        torch.cuda.empty_cache()
+    log("rchunk_checked", cases=n, ok=True)
     return timed
 
 
@@ -2678,9 +2969,10 @@ def check_counts(pra, ref, expect_kernels, dtype):
         raise AssertionError(f"plain versions ran on the card: "
                              f"{ref.LAUNCHES}")
     # a template launch counts under the entry's own name (+ "_int8")
-    template = [k for k in ran if k.removesuffix("_int8") in (
-        pra.SPLIT_ENTRIES + (pra.MMA_ENTRIES if dtype == torch.bfloat16
-                             else ()))]
+    template = [k for k in ran if k.removesuffix("_rchunk").removesuffix(
+        "_int8") in (pra.SPLIT_ENTRIES + (pra.MMA_ENTRIES
+                                          if dtype == torch.bfloat16
+                                          else ()))]
     if template:
         raise AssertionError(f"{dtype} serve ran the template instead of the "
                              f"split-K or tensor-core kernel: {template}")
@@ -3069,7 +3361,8 @@ def serves_card_vs_cpu(cfg, phase, serves, tfm, ForkServer, ServeConfig,
                                SamplingParams)
             check_serving(outs, m, 6, mixed=sc.mixed_batching)
             ran = {k for k, v in pra.LAUNCHES.items() if v}
-            want = {pra.kernel_name(e, torch.float32, int8) for e in expect}
+            want = {pra.kernel_name(e, torch.float32, int8, cfg.lora.rank)
+                    for e in expect}
             if dev == "cuda" and not want <= ran:
                 raise AssertionError(f"{phase} {mode} {extra}: launched "
                                      f"{sorted(ran)}, not {sorted(want)}")
@@ -3714,7 +4007,13 @@ def main() -> int:
         HttpFrontend
     from repro_torch.serving.sampling import SamplingParams
     from repro_torch.training import data as tdata
+    from repro_torch.training import optimizer as toptim
     from repro_torch.training import train_loop
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.launch import analytic as tana
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import roofline as troof
+    from repro_torch.launch import steps as tsteps
 
     t_start = time.perf_counter()
     # 1. environment
@@ -3739,7 +4038,6 @@ def main() -> int:
         for kernel, use in ptxas_kernels(
                 _build.BUILD_LOGS.get(name, "")).items():
             log("ptxas", source=name, kernel=kernel, **use)
-
     # 3. kernels against their plain versions
     check_kernels(pra, ref, tfm.quantize_kv)
     check_edges(pra, ref, tfm.quantize_kv)
@@ -3753,6 +4051,13 @@ def main() -> int:
                            "plain_ms", "library_ms", "bound_ms", "bound_by",
                            "max_abs_err")}
         for r in check_rank64(pra, ref, ra, tfm.quantize_kv)])
+    # LoRA ranks above 64 (the chunked instances), timed at ranks 64, 128
+    # and 256
+    log("rchunk_times", card=card, kernels=[
+        {k: r[k] for k in ("kernel", "ran", "case", "rank", "kernel_ms",
+                           "plain_ms", "library_ms", "bound_ms", "bound_by",
+                           "max_abs_err")}
+        for r in check_rank_chunks(pra, ref, ra, tfm.quantize_kv)])
     check_scan_bwd_kernels(rg, ref)
     check_grad_guard(ra)
     # (a) every kernel at head_dim 32, the bf16 ones timed
@@ -3785,6 +4090,10 @@ def main() -> int:
     serves_card_vs_cpu(tiny_serving_model(rank=64), "tiny_rank64",
                        D32_SERVES[:2], tfm, ForkServer, ServeConfig,
                        SamplingParams, pra)
+    # ... and at rank 128: the chunked instances of #1, #2 and #5
+    serves_card_vs_cpu(tiny_serving_model(rank=128), "tiny_rank128",
+                       D32_SERVES[:2], tfm, ForkServer, ServeConfig,
+                       SamplingParams, pra)
     # (i) head_dim 120 served in every mode and loop; the SSM and audio
     # families' tiny models
     small_d120_card_vs_cpu(tiny_serving_model, tfm, ForkServer, ServeConfig,
@@ -3815,35 +4124,41 @@ def main() -> int:
     shapes = LaunchShapes(pra)
     cfg8 = dataclasses.replace(cfg, kv_quant="int8")
 
-    def run(label, sc, drive, expect, model=cfg, record=True):
-        """One serve of ``model`` with the counts zeroed just before it and
-        read just after (its launches recorded for phase 6 unless not
-        ``record``): each entry of ``expect`` must have launched the kernel
-        it runs for ``model`` (``pra.kernel_name``), and an int8 model int8
-        variants only.  Returns its outputs and metrics."""
-        server = ForkServer(model, params, lora, sc)
+    def run(label, sc, drive, expect, model=cfg, record=True, stacks=None,
+            recorder=None):
+        """One serve of ``model`` (with ``stacks``, else the phase's LoRA
+        stacks) with the counts zeroed just before it and read just after
+        (its launches recorded for phase 6, by ``recorder`` if given, unless
+        not ``record``): each entry of ``expect`` must have launched the
+        kernel it runs for ``model`` (``pra.kernel_name`` at its rank), and
+        an int8 model int8 variants only.  Returns its outputs and
+        metrics."""
+        server = ForkServer(model, params, lora if stacks is None else stacks,
+                            sc)
         torch.cuda.reset_peak_memory_stats()
         reset_counts(*mods)
         if record:
-            with shapes:
+            with recorder or shapes:
                 outs, m, seconds = drive(server)
         else:
             outs, m, seconds = drive(server)
         int8 = model.kv_quant == "int8"
         ran = check_counts(pra, ref, [
-            pra.kernel_name(e, model.activation_dtype, int8) for e in expect],
-            model.activation_dtype)
+            pra.kernel_name(e, model.activation_dtype, int8, model.lora.rank)
+            for e in expect], model.activation_dtype)
         if int8 and not all("_int8" in k for k in ran):
             raise AssertionError(f"{label}: a full-precision kernel ran on "
                                  f"int8 pages: {ran}")
         for k, v in ran.items():
-            launches[k] += v
+            launches[k] = launches.get(k, 0) + v
         gen = sum(len(o.tokens) for o in outs)
+        m["tokens_per_s"] = gen / seconds
         peaks[label] = (m["peak_base_pages"], m["peak_res_pages"],
                         m["peak_cache_bytes"])
         pb = pool_bytes(server.engine.executor.pools)
         log("serve", label=label, mode=sc.mode, model=model.name,
-            kv_quant=model.kv_quant, max_pages=sc.max_pages,
+            kv_quant=model.kv_quant, lora_rank=model.lora.rank,
+            max_pages=sc.max_pages,
             host_tier_bytes=sc.host_tier_bytes,
             mixed_batching=sc.mixed_batching,
             broadcast_fork=sc.broadcast_fork, forks=len(outs),
@@ -3879,10 +4194,32 @@ def main() -> int:
                             seed=12, sampling_cls=SamplingParams)
 
     big = dict(max_pages=2048, max_pages_per_req=256)
+    serve_metrics = {}
     for label, mode, extra, expect in LLAMA_SERVES:
         sc = ServeConfig(mode=mode, **big, **extra)
         outs, m = run(label, sc, staggered, expect)
         check_serving(outs, m, 16, mixed=sc.mixed_batching)
+        serve_metrics[label] = m
+
+    # (k) the forkkv mixed-loop serve with 4 adapters of rank 128: #1 and
+    # #2 run their chunked instances
+    cfg128 = dataclasses.replace(cfg, lora=dataclasses.replace(cfg.lora,
+                                                               rank=128))
+    lora128 = tfm.init_lora_stacks(cfg128, 3, 4)
+    shapes128 = LaunchShapes(pra)
+    outs, m = run("forkkv rank 128", ServeConfig(mode="forkkv", **big),
+                  staggered, LLAMA_SERVES[0][3], model=cfg128,
+                  stacks=lora128, recorder=shapes128)
+    check_serving(outs, m, 16)
+    log("serve_rank128", card=card, launches={
+        k: v for k, v in launches.items() if k.endswith("_rchunk") and v},
+        serves={label: {k: mm[k] for k in (
+            "tokens_per_s", "ttft_p50_ms", "tpot_p50_ms", "peak_cache_bytes",
+            "peak_res_pages")}
+            for label, mm in (("rank 16", serve_metrics["forkkv"]),
+                              ("rank 128", m))}, ok=True)
+    del lora128
+    torch.cuda.empty_cache()
     log("memory_effect", forkkv_peak_base_pages=peaks["forkkv"][0],
         forkkv_peak_res_pages=peaks["forkkv"][1],
         prefix_peak_base_pages=peaks["prefix"][0])
@@ -3940,6 +4277,10 @@ def main() -> int:
     del server
     torch.cuda.empty_cache()
 
+    # (l) launch/steps.py's prefill and serve steps on the 1x1 mesh
+    built = built_steps_llama(cfg, params, tfm, tsteps, tmesh, troof, tana,
+                              ShapeConfig, mods, card)
+
     # the dense model API on the same weights
     torch.cuda.reset_peak_memory_stats()
     first = FirstLaunch(ra)
@@ -3967,6 +4308,15 @@ def main() -> int:
     # training (2): internlm2-1.8b through the launcher; (4) small f32
     # models trained on card and CPU
     trained["internlm2-1.8b launcher"] = train_launcher(card)
+    # (l) launch/steps.py's train step on the 1x1 mesh
+    built["train"] = built_step_train(configs, registry, toptim, tsteps,
+                                      tmesh, troof, tana, ShapeConfig, mods,
+                                      card)
+    log("built_steps", card=card, steps={
+        k: {f: r[f] for f in ("ms", "bound_ms", "bound_share", "dominant",
+                              "counted_flops", "analytic_flops",
+                              "launches")}
+        for k, r in built.items()})
     small_training_card_vs_cpu(
         (("hybrid", dataclasses.replace(rg_tiny(), remat=True), 2),
          ("dense", tiny_serving_model(), 0)),
@@ -3992,6 +4342,9 @@ def main() -> int:
         ra, ref, rg_first.cases).items()})
     measured.update({f"{n}_d120": rec for n, rec in check_dense_main_path(
         ra, ref, d120_cases).items()})
+    measured.update({f"{n}_r128": rec for n, rec in check_serving_shapes(
+        pra, ref, shapes128.launches(), tfm.quantize_kv,
+        geom=dict(LLAMA_GEOM, r=128)).items()})
     measured["rg_lru_scan"] = check_scan_main_path(rg, ref, scans.cases)
     measured["rg_lru_scan_bwd"] = check_scan_bwd_main_path(rg, ref,
                                                            bwd_first.case)
@@ -4015,6 +4368,11 @@ def main() -> int:
             entries.append((f"{name}_d120", f"{n}_d120",
                             zoo_launches["h2o-danube-3-4b"][name], r, source,
                             "h2o-danube-3-4b"))
+    for n in ("paged_residual_attention_mixed",
+              "paged_residual_attention_decode"):     # the rank-128 serve
+        name = pra.kernel_name(n, torch.bfloat16, False, 128)
+        entries.append((name, f"{n}_r128", launches[name], KERNELS[n][1],
+                        DISAGG_SOURCE, "llama3-8b, LoRA rank 128"))
     for n, r in DENSE_KERNELS.items():
         name = ra.prefill_kernel(torch.bfloat16) \
             if n == "residual_attention_prefill" else \
@@ -4040,6 +4398,7 @@ def main() -> int:
             max_abs_err=rec["max_abs_err"], ms=rec["kernel_ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+    run_dryrun(card)
     log("done", seconds=time.perf_counter() - t_start)
     print(card_line())
     print(json.dumps({"kernels": kernels, "todo": []}))

@@ -108,6 +108,26 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _gqa_out(p, v).to(q.dtype)
 
 
+def _products_on_meta(q, k, v, k_res, v_res, b_k, b_v, rebuilds: int):
+    """The matrix products of a blocked loop below, on meta tensors (the
+    dry run's abstract steps, :mod:`repro_torch.launch.steps`, which
+    compute shapes only), in one call each instead of one per block, so a
+    FLOP count of the step sees the loop's products without its thousands
+    of dispatches: Q.K^T and P.V over every (q, k) pair the loop computes
+    (k, v: the keys every q row meets, whole or one band), and the
+    residual's rebuild of those keys ``rebuilds`` times (once per q block,
+    as the loop rebuilds them).  Returns (B, Sq, Hq, D) in q's dtype."""
+    f32 = torch.float32
+    if k_res is not None:
+        def rebuilt(t, r, b):         # on the graph: a backward counts it
+            lora = torch.einsum(
+                "qbsr,brn->qbsn",
+                r.to(f32).expand((rebuilds,) + tuple(r.shape)), b.to(f32))
+            return (t.to(f32) + lora.sum(0).reshape(t.shape)).to(t.dtype)
+        k, v = rebuilt(k, k_res, b_k), rebuilt(v, v_res, b_v)
+    return _gqa_out(_gqa_scores(q, k), v).to(q.dtype)
+
+
 def flash_attention(q, k, v, *, qpos, kpos, window: int = 0,
                     causal: bool = True, scale=None,
                     k_res=None, v_res=None, b_k=None, b_v=None,
@@ -129,6 +149,9 @@ def flash_attention(q, k, v, *, qpos, kpos, window: int = 0,
         scale = d ** -0.5
     qb = min(q_block, sq)
     kb = min(kv_block, sk)
+    if q.device.type == "meta":       # every block, as the loop computes
+        return _products_on_meta(q, k, v, k_res, v_res, b_k, b_v,
+                                 -(-sq // qb))
     outs = []
     for q0 in range(0, sq, qb):
         q_blk, qp = q[:, q0:q0 + qb], qpos[:, q0:q0 + qb]
@@ -193,6 +216,13 @@ def banded_window_attention(q, k, v, *, window: int, scale=None,
     qb = min(q_block, sq)
     pq = (-sq) % qb
     band = window + qb
+    if q.device.type == "meta":       # each q block against its band
+        def banded(t):       # on t's graph, so a backward counts dK, dV
+            return t[:, :1].expand((bsz, band) + tuple(t.shape[2:]))
+        return _products_on_meta(
+            q, banded(k), banded(v), None if k_res is None else banded(k_res),
+            None if v_res is None else banded(v_res), b_k, b_v,
+            -(-sq // qb))
 
     def pad(t):
         # left by `window` (padded index j holds position j - window) and

@@ -1,8 +1,8 @@
 """Configuration for the PyTorch/CUDA port of the ForkKV serving system.
 
 :class:`LoRAConfig`, :class:`ModelConfig`, :class:`ShapeConfig` (with
-``INPUT_SHAPES``) and :class:`ServeConfig` carry the same fields and
-defaults as the JAX package's configs, so one configuration describes the
+``INPUT_SHAPES``), :class:`MeshConfig` and :class:`ServeConfig` carry the
+same fields and defaults as the JAX package's configs, so one configuration describes the
 same model and server on either side; only ``ModelConfig.activation_dtype``
 returns a ``torch.dtype``.
 """
@@ -190,10 +190,41 @@ def shape_by_name(name: str) -> ShapeConfig:
     raise KeyError(f"unknown input shape {name!r}")
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Production mesh description: the reference's shapes and axis names
+    (two TPU v5e pods there), kept so that every dry-run record compares
+    one-to-one with the reference's; here 256 or 512 ranks of a
+    ``torch.distributed`` DeviceMesh (:mod:`repro_torch.launch.mesh`), one
+    H100 each."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
 # NVIDIA H100 SXM roofline constants (per card, dense, at the 700 W limit;
 # NVIDIA's data sheet).
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s
 HBM_BW = 3.35e12                  # bytes/s
+# The link the collective term divides by, per card: InfiniBand NDR, 400
+# Gb/s = 50 GB/s per card (one ConnectX-7 port per H100 in an HGX H100
+# node; NVIDIA's DGX H100 data sheet).  A 16-wide model axis spans two
+# 8-card nodes, so its ring collectives cross the node boundary, and a
+# ring moves at the rate of its slowest hop; NVLink 4's 450 GB/s each way
+# bounds only the hops inside a node.  The data and pod axes span nodes
+# too.  So every collective is charged at the network's rate.
+LINK_BW = 50e9                    # bytes/s
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,7 +37,11 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;     // query rows per CTA
 constexpr int kPad = 8;                // bf16 elements of padding per row
-constexpr int kMaxRank = 64;           // LoRA rank of the largest RP instance
+// LoRA rank of the largest RP instance, and the width of a rank chunk in
+// the chunked instances that take every rank above it (rank_chunk.cuh)
+constexpr int kRankChunk = 64;
+// the rank chunk of the f32 scalar kernels' chunked instances
+constexpr int kScalarRankChunk = 32;
 constexpr float kNegInit = -1e30f;     // running max before any key
 constexpr float kLog2e = 1.4426950408889634f;
 

@@ -22,6 +22,7 @@
 
 #include "flash_tile.cuh"
 #include "paged_template.cuh"
+#include "rank_chunk.cuh"
 
 namespace {
 
@@ -336,10 +337,149 @@ int launch_prefill_res_mma(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// RP: the smallest instance (16, 32, 64) that holds the rank
+// The chunked instance of #5's tile (#1 shares it): ranks above
+// kRankChunk (rank_chunk.cuh).  The same CTAs, rows, masks and zeroed rows
+// past q_len as paged_prefill_res_mma_kernel, one stage, and per 64-key
+// block K and V rebuilt rank chunk by chunk on chip (flash::chunk_block),
+// so the key loop is O += P V with no O_r and no B_v epilogue.
+template <int D, int DR, bool INT8>
+__global__ void __launch_bounds__(flash::kThreads, 1)
+paged_prefill_res_chunk_kernel(Args a, int bsz) {
+  using flash::bf16;
+  constexpr int BK = 64;
+  using L = flash::ChunkBlock<D, BK, INT8>;
+  using C = flash::Cols<D, DR>;
+  constexpr int DS = L::DS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  unsigned char* blk = smem_raw + flash::kRows * DS * sizeof(bf16);
+  const bf16* Ks = reinterpret_cast<const bf16*>(blk) + L::kK;
+  const bf16* Vs = reinterpret_cast<const bf16*>(blk) + L::kV;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.hq / a.hkv, page = a.page, R = a.r;
+  const int ntiles = (a.sq + a.tq - 1) / a.tq;
+  const int per_tile = a.hkv * bsz;
+  const int tile = ntiles - 1 - (int)(blockIdx.x / per_tile);
+  const int h = (int)(blockIdx.x % per_tile) % a.hkv;
+  const int b = (int)(blockIdx.x % per_tile) / a.hkv;
+
+  const int kvlen = a.kv_len[b];
+  const int start = a.start[b];
+  const int qlen = a.q_len ? a.q_len[b] : max(0, min(a.sq, kvlen - start));
+  const int q0 = tile * a.tq;
+  const int npos = min(a.tq, a.sq - q0);
+  const int nq = max(0, min(npos, qlen - q0));
+  bf16* out = static_cast<bf16*>(a.out);
+  const long out_tile = ((long)b * a.sq + q0) * a.hq + (long)h * G;
+
+  // rows at or past q_len: exact zeros
+  for (int e = tid; e < (npos - nq) * G * (DR / 8); e += flash::kThreads) {
+    const int qi = nq + e / (G * (DR / 8)), rest = e % (G * (DR / 8));
+    *reinterpret_cast<uint4*>(out + (out_tile + (long)qi * a.hq) * DR +
+                              rest * 8) = make_uint4(0, 0, 0, 0);
+  }
+  if (nq == 0) return;
+  const int nrows = nq * G;                         // row = qi * G + g
+  const long hd = (long)a.hkv * DR;
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int e = tid; e < flash::kRows * C::kRow; e += flash::kThreads) {
+    const int r = e / C::kRow, i = e % C::kRow;
+    const bool ok = r < nrows;
+    const bf16* src =
+        ok ? q + (out_tile + (long)(r / G) * a.hq + r % G) * DR : q;
+    C::row(Qs + r * DS, src, i, ok);
+  }
+  flash::cp_async_commit();
+  C::zero_gaps(Qs, flash::kRows, DS, tid, flash::kThreads);
+  flash::chunk_zero_gaps<D, DR, BK, INT8>(blk, tid, flash::kThreads);
+
+  const int klimit = min(kvlen, a.w * page);
+  const int qpos_lo = start + q0, qpos_hi = start + q0 + nq - 1;
+  const int last_k = min(klimit - 1, qpos_hi);
+  const int first_k = a.window > 0 ? max(qpos_lo - (a.window - 1), 0) : 0;
+  const int jb0 = first_k / BK;
+  const int nblocks = last_k >= 0 ? max(0, last_k / BK - jb0 + 1) : 0;
+  const int* bt = a.bt_b + (long)b * a.w;
+  const int* btr = a.bt_r + (long)b * a.w;
+  const long b0 = (long)b * R * hd + (long)h * DR;
+  const flash::ChunkSrc src{
+      a.kb, a.vb, a.kb_s, a.vb_s, static_cast<const bf16*>(a.kr),
+      static_cast<const bf16*>(a.vr), static_cast<const bf16*>(a.bk) + b0,
+      static_cast<const bf16*>(a.bv) + b0, hd,
+      static_cast<const bf16*>(a.sin), static_cast<const bf16*>(a.cos), R};
+  auto tok = [&](int kpos) {
+    return ((long)bt[kpos / page] * page + kpos % page) * a.hkv + h;
+  };
+  auto res = [&](int kpos) {
+    return (long)btr[kpos / page] * page + kpos % page;
+  };
+  auto rope = [&](int kpos) { return (long)kpos; };
+
+  float o[D / 8][4], m[2], l[2];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  m[0] = m[1] = flash::kNegInit;
+  l[0] = l[1] = 0.f;
+  const float scale_log2 = a.scale * flash::kLog2e;
+  int pos[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    pos[hh] = qpos_lo + min(warp * 16 + (lane >> 2) + 8 * hh, nrows - 1) / G;
+
+  flash::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[D / 16][4];                           // Q's A fragments
+  flash::load_q<D>(qf, Qs + warp * 16 * DS, DS, lane);
+  for (int it = 0; it < nblocks; ++it) {
+    const int j0 = (jb0 + it) * BK;
+    flash::chunk_block<D, DR, BK, flash::kWarps, INT8>(
+        blk, src, j0, 0, klimit, tok, res, rope, tid, warp, lane);
+    float s[BK / 8][4], alpha[2];
+    flash::scores<D, BK>(s, qf, Ks, DS, lane);
+    const bool full = j0 + BK <= klimit && j0 + BK - 1 <= qpos_lo &&
+                      (a.window <= 0 || j0 > qpos_hi - a.window);
+    if (!full) flash::mask<BK>(s, j0, pos, klimit, true, a.window, lane);
+    flash::softmax_step<BK>(s, m, l, alpha, scale_log2);
+    flash::rescale<D / 8>(o, alpha);
+    flash::product<BK, D>(o, s, Vs, DS, lane);
+    __syncthreads();                  // the tiles are refilled next block
+  }
+
+  flash::finish_rowsum(l);
+  bf16* dst[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = warp * 16 + (lane >> 2) + 8 * hh;
+    dst[hh] = r < nrows ? out + (out_tile + (long)(r / G) * a.hq + r % G) * DR
+                        : nullptr;
+  }
+  flash::store_cols<D, D, DR>(o, l, dst, 0, lane);
+}
+
+template <int D, int DR, bool INT8>
+int launch_prefill_res_chunk(const Args& a, int bsz, cudaStream_t stream) {
+  constexpr size_t smem = (size_t)flash::kRows * (D + flash::kPad) * 2 +
+                          flash::ChunkBlock<D, 64, INT8>::kBytes;
+  auto kernel = paged_prefill_res_chunk_kernel<D, DR, INT8>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)((a.sq + a.tq - 1) / a.tq) * a.hkv * bsz;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, flash::kThreads, smem, stream>>>(a, bsz);
+  return (int)cudaGetLastError();
+}
+
+// RP: the smallest instance (16, 32, 64) that holds the rank; above 64 the
+// chunked instance
 template <int D, int DR = D>
 int launch_prefill_res_rank(const Args& a, int bsz, cudaStream_t s) {
   const bool int8 = a.kb_s != nullptr;
+  if (a.r > flash::kRankChunk)
+    return int8 ? launch_prefill_res_chunk<D, DR, true>(a, bsz, s)
+                : launch_prefill_res_chunk<D, DR, false>(a, bsz, s);
   if (a.r <= 16)
     return int8 ? launch_prefill_res_mma<D, DR, 16, true>(a, bsz, s)
                 : launch_prefill_res_mma<D, DR, 16, false>(a, bsz, s);
@@ -352,14 +492,13 @@ int launch_prefill_res_rank(const Args& a, int bsz, cudaStream_t s) {
 
 // The bf16 disaggregated chunked prefill (q_len null) and mixed grid (q_len
 // given): D 32/64/128, and 120 in D 128's tile (split halves,
-// ``flash::Cols``); R 1..64, tq * G <= 128 rows, page 1..32, bf16 or int8
-// pages, RoPE tables given.
+// ``flash::Cols``); any R >= 1 (above 64 the chunked instance), tq * G <=
+// 128 rows, page 1..32, bf16 or int8 pages, RoPE tables given.
 int dispatch_prefill_res_mma(const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.tq < 1 ||
       a.tq * (a.hq / a.hkv) > flash::kRows || a.page < 1 || a.page > 32 ||
-      a.r < 1 || a.r > flash::kMaxRank || a.sin == nullptr ||
-      a.cos == nullptr)
+      a.r < 1 || a.sin == nullptr || a.cos == nullptr)
     return (int)cudaErrorInvalidValue;
   if (a.d == 32) return launch_prefill_res_rank<32>(a, bsz, s);
   if (a.d == 64) return launch_prefill_res_rank<64>(a, bsz, s);
@@ -800,6 +939,124 @@ paged_decode_res_split_kernel(Args a) {
   }
 }
 
+// The chunked instance of the split-K decode (#2): ranks above kRankChunk
+// (rank_chunk.cuh).  The grid, shares and workspace of the split kernel
+// above, but the CTA's 4 warps walk the union of their shares in 64-key
+// blocks together: per block all 128 threads rebuild K and V rank chunk by
+// chunk (flash::chunk_block; the warps share each B_k and B_v chunk, which
+// warps on shares of their own could not), then warp w takes keys 16 w ..
+// 16 w + 15 of the block: S = Q K^T for the 16 heads, the online softmax,
+// O += P V.  A warp's partial covers its keys of every block rather than
+// its own share; the combine needs only that the partials split the row's
+// keys, and V is rebuilt, so they carry no acc_r and the combine runs
+// with no rank (B_v is in V already).
+template <int D, int DR, bool INT8>
+__global__ void __launch_bounds__(kThreads, 1)
+paged_decode_res_chunk_kernel(Args a) {
+  using flash::bf16;
+  constexpr int BK = kWarps * kKeys;
+  using L = flash::ChunkBlock<D, BK, INT8>;
+  using C = flash::Cols<D, DR>;
+  constexpr int DS = L::DS;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  bf16* Qs = reinterpret_cast<bf16*>(dyn);
+  unsigned char* blk = dyn + kHeads * DS * sizeof(bf16);
+  const bf16* Ks = reinterpret_cast<const bf16*>(blk) + L::kK;
+  const bf16* Vs = reinterpret_cast<const bf16*>(blk) + L::kV;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.z, G = a.hq / a.hkv, R = a.r, page = a.page;
+  const int nht = (G + kHeads - 1) / kHeads;
+  const int h = blockIdx.y / nht;
+  const int g0 = (blockIdx.y % nht) * kHeads;
+  const int ng = min(kHeads, G - g0);
+  const long head0 = (long)b * a.hq + (long)h * G + g0;
+  const long hd = (long)a.hkv * DR;
+  const int kvlen = a.kv_len[b];
+  const int first_share = (int)blockIdx.x * kWarps;
+  const Share cta(kvlen, a.w, page, a.window, a.n_split, first_share);
+  const int c_lo = cta.lo;
+  const int c_hi = min(cta.lo + kWarps * cta.per, min(kvlen, a.w * page));
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int e = tid; e < kHeads * C::kRow; e += kThreads) {
+    const int r = e / C::kRow, i = e % C::kRow;
+    const bool ok = r < ng;
+    C::row(Qs + r * DS, ok ? q + (head0 + r) * DR : q, i, ok);
+  }
+  flash::cp_async_commit();
+  C::zero_gaps(Qs, kHeads, DS, tid, kThreads);
+  flash::chunk_zero_gaps<D, DR, BK, INT8>(blk, tid, kThreads);
+
+  const int* bt = a.bt_b + (long)b * a.w;
+  const int* btr = a.bt_r + (long)b * a.w;
+  const long b0 = (long)b * R * hd + (long)h * DR;
+  const flash::ChunkSrc src{
+      a.kb, a.vb, a.kb_s, a.vb_s, static_cast<const bf16*>(a.kr),
+      static_cast<const bf16*>(a.vr), static_cast<const bf16*>(a.bk) + b0,
+      static_cast<const bf16*>(a.bv) + b0, hd,
+      static_cast<const bf16*>(a.sin), static_cast<const bf16*>(a.cos), R};
+  auto tok = [&](int kpos) {
+    return ((long)bt[kpos / page] * page + kpos % page) * a.hkv + h;
+  };
+  auto res = [&](int kpos) {
+    return (long)btr[kpos / page] * page + kpos % page;
+  };
+  auto rope = [&](int kpos) { return (long)kpos; };
+
+  float o[D / 8][4], m[2], l[2];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  m[0] = m[1] = flash::kNegInit;
+  l[0] = l[1] = 0.f;
+  const float scale_log2 = a.scale * flash::kLog2e;
+
+  flash::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[D / 16][4];           // the CTA's 16 heads, for every warp
+  flash::load_q<D>(qf, Qs, DS, lane);
+  const int nblocks = c_lo < c_hi ? (c_hi - c_lo + BK - 1) / BK : 0;
+  for (int it = 0; it < nblocks; ++it) {
+    const int j0 = c_lo + it * BK;
+    flash::chunk_block<D, DR, BK, kWarps, INT8>(
+        blk, src, j0, c_lo, c_hi, tok, res, rope, tid, warp, lane);
+    float sc[2][4], alpha[2];
+    flash::scores<D, kKeys>(sc, qf, Ks + warp * kKeys * DS, DS, lane);
+    const int k0 = j0 + warp * kKeys;
+    if (k0 + kKeys > c_hi) {
+      const int pos[2] = {0, 0};              // not read: no causal mask
+      flash::mask<kKeys>(sc, k0, pos, c_hi, false, 0, lane);
+    }
+    flash::softmax_step<kKeys>(sc, m, l, alpha, scale_log2);
+    flash::rescale<D / 8>(o, alpha);
+    flash::product<kKeys, D>(o, sc, Vs + warp * kKeys * DS, DS, lane);
+    __syncthreads();                  // the tiles are refilled next block
+  }
+
+  // the combine may launch now; it still waits for this grid to finish
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  flash::finish_rowsum(l);
+  const int share = first_share + warp;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = (lane >> 2) + 8 * hh;
+    if (r >= ng) continue;
+    const long row = (head0 + r) * a.n_split + share;
+    if ((lane & 3) == 0) {
+      a.ws_m[row] = m[hh];
+      a.ws_l[row] = l[hh];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int e = C::elem(8 * n + 2 * (lane & 3));
+      if (e >= 0)
+        *reinterpret_cast<float2*>(a.ws_acc + row * DR + e) =
+            make_float2(o[n][2 * hh], o[n][2 * hh + 1]);
+    }
+  }
+}
+
 // out[b, head] = (sum_s w_s acc_s + (sum_s w_s acc_r,s) . B_v[b, :, head's
 // kv head]) / max(sum_s w_s l_s, 1e-20), w_s = 2^(m_s - M) over the shares
 // with l_s > 0: one CTA per (row, head), threads over R, then over D.
@@ -808,7 +1065,8 @@ __global__ void __launch_bounds__(kThreads)
 paged_decode_res_combine_kernel(Args a) {
   // wait for the split kernel's grid and its writes
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  __shared__ float accr[flash::kMaxRank];
+  // a.r <= kRankChunk: the chunked instances launch it with no rank
+  __shared__ float accr[flash::kRankChunk];
   const long row = blockIdx.x;                  // b * Hq + head
   const int b = (int)(row / a.hq), head = (int)(row % a.hq);
   const int h = head / (a.hq / a.hkv);
@@ -881,9 +1139,34 @@ int launch(const Args& a, cudaStream_t stream) {
   return launch_combine<__nv_bfloat16>(a, stream);
 }
 
+// the chunked instance and the combine with no rank (V carries B_v)
+template <int D, int DR, bool INT8>
+int launch_chunk(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = (size_t)kHeads * (D + flash::kPad) * 2 +
+                          flash::ChunkBlock<D, kWarps * kKeys, INT8>::kBytes;
+  auto kernel = paged_decode_res_chunk_kernel<D, DR, INT8>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int G = a.hq / a.hkv;
+  const dim3 grid(a.n_split / kWarps, a.hkv * ((G + kHeads - 1) / kHeads),
+                  a.bsz);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  Args c = a;
+  c.r = 0;
+  return launch_combine<__nv_bfloat16>(c, stream);
+}
+
+// RP: the smallest instance (16, 32, 64) that holds the rank; above 64 the
+// chunked instance
 template <int D, int DR = D>
 int launch_rank(const Args& a, cudaStream_t s) {
   const bool int8 = a.kb_s != nullptr;
+  if (a.r > flash::kRankChunk)
+    return int8 ? launch_chunk<D, DR, true>(a, s)
+                : launch_chunk<D, DR, false>(a, s);
   if (a.r <= 16)
     return int8 ? launch<D, DR, 16, true>(a, s)
                 : launch<D, DR, 16, false>(a, s);
@@ -909,9 +1192,12 @@ int launch_f32(const Args& r, cudaStream_t stream) {
   a.ws_acc = r.ws_acc;
   a.ws_accr = r.ws_accr;
   const int G = a.hq / a.hkv;
-  const TemplateLayout L(G, a.d, a.r, a.page, true);
+  // above kRankChunk the template's chunked instance: V rebuilt, no acc_r
+  const bool chunk = a.r > flash::kRankChunk;
+  const TemplateLayout L(G, a.d, a.r, a.page, true, chunk);
   const size_t smem = (size_t)L.total * sizeof(float);
-  auto kernel = paged_attention_kernel<float, TB, true, true>;
+  auto kernel = chunk ? paged_attention_kernel<float, TB, true, true, true>
+                      : paged_attention_kernel<float, TB, true, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -919,7 +1205,9 @@ int launch_f32(const Args& r, cudaStream_t stream) {
                                      stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_combine<float>(r, stream);
+  Args c = r;
+  if (chunk) c.r = 0;
+  return launch_combine<float>(c, stream);
 }
 
 // ints of each block table one CTA reads: its kWarps shares span at most
@@ -933,12 +1221,13 @@ inline int bt_entries(const Args& a) {
 
 // dtype: q's type (0 f32, 1 bf16); int8 pages exactly when scales given.
 // D 32/64/128 and 120 (bf16: in D 128's tile; f32: the template takes any
-// even D), R 1..64, page 1..32, n_split a multiple of kWarps.
+// even D), any R >= 1 (above 64 the chunked instances), page 1..32,
+// n_split a multiple of kWarps.
 int dispatch(int dtype, Args a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.kb_s == nullptr) != (a.vb_s == nullptr) || a.n_split < kWarps ||
       a.n_split % kWarps != 0 || a.page < 1 || a.page > 32 || a.r < 1 ||
-      a.r > flash::kMaxRank || a.hkv < 1 || a.hq % a.hkv != 0 ||
+      a.hkv < 1 || a.hq % a.hkv != 0 ||
       a.bsz > 65535 ||
       (long)a.hkv * ((a.hq / a.hkv + kHeads - 1) / kHeads) > 65535 ||
       (long)a.bsz * a.hq > INT_MAX)

@@ -150,12 +150,14 @@ struct Share {
 
 // Shared-memory layout, in floats.  Rows of Q and of the rebuilt K are
 // padded by one float so the score loop (threads spread over rows of K)
-// hits distinct banks.
+// hits distinct banks.  ``chunk`` (ranks above kRankChunk): no acc_r, and
+// one rank chunk (kScalarRankChunk) of K_r or V_r and of B_k or B_v at a
+// time, in kr and bk.
 struct Layout {
   int rows, dp, sp;
   int q, acc, s, m, l, alpha, k, v, inv_freq, accr, kr, vr, bk, bv, total;
   __host__ __device__ Layout(int rows_, int d, int r, int page,
-                             bool has_res) {
+                             bool has_res, bool chunk = false) {
     rows = rows_;
     dp = d + 1;
     sp = page + 1;
@@ -170,7 +172,10 @@ struct Layout {
     v = o;        o += page * d;
     inv_freq = o; o += d / 2;
     accr = kr = vr = bk = bv = o;
-    if (has_res) {
+    if (has_res && chunk) {
+      kr = vr = o; o += page * flash::kScalarRankChunk;
+      bk = bv = o; o += flash::kScalarRankChunk * d;
+    } else if (has_res) {
       accr = o;   o += rows * r;
       kr = o;     o += page * r;
       vr = o;     o += page * r;
@@ -183,7 +188,13 @@ struct Layout {
 
 // SPLIT: a decode by shares (#2 in f32): share blockIdx.x of its row (one
 // q tile), its partials into the workspace, sin/cos from the RoPE tables.
-template <typename T, typename TB, bool HAS_RES, bool SPLIT = false>
+// CHUNK (with HAS_RES; ranks above kRankChunk): per page, K = K_b +
+// RoPE(K_r . B_k) summed in f32 in the K rows and V = V_b + V_r . B_v in
+// the V rows, one rank chunk of kScalarRankChunk at a time (K_r and B_k,
+// then V_r and B_v), as the plain version reconstructs them; then no acc_r
+// and no B_v epilogue (SPLIT: no acc_r partial).
+template <typename T, typename TB, bool HAS_RES, bool SPLIT = false,
+          bool CHUNK = false>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(Args a) {
   extern __shared__ float smem[];
@@ -214,7 +225,7 @@ paged_attention_kernel(Args a) {
   if (nq == 0) return;
 
   const int rows = nq * G;                          // row = qi * G + g
-  const Layout L(a.tq * G, D, R, page, HAS_RES);
+  const Layout L(a.tq * G, D, R, page, HAS_RES, CHUNK);
   float* Qs = smem + L.q;
   float* acc = smem + L.acc;
   float* S = smem + L.s;
@@ -241,7 +252,7 @@ paged_attention_kernel(Args a) {
     m[row] = kNegInit;
     l[row] = 0.f;
   }
-  if (HAS_RES) {
+  if (HAS_RES && !CHUNK) {
     const T* bk = static_cast<const T*>(a.bk);
     const T* bv = static_cast<const T*>(a.bv);
     const long hd = (long)a.hkv * D;
@@ -252,9 +263,10 @@ paged_attention_kernel(Args a) {
       Bv[e] = to_f32(bv[src]);
     }
     for (int e = tid; e < rows * R; e += kThreads) accr[e] = 0.f;
+  }
+  if (HAS_RES)
     for (int i = tid; i < half; i += kThreads)
       inv_freq[i] = 1.0f / powf(a.rope_theta, (float)i / (float)half);
-  }
 
   // plain page-loop bounds (the Pallas kernels clamp their index maps)
   const int qpos_lo = start + q0;
@@ -290,7 +302,66 @@ paged_attention_kernel(Args a) {
       Vs[e] = base_elem(vb, a.vb_s, kv_base + t * kv_row + dd,
                         s_base + (long)t * a.hkv);
     }
-    if (HAS_RES) {
+    if constexpr (HAS_RES && CHUNK) {
+      const long pr = a.bt_r[(long)b * a.w + j];
+      const T* bk = static_cast<const T*>(a.bk);
+      const T* bv = static_cast<const T*>(a.bv);
+      const long hd = (long)a.hkv * D;
+      constexpr int RC = flash::kScalarRankChunk;
+      // the f32 sums of K_r . B_k in the K rows (RoPE after the last chunk)
+      for (int e = tid; e < page * D; e += kThreads)
+        Ks[(e / D) * L.dp + e % D] = 0.f;
+      for (int pass = 0; pass < 2; ++pass)
+        for (int r0 = 0; r0 < R; r0 += RC) {
+          __syncthreads();          // the chunk buffers are free
+          const T* rp = pass ? vr : kr;
+          const T* bp = pass ? bv : bk;
+          for (int e = tid; e < page * RC; e += kThreads) {
+            const int t = e / RC, rr = r0 + e % RC;
+            Kr[e] = rr < R ? to_f32(rp[(pr * page + t) * R + rr]) : 0.f;
+          }
+          for (int e = tid; e < RC * D; e += kThreads) {
+            const int rr = r0 + e / D, dd = e % D;
+            Bk[e] = rr < R ? to_f32(bp[((long)b * R + rr) * hd +
+                                       (long)h * D + dd])
+                           : 0.f;
+          }
+          __syncthreads();
+          for (int e = tid; e < page * D; e += kThreads) {
+            const int t = e / D, dd = e % D;
+            float x = 0.f;
+            for (int c = 0; c < RC; ++c)
+              x = fmaf(Kr[t * RC + c], Bk[c * D + dd], x);
+            if (pass)
+              Vs[e] += x;
+            else
+              Ks[t * L.dp + dd] += x;
+          }
+        }
+      __syncthreads();
+      for (int e = tid; e < page * half; e += kThreads) {
+        const int t = e / half, i = e % half;
+        const float x1 = Ks[t * L.dp + i], x2 = Ks[t * L.dp + i + half];
+        float k1 = x1, k2 = x2;
+        if (a.use_rope) {
+          float sn, cs;
+          if constexpr (SPLIT) {
+            const long at = (long)(j * page + t) * half + i;
+            sn = to_f32(static_cast<const T*>(a.sin)[at]);
+            cs = to_f32(static_cast<const T*>(a.cos)[at]);
+          } else {
+            sincosf((float)(j * page + t) * inv_freq[i], &sn, &cs);
+          }
+          k1 = x1 * cs - x2 * sn;
+          k2 = x2 * cs + x1 * sn;
+        }
+        const long st = s_base + (long)t * a.hkv;
+        Ks[t * L.dp + i] = base_elem(kb, a.kb_s, kv_base + t * kv_row + i,
+                                     st) + k1;
+        Ks[t * L.dp + i + half] =
+            base_elem(kb, a.kb_s, kv_base + t * kv_row + i + half, st) + k2;
+      }
+    } else if (HAS_RES) {
       const long pr = a.bt_r[(long)b * a.w + j];
       for (int e = tid; e < page * R; e += kThreads) {
         Kr[e] = to_f32(kr[pr * page * R + e]);
@@ -380,7 +451,7 @@ paged_attention_kernel(Args a) {
       for (int t = 0; t < page; ++t) o = fmaf(pr[t], Vs[t * D + dd], o);
       acc[e] = o;
     }
-    if (HAS_RES) {
+    if (HAS_RES && !CHUNK) {
       for (int e = tid; e < rows * R; e += kThreads) {
         const int row = e / R, rr = e % R;
         const float* pr = S + row * L.sp;
@@ -403,9 +474,10 @@ paged_attention_kernel(Args a) {
     for (int e = tid; e < rows * D; e += kThreads)
       a.ws_acc[((out_tile + e / D) * a.n_split + blockIdx.x) * D + e % D] =
           acc[e];
-    for (int e = tid; e < rows * R; e += kThreads)
-      a.ws_accr[((out_tile + e / R) * a.n_split + blockIdx.x) * R + e % R] =
-          accr[e];
+    if (!CHUNK)
+      for (int e = tid; e < rows * R; e += kThreads)
+        a.ws_accr[((out_tile + e / R) * a.n_split + blockIdx.x) * R +
+                  e % R] = accr[e];
     return;
   }
 
@@ -413,7 +485,7 @@ paged_attention_kernel(Args a) {
   for (int e = tid; e < rows * D; e += kThreads) {
     const int row = e / D, dd = e % D;
     float o = acc[e];
-    if (HAS_RES) {
+    if (HAS_RES && !CHUNK) {
       for (int rr = 0; rr < R; ++rr)
         o = fmaf(accr[row * R + rr], Bv[rr * D + dd], o);
     }
@@ -426,9 +498,12 @@ paged_attention_kernel(Args a) {
 template <typename T, typename TB, bool HAS_RES>
 int launch(const Args& a, int bsz, cudaStream_t stream) {
   const int G = a.hq / a.hkv;
-  const Layout L(a.tq * G, a.d, a.r, a.page, HAS_RES);
+  // ranks above kRankChunk: the chunked instance
+  const bool chunk = HAS_RES && a.r > flash::kRankChunk;
+  const Layout L(a.tq * G, a.d, a.r, a.page, HAS_RES, chunk);
   const size_t smem = (size_t)L.total * sizeof(float);
-  auto kernel = paged_attention_kernel<T, TB, HAS_RES>;
+  auto kernel = chunk ? paged_attention_kernel<T, TB, HAS_RES, false, true>
+                      : paged_attention_kernel<T, TB, HAS_RES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

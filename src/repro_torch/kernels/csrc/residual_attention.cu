@@ -75,6 +75,7 @@
 #include <math_constants.h>
 
 #include "flash_tile.cuh"
+#include "rank_chunk.cuh"
 
 namespace {
 
@@ -118,11 +119,17 @@ struct Args {
 // words and returns the error if that is more than a CTA may have.  Rows
 // of Q and of the rebuilt K are padded by one float so the score loop
 // (threads spread over rows of K) hits distinct banks.
+// ``chunk`` (ranks above kRankChunk, or a group whose rows the layout at
+// rank R cannot hold): no acc_r, and one rank chunk (kScalarRankChunk) of
+// K_r or V_r (kr) and of B_k or B_v (bk) at a time.
 struct Layout {
   int dp, sp;
   int q, acc, s, m, l, alpha, k, v, sn, cs, accr, kr, vr, bk, bv, qpos,
       total;
-  __host__ __device__ Layout(int rows, int tq, int d, int r) {
+  __host__ __device__ Layout(int rows, int tq, int d, int r,
+                             bool chunk = false) {
+    if (chunk) r = 0;
+    const int rc = chunk ? flash::kScalarRankChunk : 0;
     dp = d + 1;
     sp = kBlockK + 1;
     int o = 0;
@@ -140,6 +147,8 @@ struct Layout {
     kr = o;    o += kBlockK * r;
     vr = o;    o += kBlockK * r;
     bk = o;    o += r * d;
+    kr = chunk ? o : kr;  o += kBlockK * rc;
+    bk = chunk ? o : bk;  o += rc * d;
     qpos = o;  o += tq;                 // ints
     total = o;
     // B_v (r x d) is read only after the key loop: it is loaded then over
@@ -149,7 +158,11 @@ struct Layout {
   }
 };
 
-template <typename T>
+// CHUNK: K = K_b + RoPE(K_r . B_k) summed in f32 in the K rows and V =
+// V_b + V_r . B_v in the V rows, one rank chunk at a time (K_r and B_k,
+// then V_r and B_v), as the plain version reconstructs them; then no acc_r
+// and no B_v epilogue.
+template <typename T, bool CHUNK = false>
 __global__ void __launch_bounds__(kThreads)
 residual_attention_kernel(Args a) {
   extern __shared__ float smem[];
@@ -165,7 +178,7 @@ residual_attention_kernel(Args a) {
   const int q0 = tile * a.tq;                       // first query position
   const int nq = min(a.tq, a.sq - q0);              // positions in the tile
   const int rows = nq * G;                          // row = qi * G + g
-  const Layout L(a.tq * G, a.tq, D, R);
+  const Layout L(a.tq * G, a.tq, D, R, CHUNK);
   float* Qs = smem + L.q;
   float* acc = smem + L.acc;
   float* S = smem + L.s;
@@ -201,11 +214,13 @@ residual_attention_kernel(Args a) {
   const T* bk = static_cast<const T*>(a.bk);
   const T* bv = static_cast<const T*>(a.bv);
   const long hd = (long)a.hkv * D;
-  for (int e = tid; e < R * D; e += kThreads) {
-    const int rr = e / D, dd = e % D;
-    Bk[e] = to_f32(bk[((long)b * R + rr) * hd + (long)h * D + dd]);
+  if (!CHUNK) {
+    for (int e = tid; e < R * D; e += kThreads) {
+      const int rr = e / D, dd = e % D;
+      Bk[e] = to_f32(bk[((long)b * R + rr) * hd + (long)h * D + dd]);
+    }
+    for (int e = tid; e < rows * R; e += kThreads) accr[e] = 0.f;
   }
-  for (int e = tid; e < rows * R; e += kThreads) accr[e] = 0.f;
   __syncthreads();
 
   // key-loop bounds from the tile's earliest and latest query position
@@ -233,17 +248,61 @@ residual_attention_kernel(Args a) {
       const int t = e / D, dd = e % D;
       Vs[e] = to_f32(vb[kv_base + t * hd + dd]);
     }
-    for (int e = tid; e < nk * R; e += kThreads) {
-      Kr[e] = to_f32(kr[tok0 * R + e]);
-      Vr[e] = to_f32(vr[tok0 * R + e]);
-    }
+    if (!CHUNK)
+      for (int e = tid; e < nk * R; e += kThreads) {
+        Kr[e] = to_f32(kr[tok0 * R + e]);
+        Vr[e] = to_f32(vr[tok0 * R + e]);
+      }
     for (int e = tid; e < nk * half; e += kThreads) {
       Sn[e] = to_f32(sin_tab[tok0 * half + e]);
       Cs[e] = to_f32(cos_tab[tok0 * half + e]);
     }
+    if constexpr (CHUNK) {
+      constexpr int RC = flash::kScalarRankChunk;
+      // the f32 sums of K_r . B_k in the K rows (RoPE after the last one)
+      for (int e = tid; e < nk * D; e += kThreads)
+        Ks[(e / D) * L.dp + e % D] = 0.f;
+      for (int pass = 0; pass < 2; ++pass)
+        for (int r0 = 0; r0 < R; r0 += RC) {
+          __syncthreads();          // the chunk buffers are free
+          const T* rp = pass ? vr : kr;
+          const T* bp = pass ? bv : bk;
+          for (int e = tid; e < nk * RC; e += kThreads) {
+            const int t = e / RC, rr = r0 + e % RC;
+            Kr[e] = rr < R ? to_f32(rp[(tok0 + t) * R + rr]) : 0.f;
+          }
+          for (int e = tid; e < RC * D; e += kThreads) {
+            const int rr = r0 + e / D, dd = e % D;
+            Bk[e] = rr < R ? to_f32(bp[((long)b * R + rr) * hd +
+                                       (long)h * D + dd])
+                           : 0.f;
+          }
+          __syncthreads();
+          for (int e = tid; e < nk * D; e += kThreads) {
+            const int t = e / D, dd = e % D;
+            float x = 0.f;
+            for (int c = 0; c < RC; ++c)
+              x = fmaf(Kr[t * RC + c], Bk[c * D + dd], x);
+            if (pass)
+              Vs[e] += x;
+            else
+              Ks[t * L.dp + dd] += x;
+          }
+        }
+      __syncthreads();
+      for (int e = tid; e < nk * half; e += kThreads) {
+        const int t = e / half, i = e % half;
+        const float x1 = Ks[t * L.dp + i], x2 = Ks[t * L.dp + i + half];
+        const float sn = Sn[e], cs = Cs[e];
+        Ks[t * L.dp + i] =
+            to_f32(kb[kv_base + t * hd + i]) + (x1 * cs - x2 * sn);
+        Ks[t * L.dp + i + half] =
+            to_f32(kb[kv_base + t * hd + i + half]) + (x2 * cs + x1 * sn);
+      }
+    }
     __syncthreads();
     // K = K_b + RoPE(K_r . B_k), one (t, i) rotation pair per step
-    for (int e = tid; e < nk * half; e += kThreads) {
+    for (int e = tid; e < nk * half && !CHUNK; e += kThreads) {
       const int t = e / half, i = e % half;
       float x1 = 0.f, x2 = 0.f;
       for (int rr = 0; rr < R; ++rr) {
@@ -305,7 +364,7 @@ residual_attention_kernel(Args a) {
       for (int t = 0; t < nk; ++t) o = fmaf(pr[t], Vs[t * D + dd], o);
       acc[e] = o;
     }
-    for (int e = tid; e < rows * R; e += kThreads) {
+    for (int e = tid; e < rows * R && !CHUNK; e += kThreads) {
       const int row = e / R, rr = e % R;
       const float* pr = S + row * L.sp;
       float o = accr[e] * alpha[row];
@@ -316,16 +375,18 @@ residual_attention_kernel(Args a) {
   }
 
   // B_v over the last key block (the loop ended on a barrier)
-  for (int e = tid; e < R * D; e += kThreads) {
-    const int rr = e / D, dd = e % D;
-    Bv[e] = to_f32(bv[((long)b * R + rr) * hd + (long)h * D + dd]);
+  if (!CHUNK) {
+    for (int e = tid; e < R * D; e += kThreads) {
+      const int rr = e / D, dd = e % D;
+      Bv[e] = to_f32(bv[((long)b * R + rr) * hd + (long)h * D + dd]);
+    }
+    __syncthreads();
   }
-  __syncthreads();
   // epilogue: (acc + acc_r . B_v) / max(l, 1e-20)
   for (int e = tid; e < rows * D; e += kThreads) {
     const int row = e / D, dd = e % D;
     float o = acc[e];
-    for (int rr = 0; rr < R; ++rr)
+    for (int rr = 0; rr < R && !CHUNK; ++rr)
       o = fmaf(accr[row * R + rr], Bv[rr * D + dd], o);
     o /= fmaxf(l[row], 1e-20f);
     out[(out_tile + (long)(row / G) * a.hq + row % G) * D + dd] =
@@ -333,12 +394,23 @@ residual_attention_kernel(Args a) {
   }
 }
 
+// the shared memory a CTA may have on the H100
+constexpr int kSmemPerCta = 232448;
+
 template <typename T>
 int launch(const Args& a, int bsz, cudaStream_t stream) {
   const int G = a.hq / a.hkv;
-  const Layout L(a.tq * G, a.tq, a.d, a.r);
+  // the chunked instance above kRankChunk, or where the layout at rank R
+  // does not fit (a group of 32 heads at D 256 and rank 64);
+  // residual_attention.scalar_chunked repeats the choice
+  const bool chunk =
+      a.r > flash::kRankChunk ||
+      (size_t)Layout(a.tq * G, a.tq, a.d, a.r).total * sizeof(float) >
+          (size_t)kSmemPerCta;
+  const Layout L(a.tq * G, a.tq, a.d, a.r, chunk);
   const size_t smem = (size_t)L.total * sizeof(float);
-  auto kernel = residual_attention_kernel<T>;
+  auto kernel = chunk ? residual_attention_kernel<T, true>
+                      : residual_attention_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -347,10 +419,9 @@ int launch(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// f32 only: every bf16 launch runs a tensor-core kernel.  R 1..64.
+// f32 only: every bf16 launch runs a tensor-core kernel.  Any R >= 1.
 int dispatch(int dtype, const Args& a, int bsz, void* stream) {
-  if (dtype != 0 || a.r < 1 || a.r > flash::kMaxRank)
-    return (int)cudaErrorInvalidValue;
+  if (dtype != 0 || a.r < 1) return (int)cudaErrorInvalidValue;
   return launch<float>(a, bsz, static_cast<cudaStream_t>(stream));
 }
 
@@ -624,9 +695,147 @@ int launch_mma(const Args& a, int bsz, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// RP: the smallest instance (16, 32, 64) that holds the rank
+// The chunked instance of the bf16 prefill: ranks above kRankChunk
+// (rank_chunk.cuh).  The CTAs, 128 rows (every warp with query rows, also
+// at D 256: one stage and no B_k/B_v of the whole rank leave room), masks
+// and positions of residual_attention_mma_kernel; per key block K and V
+// are rebuilt rank chunk by chunk on chip (flash::chunk_block), so the key
+// loop is O += P V with no O_r and no B_v epilogue.
+template <int D, int BK, int DR>
+__global__ void __launch_bounds__(flash::kThreads, 1)
+residual_attention_chunk_kernel(Args a, int bsz) {
+  using flash::bf16;
+  using L = flash::ChunkBlock<D, BK, false>;
+  using C = flash::Cols<D, DR>;
+  constexpr int DS = L::DS, ROWS = flash::kRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* rowpos = reinterpret_cast<int*>(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + ROWS * sizeof(int));
+  unsigned char* blk =
+      smem_raw + ROWS * sizeof(int) + ROWS * DS * sizeof(bf16);
+  const bf16* Ks = reinterpret_cast<const bf16*>(blk) + L::kK;
+  const bf16* Vs = reinterpret_cast<const bf16*>(blk) + L::kV;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.hq / a.hkv, R = a.r;
+  const int ntiles = (a.sq + a.tq - 1) / a.tq;
+  const int per_tile = a.hkv * bsz;
+  const int tile = ntiles - 1 - (int)(blockIdx.x / per_tile);
+  const int h = (int)(blockIdx.x % per_tile) % a.hkv;
+  const int b = (int)(blockIdx.x % per_tile) / a.hkv;
+  const long sk = a.sk;
+  const int kvlen = a.kv_len ? min(max(a.kv_len[b], 0), a.sk) : a.sk;
+  const int q0 = tile * a.tq;
+  const int nq = min(a.tq, a.sq - q0);
+  const int nrows = nq * G;                         // row = qi * G + g
+  const long out_tile = ((long)b * a.sq + q0) * a.hq + (long)h * G;
+  const long hd = (long)a.hkv * DR;
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int e = tid; e < ROWS * C::kRow; e += flash::kThreads) {
+    const int r = e / C::kRow, i = e % C::kRow;
+    const bool ok = r < nrows;
+    const bf16* src =
+        ok ? q + (out_tile + (long)(r / G) * a.hq + r % G) * DR : q;
+    C::row(Qs + r * DS, src, i, ok);
+  }
+  flash::cp_async_commit();
+  C::zero_gaps(Qs, ROWS, DS, tid, flash::kThreads);
+  flash::chunk_zero_gaps<D, DR, BK, false>(blk, tid, flash::kThreads);
+  int qlo = INT_MAX, qhi = INT_MIN;
+  for (int i = 0; i < nq; ++i) {
+    const int p = a.qpos ? a.qpos[(long)b * a.sq + q0 + i] : kvlen - 1;
+    qlo = min(qlo, p);
+    qhi = max(qhi, p);
+  }
+  for (int r = tid; r < ROWS; r += flash::kThreads) {
+    const int i = min(r, nrows - 1) / G;
+    rowpos[r] = a.qpos ? a.qpos[(long)b * a.sq + q0 + i] : kvlen - 1;
+  }
+  const int last_k = a.causal ? min(kvlen - 1, qhi) : kvlen - 1;
+  const int first_k = a.window > 0 ? max(qlo - (a.window - 1), 0) : 0;
+  const int jb0 = first_k / BK;
+  const int nblocks = last_k >= 0 ? max(0, last_k / BK - jb0 + 1) : 0;
+  const long tok0 = (long)b * sk;                   // row b's first key
+  const long b0 = (long)b * R * hd + (long)h * DR;
+  const flash::ChunkSrc src{
+      a.kb, a.vb, nullptr, nullptr, static_cast<const bf16*>(a.kr),
+      static_cast<const bf16*>(a.vr), static_cast<const bf16*>(a.bk) + b0,
+      static_cast<const bf16*>(a.bv) + b0, hd,
+      static_cast<const bf16*>(a.sin), static_cast<const bf16*>(a.cos), R};
+  auto tok = [&](int kpos) { return (tok0 + kpos) * a.hkv + h; };
+  auto res = [&](int kpos) { return tok0 + kpos; };
+
+  float o[D / 8][4], m[2], l[2];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  m[0] = m[1] = flash::kNegInit;
+  l[0] = l[1] = 0.f;
+  const float scale_log2 = a.scale * flash::kLog2e;
+
+  flash::cp_async_wait<0>();
+  __syncthreads();                                  // Q and rowpos
+  const int pos[2] = {rowpos[warp * 16 + (lane >> 2)],
+                      rowpos[warp * 16 + (lane >> 2) + 8]};
+  const bf16* Qw = Qs + warp * 16 * DS;
+  constexpr bool kQInRegisters = D <= 128;
+  uint32_t qf[kQInRegisters ? D / 16 : 1][4];
+  if constexpr (kQInRegisters) flash::load_q<D>(qf, Qw, DS, lane);
+
+  for (int it = 0; it < nblocks; ++it) {
+    const int j0 = (jb0 + it) * BK;
+    flash::chunk_block<D, DR, BK, flash::kWarps, false>(
+        blk, src, j0, 0, kvlen, tok, res, res, tid, warp, lane);
+    float s[BK / 8][4], alpha[2];
+    if constexpr (kQInRegisters)
+      flash::scores<D, BK>(s, qf, Ks, DS, lane);
+    else
+      flash::scores<D, BK>(s, Qw, DS, Ks, DS, lane);
+    const bool full = j0 + BK <= kvlen &&
+                      (!a.causal || j0 + BK - 1 <= qlo) &&
+                      (a.window <= 0 || j0 > qhi - a.window);
+    if (!full)
+      flash::mask<BK>(s, j0, pos, kvlen, a.causal != 0, a.window, lane);
+    flash::softmax_step<BK>(s, m, l, alpha, scale_log2);
+    flash::rescale<D / 8>(o, alpha);
+    flash::product<BK, D>(o, s, Vs, DS, lane);
+    __syncthreads();                  // the tiles are refilled next block
+  }
+
+  flash::finish_rowsum(l);
+  bf16* out = static_cast<bf16*>(a.out);
+  bf16* dst[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = warp * 16 + (lane >> 2) + 8 * hh;
+    dst[hh] = r < nrows ? out + (out_tile + (long)(r / G) * a.hq + r % G) * DR
+                        : nullptr;
+  }
+  flash::store_cols<D, D, DR>(o, l, dst, 0, lane);
+}
+
+template <int D, int BK, int DR>
+int launch_chunk(const Args& a, int bsz, cudaStream_t stream) {
+  constexpr size_t smem = flash::kRows * (sizeof(int) +
+                                          (D + flash::kPad) * 2) +
+                          flash::ChunkBlock<D, BK, false>::kBytes;
+  static_assert(smem <= 232448, "a CTA's shared memory on the H100");
+  auto kernel = residual_attention_chunk_kernel<D, BK, DR>;
+  if (a.tq * (a.hq / a.hkv) > flash::kRows) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)((a.sq + a.tq - 1) / a.tq) * a.hkv * bsz;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, flash::kThreads, smem, stream>>>(a, bsz);
+  return (int)cudaGetLastError();
+}
+
+// RP: the smallest instance (16, 32, 64) that holds the rank; above 64 the
+// chunked instance
 template <int D, int BK, int DR = D>
 int launch_mma_rank(const Args& a, int bsz, cudaStream_t s) {
+  if (a.r > flash::kRankChunk) return launch_chunk<D, BK, DR>(a, bsz, s);
   if (a.r <= 16) return launch_mma<D, BK, 16, DR>(a, bsz, s);
   if (a.r <= 32) return launch_mma<D, BK, 32, DR>(a, bsz, s);
   // 64 query rows at D 256 (MmaLayout)
@@ -634,12 +843,11 @@ int launch_mma_rank(const Args& a, int bsz, cudaStream_t s) {
 }
 
 // The bf16 prefill: D 32/64/128/256, and 120 in D 128's tile (split
-// halves, ``flash::Cols``); R 1..64, tq * G <= the instance's ROWS (128;
-// 64 at D 256 above rank 32).
+// halves, ``flash::Cols``); any R >= 1, tq * G <= the instance's ROWS
+// (128; 64 at D 256 from rank 33 to 64).
 int dispatch_mma(const Args& a, int bsz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.r < 1 || a.r > flash::kMaxRank || a.tq < 1)
-    return (int)cudaErrorInvalidValue;
+  if (a.r < 1 || a.tq < 1) return (int)cudaErrorInvalidValue;
   switch (a.d) {
     case 32: return launch_mma_rank<32, 64>(a, bsz, s);
     case 64: return launch_mma_rank<64, 64>(a, bsz, s);
@@ -1121,7 +1329,8 @@ residual_attention_decode_split_kernel(Args a) {
 // ranges with l_s > 0: one CTA per (row, head), threads over R, then D.
 __global__ void __launch_bounds__(kThreads)
 residual_attention_decode_combine_kernel(Args a) {
-  __shared__ float accr[flash::kMaxRank];
+  // a.r <= kRankChunk: the chunked instance launches it with no rank
+  __shared__ float accr[flash::kRankChunk];
   const long row = blockIdx.x;                  // b * Hq + head
   const int b = (int)(row / a.hq), head = (int)(row % a.hq);
   const int h = head / (a.hq / a.hkv);
@@ -1158,6 +1367,167 @@ residual_attention_decode_combine_kernel(Args a) {
   }
 }
 
+// The chunked instance of the split-K decode: ranks above kRankChunk
+// (rank_chunk.cuh).  The grid, ranges and workspace of the split kernel
+// above; the CTA walks its range in 64-key blocks, all 4 warps rebuilding
+// K and V of a block rank chunk by chunk (flash::chunk_block), then warp w
+// takes keys 16 w .. 16 w + 15 of it (the split kernel's steps w, w + 4,
+// ...): S for the 16 heads, the online softmax, O += P V.  The warps'
+// partials merge in shared memory as above, with no O_r: V is rebuilt, so
+// one range finishes as O / max(l, 1e-20), and several go to the
+// workspace for the combine, launched with no rank.
+template <int D, int DR>
+__global__ void __launch_bounds__(kThreads, 1)
+residual_attention_decode_chunk_kernel(Args a) {
+  using flash::bf16;
+  constexpr int BK = kRangeKeys;
+  using L = flash::ChunkBlock<D, BK, false>;
+  using C = flash::Cols<D, DR>;
+  constexpr int DS = L::DS;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  bf16* Qs = reinterpret_cast<bf16*>(dyn);
+  unsigned char* blk = dyn + kHeads * DS * sizeof(bf16);
+  const bf16* Ks = reinterpret_cast<const bf16*>(blk) + L::kK;
+  const bf16* Vs = reinterpret_cast<const bf16*>(blk) + L::kV;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.z, G = a.hq / a.hkv, R = a.r;
+  const int nht = (G + kHeads - 1) / kHeads;
+  const int h = blockIdx.y / nht;
+  const int g0 = (blockIdx.y % nht) * kHeads;
+  const int ng = min(kHeads, G - g0);
+  const long head0 = (long)b * a.hq + (long)h * G + g0;
+  const long hd = (long)a.hkv * DR;
+  const Range range(a, b, blockIdx.x);
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int e = tid; e < kHeads * C::kRow; e += kThreads) {
+    const int r = e / C::kRow, i = e % C::kRow;
+    const bool ok = r < ng;
+    C::row(Qs + r * DS, ok ? q + (head0 + r) * DR : q, i, ok);
+  }
+  flash::cp_async_commit();
+  C::zero_gaps(Qs, kHeads, DS, tid, kThreads);
+  flash::chunk_zero_gaps<D, DR, BK, false>(blk, tid, kThreads);
+  const long tok0 = (long)b * a.sk;                 // row b's first key
+  const long b0 = (long)b * R * hd + (long)h * DR;
+  const flash::ChunkSrc src{
+      a.kb, a.vb, nullptr, nullptr, static_cast<const bf16*>(a.kr),
+      static_cast<const bf16*>(a.vr), static_cast<const bf16*>(a.bk) + b0,
+      static_cast<const bf16*>(a.bv) + b0, hd,
+      static_cast<const bf16*>(a.sin), static_cast<const bf16*>(a.cos), R};
+  auto tok = [&](int kpos) { return (tok0 + kpos) * a.hkv + h; };
+  auto res = [&](int kpos) { return tok0 + kpos; };
+
+  float o[D / 8][4], m[2], l[2];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  m[0] = m[1] = flash::kNegInit;
+  l[0] = l[1] = 0.f;
+  const float scale_log2 = a.scale * flash::kLog2e;
+
+  flash::cp_async_wait<0>();
+  __syncthreads();
+  constexpr bool kQRegs = D <= 128;
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  if constexpr (kQRegs) flash::load_q<D>(qf, Qs, DS, lane);
+  const int nblocks =
+      range.lo < range.hi ? (range.hi - range.lo + BK - 1) / BK : 0;
+  for (int it = 0; it < nblocks; ++it) {
+    const int j0 = range.lo + it * BK;
+    flash::chunk_block<D, DR, BK, kWarps, false>(
+        blk, src, j0, range.lo, range.hi, tok, res, res, tid, warp, lane);
+    float sc[2][4], alpha[2];
+    const bf16* kw = Ks + warp * kKeys * DS;
+    if constexpr (kQRegs)
+      flash::scores<D, kKeys>(sc, qf, kw, DS, lane);
+    else
+      flash::scores<D, kKeys>(sc, Qs, DS, kw, DS, lane);
+    const int k0 = j0 + warp * kKeys;
+    if (k0 + kKeys > range.hi) {
+      const int pos[2] = {0, 0};              // not read: no causal mask
+      flash::mask<kKeys>(sc, k0, pos, range.hi, false, 0, lane);
+    }
+    flash::softmax_step<kKeys>(sc, m, l, alpha, scale_log2);
+    flash::rescale<D / 8>(o, alpha);
+    flash::product<kKeys, D>(o, sc, Vs + warp * kKeys * DS, DS, lane);
+    __syncthreads();                  // the tiles are refilled next block
+  }
+
+  // the warps' partials over the block's buffers: m, l (16 heads), O (16 x
+  // D), f32
+  constexpr int kPart = 2 * kHeads + kHeads * D;
+  flash::finish_rowsum(l);
+  {
+    float* p = reinterpret_cast<float*>(blk) + warp * kPart;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = (lane >> 2) + 8 * hh, c = 2 * (lane & 3);
+      if ((lane & 3) == 0) {
+        p[r] = m[hh];
+        p[kHeads + r] = l[hh];
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(p + 2 * kHeads + r * D + 8 * n + c) =
+            make_float2(o[n][2 * hh], o[n][2 * hh + 1]);
+    }
+  }
+  __syncthreads();
+  const float* parts = reinterpret_cast<const float*>(blk);
+  bf16* out = static_cast<bf16*>(a.out);
+  for (int e = tid; e < ng * DR; e += kThreads) {
+    const int r = e / DR, col = e % DR;
+    float mx = flash::kNegInit;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      if (parts[w * kPart + kHeads + r] > 0.f)
+        mx = fmaxf(mx, parts[w * kPart + r]);
+    float lsum = 0.f, v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* p = parts + w * kPart;
+      const float wt = p[kHeads + r] > 0.f ? exp2f(p[r] - mx) : 0.f;
+      lsum = fmaf(wt, p[kHeads + r], lsum);
+      v = fmaf(wt, p[2 * kHeads + r * D + C::col(col)], v);
+    }
+    if (a.n_split == 1) {
+      out[(head0 + r) * DR + col] = __float2bfloat16(v / fmaxf(lsum, 1e-20f));
+      continue;
+    }
+    const long row = (head0 + r) * a.n_split + blockIdx.x;
+    a.ws_acc[row * DR + col] = v;
+    if (col == 0) {
+      a.ws_m[row] = mx;
+      a.ws_l[row] = lsum;
+    }
+  }
+}
+
+template <int D, int DR>
+int launch_chunk(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = (size_t)kHeads * (D + flash::kPad) * 2 +
+                          flash::ChunkBlock<D, kRangeKeys, false>::kBytes;
+  static_assert(smem <= 232448, "a CTA's shared memory on the H100");
+  static_assert(4 * kWarps * (2 * kHeads + kHeads * D) <=
+                    flash::ChunkBlock<D, kRangeKeys, false>::kBytes,
+                "the warps' partials fit over the key block");
+  auto kernel = residual_attention_decode_chunk_kernel<D, DR>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int G = a.hq / a.hkv;
+  const dim3 grid(a.n_split, a.hkv * ((G + kHeads - 1) / kHeads), a.bsz);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return (int)err;
+  Args c = a;
+  c.r = 0;
+  residual_attention_decode_combine_kernel<<<(unsigned)((long)a.bsz * a.hq),
+                                             kThreads, 0, stream>>>(c);
+  return (int)cudaGetLastError();
+}
+
 template <int D, int RP, int DR>
 int launch(const Args& a, cudaStream_t stream) {
   using L = Layout<D, RP>;
@@ -1184,19 +1554,21 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// RP: the smallest instance (16, 32, 64) that holds the rank
+// RP: the smallest instance (16, 32, 64) that holds the rank; above 64 the
+// chunked instance
 template <int D, int DR = D>
 int launch_rank(const Args& a, cudaStream_t s) {
+  if (a.r > flash::kRankChunk) return launch_chunk<D, DR>(a, s);
   if (a.r <= 16) return launch<D, 16, DR>(a, s);
   if (a.r <= 32) return launch<D, 32, DR>(a, s);
   return launch<D, 64, DR>(a, s);
 }
 
 // D 32/64/128/256, and 120 in D 128's tile (split halves,
-// ``flash::Cols``); R 1..64, any G, n_split >= 1 (a workspace when > 1).
+// ``flash::Cols``); any R >= 1, any G, n_split >= 1 (a workspace when > 1).
 int dispatch(const Args& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.n_split < 1 || a.r < 1 || a.r > flash::kMaxRank || a.hkv < 1 ||
+  if (a.n_split < 1 || a.r < 1 || a.hkv < 1 ||
       a.hq % a.hkv != 0 || a.bsz > 65535 ||
       (long)a.hkv * ((a.hq / a.hkv + kHeads - 1) / kHeads) > 65535 ||
       (long)a.bsz * a.hq > INT_MAX || a.sk < 1 ||

@@ -5,7 +5,9 @@ The dense and hybrid models and the serving executor call these with the
 reference's signatures.  They dispatch by the tensors' device and by
 nothing else:
 
-* CPU tensors go to the plain PyTorch versions (:mod:`.ref`);
+* CPU tensors go to the plain PyTorch versions (:mod:`.ref`), and so do
+  ``meta`` tensors (the dry run's abstract steps,
+  :mod:`repro_torch.launch.steps`), on which they compute shapes only;
 * CUDA tensors go to the hand-written kernels
   (:mod:`.residual_attention` over contiguous caches,
   :mod:`.paged_residual_attention` over paged pools, :mod:`.rg_lru` for
@@ -27,7 +29,9 @@ from repro_torch.kernels import rg_lru
 
 
 def _on_cpu(q: torch.Tensor) -> bool:
-    if q.device.type == "cpu":
+    """True for the plain versions (CPU, or meta: shapes only), False for
+    the card's kernels; raises for any other device."""
+    if q.device.type in ("cpu", "meta"):
         return True
     if q.device.type == "cuda":
         return False

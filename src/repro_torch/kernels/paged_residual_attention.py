@@ -45,6 +45,14 @@ replace the template where it lost most, in the entries that run them:
   (counted as ``<entry>[_int8]_splitk``).  A CUDA tensor never reaches the
   template through these entries.
 
+LoRA ranks up to ``residual_attention.RANK_CHUNK`` (64) run instances of
+RP 16, 32 and 64 padded rank columns; every rank above it the chunked
+instances of #5/#1, #2 and the template (``csrc/rank_chunk.cuh``; counted
+as ``<counter>_rchunk``), which rebuild a key block's K and V on chip one
+rank chunk at a time, so no buffer or accumulator grows with the rank;
+#2's then walks its CTA's shares in 64-key blocks with all four warps,
+and its combine applies no B_v (V carries it).
+
 Head dims 32, 64, 120 and 128 are taken.  At 120 (h2o-danube-3-4b's) the
 bf16 tiles (#6, #3, #5, #1) and #2's group tile run D 128's columns in the
 split-half layout of the dense kernels (``residual_attention.tile_columns``,
@@ -100,19 +108,27 @@ MMA_ENTRIES = ("paged_attention_prefill_base", "paged_attention_mixed_base",
 # Entries whose every launch runs a split-K decode.
 SPLIT_ENTRIES = ("paged_attention_decode_base",
                  "paged_residual_attention_decode")
+# Entries with the residual stream, and so a LoRA rank.
+RES_ENTRIES = ENTRIES[:3]
 
 
-def kernel_name(entry: str, dtype: torch.dtype, int8: bool) -> str:
+def kernel_name(entry: str, dtype: torch.dtype, int8: bool,
+                r: Optional[int] = None) -> str:
     """The kernel, by its launch counter, that entry ``entry`` runs with q
-    in ``dtype`` over int8 (``int8``) or full-precision pages: a split-K
-    decode for ``SPLIT_ENTRIES`` in every type, a tensor-core kernel for
-    bf16 launches of ``MMA_ENTRIES``, else the template (f32 stays IEEE
-    f32; the tensor cores have no such mode)."""
+    in ``dtype`` over int8 (``int8``) or full-precision pages at LoRA rank
+    ``r``: a split-K decode for ``SPLIT_ENTRIES`` in every type, a
+    tensor-core kernel for bf16 launches of ``MMA_ENTRIES``, else the
+    template (f32 stays IEEE f32; the tensor cores have no such mode);
+    ``_rchunk`` after the name of a ``RES_ENTRIES`` entry's chunked
+    instance (a rank above ``RANK_CHUNK``).  The base entries have no
+    rank: ``r`` is ignored there, and None means no rank."""
     name = f"{entry}_int8" if int8 else entry
     if entry in SPLIT_ENTRIES:
-        return f"{name}_splitk"
-    if entry in MMA_ENTRIES and dtype == torch.bfloat16:
-        return f"{name}_mma"
+        name = f"{name}_splitk"
+    elif entry in MMA_ENTRIES and dtype == torch.bfloat16:
+        name = f"{name}_mma"
+    if entry in RES_ENTRIES and r is not None and ra.rank_chunked(r):
+        name = f"{name}_rchunk"
     return name
 
 
@@ -123,7 +139,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # serves and reads them after, to show the serving path went through the
 # kernels.
 LAUNCHES: Dict[str, int] = {
-    kernel_name(e, dt, i8): 0
+    kernel_name(e, dt, i8, r): 0 for r in (None, ra.RANK_CHUNK + 1)
     for i8 in (False, True) for e in ENTRIES for dt in _DTYPES}
 
 SOURCE = "paged_residual_attention"
@@ -138,7 +154,6 @@ HEAD_DIMS = (32, 64, 120, 128)
 MAX_ROWS = 64          # query rows (positions x group heads) per CTA
 MMA_ROWS = 128         # the same for the tensor-core kernel (8 warps)
 MAX_PAGE = 32          # tokens per page a kernel takes; larger: sub-pages
-MAX_RANK = ra.MAX_RANK   # LoRA ranks 1..64, in instances of RP 16/32/64
 SPLIT_KEYS = 64        # a decode split's share of keys: multiples of this
 SPLIT_HEADS = 8        # query heads per split-K CTA, at most
 # resident split-K CTAs per SM, by query heads per CTA: the kernel's
@@ -317,7 +332,7 @@ def _check_residual(q, kr_pool, vr_pool, b_k, b_v, bt_r, bsz, hkv, d, page,
     r = kr_pool.shape[2]
     if vr_pool.shape != kr_pool.shape or kr_pool.shape[1] != page:
         raise ValueError("residual pools must be (Pr, page, R), equal")
-    ra.rank_instance(r)
+    ra.rank_instance(r)         # refuses a rank below 1, by name
     for name, t in (("b_k", b_k), ("b_v", b_v)):
         if tuple(t.shape) != (bsz, r, hkv * d):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
@@ -390,8 +405,13 @@ def res_split_smem(d: int, r: int, int8: bool) -> int:
     ``splitk_res`` in the source): B_k (RP rows), and per warp two stages
     of 16 keys' K, V, K_r, V_r and RoPE rows (+ a bf16 V tile for int8
     pages).  Rows are padded by 8 elements; at the tile's width
-    (``residual_attention.tile_dim``)."""
+    (``residual_attention.tile_dim``).  Above ``RANK_CHUNK``: Q's 16 rows
+    and one 64-key block of the chunked instance
+    (``residual_attention.chunk_block_smem``)."""
     d = ra.tile_dim(d)
+    if ra.rank_chunked(r):
+        return 2 * RES_SPLIT_HEADS * (d + 8) + ra.chunk_block_smem(
+            d, RES_SPLIT_KEYS * RES_SPLIT_WARPS, int8)
     rp = ra.rank_instance(r)
     ds, rs, hs, keys = d + 8, rp + 8, d // 2 + 8, RES_SPLIT_KEYS
     row = d if int8 else 2 * ds
@@ -460,13 +480,13 @@ def rope_table(device: torch.device, d: int, theta: float,
     return table
 
 
-def _run(name: str, q, kb_scale, *args) -> None:
-    """Launch entry ``name``; the count goes to the kernel it ran
-    (``kernel_name``)."""
+def _run(name: str, counter: str, *args) -> None:
+    """Launch entry ``name``; the count goes to ``counter``, the kernel it
+    runs (``kernel_name``)."""
     err = getattr(_lib(_ENTRY_SOURCE.get(name, SOURCE)), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[kernel_name(name, q.dtype, kb_scale is not None)] += 1
+    LAUNCHES[counter] += 1
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -513,7 +533,10 @@ def paged_residual_attention_mixed(q, kb_pool, vb_pool, kr_pool, vr_pool,
     table = rope_table(q.device, d, rope_theta, q.dtype, w * page,
                        use_rope) if q.dtype == torch.bfloat16 else None
     out = torch.empty_like(q)
-    _run("paged_residual_attention_mixed", q, kb_scale, code, _ptr(q),
+    _run("paged_residual_attention_mixed",
+         kernel_name("paged_residual_attention_mixed", q.dtype,
+                     kb_scale is not None, r),
+         code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
          _ptr(None if table is None else table[0]),
@@ -559,10 +582,14 @@ def paged_residual_attention_decode(q, kb_pool, vb_pool, kr_pool, vr_pool,
     ws = torch.empty(n * (d + r + 2), dtype=torch.float32, device=q.device)
     table = rope_table(q.device, d, rope_theta, q.dtype, w * page, use_rope)
     out = torch.empty_like(q)
-    _run("paged_residual_attention_decode", q, kb_scale, code, _ptr(q),
+    _run("paged_residual_attention_decode",
+         kernel_name("paged_residual_attention_decode", q.dtype,
+                     kb_scale is not None, r),
+         code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v), _ptr(table[0]),
-         _ptr(table[1]), _ptr(bt_b), _ptr(bt_r), _ptr(kv_len), _ptr(ws[:n]), _ptr(ws[n:2 * n]),
+         _ptr(table[1]), _ptr(bt_b), _ptr(bt_r), _ptr(kv_len), _ptr(ws[:n]),
+         _ptr(ws[n:2 * n]),
          _ptr(ws[2 * n:(2 + d) * n]), _ptr(ws[(2 + d) * n:]), _ptr(out),
          bsz, hq, hkv, d, r, page, w, n_split, float(scale), int(window),
          float(rope_theta), int(use_rope), _stream(q))
@@ -605,7 +632,10 @@ def paged_residual_attention_prefill(q, kb_pool, vb_pool, kr_pool, vr_pool,
     table = rope_table(q.device, d, rope_theta, q.dtype, w * page,
                        use_rope) if q.dtype == torch.bfloat16 else None
     out = torch.empty_like(q)
-    _run("paged_residual_attention_prefill", q, kb_scale, code, _ptr(q),
+    _run("paged_residual_attention_prefill",
+         kernel_name("paged_residual_attention_prefill", q.dtype,
+                     kb_scale is not None, r),
+         code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(kr_pool), _ptr(vr_pool), _ptr(b_k), _ptr(b_v),
          _ptr(None if table is None else table[0]),
@@ -635,7 +665,10 @@ def paged_attention_mixed_base(q, kb_pool, vb_pool, bt_b, start, q_len,
     _check_rows(start, q_len, bsz, q.device)
     tq = tile_positions("paged_attention_mixed_base", q.dtype, g, sq)
     out = torch.empty_like(q)
-    _run("paged_attention_mixed_base", q, kb_scale, code, _ptr(q),
+    _run("paged_attention_mixed_base",
+         kernel_name("paged_attention_mixed_base", q.dtype,
+                     kb_scale is not None),
+         code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(bt_b), _ptr(start), _ptr(q_len), _ptr(kv_len),
          _ptr(out), bsz, sq, hq, hkv, d, page, w, tq, float(scale),
@@ -665,7 +698,10 @@ def paged_attention_decode_base(q, kb_pool, vb_pool, bt_b, kv_len, *,
     n = bsz * hq * n_split
     ws = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    _run("paged_attention_decode_base", q, kb_scale, code, _ptr(q),
+    _run("paged_attention_decode_base",
+         kernel_name("paged_attention_decode_base", q.dtype,
+                     kb_scale is not None),
+         code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(bt_b), _ptr(kv_len), _ptr(ws[:n]), _ptr(ws[n:2 * n]),
          _ptr(ws[2 * n:]), _ptr(out), bsz, hq, hkv, d, page, w, n_split,
@@ -693,7 +729,10 @@ def paged_attention_prefill_base(q, kb_pool, vb_pool, bt_b, start, kv_len,
     _check_rows(start, None, bsz, q.device)
     tq = tile_positions("paged_attention_prefill_base", q.dtype, g, sq)
     out = torch.empty_like(q)
-    _run("paged_attention_prefill_base", q, kb_scale, code, _ptr(q),
+    _run("paged_attention_prefill_base",
+         kernel_name("paged_attention_prefill_base", q.dtype,
+                     kb_scale is not None),
+         code, _ptr(q),
          _ptr(kb_pool), _ptr(vb_pool), _ptr(kb_scale), _ptr(vb_scale),
          _ptr(bt_b), _ptr(start), _ptr(kv_len), _ptr(out),
          bsz, sq, hq, hkv, d, page, w, tq, float(scale), int(window),

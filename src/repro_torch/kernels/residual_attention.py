@@ -42,9 +42,16 @@ scalar kernel holds 64 query rows at D <= 128 and 32 at D 256
 (``ROWS_BY_HEAD_DIM``), or 16 at D 256 where the rank leaves no room for
 32 (``scalar_rows``), so its shared memory stays inside the card's
 227 KB; the tensor-core kernel holds 128 (``MMA_ROWS``), or 64 at D 256
-above rank 32 (``mma_rows``).  Every kernel takes ranks 1..``MAX_RANK``
-(64) at every head_dim, through instances of RP = 16, 32 and 64 padded
-rank columns (``rank_instance``).
+from rank 33 to 64 (``mma_rows``).  Every kernel takes every rank of 1
+and above at every head_dim.  Ranks up to ``RANK_CHUNK`` (64) run
+instances of RP = 16, 32 and 64 padded rank columns (``rank_instance``),
+which hold B_k and B_v and an accumulator O_r of RP columns on chip;
+above it the chunked instances (``rank_chunked``, counted as
+``<counter>_rchunk``, ``csrc/rank_chunk.cuh``) rebuild each key block's
+K and V on chip one rank chunk of 64 at a time, so nothing on chip grows
+with the rank.  The scalar kernel's chunked instance (chunks of 32) also
+takes a group whose rows its layout at rank R cannot hold, as 32 heads at
+D 256 and rank 64 (``scalar_chunked``).
 Unlike the Pallas prefill, which pads Sq and Sk to multiples of 128 with
 copies, the kernel takes any Sq and Sk and masks the ragged edge itself.
 """
@@ -65,12 +72,11 @@ from repro_torch.kernels import _build
 # A bf16 prefill runs the tensor-core kernel, counted apart under
 # ``residual_attention_prefill_mma``, a bf16 decode the split-K decode,
 # ``residual_attention_decode_splitk``; f32 launches run the scalar kernel.
+# The chunked instances count under the same names + ``_rchunk``.
+_COUNTERS = ("residual_attention_prefill", "residual_attention_prefill_mma",
+             "residual_attention_decode", "residual_attention_decode_splitk")
 LAUNCHES: Dict[str, int] = {
-    "residual_attention_prefill": 0,
-    "residual_attention_prefill_mma": 0,
-    "residual_attention_decode": 0,
-    "residual_attention_decode_splitk": 0,
-}
+    name + suffix: 0 for name in _COUNTERS for suffix in ("", "_rchunk")}
 
 SOURCE = "residual_attention"
 # Query rows (positions x group heads) per CTA, by head_dim: the CTA holds
@@ -84,11 +90,13 @@ TILE_DIM = {120: 128}
 # Query rows per CTA of the bf16 tensor-core prefill at every head_dim: 8
 # warps of 16 rows, its softmax state in registers.
 MMA_ROWS = 128
-# LoRA ranks the kernels take: each launch runs the instance of the
-# smallest RP in RANK_INSTANCES at least the rank (its K_r/V_r columns from
-# R to RP are zero)
-MAX_RANK = 64
+# LoRA ranks up to RANK_CHUNK run the instance of the smallest RP in
+# RANK_INSTANCES at least the rank (its K_r/V_r columns from R to RP are
+# zero); every rank above it the chunked instance, which takes the rank in
+# chunks of RANK_CHUNK (SCALAR_RANK_CHUNK in the f32 scalar kernel)
+RANK_CHUNK = 64
 RANK_INSTANCES = (16, 32, 64)
+SCALAR_RANK_CHUNK = 32
 SMEM_PER_CTA = 227 * 1024  # dynamic shared memory one CTA may have
 # The bf16 split-K decode: a CTA of SPLIT_WARPS warps takes up to
 # SPLIT_HEADS query heads (one m16 tile) and one range of each row's live
@@ -153,43 +161,84 @@ def refuse_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
 
 def rank_instance(r: int) -> int:
     """RP, the padded rank of the kernel instance that a LoRA rank ``r``
-    runs in; raises ValueError naming a rank outside 1..``MAX_RANK``."""
-    if not 1 <= r <= MAX_RANK:
-        raise ValueError(f"rank {r} not in [1, {MAX_RANK}]")
-    return next(rp for rp in RANK_INSTANCES if r <= rp)
+    runs in; above ``RANK_CHUNK`` the chunked instance's chunk, RANK_CHUNK
+    (``rank_chunked``).  Raises ValueError naming a rank below 1."""
+    if r < 1:
+        raise ValueError(f"rank {r} not in [1, ...): a LoRA rank is at "
+                         f"least 1")
+    return next((rp for rp in RANK_INSTANCES if r <= rp), RANK_CHUNK)
 
 
-def scalar_smem(rows: int, tq: int, d: int, r: int) -> int:
+def rank_chunked(r: int) -> bool:
+    """Whether rank ``r`` runs the chunked instances (``rank_chunk.cuh``):
+    every rank above ``RANK_CHUNK``."""
+    return rank_instance(r) < r
+
+
+def chunk_block_smem(d: int, bk: int, int8: bool = False) -> int:
+    """Shared-memory bytes of the chunked instances' key block of ``bk``
+    keys at tile width ``d`` (``flash::ChunkBlock``): bf16 K and V tiles,
+    sin and cos rows, one chunk of K_r or V_r and one of B_k or B_v rows
+    (rows padded by 8), the f32 sums (bk x d), and for int8 pages the
+    block's codes and scales."""
+    ds, hs, rs = d + 8, d // 2 + 8, RANK_CHUNK + 8
+    elems = 2 * bk * ds + 2 * bk * hs + bk * rs + RANK_CHUNK * ds
+    return 2 * elems + 4 * bk * d + ((2 * bk * d + 8 * bk) if int8 else 0)
+
+
+def scalar_smem(rows: int, tq: int, d: int, r: int,
+                chunk: bool = False) -> int:
     """Shared-memory bytes of one CTA of the scalar kernel (``Layout`` in
     the source): rows of Q, acc, scores and softmax state, a 32-key block
     of K, V, sin, cos, K_r and V_r, acc_r, B_k and tq positions (B_v is
-    loaded over the key block after the key loop)."""
+    loaded over the key block after the key loop).  ``chunk``: no acc_r,
+    and a rank chunk (``SCALAR_RANK_CHUNK``) of K_r or V_r and of B_k or
+    B_v in place of the rank's."""
     blk = 32
+    rc = SCALAR_RANK_CHUNK if chunk else 0
+    r = 0 if chunk else r
     words = rows * (d + 1) + rows * d + rows * (blk + 1) + 3 * rows \
         + blk * (d + 1) + blk * d + 2 * blk * (d // 2) + rows * r \
-        + 2 * blk * r + r * d + tq
+        + 2 * blk * r + r * d + blk * rc + rc * d + tq
     return 4 * words
+
+
+def _scalar_fit(d: int, group: int, r: int, chunk: bool) -> Optional[int]:
+    rows = ROWS_BY_HEAD_DIM[d]
+    while rows >= max(group, 16):
+        tq = rows // group
+        if scalar_smem(tq * group, tq, d, r, chunk) <= SMEM_PER_CTA:
+            return rows
+        rows //= 2
+    return None
+
+
+def scalar_chunked(d: int, group: int, r: int) -> bool:
+    """Whether the scalar kernel runs its chunked instance: above
+    ``RANK_CHUNK``, or where no tile of whole groups at rank ``r`` fits its
+    layout (the source's ``launch`` makes the same choice from the tile
+    it is given)."""
+    return rank_chunked(r) or _scalar_fit(d, group, r, False) is None
 
 
 def scalar_rows(d: int, group: int, r: int) -> int:
     """Query rows per CTA of the scalar kernel: ``ROWS_BY_HEAD_DIM[d]``,
     halved (down to 16) until a tile of whole groups fits the CTA's shared
-    memory at rank ``r``.  Raises ValueError where none does."""
-    rows = ROWS_BY_HEAD_DIM[d]
-    while rows >= max(group, 16):
-        tq = rows // group
-        if scalar_smem(tq * group, tq, d, r) <= SMEM_PER_CTA:
-            return rows
-        rows //= 2
-    raise ValueError(f"group size {group} at head_dim {d} and rank {r}: "
-                     f"no query tile fits the scalar kernel's shared memory")
+    memory at rank ``r`` in the instance it runs (``scalar_chunked``).
+    Raises ValueError where none does."""
+    rows = _scalar_fit(d, group, r, scalar_chunked(d, group, r))
+    if rows is None:
+        raise ValueError(f"group size {group} at head_dim {d} and rank {r}: "
+                         f"no query tile fits the scalar kernel's shared "
+                         f"memory")
+    return rows
 
 
 def tile_rows(d: int, group: int, r: int = 16) -> int:
     """Query rows per CTA of the scalar kernel at head_dim ``d`` for
     ``group`` query heads per kv head at rank ``r`` (``scalar_rows``);
     raises for a head_dim the kernels do not take, a group larger than the
-    head_dim's row budget or a rank outside 1..``MAX_RANK``."""
+    head_dim's row budget or a rank below 1."""
     if d not in ROWS_BY_HEAD_DIM:
         raise ValueError(f"head_dim {d} not supported "
                          f"({', '.join(map(str, ROWS_BY_HEAD_DIM))})")
@@ -203,10 +252,11 @@ def tile_rows(d: int, group: int, r: int = 16) -> int:
 
 def mma_rows(d: int, r: int) -> int:
     """Query rows per CTA of the tensor-core prefill: ``MMA_ROWS``, or 64
-    at D 256 above rank 32, where B_k and B_v of 64 rank rows leave no room
-    for a Q tile of 128 (``MmaLayout`` in the source)."""
+    at D 256 from rank 33 to 64, where B_k and B_v of 64 rank rows leave no
+    room for a Q tile of 128 (``MmaLayout`` in the source); the chunked
+    instance holds 128 at every head_dim."""
     return MMA_ROWS // 2 if tile_dim(d) == 256 and rank_instance(r) == 64 \
-        else MMA_ROWS
+        and not rank_chunked(r) else MMA_ROWS
 
 
 def tile_dim(d: int) -> int:
@@ -225,19 +275,32 @@ def tile_columns(d: int) -> torch.Tensor:
     return torch.where(cols < d // 2, cols, cols + (tile_dim(d) - d) // 2)
 
 
-def prefill_kernel(dtype: torch.dtype) -> str:
-    """The prefill kernel, by its launch counter, that q in ``dtype`` runs:
+def _chunk_suffix(dtype: torch.dtype, r: int, d: int, group: int) -> str:
+    chunked = rank_chunked(r) if dtype == torch.bfloat16 else \
+        scalar_chunked(d, group, r)
+    return "_rchunk" if chunked else ""
+
+
+def prefill_kernel(dtype: torch.dtype, r: int = 16, d: int = 128,
+                   group: int = 1) -> str:
+    """The prefill kernel, by its launch counter, that q in ``dtype`` runs
+    at rank ``r``, head_dim ``d`` and ``group`` query heads per kv head:
     the tensor-core kernel for bf16, the scalar one for f32 (IEEE f32; the
-    tensor cores have no such mode)."""
-    return "residual_attention_prefill_mma" if dtype == torch.bfloat16 \
+    tensor cores have no such mode), ``_rchunk`` for their chunked
+    instances (``rank_chunked``, ``scalar_chunked``)."""
+    name = "residual_attention_prefill_mma" if dtype == torch.bfloat16 \
         else "residual_attention_prefill"
+    return name + _chunk_suffix(dtype, r, d, group)
 
 
-def decode_kernel(dtype: torch.dtype) -> str:
+def decode_kernel(dtype: torch.dtype, r: int = 16, d: int = 128,
+                  group: int = 1) -> str:
     """The decode kernel, by its launch counter, that q in ``dtype`` runs:
-    the split-K decode for bf16, the scalar kernel for f32."""
-    return "residual_attention_decode_splitk" if dtype == torch.bfloat16 \
+    the split-K decode for bf16, the scalar kernel for f32, ``_rchunk``
+    for their chunked instances (as ``prefill_kernel``)."""
+    name = "residual_attention_decode_splitk" if dtype == torch.bfloat16 \
         else "residual_attention_decode"
+    return name + _chunk_suffix(dtype, r, d, group)
 
 
 def decode_split_smem(d: int, r: int) -> int:
@@ -245,8 +308,12 @@ def decode_split_smem(d: int, r: int) -> int:
     ``splitk`` in the source): Q (16 rows), B_k and B_v (RP rows), and per
     warp two stages (one at D 256) of 16 keys' K, V, K_r, V_r, sin and cos
     rows, all bf16, rows padded by 8 elements; at the tile's width
-    (``tile_dim``)."""
+    (``tile_dim``).  Above ``RANK_CHUNK``: Q and one 64-key block of the
+    chunked instance (``chunk_block_smem``)."""
     d = tile_dim(d)
+    if rank_chunked(r):
+        return 2 * SPLIT_HEADS * (d + 8) + chunk_block_smem(
+            d, SPLIT_KEYS * SPLIT_WARPS)
     rp = rank_instance(r)
     ds, rs, hs, keys = d + 8, rp + 8, d // 2 + 8, SPLIT_KEYS
     stage = keys * 2 * (2 * ds + 2 * rs + 2 * hs)
@@ -318,7 +385,6 @@ def _geometry(q, k_base, v_base, k_res, v_res, b_k, b_v, sin, cos, kv_len,
     r = k_res.shape[2]
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    rank_instance(r)
     tile_rows(d, hq // hkv, r)
     if hq // hkv > mma_rows(d, r):
         raise ValueError(f"group size {hq // hkv} > {mma_rows(d, r)} query "
@@ -384,7 +450,8 @@ def residual_attention_prefill(q, k_base, v_base, k_res, v_res, b_k, b_v,
     _check("qpos", qpos, q.device, torch.int32, (bsz, sq))
     tq = tile_positions(d, hq // hkv, sq, q.dtype, r)
     out = torch.empty_like(q)
-    _run("residual_attention_prefill", prefill_kernel(q.dtype), code,
+    _run("residual_attention_prefill",
+         prefill_kernel(q.dtype, r, d, hq // hkv), code,
          _ptr(q), _ptr(k_base),
          _ptr(v_base), _ptr(k_res), _ptr(v_res), _ptr(b_k), _ptr(b_v),
          _ptr(sin), _ptr(cos), _ptr(qpos), _ptr(kv_len), _ptr(out), bsz, sq,
@@ -422,7 +489,8 @@ def residual_attention_decode(q, k_base, v_base, k_res, v_res, b_k, b_v,
     parts = [None] * 4 if ws is None else \
         [ws[:n], ws[n:2 * n], ws[2 * n:(2 + d) * n], ws[(2 + d) * n:]]
     out = torch.empty_like(q)
-    _run("residual_attention_decode", decode_kernel(q.dtype), code,
+    _run("residual_attention_decode", decode_kernel(q.dtype, r, d, hq // hkv),
+         code,
          _ptr(q), _ptr(k_base), _ptr(v_base), _ptr(k_res), _ptr(v_res),
          _ptr(b_k), _ptr(b_v), _ptr(sin), _ptr(cos), _ptr(kv_len),
          *map(_ptr, parts), _ptr(out), bsz, sk, hq, hkv, d, r, n_split,

@@ -144,13 +144,18 @@ def rg_lru_scan_bwd(a: torch.Tensor, states: torch.Tensor, h0: torch.Tensor,
 class RgLruScan(torch.autograd.Function):
     """h_t = a_t h_{t-1} + b_t with a gradient: the kernels of this module
     for CUDA tensors, their plain versions (:mod:`.ref`) for CPU tensors,
-    in both directions.  ``RgLruScan.apply(a, b, h0)`` returns (states,
+    in both directions; on meta tensors (the dry run) outputs of the right
+    shapes, without the plain versions' step loop, which would compute
+    nothing there.  ``RgLruScan.apply(a, b, h0)`` returns (states,
     last state) as :func:`rg_lru_scan` does; a, b and h0 share one dtype
     (the dispatcher ``ops.rg_lru_scan`` casts h0)."""
 
     @staticmethod
     def forward(ctx, a, b, h0):
-        if a.device.type == "cpu":
+        if a.device.type == "meta":
+            states = torch.empty_like(a)
+            h_last = states[:, -1].clone()
+        elif a.device.type == "cpu":
             states, _ = ref_mod.rg_lru_scan_ref(a, b, h0)
             h_last = states[:, -1].clone()
         else:
@@ -163,6 +168,9 @@ class RgLruScan(torch.autograd.Function):
     def backward(ctx, dstates, dh_last):
         # autograd hands zeros for an output that did not reach the loss
         a, states, h0 = ctx.saved_tensors
+        if a.device.type == "meta":
+            return torch.empty_like(a), torch.empty_like(a), \
+                torch.empty_like(h0)
         if a.device.type == "cpu":
             return ref_mod.rg_lru_scan_bwd_ref(a, states, h0, dstates,
                                                dh_last)

@@ -10,11 +10,36 @@ from torch.utils.checkpoint import checkpoint
 Params = Dict[str, Any]
 
 
+class ShapesOnly:
+    """The generator of a tree on the ``meta`` device, which torch has no
+    generator for: a draw there has a shape and no values (the dry run's
+    abstract state, :mod:`repro_torch.launch.steps`)."""
+
+    device = torch.device("meta")
+
+
+def generator(seed: int, device: torch.device):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``;
+    :class:`ShapesOnly` on the meta device."""
+    if device.type == "meta":
+        return ShapesOnly()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def randn(gen, shape: Sequence[int]) -> torch.Tensor:
+    """Standard normal f32 draws of ``shape`` from ``gen`` on its device
+    (:func:`generator`)."""
+    return torch.randn(tuple(shape), dtype=torch.float32, device=gen.device,
+                       generator=None if isinstance(gen, ShapesOnly)
+                       else gen)
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
                scale: float = 0.02) -> torch.Tensor:
     """Normal(0, scale) weights drawn in f32 on the generator's device."""
-    return (torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                        device=gen.device) * scale).to(dtype)
+    return (randn(gen, shape) * scale).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,

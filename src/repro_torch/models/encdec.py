@@ -80,6 +80,31 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     }
 
 
+def logical_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of every parameter (:func:`init_params`), the
+    reference's tree key for key."""
+    def attn(prefix=""):
+        return {prefix + "wq": ("layers", "embed", "q_out"),
+                prefix + "wk": ("layers", "embed", "kv_out"),
+                prefix + "wv": ("layers", "embed", "kv_out"),
+                prefix + "wo": ("layers", "q_out", "embed")}
+
+    mlp = {"w_up": ("layers", "embed", "ff"),
+           "w_down": ("layers", "ff", "embed")}
+    enc = {"ln1": ("layers", "embed"), "ln2": ("layers", "embed")}
+    enc.update(attn())
+    enc.update(mlp)
+    dec = {"ln1": ("layers", "embed"), "ln2": ("layers", "embed"),
+           "ln3": ("layers", "embed")}
+    dec.update(attn())
+    dec.update(attn("x_"))
+    dec.update(mlp)
+    return {"enc_pos": (None, "embed"),
+            "embed": ("vocab", "embed"), "enc_layers": enc,
+            "dec_layers": dec, "enc_norm": ("embed",),
+            "final_norm": ("embed",)}
+
+
 def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
     """Sinusoidal position embedding in f32; positions (...,) -> (..., d)."""
     half = d // 2
@@ -190,6 +215,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["k_res"] = zeros(L, batch, max_len, cfg.lora.rank)
         cache["v_res"] = zeros(L, batch, max_len, cfg.lora.rank)
     return cache
+
+
+def cache_logical_axes(cfg: ModelConfig, disagg: bool = False) -> Params:
+    """The logical axes of the caches (:func:`init_cache`)."""
+    axes = {"k": ("layers", "batch", None, "kv_heads", "kv_head_dim"),
+            "v": ("layers", "batch", None, "kv_heads", "kv_head_dim"),
+            "xk": ("layers", "batch", None, "kv_heads", "kv_head_dim"),
+            "xv": ("layers", "batch", None, "kv_heads", "kv_head_dim")}
+    if disagg:
+        axes["k_res"] = ("layers", "batch", None, "rank")
+        axes["v_res"] = ("layers", "batch", None, "rank")
+    return axes
 
 
 def fill_cross_cache(params, enc_out, cache, cfg: ModelConfig) -> Params:

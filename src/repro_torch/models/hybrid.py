@@ -16,9 +16,9 @@ written in place and returned, as in the port's dense path.  The RG-LRU
 scan of modes "full" and "prefill" goes through
 :func:`repro_torch.kernels.ops.rg_lru_scan` (the CUDA kernel on the card,
 the plain version on the CPU); the one-step decode update stays plain
-tensor code, as in the reference.  The sharding axes of the reference
-(``logical_axes``, ``cache_logical_axes``) go with ROADMAP Queue 1,
-item 13.
+tensor code, as in the reference.  ``logical_axes`` and
+``cache_logical_axes`` name each dimension's logical axis for the
+sharding layer (:mod:`repro_torch.launch.sharding`), as the reference's.
 """
 from __future__ import annotations
 
@@ -99,6 +99,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
         "layers": layers,                            # heterogeneous: a list
         "unembed": base.dense_init(gen, (d, cfg.vocab_size), dt),
     }
+
+
+def logical_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of every parameter (:func:`init_params`: a list of
+    per-layer dicts), the reference's tree key for key."""
+    layers = []
+    for kind in layer_kinds(cfg):
+        l: Params = {"ln1": ("embed",), "ln2": ("embed",)}
+        if kind == "rglru":
+            l.update({
+                "w_gelu": ("embed", "inner"), "w_rec": ("embed", "inner"),
+                "conv_w": (None, "inner"), "conv_b": ("inner",),
+                "w_rgate": ("inner_in", "inner"), "b_rgate": ("inner",),
+                "w_igate": ("inner_in", "inner"), "b_igate": ("inner",),
+                "lam": ("inner",), "w_out": ("inner", "embed"),
+            })
+        else:
+            l.update({"wq": ("embed", "q_out"), "wk": ("embed", "kv_out"),
+                      "wv": ("embed", "kv_out"), "wo": ("q_out", "embed")})
+        l.update({"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+                  "w_down": ("ff", "embed")})
+        layers.append(l)
+    return {"embed": ("vocab", "embed"), "final_norm": ("embed",),
+            "layers": layers, "unembed": ("embed", "vocab")}
 
 
 def num_attention_layers(cfg: ModelConfig) -> int:
@@ -244,6 +268,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                 c["v_res"] = zeros(batch, smax, cfg.lora.rank)
             caches.append(c)
     return caches
+
+
+def cache_logical_axes(cfg: ModelConfig, disagg: bool = False) -> list:
+    """The logical axes of the per-layer caches (:func:`init_cache`)."""
+    axes = []
+    for kind in layer_kinds(cfg):
+        if kind == "rglru":
+            axes.append({"conv": ("batch", None, "inner"),
+                         "h": ("batch", "inner")})
+        else:
+            c = {"k": ("batch", None, "kv_heads", "kv_head_dim"),
+                 "v": ("batch", None, "kv_heads", "kv_head_dim")}
+            if disagg:
+                c["k_res"] = ("batch", None, "rank")
+                c["v_res"] = ("batch", None, "rank")
+            axes.append(c)
+    return axes
 
 
 def prefill(params, tokens, cache, cfg: ModelConfig, *, start: int = 0,

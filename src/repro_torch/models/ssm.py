@@ -85,6 +85,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     }
 
 
+def logical_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of every parameter (:func:`init_params`), the
+    reference's tree key for key."""
+    return {
+        "embed": ("vocab", "embed"),
+        "final_norm": ("embed",),
+        "unembed": ("embed", "vocab"),
+        "layers": {
+            "ln": ("layers", "embed"),
+            "w_in": ("layers", "embed", "inner"),
+            "conv_w": ("layers", None, "inner"),
+            "conv_b": ("layers", "inner"),
+            "a_log": ("layers", None),
+            "d_skip": ("layers", None),
+            "dt_bias": ("layers", None),
+            "gate_ln": ("layers", "inner"),
+            "w_out": ("layers", "inner", "embed"),
+        },
+    }
+
+
 def _split_proj(proj, cfg: ModelConfig):
     d_inner, _, _, n = _dims(cfg)
     return torch.split(proj, [d_inner, d_inner, n, n,
@@ -250,6 +271,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                 dtype=torch.float32, device=dev),
             "ssm": torch.zeros((L, batch, heads, head_p, n),
                                dtype=torch.float32, device=dev)}
+
+
+def cache_logical_axes(cfg: ModelConfig, disagg: bool = False) -> Params:
+    """The logical axes of the state caches (:func:`init_cache`)."""
+    return {"conv": ("layers", "batch", None, "inner"),
+            "ssm": ("layers", "batch", None, "inner_head", "state")}
 
 
 def prefill(params, tokens, cache, cfg: ModelConfig, *, start: int = 0,

@@ -53,9 +53,7 @@ Params = Dict[str, Any]
 
 
 def _generator(seed: int, device: torch.device) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return gen
+    return base.generator(seed, device)
 
 
 def _expert_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
@@ -63,6 +61,8 @@ def _expert_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     the whole stack would take 4 bytes per weight at once (21.5 GB for one
     of llama4's)."""
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    if out.device.type == "meta":       # shapes only: nothing to draw
+        return out
     for layer in out:
         for expert in layer:
             expert.copy_(base.dense_init(gen, expert.shape, dtype))
@@ -128,6 +128,50 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     return params
 
 
+def logical_axes(cfg: ModelConfig) -> Params:
+    """The logical axis of each dimension of every parameter (the tree of
+    :func:`init_params`), which :mod:`repro_torch.launch.sharding` maps
+    onto a mesh; the reference's tree, key for key."""
+    layers = {
+        "ln1": ("layers", "embed"),
+        "ln2": ("layers", "embed"),
+        "wq": ("layers", "embed", "q_out"),
+        "wk": ("layers", "embed", "kv_out"),
+        "wv": ("layers", "embed", "kv_out"),
+        "wo": ("layers", "q_out", "embed"),
+    }
+    if cfg.num_experts:
+        layers.update({
+            "router": ("layers", "embed", None),
+            "w_gate_e": ("layers", "expert_w", "embed", "ff"),
+            "w_up_e": ("layers", "expert_w", "embed", "ff"),
+            "w_down_e": ("layers", "expert_w", "ff", "embed"),
+        })
+        if cfg.moe_shared_expert:
+            layers["w_gate_s"] = ("layers", "embed", "ff")
+            layers["w_up_s"] = ("layers", "embed", "ff")
+            layers["w_down_s"] = ("layers", "ff", "embed")
+        if cfg.moe_interleave > 1:
+            layers["w_gate"] = ("layers", "embed", "ff")
+            layers["w_up"] = ("layers", "embed", "ff")
+            layers["w_down"] = ("layers", "ff", "embed")
+    else:
+        if cfg.mlp_activation == "silu":
+            layers["w_gate"] = ("layers", "embed", "ff")
+        layers["w_up"] = ("layers", "embed", "ff")
+        layers["w_down"] = ("layers", "ff", "embed")
+    axes = {
+        "embed": ("vocab", "embed"),
+        "final_norm": ("embed",),
+        "layers": layers,
+    }
+    if not cfg.tie_embeddings:
+        axes["unembed"] = ("embed", "vocab")
+    if cfg.frontend == "vision_stub":
+        axes["mm_projector"] = ("embed", "embed")
+    return axes
+
+
 def init_lora_stacks(cfg: ModelConfig, seed: int, n_adapters: int,
                      nonzero: bool = True, *,
                      device: Optional[Union[str, torch.device]] = None
@@ -140,10 +184,8 @@ def init_lora_stacks(cfg: ModelConfig, seed: int, n_adapters: int,
     scale_b = 0.05 if nonzero else 0.0
 
     def mk(d_out):
-        a = torch.randn((L, n_adapters, d, r), generator=gen,
-                        dtype=torch.float32, device=dev) / math.sqrt(d)
-        b = torch.randn((L, n_adapters, r, d_out), generator=gen,
-                        dtype=torch.float32, device=dev)
+        a = base.randn(gen, (L, n_adapters, d, r)) / math.sqrt(d)
+        b = base.randn(gen, (L, n_adapters, r, d_out))
         b = b * scale_b / math.sqrt(r)
         return a.to(dt), b.to(dt)
 
@@ -154,6 +196,17 @@ def init_lora_stacks(cfg: ModelConfig, seed: int, n_adapters: int,
             "a_v": a_v, "b_v": b_v,
             "scaling": torch.full((L, n_adapters), cfg.lora.scaling,
                                   dtype=torch.float32, device=dev)}
+
+
+def lora_logical_axes() -> Params:
+    """The logical axes of the LoRA stacks (:func:`init_lora_stacks`)."""
+    return {"a_q": ("layers", None, "embed", "rank"),
+            "b_q": ("layers", None, "rank", "q_out"),
+            "a_k": ("layers", None, "embed", "rank"),
+            "b_k": ("layers", None, "rank", "kv_out"),
+            "a_v": ("layers", None, "embed", "rank"),
+            "b_v": ("layers", None, "rank", "kv_out"),
+            "scaling": ("layers", None)}
 
 
 # --------------------------------------------------------------------------
@@ -709,6 +762,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["k_res"] = torch.zeros(res, dtype=dt, device=dev)
         cache["v_res"] = torch.zeros(res, dtype=dt, device=dev)
     return cache
+
+
+def cache_logical_axes(cfg: ModelConfig, disagg: bool = False) -> Params:
+    """The logical axes of the caches (:func:`init_cache`)."""
+    axes = {"k": ("layers", "batch", None, "kv_heads", "kv_head_dim"),
+            "v": ("layers", "batch", None, "kv_heads", "kv_head_dim")}
+    if cfg.kv_quant == "int8":
+        axes["k_scale"] = ("layers", "batch", None, "kv_heads")
+        axes["v_scale"] = ("layers", "batch", None, "kv_heads")
+    if disagg:
+        axes["k_res"] = ("layers", "batch", None, "rank")
+        axes["v_res"] = ("layers", "batch", None, "rank")
+    return axes
 
 
 def prefill(params, tokens, cache, cfg: ModelConfig, *, start: int = 0,

@@ -48,6 +48,7 @@ from repro_torch.core.config import ModelConfig, ServeConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import paged_residual_attention as pra
+from repro_torch.kernels import residual_attention as ra
 from repro_torch.models import base
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.sampling import sample_tokens
@@ -130,11 +131,12 @@ def check_card_geometry(cfg: ModelConfig, serve_cfg: ServeConfig,
                         disagg: bool) -> None:
     """The paged kernels' geometry, which a card server must fit: the head
     and page geometry (``pra.check_heads``) and, with the residual stream,
-    a LoRA rank of at most ``pra.MAX_RANK``.  Raises ValueError."""
+    a LoRA rank of at least 1 (every such rank runs: above 64 the chunked
+    instances).  Raises ValueError."""
     pra.check_heads(cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
                     serve_cfg.page_size)
-    if disagg and not 1 <= cfg.lora.rank <= pra.MAX_RANK:
-        raise ValueError(f"rank {cfg.lora.rank} not in [1, {pra.MAX_RANK}]")
+    if disagg:
+        ra.rank_instance(cfg.lora.rank)
 
 
 class PagedExecutor:

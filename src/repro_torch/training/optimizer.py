@@ -7,8 +7,8 @@ for value: decoupled weight decay on ``p``, Adafactor's factored moments
 and its ``decay`` schedule, every update in f32 and cast back to the
 parameter's type.  ``update`` is functional, as the reference's: it
 returns new parameters and state and leaves its arguments as they are.
-(``opt_state_logical_axes`` belongs to the sharding layer, which the port
-does not have yet.)
+``opt_state_logical_axes`` gives the state's logical axes to the sharding
+layer (:mod:`repro_torch.launch.sharding`).
 """
 from __future__ import annotations
 
@@ -126,3 +126,32 @@ def get_optimizer(name: str, lr: float = 3e-4) -> Tuple[Callable, Callable]:
     if name == "adafactor":
         return adafactor(lr=lr)
     raise ValueError(name)
+
+
+def _axes_map(fn: Callable, axes):
+    """``fn`` over the leaves of a logical-axes tree: a tuple of axis names
+    or None is a leaf; dicts and lists are nodes."""
+    if isinstance(axes, dict):
+        return {k: _axes_map(fn, v) for k, v in axes.items()}
+    if isinstance(axes, list):
+        return [_axes_map(fn, v) for v in axes]
+    return fn(axes)
+
+
+def opt_state_logical_axes(name: str, param_axes):
+    """Logical axes of the optimizer state's ``inner`` tree, mirroring the
+    parameters' (``param_axes``): AdamW's ``m`` and ``v`` take them as
+    they are; Adafactor's factored ``vr`` drops a matrix's last axis and
+    ``vc`` its second to last, and an unfactored ``v`` keeps them."""
+    if name == "adamw":
+        return {"m": param_axes, "v": param_axes}
+
+    def per_param(ax):
+        ax = tuple(ax) if ax is not None else None
+        if ax is None:
+            return {"v": None}
+        if len(ax) >= 2:
+            return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+        return {"v": ax}
+
+    return _axes_map(per_param, param_axes)

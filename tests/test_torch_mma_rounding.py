@@ -139,8 +139,9 @@ def rebuild_k(k_base, k_res, b_k, sin, cos, lowp):
     return k.to(torch.bfloat16).float() if lowp else k
 
 
-def dense_inputs(model, seed):
+def dense_inputs(model, seed, rank=None):
     hq, hkv, d, r = HEADS[model]
+    r = rank or r
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     bsz = 2
@@ -450,11 +451,12 @@ def test_paged_mixed_algorithm_matches_jax_in_f32(pages, heads, window):
 
 
 # --------------------------------------------- paged, disaggregated (#5)
-def res_paged_inputs(seed, heads="llama3-8b", **rows):
+def res_paged_inputs(seed, heads="llama3-8b", rank=None, **rows):
     """``paged_inputs`` (on ``rows``) plus residual pools (Pr, page, R)
-    behind their own block table and per-row B_k/B_v (B, R, Hkv * D)."""
+    behind their own block table and per-row B_k/B_v (B, R, Hkv * D); R
+    the heads' rank unless ``rank`` is given."""
     t = paged_inputs(seed, heads=heads, **rows)
-    rank = HEADS[heads][3]
+    rank = rank or HEADS[heads][3]
     rng = np.random.default_rng(seed + 100)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     bsz, width = t["bt_b"].shape
@@ -505,9 +507,10 @@ def emulate_paged_res(t, window, lowp, ks=None, vs=None):
 _RES = ("kr", "vr", "b_k", "b_v")
 
 
-def res_case(seed, pages, lowp, rows=None, heads="llama3-8b"):
+def res_case(seed, pages, lowp, rows=None, heads="llama3-8b", rank=None):
     t = {k: torch.from_numpy(v)
-         for k, v in res_paged_inputs(seed, heads, **(rows or {})).items()}
+         for k, v in res_paged_inputs(seed, heads, rank,
+                                      **(rows or {})).items()}
     if lowp:
         for k in ("q", "kb", "vb") + _RES:
             t[k] = t[k].to(torch.bfloat16)
@@ -587,6 +590,139 @@ def test_paged_res_mixed_algorithm_matches_jax_in_f32(pages, heads, window):
                                                       "kv_len")],
         window=window, kb_scale=j(ks), vb_scale=j(vs)))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+# ------------------------------------ ranks above 64: the chunked plan
+# The chunked instances (``csrc/rank_chunk.cuh``) rebuild a key block's K
+# and V on chip one rank chunk of 64 at a time: each chunk's products in
+# f32, added to the f32 sums in order; K = bf16(K_b + RoPE(sums)) and V =
+# bf16(V_b + sums), rounded once (the plain version's reconstruct rounds
+# V there too); then the online softmax with P in bf16 and no O_r.
+RANK = 128
+
+
+def chunk_sums(res, b):
+    """res (B, Sk, R) . b (B, R, N), the rank in chunks of
+    ``tra.RANK_CHUNK`` summed in f32 in order."""
+    out = 0.0
+    for c in range(0, res.shape[-1], tra.RANK_CHUNK):
+        out = out + torch.einsum("bsr,brn->bsn",
+                                 res[..., c:c + tra.RANK_CHUNK].float(),
+                                 b[:, c:c + tra.RANK_CHUNK].float())
+    return out
+
+
+def rebuild_chunked(base, res, b, lowp, sin=None, cos=None):
+    """K (with sin/cos: RoPE on the sums) or V of the chunked instances,
+    rounded once to bf16 (``lowp``)."""
+    bsz, sk, hkv, d = base.shape
+    x = chunk_sums(res, b).reshape(bsz, sk, hkv, d)
+    if sin is not None:
+        x1, x2 = x[..., :d // 2], x[..., d // 2:]
+        sn, cs = sin.float()[:, :, None], cos.float()[:, :, None]
+        x = torch.cat([x1 * cs - x2 * sn, x2 * cs + x1 * sn], -1)
+    out = base.float() + x
+    return out.to(torch.bfloat16).float() if lowp else out
+
+
+def emulate_dense_chunked(t, window, lowp):
+    """#7's and #8's chunked instances, in the tile's layout."""
+    d = t["q"].shape[-1]
+    t = tile_layout(t)
+    k = rebuild_chunked(t["k_base"], t["k_res"], t["b_k"], lowp, t["sin"],
+                        t["cos"])
+    v = rebuild_chunked(t["v_base"], t["v_res"], t["b_v"], lowp)
+    out = emulate(t["q"], k, v, t["qpos"].long(), t["kv_len"].long(),
+                  scale=d ** -0.5, window=window, lowp=lowp)
+    return out[..., tra.tile_columns(d)]
+
+
+def emulate_paged_chunked(t, window, lowp, ks=None, vs=None):
+    """#5's and #1's chunked instance: ``emulate_paged_res`` with V rebuilt
+    (``rebuild_chunked``) and no residual stream; rows at or past q_len
+    are zeros."""
+    bsz, sq, _, d = t["q"].shape
+    hkv = t["kb"].shape[2]
+    bt, btr = t["bt_b"].long(), t["bt_r"].long()
+    sk = bt.shape[1] * PAGE
+
+    def gather(pool, sc):
+        x = pool[bt].reshape(bsz, sk, hkv, d)
+        if sc is not None:
+            return dequant_tile(x, sc[bt].reshape(bsz, sk, hkv),
+                                t["q"].dtype)
+        return to_tile(x, d)
+
+    table = tpra.rope_table(torch.device("cpu"), d, 10_000.0, t["q"].dtype,
+                            sk)
+    sin, cos = (half_to_tile(table[i, :sk], d).expand(
+        bsz, sk, tra.tile_dim(d) // 2) for i in (0, 1))
+    res = {n: t[n][btr].reshape(bsz, sk, -1) for n in ("kr", "vr")}
+    k = rebuild_chunked(gather(t["kb"], ks), res["kr"],
+                        heads_to_tile(t["b_k"], d), lowp, sin, cos)
+    v = rebuild_chunked(gather(t["vb"], vs), res["vr"],
+                        heads_to_tile(t["b_v"], d), lowp)
+    qpos = t["start"].long()[:, None] + torch.arange(sq)[None]
+    out = emulate(to_tile(t["q"], d), k, v, qpos, t["kv_len"].long(),
+                  scale=d ** -0.5, window=window, lowp=lowp)
+    out = out[..., tra.tile_columns(d)]
+    valid = torch.arange(sq)[None] < t["q_len"][:, None]
+    return out * valid[:, :, None, None]
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("model", ["llama3-8b", "recurrentgemma-9b",
+                                   "h2o-danube-3-4b"])
+def test_dense_chunked_rounding_plan_at_rank_128(model, window):
+    inp = dense_inputs(model, seed=41, rank=RANK)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    bf = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+          for k, v in t.items()}
+    d = t["q"].shape[-1]
+    want = tref.residual_attention_ref(
+        bf["q"], *[bf[k] for k in _CACHE], qpos=bf["qpos"],
+        kv_len=bf["kv_len"], window=window, scale=d ** -0.5).float()
+    got = emulate_dense_chunked(bf, window, lowp=True)
+    rows = rows_seeing_a_key(t, window)
+    err = (got - want)[rows].abs().max().item()
+    assert err <= SHARE * want[rows].abs().max().item()
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_dense_chunked_algorithm_matches_jax_in_f32(window):
+    inp = dense_inputs("llama3-8b", seed=42, rank=RANK)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    got = emulate_dense_chunked(t, window, lowp=False).numpy()
+    want = np.asarray(jref.residual_attention_ref(
+        *[jnp.asarray(inp[k]) for k in ("q",) + _CACHE],
+        qpos=jnp.asarray(inp["qpos"]), kv_len=jnp.asarray(inp["kv_len"]),
+        window=window))
+    rows = rows_seeing_a_key(t, window).numpy()
+    np.testing.assert_allclose(got[rows], want[rows], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("grid", ["chunked prefill", "mixed"])
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_paged_chunked_rounding_plan_at_rank_128(pages, grid, window):
+    """#5's rows (n_valid) against the plain prefill version, #1's ragged
+    rows (q_len given) against the plain mixed version."""
+    mixed = grid == "mixed"
+    t, ks, vs = res_case(43, pages, lowp=True, rank=RANK,
+                         rows=RES_MIXED if mixed else None)
+    args = (t["q"], t["kb"], t["vb"], *[t[k] for k in _RES], t["bt_b"],
+            t["bt_r"], t["start"])
+    kw = dict(window=window, kb_scale=ks, vb_scale=vs)
+    want = (tref.paged_residual_attention_mixed_ref(
+        *args, t["q_len"], t["kv_len"], **kw) if mixed else
+        tref.paged_residual_attention_prefill_ref(
+            *args, t["kv_len"], **kw)).float()
+    got = emulate_paged_chunked(t, window, lowp=True, ks=ks, vs=vs)
+    rows = valid_rows(RES_MIXED["n_valid"], RES_MIXED["sq"]) if mixed \
+        else valid_rows()
+    assert torch.all(got[~rows] == 0.0)
+    err = (got - want)[rows].abs().max().item()
+    assert err <= SHARE * want[rows].abs().max().item()
 
 
 @pytest.mark.parametrize("d", [32, 64, 120, 128])
@@ -744,9 +880,9 @@ def test_paged_res_decode_is_always_splitk(dtype, int8, want):
 def test_every_routed_counter_is_in_launches(entry):
     """Each kernel an entry can run has a launch counter, and no counter
     names a template instance that no launch can reach."""
-    routed = {tpra.kernel_name(e, dt, i8) for e in tpra.ENTRIES
+    routed = {tpra.kernel_name(e, dt, i8, r) for e in tpra.ENTRIES
               for dt in (torch.bfloat16, torch.float32)
-              for i8 in (False, True)}
+              for i8 in (False, True) for r in (16, 128)}
     assert routed == set(tpra.LAUNCHES)
     for dtype in (torch.bfloat16, torch.float32):
         for int8 in (False, True):
@@ -783,8 +919,8 @@ def test_dense_decode_routes_by_dtype(dtype, want):
     """bf16 launches of #8 run the split-K decode, counted apart; f32 ones
     the scalar kernel.  Every dense counter is one a launch can reach."""
     assert tra.decode_kernel(dtype) == want and want in tra.LAUNCHES
-    routed = {f(dt) for f in (tra.prefill_kernel, tra.decode_kernel)
-              for dt in (torch.bfloat16, torch.float32)}
+    routed = {f(dt, r) for f in (tra.prefill_kernel, tra.decode_kernel)
+              for dt in (torch.bfloat16, torch.float32) for r in (16, 128)}
     assert routed == set(tra.LAUNCHES)
 
 

@@ -119,6 +119,37 @@ def test_port_serves_same_greedy_tokens_as_jax(models, mode, arch):
         assert tref.LAUNCHES[name] > before[name]
 
 
+def test_rank_128_serves_same_greedy_tokens_as_jax():
+    """A LoRA rank of 128 (above the card kernels' RP 64 instances, where
+    their chunked instances take over) in forkkv: the port on the CPU
+    serves the reference's greedy tokens, its residual pages holding rows
+    of 128."""
+    kw = dict(rank=128, num_layers=2, d_model=128, vocab_size=512,
+              **ARCHS["gqa"])
+    jcfg = jtiny(**kw)
+    jparams = jtfm.init_params(jcfg, jax.random.PRNGKey(0))
+    jlora = jtfm.init_lora_stacks(jcfg, jax.random.PRNGKey(1), n_adapters=4)
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    tcfg = ttiny(**kw)
+    tparams = bridge.params_from_jax(to_np(jparams), "cpu")
+    tlora = bridge.lora_from_jax(to_np(jlora), "cpu")
+    jout, _ = run_workload(
+        lambda sc: JForkServer(jcfg, jparams, jlora, sc), JServeConfig,
+        JSamplingParams, jcfg.vocab_size, "forkkv")
+    server = []
+
+    def make(sc):
+        server.append(TForkServer(tcfg, tparams, tlora, sc, device="cpu"))
+        return server[0]
+
+    tout, tm = run_workload(make, TServeConfig, TSamplingParams,
+                            tcfg.vocab_size, "forkkv")
+    assert all(len(t) == 5 for t in tout)
+    assert tout == jout
+    assert tm["mixed_steps"] >= 1 and tm["exec_errors"] == 0
+    assert server[0].engine.executor.pools.kr.shape[-1] == 128
+
+
 def test_stop_token_finishes_at_its_first_occurrence(models):
     """The stop token is chosen by its FIRST occurrence in the greedy
     output, so the expected prefix is exact even when tokens repeat."""

@@ -971,13 +971,35 @@ def test_layout_bytes_at_rank_64(fn, args, nbytes):
                                   (33, 64), (48, 64), (64, 64)])
 def test_rank_instance_is_the_smallest_that_holds_the_rank(r, rp):
     assert tra.rank_instance(r) == rp
-    assert tpra.MAX_RANK == tra.MAX_RANK == 64
+    assert not tra.rank_chunked(r)
+    assert tra.RANK_CHUNK == 64 and tra.RANK_INSTANCES[-1] == 64
 
 
-@pytest.mark.parametrize("r", [0, 65, 128])
+@pytest.mark.parametrize("r", [0, 65, 128, 256])
 def test_ranks_outside_1_to_64_are_refused_by_name(r):
-    with pytest.raises(ValueError, match=f"rank {r} not in"):
-        tra.rank_instance(r)
+    """Ranks above 64 are taken (the chunked instances: chunks of 64 in
+    the bf16 kernels, of ``SCALAR_RANK_CHUNK`` in the f32 scalar kernels,
+    every launch counted under ``<counter>_rchunk``); a rank below 1 is
+    refused, naming it."""
+    if r < 1:
+        with pytest.raises(ValueError, match=f"rank {r} not in"):
+            tra.rank_instance(r)
+        return
+    assert tra.rank_instance(r) == tra.RANK_CHUNK and tra.rank_chunked(r)
+    for d in (32, 64, 120, 128, 256):
+        assert tra.scalar_chunked(d, 4, r)
+        rows = tra.scalar_rows(d, 4, r)
+        assert tra.scalar_smem(rows, rows // 4, d, r, chunk=True) <= \
+            SMEM_PER_CTA
+        assert tra.mma_rows(d, r) == tra.MMA_ROWS
+        assert tra.decode_split_smem(d, r) <= SMEM_PER_CTA
+    for d, int8 in itertools.product((32, 64, 120, 128), (False, True)):
+        assert tpra.res_split_smem(d, r, int8) <= SMEM_PER_CTA
+    assert tpra.kernel_name("paged_residual_attention_mixed",
+                            torch.bfloat16, True, r) == \
+        "paged_residual_attention_mixed_int8_mma_rchunk"
+    assert tra.decode_kernel(torch.bfloat16, r) == \
+        "residual_attention_decode_splitk_rchunk"
 
 
 @pytest.mark.parametrize("d", [32, 64, 120, 128])
@@ -1027,12 +1049,20 @@ def test_scalar_kernel_takes_every_rank_at_head_dim_256(r, rows):
 
 def test_scalar_kernel_refuses_a_group_of_32_at_head_dim_256_rank_64():
     """A tile holds whole groups: 32 heads of 256 columns at rank 64 need
-    ~253 KB, more than a CTA has; the wrapper says so, naming the group,
-    the head_dim and the rank (at rank 32 the same group takes 32 rows)."""
-    with pytest.raises(ValueError, match="group size 32 at head_dim 256 "
-                                         "and rank 64"):
-        tra.tile_rows(256, 32, 64)
+    ~253 KB in the unchunked layout, more than a CTA has, so that group
+    runs the chunked instance, which holds them in 32 rows (it was refused
+    before); at rank 32 the same group takes 32 rows unchunked.  A group
+    no tile holds (64 heads at D 256) is still refused by name."""
+    assert tra.scalar_smem(32, 1, 256, 64) > SMEM_PER_CTA
+    assert tra.scalar_chunked(256, 32, 64)
+    assert tra.tile_rows(256, 32, 64) == 32
+    assert tra.scalar_smem(32, 1, 256, 64, chunk=True) <= SMEM_PER_CTA
+    assert tra.prefill_kernel(torch.float32, 64, 256, 32) == \
+        "residual_attention_prefill_rchunk"
+    assert not tra.scalar_chunked(256, 32, 32)
     assert tra.tile_rows(256, 32, 32) == 32
+    with pytest.raises(ValueError, match="group size 64 > 32"):
+        tra.tile_rows(256, 64, 64)
 
 
 @pytest.mark.parametrize("d,r,tq", [(128, 64, 32), (256, 64, 16),

@@ -369,14 +369,18 @@ def test_bridge_round_trips_every_familys_keys(family, dtype):
             assert a.view(np.uint8).tobytes() == b.view(np.uint8).tobytes()
 
 
-def test_card_geometry_takes_head_dim_120_and_rank_64_and_refuses_65():
+@pytest.mark.parametrize("rank", [65, 128, 256])
+def test_card_geometry_takes_head_dim_120_and_rank_64_and_refuses_65(rank):
     """h2o-danube-3-4b's head_dim 120 runs the paged kernels: the wrappers'
     ``check_heads`` and the executor's card geometry take it (Hq 32 over
     Hkv 8 at page 16, as the full config serves), in forkkv and in prefix
-    mode; a LoRA rank of 64 (the kernels' RP 64 instances) is taken, and a
-    rank above ``MAX_RANK`` (64) is refused, before any CUDA call, naming
-    the rank; on the CPU the plain versions serve head_dim 120."""
+    mode; a LoRA rank of 64 (the kernels' RP 64 instances) is taken, and
+    so is a rank above 64 (their chunked instances: a rank of 65 was
+    refused before they existed); a rank of 0 is refused, before any CUDA
+    call, naming the rank; on the CPU the plain versions serve head_dim
+    120 at the rank."""
     from repro_torch.kernels import paged_residual_attention as tpra
+    from repro_torch.kernels import residual_attention as tra
     from repro_torch.serving.api import ForkServer
     from repro_torch.serving.executor import PagedExecutor, \
         check_card_geometry
@@ -387,19 +391,21 @@ def test_card_geometry_takes_head_dim_120_and_rank_64_and_refuses_65():
                             full.resolved_head_dim, sc.page_size) == 4
     for disagg in (True, False):
         check_card_geometry(full, sc, disagg)
-    assert tpra.MAX_RANK == 64
-    for rank in (33, 64):
+    assert tra.RANK_CHUNK == 64
+    for r in (33, 64, rank):
         check_card_geometry(dataclasses.replace(
-            full, lora=tcore.LoRAConfig(rank=rank)), sc, True)
-    wide = dataclasses.replace(full, lora=tcore.LoRAConfig(rank=65))
-    check_card_geometry(wide, sc, False)     # prefix mode: no residual
-    with pytest.raises(ValueError, match="rank 65"):
-        check_card_geometry(wide, sc, True)
+            full, lora=tcore.LoRAConfig(rank=r)), sc, True)
+    assert tra.rank_chunked(rank) and not tra.rank_chunked(64)
+    zero = dataclasses.replace(full, lora=tcore.LoRAConfig(rank=0))
+    check_card_geometry(zero, sc, False)     # prefix mode: no residual
+    with pytest.raises(ValueError, match="rank 0"):
+        check_card_geometry(zero, sc, True)
     cfg = dataclasses.replace(tconfigs.get_tiny_config("h2o-danube-3-4b"),
-                              head_dim=120, lora=tcore.LoRAConfig(rank=65))
+                              head_dim=120, lora=tcore.LoRAConfig(rank=rank))
     params = ttfm.init_params(cfg, 0, device="cpu")
     lora = ttfm.init_lora_stacks(cfg, 1, 2, device="cpu")
-    with pytest.raises(ValueError, match="rank 65"):
-        PagedExecutor(cfg, params, lora, sc, disagg=True,
+    bad = dataclasses.replace(cfg, lora=tcore.LoRAConfig(rank=0))
+    with pytest.raises(ValueError, match="rank 0"):
+        PagedExecutor(bad, params, lora, sc, disagg=True,
                       max_pages_per_req=8, device="cuda")
-    ForkServer(cfg, params, None, sc, device="cpu")
+    ForkServer(cfg, params, lora, sc, device="cpu")
