@@ -230,10 +230,15 @@ error:
    disaggregated; after the launcher, internlm2-1.8b's train step (B 16 x
    S 512 in ``accum_for``'s 16 microbatches): ms, launches, the analytic
    bound on the 1x1 mesh and its share, the FLOP counter beside the
-   analytic FLOPs (``built_step``).  The dry run (``python -m
-   repro_torch.launch.dryrun --arch all --shape all --mesh both``, no card
-   visible) runs as a process of its own after phase 6, so that it
-   overlaps no timing, and must exit 0 with 66 pairs ok (``dryrun``);
+   analytic FLOPs (``built_step``); the Llama3-8B prefill and serve steps
+   again through the DTensor path on the same 1x1 NCCL mesh
+   (``steps.shard_args``/``run_sharded``): the plain call's ids, no
+   collective counted, ms beside the plain call's (``built_step_dtensor``).
+   The dry run (``python -m repro_torch.launch.dryrun --arch all --shape
+   all --mesh both``, no card visible, one worker process per host core)
+   runs as a process of its own after phase 6, so that it overlaps no
+   timing, and must exit 0 with 66 pairs ok and 14 skipped, each ok pair
+   with the collectives counted from its sharded step (``dryrun``);
 6. the kernels again, at every launch geometry the serves of 5. gave
    them (batch, query width, table width, per-row start and q_len), in
    f32 and bf16 against their plain versions (int8 pages for the int8
@@ -1651,6 +1656,7 @@ def check_rank64(pra, ref, ra, quantize):
 
 # ------------------------------------- the dry run and the built steps
 DRYRUN_PAIRS = 66     # the 33 applicable (arch, shape) pairs on both meshes
+DRYRUN_SKIPPED = 14   # long_500k on the 7 full-attention archs, both meshes
 
 
 def run_dryrun(card, timeout=600):
@@ -1661,8 +1667,10 @@ def run_dryrun(card, timeout=600):
     must exit 0 with every applicable pair ``ok`` and the rest
     ``skipped``.  Logs its counts, its own seconds (its last line) and
     those of the process, and, per (arch, shape) on the single-pod mesh,
-    the counted and analytic FLOPs and the analytic roofline's dominant
-    term."""
+    the counted and analytic FLOPs, the analytic roofline's dominant term,
+    and the collectives counted from the sharded step (bytes per device by
+    kind, ``count``, ``total``, the depths counted) beside the analytic
+    model's collective bytes per device."""
     out = ROOT / "build" / "dryrun.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -1677,7 +1685,7 @@ def run_dryrun(card, timeout=600):
     counts = {k: sum(r["status"] == k for r in recs)
               for k in ("ok", "skipped", "error")}
     ok = proc.returncode == 0 and counts["error"] == 0 and \
-        counts["ok"] == DRYRUN_PAIRS
+        counts["ok"] == DRYRUN_PAIRS and counts["skipped"] == DRYRUN_SKIPPED
     done = re.search(r"== done: .* in ([0-9.]+)s", stdout or "")
     log("dryrun", card=card, cmd="python -m repro_torch.launch.dryrun "
         "--arch all --shape all --mesh both", returncode=proc.returncode,
@@ -1688,8 +1696,16 @@ def run_dryrun(card, timeout=600):
         pairs=[{k: r.get(k) for k in ("arch", "shape", "flops")} | {
             "analytic_flops": r["analytic"]["flops_global"],
             "dominant": r["analytic"]["terms"]["dominant"],
-            "bound_s": r["analytic"]["terms"]["bound_s"]}
+            "bound_s": r["analytic"]["terms"]["bound_s"],
+            "collectives": r["collectives"],
+            "analytic_coll_bytes_dev": r["analytic"]["coll_bytes_dev"],
+            "counted_over_analytic": r["collectives"]["total"] /
+            r["analytic"]["coll_bytes_dev"],
+            "depths": r["collectives_counted"]["depths"],
+            "collectives_s": r["collectives_counted"]["seconds"]}
             for r in recs if r["status"] == "ok" and r["mesh"] == "single"],
+        errors=[{k: r.get(k) for k in ("arch", "shape", "mesh", "error")}
+                for r in recs if r["status"] == "error"],
         stderr=stderr[-2000:] if not ok else "", ok=ok)
     if not ok:
         raise AssertionError(f"dry run: exit {proc.returncode}, {counts}")
@@ -1741,6 +1757,46 @@ def run_built_step(label, cfg, shape, built, call, abstract, mods, rf,
     return rec, out
 
 
+def built_step_dtensor(label, built, mesh, args, plain_ids, plain_ms,
+                       steps_lib, rf, card, reps=3):
+    """Phase 5: a built step through the DTensor path
+    (``steps.shard_args`` and ``steps.run_sharded``) on the same 1x1 NCCL
+    mesh and inputs as its plain call: the collectives it issues
+    (``roofline.collective_bytes``, none on one card; that call is also the
+    warm-up), its median time over ``reps`` calls beside the plain call's,
+    and its ids, which must equal the plain call's."""
+    dargs = steps_lib.shard_args(built, mesh, args)
+    got = {}
+
+    def run(*a):
+        got["out"] = steps_lib.run_sharded(built, mesh, *a)
+
+    coll = rf.collective_bytes(run, *dargs)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        got.clear()
+        t0 = time.perf_counter()
+        run(*dargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ids = got["out"][0].full_tensor()
+    same = bool(torch.equal(ids, plain_ids))
+    ms = 1e3 * sorted(times)[reps // 2]
+    rec = dict(step=label, ms=ms, ms_all=[1e3 * t for t in times],
+               plain_ms=plain_ms, over_plain=ms / plain_ms,
+               collectives=coll, ids_equal=same)
+    log("built_step_dtensor", card=card, **rec, ok=same and
+        coll["count"] == 0)
+    if not same:
+        raise AssertionError(f"{label}: the DTensor path's ids differ from "
+                             f"the plain call's")
+    if coll["count"]:
+        raise AssertionError(f"{label}: {coll} on a 1x1 mesh")
+    del got, dargs
+    return rec
+
+
 def built_steps_llama(cfg, params, tfm, steps_lib, mesh_lib, rf, ana,
                       ShapeConfig, mods, card):
     """Phase 5: ``launch/steps.py``'s Llama3-8B prefill step (B 4 x S
@@ -1748,7 +1804,9 @@ def built_steps_llama(cfg, params, tfm, steps_lib, mesh_lib, rf, ana,
     16 GB of weights), each with 8 adapters of rank 16 and ``disagg``, on
     ``make_local_mesh()`` (the 1x1 mesh on the card), on the serving
     phase's weights (``run_built_step``).  The prefill's argmax ids must
-    lie in the vocabulary; the serve step writes every row's new key."""
+    lie in the vocabulary; the serve step writes every row's new key.
+    Each step then runs through the DTensor path on the same mesh and
+    inputs (``built_step_dtensor``): the plain call's ids, no collective."""
     mesh = mesh_lib.make_local_mesh()
     lora8 = tfm.init_lora_stacks(cfg, 2, 8)
     gen = torch.Generator(device="cuda")
@@ -1759,15 +1817,18 @@ def built_steps_llama(cfg, params, tfm, steps_lib, mesh_lib, rf, ana,
     built = steps_lib.build_prefill_step(cfg, mesh, shape, disagg=True)
     tokens = torch.randint(0, cfg.vocab_size, (4, 4096), generator=gen,
                            device="cuda", dtype=torch.int32)
+    args = (params, lora8, {"tokens": tokens}, ids8[:4])
     recs["prefill"], (ids, cache) = run_built_step(
-        "prefill_step", cfg, shape, built,
-        lambda: built.step_fn(params, lora8, {"tokens": tokens}, ids8[:4]),
+        "prefill_step", cfg, shape, built, lambda: built.step_fn(*args),
         steps_lib.build_step(cfg, {"data": 1, "model": 1}, shape,
                              disagg=True),
         mods, rf, ana, card)
     if not bool(((ids >= 0) & (ids < cfg.vocab_size)).all()):
         raise AssertionError(f"prefill_step ids out of range: {ids}")
     del cache
+    recs["prefill"]["dtensor"] = built_step_dtensor(
+        "prefill_step", built, mesh, args, ids, recs["prefill"]["ms"],
+        steps_lib, rf, card)
     torch.cuda.empty_cache()
     shape = ShapeConfig("decode_4k", 4096, 32, "decode")
     built = steps_lib.build_serve_step(cfg, mesh, shape, disagg=True)
@@ -1777,15 +1838,20 @@ def built_steps_llama(cfg, params, tfm, steps_lib, mesh_lib, rf, ana,
     tok = torch.randint(0, cfg.vocab_size, (32,), generator=gen,
                         device="cuda", dtype=torch.int32)
     kv_len = torch.full((32,), 4095, dtype=torch.int32, device="cuda")
-    recs["serve"], (ids, cache) = run_built_step(
-        "serve_step", cfg, shape, built,
-        lambda: built.step_fn(params, lora8, cache, tok, kv_len, ids8),
+    args = (params, lora8, cache, tok, kv_len, ids8)
+    recs["serve"], (ids, _) = run_built_step(
+        "serve_step", cfg, shape, built, lambda: built.step_fn(*args),
         steps_lib.build_step(cfg, {"data": 1, "model": 1}, shape,
                              disagg=True),
         mods, rf, ana, card)
     if not bool(((ids >= 0) & (ids < cfg.vocab_size)).all()):
         raise AssertionError(f"serve_step ids out of range: {ids}")
-    del cache, lora8
+    # every call writes the same key into the same slot, so the DTensor
+    # path sees the cache the plain calls left
+    recs["serve"]["dtensor"] = built_step_dtensor(
+        "serve_step", built, mesh, args, ids, recs["serve"]["ms"],
+        steps_lib, rf, card)
+    del cache, lora8, args
     torch.cuda.empty_cache()
     return recs
 
@@ -4315,7 +4381,8 @@ def main() -> int:
     log("built_steps", card=card, steps={
         k: {f: r[f] for f in ("ms", "bound_ms", "bound_share", "dominant",
                               "counted_flops", "analytic_flops",
-                              "launches")}
+                              "launches")} | (
+            {"dtensor_ms": r["dtensor"]["ms"]} if "dtensor" in r else {})
         for k, r in built.items()})
     small_training_card_vs_cpu(
         (("hybrid", dataclasses.replace(rg_tiny(), remat=True), 2),

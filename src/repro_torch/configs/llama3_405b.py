@@ -1,8 +1,9 @@
 """llama3-405b [dense]: 126L GQA kv=8, 128k vocab. [arXiv:2407.21783]
 
 Port of ``repro/configs/llama3_405b.py``, field for field: the
-reference's training settings (Adafactor, a two-level scan) are kept as
-data; training is not ported yet (ROADMAP Queue 1, item 13)."""
+reference's training settings (Adafactor, a two-level scan, whose
+``scan_groups`` sets the remat unit, ``transformer.remat_unit``) drive the
+port's train step as they drive the reference's."""
 import dataclasses
 from repro_torch.core.config import LoRAConfig, ModelConfig
 

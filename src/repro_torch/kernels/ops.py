@@ -11,7 +11,9 @@ nothing else:
 * CUDA tensors go to the hand-written kernels
   (:mod:`.residual_attention` over contiguous caches,
   :mod:`.paged_residual_attention` over paged pools, :mod:`.rg_lru` for
-  the scan), which launch or raise.
+  the scan), which launch or raise;
+* DTensors (a sharded step, :mod:`repro_torch.launch.steps`) reach the
+  scan, which runs on each shard's rows and channels by the rules above.
 
 Pass ``kr_pool=None`` (with ``vr_pool``/``b_k``/``b_v``/``bt_r`` also None)
 for the base-only variants used by the unified-cache baselines.
@@ -21,7 +23,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.core import shards
 from repro_torch.kernels import paged_residual_attention as pra
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.kernels import residual_attention as ra
@@ -72,7 +76,14 @@ def rg_lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     (B, W).  Returns (states in a's dtype, states[:, -1]).  Always through
     :class:`~repro_torch.kernels.rg_lru.RgLruScan`, so a gradient reaches
     a, b and h0: on the card by the forward and backward kernels, on the
-    CPU by their plain versions."""
+    CPU by their plain versions.  On DTensors each shard scans its own
+    rows and channels, the sequence dim kept whole."""
+    if isinstance(a, DTensor):
+        pl = tuple(Replicate() if p == Shard(1) or p.is_partial() else p
+                   for p in a.placements)
+        h_pl = tuple(Shard(1) if p == Shard(2) else p for p in pl)
+        return shards.on_shards(rg_lru_scan, (pl, h_pl), (pl, pl, h_pl), a,
+                                b, h0)
     _on_cpu(a)
     return rg_lru.RgLruScan.apply(a.contiguous(), b.contiguous(),
                                   h0.to(a.dtype).contiguous())

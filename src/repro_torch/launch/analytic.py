@@ -8,8 +8,11 @@ Why it exists in the reference: XLA's ``cost_analysis()`` counts while-loop
 bodies once, so scanned models are undercounted.  The port's FLOP count
 (``roofline.step_flops``, torch's FlopCounterMode over the step on meta
 tensors) counts every layer and loop pass, and the dry run records both;
-the roofline terms come from this model, as the reference's do, since its
-bytes and collective bytes have no counterpart yet.
+so does it with collective bytes (``roofline.collective_bytes`` over the
+step run on DTensors, beside this model's ``coll_bytes_dev``).  The
+roofline terms come from this model, as the reference's do: its bytes have
+no counterpart, and the counted collectives are DTensor's choices, not
+GSPMD's.
 
 All FLOPs are exact matmul FLOPs of the implementation as written (e.g. the
 blocked flash path computes *all* kv blocks including fully-masked ones — we

@@ -12,19 +12,87 @@ FLOPs come from torch's ``FlopCounterMode`` (:func:`step_flops`), which
 counts every matrix product the step dispatches, every layer and loop
 pass included, over the global batch; its per-device memory is the bytes
 of one device's shards of its arguments and outputs
-(:func:`analyze_step`).  Collective bytes come from the analytic model
-(:mod:`repro_torch.launch.analytic`), as the reference's primary roofline
-does: counting those of a sharded execution needs it to run, which is
-later work.
+(:func:`analyze_step`).  The record's roofline takes its collective bytes
+from the analytic model (:mod:`repro_torch.launch.analytic`), as the
+reference's primary roofline does; beside them, :func:`collective_bytes`
+counts those a sharded step issues when it runs on DTensors
+(``launch.steps.run_sharded``), where the reference parses them out of
+its compiled HLO.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import torch
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.core.config import HBM_BW, LINK_BW, PEAK_FLOPS_BF16
 from repro_torch.launch import sharding as shd
+
+
+COLL_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+            "collective-permute")
+
+# torch's functional collectives (what DTensor issues) by kind
+_KIND_OF = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_out": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "isend": "collective-permute",
+}
+
+
+def _operand_bytes(arg) -> int:
+    if isinstance(arg, torch.Tensor):
+        return arg.numel() * arg.element_size()
+    return sum(_operand_bytes(a) for a in arg)
+
+
+class _Collectives(TorchDispatchMode):
+    """Sums, per kind, the bytes of the local input of every functional
+    collective dispatched under it (the operands DTensor hands the process
+    group), and counts them."""
+
+    def __init__(self):
+        super().__init__()
+        self.out = dict.fromkeys(COLL_OPS, 0)
+        self.out["count"] = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented       # let DTensor lower it first
+        if func.namespace == "_c10d_functional":
+            kind = _KIND_OF.get(func.overloadpacket.__name__)
+            if kind is not None:
+                self.out[kind] += _operand_bytes(args[0])
+                self.out["count"] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def collective_bytes(step_fn: Callable, *args) -> Dict[str, int]:
+    """The collectives ``step_fn(*args)`` issues, with the reference's
+    keys: per kind the bytes of each collective's per-device operand (its
+    local input tensor), ``count`` and ``total`` (the sum of the kinds).
+    The step runs on DTensors (``launch.steps.run_sharded``): on meta
+    tensors over the ``"fake"`` process group this counts a production
+    step without running one.  DTensor lowers a change of sharded dim to
+    ``all_to_all_single`` on a CUDA mesh but, on a CPU mesh (the dry
+    run's), to an all-gather and a local chunk."""
+    with _Collectives() as mode:
+        step_fn(*args)
+    out = mode.out
+    out["total"] = sum(out[k] for k in COLL_OPS)
+    return out
 
 
 def roofline_terms(flops: float, bytes_accessed: float, coll_bytes: float,

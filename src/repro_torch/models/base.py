@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
@@ -108,7 +109,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     masked-in tokens."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if isinstance(logits, DTensor):
+        # vocab-sharded logits: each shard picks its own gold logits (a
+        # sum with one nonzero term, so exact), summed across shards
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(vocab == labels[..., None], logits,
+                           0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
     if mask is not None:
         mask = mask.to(torch.float32)

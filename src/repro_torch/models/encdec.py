@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import attention as attn_lib
+from repro_torch.core import shards
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import base
@@ -235,15 +236,15 @@ def fill_cross_cache(params, enc_out, cache, cfg: ModelConfig) -> Params:
     hd = cfg.resolved_head_dim
     layers = params["dec_layers"]
     for i in range(cfg.num_layers):
-        cache["xk"][i] = _heads(enc_out, layers["x_wk"][i],
-                                cfg.num_kv_heads, hd)
-        cache["xv"][i] = _heads(enc_out, layers["x_wv"][i],
-                                cfg.num_kv_heads, hd)
+        shards.copy_into(cache["xk"][i], _heads(enc_out, layers["x_wk"][i],
+                                                cfg.num_kv_heads, hd))
+        shards.copy_into(cache["xv"][i], _heads(enc_out, layers["x_wv"][i],
+                                                cfg.num_kv_heads, hd))
     return cache
 
 
 def _embed(params, tokens, positions, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens] + \
+    return shards.lookup(params["embed"], tokens) + \
         _sinusoid(positions, cfg.d_model).to(params["embed"].dtype)
 
 
@@ -260,11 +261,13 @@ def forward(params, tokens, cfg: ModelConfig, *, extra_embeds=None,
     bsz, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(bsz, s)
     x = _embed(params, tokens, positions, cfg)
-    # full mode still needs the cross K/V: a cache of one self slot
-    cache = fill_cross_cache(params, enc_out, init_cache(
-        cfg, bsz, 1, dtype=x.dtype, device=x.device), cfg)
     hd = cfg.resolved_head_dim
     layers = params["dec_layers"]
+    # full mode still needs the cross K/V, each layer's straight from the
+    # encoder's output
+    cache = {n: [_heads(enc_out, layers[w][i], cfg.num_kv_heads,
+                        hd).to(x.dtype) for i in range(cfg.num_layers)]
+             for n, w in (("xk", "x_wk"), ("xv", "x_wv"))}
 
     def layer(x, p_l, xk, xv):
         h = base.rms_norm(x, p_l["ln1"], cfg.norm_eps)

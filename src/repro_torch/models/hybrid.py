@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.core import shards
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import base
@@ -174,8 +175,8 @@ def _rglru_block(p_l, x, cfg: ModelConfig, cache_l, mode: str):
         states, h_last = kernel_ops.rg_lru_scan(a, gated, h0)
     out = (states.to(x.dtype) * gelu_branch) @ p_l["w_out"]
     if cache_l is not None:
-        cache_l["conv"].copy_(new_conv)
-        cache_l["h"].copy_(h_last)
+        shards.copy_into(cache_l["conv"], new_conv)
+        shards.copy_into(cache_l["h"], h_last)
     return out, cache_l
 
 
@@ -227,7 +228,7 @@ def forward(params, tokens, cfg: ModelConfig, *, lora=None,
             adapter_ids=None, disagg: bool = False) -> torch.Tensor:
     """Full causal pass -> logits (B, S, V).  (The reference also takes an
     ``extra_embeds`` it never reads; the port leaves it out.)"""
-    x = params["embed"][tokens]
+    x = shards.lookup(params["embed"], tokens)
     bsz, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(bsz, s)
     x, _ = _apply(params, x, cfg, positions=positions, mode="full",
@@ -291,7 +292,7 @@ def prefill(params, tokens, cache, cfg: ModelConfig, *, start: int = 0,
             lora=None, adapter_ids=None, disagg: bool = False):
     """Populate the caches with the prompt (in place); returns (last-token
     logits (B, 1, V), cache)."""
-    x = params["embed"][tokens]
+    x = shards.lookup(params["embed"], tokens)
     bsz, s, _ = x.shape
     positions = torch.arange(start, start + s, device=x.device).expand(bsz, s)
     x, cache = _apply(params, x, cfg, positions=positions, mode="prefill",
@@ -306,7 +307,7 @@ def decode_step(params, tokens, cache, kv_len, cfg: ModelConfig, *,
                 lora=None, adapter_ids=None, disagg: bool = False):
     """One decode step (caches written in place).  tokens: (B,), kv_len:
     (B,) tokens already cached.  Returns (logits (B, V), cache)."""
-    x = params["embed"][tokens][:, None]
+    x = shards.lookup(params["embed"], tokens)[:, None]
     x, cache = _apply(params, x, cfg, positions=kv_len, mode="decode",
                       cache=cache, kv_len=kv_len, lora=lora,
                       adapter_ids=adapter_ids, disagg=disagg)

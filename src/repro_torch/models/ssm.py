@@ -17,9 +17,9 @@ not change the result:
   pairwise products, since ``torch.einsum`` contracts left to right
   without ``opt_einsum``, and the (B, nc, Q, Q, H, P) term a left-to-right
   contraction of the intra-chunk product would build is never formed;
-* its ``lax.scan`` over layers is a loop over the stacked leaves (remat
-  belongs to training, which is not ported), and its scan over chunks a
-  loop over them;
+* its ``lax.scan`` over layers is a loop over the stacked leaves (each
+  layer under ``base.remat`` in a training pass, as the reference
+  checkpoints it), and its scan over chunks a loop over them;
 * ``prefill`` and ``decode_step`` write the state cache in place and
   return it, as the port's transformer does.
 """
@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.core import shards
 from repro_torch.core.device import resolve_device
 from repro_torch.models import base
 from repro_torch.models.transformer import _generator
@@ -227,8 +228,8 @@ def _layer(p_l, x, cfg: ModelConfig, cache_l, mode: str):
     y = base.rms_norm(y * F.silu(z), p_l["gate_ln"], cfg.norm_eps)
     out = x + y @ p_l["w_out"]
     if cache_l is not None:
-        cache_l["conv"].copy_(new_conv)
-        cache_l["ssm"].copy_(h_new)
+        shards.copy_into(cache_l["conv"], new_conv)
+        shards.copy_into(cache_l["ssm"], h_new)
     return out, cache_l
 
 
@@ -250,7 +251,7 @@ def _apply(params, x, cfg: ModelConfig, cache, mode: str):
 
 def forward(params, tokens, cfg: ModelConfig, **_) -> torch.Tensor:
     """Full pass -> logits (B, S, V)."""
-    x = params["embed"][tokens]
+    x = shards.lookup(params["embed"], tokens)
     x, _ = _apply(params, x, cfg, None, "full")
     x = base.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["unembed"]
@@ -285,7 +286,7 @@ def prefill(params, tokens, cache, cfg: ModelConfig, *, start: int = 0,
     """Run the prompt from the cached state (in place); returns (last-token
     logits (B, 1, V), cache).  The LoRA and position arguments are taken
     for the uniform API and, as in the reference, not used."""
-    x = params["embed"][tokens]
+    x = shards.lookup(params["embed"], tokens)
     x, cache = _apply(params, x, cfg, cache, "prefill")
     x = base.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return x @ params["unembed"], cache
@@ -295,7 +296,7 @@ def decode_step(params, tokens, cache, kv_len, cfg: ModelConfig, *,
                 lora=None, adapter_ids=None, disagg: bool = False):
     """One token per request (cache written in place).  tokens: (B,).
     Returns (logits (B, V), cache)."""
-    x = params["embed"][tokens][:, None]
+    x = shards.lookup(params["embed"], tokens)[:, None]
     x, cache = _apply(params, x, cfg, cache, "decode")
     x = base.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["unembed"])[:, 0], cache

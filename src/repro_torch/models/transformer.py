@@ -26,8 +26,9 @@ reference left them to XLA; ``forward`` with ``disagg=True`` reaches the
 dense ResidualAttention kernels through :mod:`repro_torch.kernels.ops`.
 Unlike the reference, whose arrays are immutable, ``prefill`` and
 ``decode_step`` write the cache in place (and return it), so a step holds
-one cache and not two.  With ``cfg.kv_quant == "int8"`` the caches hold int8
-K/V with f32 per-(position, head) scales (``k_scale``/``v_scale``),
+one cache and not two; on DTensors each shard writes its own rows
+(``core.shards.write_rows``).  With ``cfg.kv_quant == "int8"`` the caches
+hold int8 K/V with f32 per-(position, head) scales (``k_scale``/``v_scale``),
 quantized on every write and dequantized before attention, as in the
 reference.  The expert products are ``einsum`` s over the (E, capacity,
 d) dispatch buffer, plain matrix products that the reference also leaves
@@ -40,9 +41,11 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import attention as attn_lib
 from repro_torch.core import rope as rope_lib
+from repro_torch.core import shards
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
@@ -303,7 +306,11 @@ def moe_ffn(p_l, x, cfg: ModelConfig, capacity_factor: float = 0.0):
     gates, dest, valid, cap = moe_route(p_l, xf, cfg, capacity_factor)
     token_of = torch.arange(t * k, device=x.device) // k
     buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[dest] = xf[token_of]
+    if isinstance(xf, DTensor):
+        # a buffer the step makes itself cannot take sharded rows in place
+        buf = torch.index_put(buf, (dest,), xf[token_of])
+    else:
+        buf[dest] = xf[token_of]
     h = buf[:-1].reshape(E, cap, d)
     a = F.silu(torch.einsum("ecd,edf->ecf", h, p_l["w_gate_e"]))
     a = a * torch.einsum("ecd,edf->ecf", h, p_l["w_up_e"])
@@ -442,9 +449,8 @@ def attention(p_l, x, cfg: ModelConfig, *, positions, mode: str,
 
     def write(slot, *pairs):
         """Scatter (B, n, ...) rows into cache slots (B, n), in place."""
-        bidx = torch.arange(bsz, device=x.device)[:, None]
         for name, t in pairs:
-            cache[name][bidx, slot.long()] = t.to(cache[name].dtype)
+            shards.write_rows(cache[name], slot, t)
 
     def write_kv(slot, k, v):
         """The base K/V write, quantized with its scales under int8."""
@@ -621,7 +627,7 @@ def embed_tokens(params, tokens, cfg: ModelConfig,
     patch embeddings, through ``mm_projector`` where the model has one)
     before them.  The projection runs in the wider of the two types, as
     JAX promotes a mixed product."""
-    x = params["embed"][tokens]
+    x = shards.lookup(params["embed"], tokens)
     if extra_embeds is not None:
         if "mm_projector" in params:
             proj = params["mm_projector"]
@@ -796,7 +802,7 @@ def decode_step(params, tokens, cache, kv_len, cfg: ModelConfig, *,
                 lora=None, adapter_ids=None, disagg: bool = False):
     """One decode step (cache written in place).  tokens: (B,), kv_len:
     (B,) tokens already cached.  Returns (logits (B, V), cache)."""
-    x = params["embed"][tokens][:, None]          # (B, 1, d)
+    x = shards.lookup(params["embed"], tokens)[:, None]     # (B, 1, d)
     x, cache = apply_layers(params, x, cfg, positions=kv_len,
                             mode="decode", cache=cache, kv_len=kv_len,
                             lora=lora, adapter_ids=adapter_ids, disagg=disagg)

@@ -18,10 +18,11 @@ backward kernels on the card (``kernels.rg_lru.RgLruScan``).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core import shards
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import base
@@ -79,13 +80,25 @@ def _grad_norm(grads) -> torch.Tensor:
                           for g in base.leaves(grads)))
 
 
+class TrainParts(NamedTuple):
+    """A train step in the pieces the dry run counts apart
+    (:mod:`repro_torch.launch.dryrun`): the step is ``finish(params,
+    opt_state, sums)`` after ``sums = micro(params, sums, mb)`` over the
+    microbatches ``split(batch)``, from ``sums = start(params)``."""
+    split: Callable
+    start: Callable
+    micro: Callable
+    finish: Callable
+
+
 def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
                     accum_steps: int = 1, *, device=None
                     ) -> Tuple[Callable, Callable]:
     """Full-parameter training with ``cfg.optimizer``.  Returns
     (init_opt_state, step); the metrics are ``loss`` and ``grad_norm``.
     With ``accum_steps`` > 1 the batch is cut into that many micro-batches
-    along its first axis and their f32 gradients summed, then averaged."""
+    along its first axis and their f32 gradients summed, then averaged.
+    ``step.parts`` holds the step's :class:`TrainParts`."""
     dev = resolve_device(device)
     api = get_model(cfg)
     init, update = opt_lib.get_optimizer(cfg.optimizer, lr)
@@ -93,30 +106,47 @@ def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
     def loss(params, batch):
         return _loss_fn(api, params, batch)
 
-    def step(params, opt_state, batch):
+    def split(batch):
         batch = _to(batch, dev)
+        if accum_steps == 1:
+            return [batch]
+        return [{k: v.reshape((accum_steps, v.shape[0] // accum_steps)
+                              + tuple(v.shape[1:]))[i]
+                 for k, v in batch.items()}
+                for i in range(accum_steps)]
+
+    def start(params):
+        if accum_steps == 1:
+            return None
+        return 0.0, base.tree_map(
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+
+    def micro(params, sums, mb):
+        l_mb, g = _value_and_grad(loss, params, mb)
+        if accum_steps == 1:
+            return l_mb, g
+        lsum, gsum = sums
+        return lsum + l_mb, base.tree_map(
+            lambda a, b: a + b.to(torch.float32), gsum, g)
+
+    def finish(params, opt_state, sums):
+        value, grads = sums
+        grads = base.tree_map(shards.laid_out_as, grads, params)
         if accum_steps > 1:
-            micro = [{k: v.reshape((accum_steps, v.shape[0] // accum_steps)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                     for i in range(accum_steps)]
-            gsum = base.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            lsum = 0.0
-            for mb in micro:
-                l_mb, g = _value_and_grad(loss, params, mb)
-                gsum = base.tree_map(lambda a, b: a + b.to(torch.float32),
-                                     gsum, g)
-                lsum = lsum + l_mb
-            grads = base.tree_map(lambda g: g / accum_steps, gsum)
-            value = lsum / accum_steps
-        else:
-            value, grads = _value_and_grad(loss, params, batch)
+            grads = base.tree_map(lambda g: g / accum_steps, grads)
+            value = value / accum_steps
         gnorm = _grad_norm(grads)
         with torch.no_grad():
             params, opt_state = update(grads, opt_state, params)
         return params, opt_state, {"loss": value, "grad_norm": gnorm}
 
+    def step(params, opt_state, batch):
+        sums = start(params)
+        for mb in split(batch):
+            sums = micro(params, sums, mb)
+        return finish(params, opt_state, sums)
+
+    step.parts = TrainParts(split, start, micro, finish)
     return init, step
 
 

@@ -13,8 +13,10 @@ applicable pair and one that does not apply writes its JSON, and exits 0.
 Each reference result is computed once per module.
 """
 import dataclasses
+import faulthandler
 import functools
 import json
+from datetime import timedelta
 
 import jax
 import jax.numpy as jnp
@@ -53,10 +55,21 @@ def _two_threads():
     torch.set_num_threads(old)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _stacks_on_hang():
+    """A test of this module that hangs prints every thread's stack."""
+    faulthandler.dump_traceback_later(240, exit=False)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+
+
 @pytest.fixture
 def local_mesh():
-    """The port's 1x1 mesh on the CPU (a one-rank group, torn down after
-    the test, so no other test finds it up)."""
+    """The port's 1x1 mesh on the CPU (a one-rank group, with a timeout on
+    its collectives, torn down after the test, so no other test finds it
+    up)."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1, timeout=timedelta(seconds=60))
     mesh = tmesh.make_local_mesh(CPU)
     yield mesh
     dist.destroy_process_group()
@@ -243,3 +256,12 @@ def test_dryrun_main_writes_its_records(tmp_path):
         "compute_s", "memory_s", "collective_s")
     assert ok["memory"]["argument_size_in_bytes"] > 0
     assert ok["flops"] > 0
+    coll = ok["collectives"]
+    assert set(coll) == {"all-gather", "all-reduce", "reduce-scatter",
+                         "all-to-all", "collective-permute", "count",
+                         "total"}
+    assert coll["count"] > 0 and coll["total"] == sum(
+        coll[k] for k in ("all-gather", "all-reduce", "reduce-scatter",
+                          "all-to-all", "collective-permute"))
+    assert ok["collectives_counted"]["depths"] == [2, 4]
+    assert ok["analytic"]["coll_bytes_dev"] > 0
