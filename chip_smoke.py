@@ -85,9 +85,12 @@ error:
    variants at Llama3-8B's heads (ranks 65, 128, 256), h2o-danube-3-4b's
    (128) and D 32's (65), #7 and #8 at D 128 and D 256 (65, 128, 256) and
    D 120 (128), f32 and bf16, windows 0 and 300, and the f32 scalar
-   kernel at D 256 with a group of 32 heads at rank 64; the bf16 cases at
-   D 128 timed at ranks 64, 128 and 256 with their bound and SDPA (the
-   ``rchunk_times`` line); the RG-LRU scan's backward kernel against
+   kernel at D 256 with a group of 32 heads at rank 64; the bf16 prefills
+   at the edges of their clusters (ranks 65 and 128; ``RCHUNK_EDGES``,
+   ``RCHUNK_DENSE_EDGES``); the bf16 cases at D 128 timed at ranks 64,
+   128 and 256 with their bound, SDPA, the factor over SDPA and the time
+   before the redesign (``RCHUNK_WAS_MS``; the ``rchunk_times`` line); the
+   RG-LRU scan's backward kernel against
    ``rg_lru_scan_bwd_ref`` at the scan's shapes, at S 1 and at
    RecurrentGemma-9B's width (B 4, S 1000, W 4096; timed), f32 and bf16,
    h0 non-zero; and the grad guard: #7 on an input that requires grad
@@ -1903,6 +1906,87 @@ RCHUNK_GEOMS = [("D 128", LLAMA_GEOM, RCHUNK_RANKS),
 RCHUNK_DENSE = [("D 128", (32, 8, 128), RCHUNK_RANKS),
                 ("D 256", (16, 1, 256), RCHUNK_RANKS),
                 ("D 120", (32, 8, D120), (128,))]
+# The chunked prefills at the edges of their clusters of q tiles (4 tiles
+# of 128 rows; ``residual_attention.chunk_prefill_map``), bf16 (f32 runs
+# the scalar kernels), windows 0 and 300: #5 and #1 with bf16 and int8
+# pages on 200-position rows (7 tiles at G 4: a cluster with a padding
+# CTA), #1 with a q_len 0 row, rows past q_len and tiles of a cluster with
+# no row below q_len, #5 with kv_len 0, 1 and 17 rows, at Llama3-8B's heads
+# (ranks 65 and 128), h2o-danube-3-4b's (128) and D 32's (65); #7 on one
+# tile (three padding CTAs), three tiles from an offset, 33 tiles, a
+# non-causal case, and at D 256 (5 tiles of 8 positions), D 32 and D 120
+RCHUNK_EDGE_ROWS = {
+    "paged_residual_attention_mixed": dict(
+        start=[0, 0, 0, 16, 40, 1000], qlen=[0, 1, 17, 1, 17, 200], sq=200,
+        width=128),
+    "paged_residual_attention_prefill": dict(
+        start=[0, 0, 9, 1000], qlen=[0, 1, 8, 200], sq=200, width=128),
+}
+RCHUNK_EDGES = [("D 128", LLAMA_GEOM, (65, 128)),
+                ("D 120", DANUBE_GEOM, (128,)),
+                ("D 32", D32_GEOMS["D 32 G 4"], (65,))]
+# (label, heads with rank, sq, sk, start, kv_len, causal)
+RCHUNK_DENSE_EDGES = [
+    ("1 tile", (32, 8, 128, 128), 20, 20, [0, 0], None, True),
+    ("3 tiles from 230", (32, 8, 128, 65), 70, 300, [230, 100], [300, 170],
+     True),
+    ("3 tiles, not causal", (32, 8, 128, 128), 70, 300, [230, 100],
+     [300, 170], False),
+    ("33 tiles", (32, 8, 128, 128), 1040, 1040, [0], None, True),
+    ("D 256 5 tiles", (16, 1, 256, 128), 36, 300, [264, 0], [300, 36],
+     True),
+    ("D 32 3 tiles", (8, 2, 32, 65), 70, 100, [30, 0], [100, 70], True),
+    ("D 120 3 tiles", (32, 8, D120, 128), 70, 100, [30, 0], [100, 70],
+     True),
+]
+# bf16 ms per launch before this redesign of the chunked prefills, on the
+# timed cases (rank 64: the RP 64 instances, PR 24 run B; ranks 128 and
+# 256: the chunked instances, PR 25 run B; NVIDIA H100 80GB HBM3, 700 W)
+RCHUNK_WAS_MS = {
+    "paged_residual_attention_mixed": {64: 0.2818, 128: 0.6911, 256: 1.2665},
+    "paged_residual_attention_decode": {64: 0.0682, 128: 0.2737,
+                                        256: 0.4997},
+    "paged_residual_attention_prefill": {64: 0.2780, 128: 0.7095,
+                                         256: 1.2862},
+    "residual_attention_prefill": {64: 0.3430, 128: 0.8434, 256: 1.5142},
+    "residual_attention_decode": {64: 0.0633, 128: 0.2453, 256: 0.4326},
+}
+
+
+def check_rchunk_edges(pra, ref, ra, quantize):
+    """The chunked prefills at ``RCHUNK_EDGES``/``RCHUNK_EDGE_ROWS`` and
+    ``RCHUNK_DENSE_EDGES``, bf16, windows 0 and 300, each against its plain
+    version and naming the chunked instance; returns the cases run."""
+    n = 0
+    for (glabel, geom, ranks), window, quant in itertools.product(
+            RCHUNK_EDGES, (0, 300), (False, True)):
+        for r, (entry, rows) in itertools.product(ranks,
+                                                  RCHUNK_EDGE_ROWS.items()):
+            name = entry + ("_int8" if quant else "")
+            c = make_case(KERNELS[entry][0], torch.bfloat16, window,
+                          seed=41 + r, quantize=quantize if quant else None,
+                          geom=dict(geom, r=r), **rows)
+            rec = compare(pra, ref, name, c, BF16_RTOL,
+                          f"cluster edge rank {r} {glabel}")
+            if not rec["ran"].endswith("_rchunk"):
+                raise AssertionError(f"{name} rank {r}: ran {rec['ran']}")
+            log("kernel_rchunk_edge", **rec, rank=r, ok=True)
+            n += 1
+            del c
+    for (i, (label, heads, sq, sk, start, kvl, causal)), window in \
+            itertools.product(enumerate(RCHUNK_DENSE_EDGES), (0, 300)):
+        c = make_dense_case(label, heads, sq, sk, start, kvl,
+                            dtype=torch.bfloat16, window=window,
+                            seed=360 + i)
+        c["causal"] = causal
+        rec = compare_dense(ra, ref, c, BF16_RTOL)
+        if rec["ran"] != "residual_attention_prefill_mma_rchunk":
+            raise AssertionError(f"{label}: ran {rec['ran']}")
+        log("dense_kernel_rchunk_edge", **rec, rank=heads[3], ok=True)
+        n += 1
+        del c
+    torch.cuda.empty_cache()
+    return n
 
 
 def check_rank_chunks(pra, ref, ra, quantize):
@@ -1957,6 +2041,7 @@ def check_rank_chunks(pra, ref, ra, quantize):
         n += 1
         del c
     torch.cuda.empty_cache()
+    n += check_rchunk_edges(pra, ref, ra, quantize)
     timed = []
     for r in (64,) + RCHUNK_RANKS[1:]:
         g = dict(LLAMA_GEOM, r=r)
@@ -1975,6 +2060,9 @@ def check_rank_chunks(pra, ref, ra, quantize):
             timed.append(dict(measure_dense(ra, ref, c, rec), rank=r))
             del c
         torch.cuda.empty_cache()
+    for rec in timed:
+        rec["was_ms"] = RCHUNK_WAS_MS[rec["kernel"]][rec["rank"]]
+        rec["x_sdpa"] = rec["kernel_ms"] / rec["library_ms"]
     log("rchunk_checked", cases=n, ok=True)
     return timed
 
@@ -4121,8 +4209,8 @@ def main() -> int:
     # and 256
     log("rchunk_times", card=card, kernels=[
         {k: r[k] for k in ("kernel", "ran", "case", "rank", "kernel_ms",
-                           "plain_ms", "library_ms", "bound_ms", "bound_by",
-                           "max_abs_err")}
+                           "was_ms", "plain_ms", "library_ms", "x_sdpa",
+                           "bound_ms", "bound_by", "max_abs_err")}
         for r in check_rank_chunks(pra, ref, ra, tfm.quantize_kv)])
     check_scan_bwd_kernels(rg, ref)
     check_grad_guard(ra)

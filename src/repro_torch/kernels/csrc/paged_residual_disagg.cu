@@ -338,37 +338,71 @@ int launch_prefill_res_mma(const Args& a, int bsz, cudaStream_t stream) {
 }
 
 // The chunked instance of #5's tile (#1 shares it): ranks above
-// kRankChunk (rank_chunk.cuh).  The same CTAs, rows, masks and zeroed rows
-// past q_len as paged_prefill_res_mma_kernel, one stage, and per 64-key
-// block K and V rebuilt rank chunk by chunk on chip (flash::chunk_block),
-// so the key loop is O += P V with no O_r and no B_v epilogue.
-template <int D, int DR, bool INT8>
+// kRankChunk (rank_chunk.cuh's ChunkPipe).  The rows, masks and zeroed
+// rows past q_len of paged_prefill_res_mma_kernel, with the q tiles of a
+// (row, kv head) in clusters of NC CTAs that rebuild each 64-key block
+// once between them; per block K and V come whole from the cluster, so
+// the key loop is O += P V with no O_r and no B_v epilogue.  A tile with
+// no row below q_len still takes its share of the cluster's rebuild; a
+// cluster with none returns after the zeroing.
+template <int D, bool INT8, int NC>
+struct PagedChunk {
+  static constexpr int BK = 64;
+  using L = flash::ChunkPrefill<D, BK, NC, INT8>;
+  static constexpr int kHead = 2 * flash::kRows * L::DS;   // Q
+  static constexpr int S = L::stages(kHead);
+  static constexpr int kBytes = L::bytes(kHead);
+  static_assert(kBytes <= flash::kSmemPerCta,
+                "a CTA's shared memory on the H100");
+};
+
+template <int D, int DR, bool INT8, int NC>
 __global__ void __launch_bounds__(flash::kThreads, 1)
 paged_prefill_res_chunk_kernel(Args a, int bsz) {
   using flash::bf16;
-  constexpr int BK = 64;
-  using L = flash::ChunkBlock<D, BK, INT8>;
+  using T = PagedChunk<D, INT8, NC>;
+  using L = typename T::L;
   using C = flash::Cols<D, DR>;
-  constexpr int DS = L::DS;
+  constexpr int BK = T::BK, DS = L::DS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  unsigned char* blk = smem_raw + flash::kRows * DS * sizeof(bf16);
-  const bf16* Ks = reinterpret_cast<const bf16*>(blk) + L::kK;
-  const bf16* Vs = reinterpret_cast<const bf16*>(blk) + L::kV;
+  unsigned char* tiles = smem_raw + T::kHead;
+  unsigned char* stages = tiles + L::kTiles;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = a.hq / a.hkv, page = a.page, R = a.r;
   const int ntiles = (a.sq + a.tq - 1) / a.tq;
   const int per_tile = a.hkv * bsz;
-  const int tile = ntiles - 1 - (int)(blockIdx.x / per_tile);
-  const int h = (int)(blockIdx.x % per_tile) % a.hkv;
-  const int b = (int)(blockIdx.x % per_tile) / a.hkv;
+  const int cl = (int)(blockIdx.x / NC), rank = (int)(blockIdx.x % NC);
+  const int slot = cl / per_tile;
+  const int h = cl % per_tile % a.hkv, b = cl % per_tile / a.hkv;
 
   const int kvlen = a.kv_len[b];
   const int start = a.start[b];
   const int qlen = a.q_len ? a.q_len[b] : max(0, min(a.sq, kvlen - start));
+  const int klimit = min(kvlen, a.w * page);
+  // the key blocks of the cluster's tiles, and this CTA's own
+  int jlo = INT_MAX, jhi = -1, own_lo = 1, own_hi = 0;
+#pragma unroll
+  for (int w = 0; w < NC; ++w) {
+    const int tw = flash::chunk_cluster_tile(ntiles, NC, slot, w);
+    const int q0w = tw * a.tq;
+    const int nqw = tw < 0 ? 0 : max(0, min(min(a.tq, a.sq - q0w),
+                                            qlen - q0w));
+    const int last_k = min(klimit - 1, start + q0w + nqw - 1);
+    const int first_k =
+        a.window > 0 ? max(start + q0w - (a.window - 1), 0) : 0;
+    if (nqw == 0 || last_k < 0 || last_k / BK < first_k / BK) continue;
+    jlo = min(jlo, first_k / BK);
+    jhi = max(jhi, last_k / BK);
+    if (w == rank) {
+      own_lo = first_k / BK;
+      own_hi = last_k / BK;
+    }
+  }
+  const int tile = flash::chunk_cluster_tile(ntiles, NC, slot, rank);
   const int q0 = tile * a.tq;
-  const int npos = min(a.tq, a.sq - q0);
+  const int npos = tile < 0 ? 0 : min(a.tq, a.sq - q0);
   const int nq = max(0, min(npos, qlen - q0));
   bf16* out = static_cast<bf16*>(a.out);
   const long out_tile = ((long)b * a.sq + q0) * a.hq + (long)h * G;
@@ -379,7 +413,10 @@ paged_prefill_res_chunk_kernel(Args a, int bsz) {
     *reinterpret_cast<uint4*>(out + (out_tile + (long)qi * a.hq) * DR +
                               rest * 8) = make_uint4(0, 0, 0, 0);
   }
-  if (nq == 0) return;
+  if (jhi < 0) return;                 // the whole cluster: no key to read
+  const int jb0 = jlo, nblocks = jhi - jlo + 1;
+  own_lo -= jb0;
+  own_hi -= jb0;
   const int nrows = nq * G;                         // row = qi * G + g
   const long hd = (long)a.hkv * DR;
 
@@ -393,14 +430,12 @@ paged_prefill_res_chunk_kernel(Args a, int bsz) {
   }
   flash::cp_async_commit();
   C::zero_gaps(Qs, flash::kRows, DS, tid, flash::kThreads);
-  flash::chunk_zero_gaps<D, DR, BK, INT8>(blk, tid, flash::kThreads);
+  if constexpr (C::kGap > 0)       // the gap columns, never copied
+    for (int e = tid; e < T::S * L::kStage / 16; e += flash::kThreads)
+      reinterpret_cast<uint4*>(stages)[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
 
-  const int klimit = min(kvlen, a.w * page);
   const int qpos_lo = start + q0, qpos_hi = start + q0 + nq - 1;
-  const int last_k = min(klimit - 1, qpos_hi);
-  const int first_k = a.window > 0 ? max(qpos_lo - (a.window - 1), 0) : 0;
-  const int jb0 = first_k / BK;
-  const int nblocks = last_k >= 0 ? max(0, last_k / BK - jb0 + 1) : 0;
   const int* bt = a.bt_b + (long)b * a.w;
   const int* btr = a.bt_r + (long)b * a.w;
   const long b0 = (long)b * R * hd + (long)h * DR;
@@ -409,13 +444,18 @@ paged_prefill_res_chunk_kernel(Args a, int bsz) {
       static_cast<const bf16*>(a.vr), static_cast<const bf16*>(a.bk) + b0,
       static_cast<const bf16*>(a.bv) + b0, hd,
       static_cast<const bf16*>(a.sin), static_cast<const bf16*>(a.cos), R};
-  auto tok = [&](int kpos) {
-    return ((long)bt[kpos / page] * page + kpos % page) * a.hkv + h;
+  const int hkv = a.hkv;
+  auto tok = [=](int kpos) {
+    return ((long)bt[kpos / page] * page + kpos % page) * hkv + h;
   };
-  auto res = [&](int kpos) {
+  auto res = [=](int kpos) {
     return (long)btr[kpos / page] * page + kpos % page;
   };
-  auto rope = [&](int kpos) { return (long)kpos; };
+  auto rope = [](int kpos) { return (long)kpos; };
+  flash::ChunkPipe<D, DR, BK, NC, T::S, INT8, true, decltype(tok),
+                   decltype(res), decltype(rope)>
+      pipe(tiles, stages, smem_raw, src, rank, jb0, nblocks, klimit, tok,
+           res, rope);
 
   float o[D / 8][4], m[2], l[2];
 #pragma unroll
@@ -426,26 +466,24 @@ paged_prefill_res_chunk_kernel(Args a, int bsz) {
   int pos[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
-    pos[hh] = qpos_lo + min(warp * 16 + (lane >> 2) + 8 * hh, nrows - 1) / G;
+    pos[hh] = qpos_lo +
+              min(warp * 16 + (lane >> 2) + 8 * hh, max(nrows, 1) - 1) / G;
 
-  flash::cp_async_wait<0>();
-  __syncthreads();
   uint32_t qf[D / 16][4];                           // Q's A fragments
-  flash::load_q<D>(qf, Qs + warp * 16 * DS, DS, lane);
-  for (int it = 0; it < nblocks; ++it) {
-    const int j0 = (jb0 + it) * BK;
-    flash::chunk_block<D, DR, BK, flash::kWarps, INT8>(
-        blk, src, j0, 0, klimit, tok, res, rope, tid, warp, lane);
+  pipe.start([&] { flash::load_q<D>(qf, Qs + warp * 16 * DS, DS, lane); });
+  pipe.run([&](int blk, const bf16* Ks, const bf16* Vs) {
+    if (blk < own_lo || blk > own_hi) return;       // not this tile's keys
+    const int j0 = (jb0 + blk) * BK;
     float s[BK / 8][4], alpha[2];
-    flash::scores<D, BK>(s, qf, Ks, DS, lane);
+    flash::gm_scores<D, BK>(s, qf, Ks, lane);
     const bool full = j0 + BK <= klimit && j0 + BK - 1 <= qpos_lo &&
                       (a.window <= 0 || j0 > qpos_hi - a.window);
     if (!full) flash::mask<BK>(s, j0, pos, klimit, true, a.window, lane);
     flash::softmax_step<BK>(s, m, l, alpha, scale_log2);
     flash::rescale<D / 8>(o, alpha);
-    flash::product<BK, D>(o, s, Vs, DS, lane);
-    __syncthreads();                  // the tiles are refilled next block
-  }
+    flash::gm_product<BK, D>(o, s, Vs, lane);
+  });
+  if (nq == 0) return;
 
   flash::finish_rowsum(l);
   bf16* dst[2];
@@ -460,16 +498,12 @@ paged_prefill_res_chunk_kernel(Args a, int bsz) {
 
 template <int D, int DR, bool INT8>
 int launch_prefill_res_chunk(const Args& a, int bsz, cudaStream_t stream) {
-  constexpr size_t smem = (size_t)flash::kRows * (D + flash::kPad) * 2 +
-                          flash::ChunkBlock<D, 64, INT8>::kBytes;
-  auto kernel = paged_prefill_res_chunk_kernel<D, DR, INT8>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long blocks = (long)((a.sq + a.tq - 1) / a.tq) * a.hkv * bsz;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, flash::kThreads, smem, stream>>>(a, bsz);
-  return (int)cudaGetLastError();
+  constexpr int NC = flash::cluster_ctas(D);
+  using T = PagedChunk<D, INT8, NC>;
+  const long clusters = (long)((a.sq + a.tq - 1) / a.tq + NC - 1) / NC;
+  return flash::launch_cluster(paged_prefill_res_chunk_kernel<D, DR, INT8, NC>,
+                               NC, clusters * a.hkv * bsz * NC, T::kBytes,
+                               stream, a, bsz);
 }
 
 // RP: the smallest instance (16, 32, 64) that holds the rank; above 64 the

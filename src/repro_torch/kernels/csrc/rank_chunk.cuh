@@ -1,40 +1,42 @@
 // LoRA ranks above kRankChunk (64) in the bf16 residual kernels for NVIDIA
-// Hopper (sm_90a): the key-block rebuild shared by the chunked instances of
-// #5 and #1 (paged_prefill_res_chunk_kernel) and #2
-// (paged_decode_res_chunk_kernel) in paged_residual_disagg.cu, and of #7
-// (residual_attention_chunk_kernel) and #8
-// (residual_attention_decode_chunk_kernel) in residual_attention.cu.  Ranks
-// up to 64 keep their RP 16/32/64 instances, which hold B_k and B_v of RP
-// rows on chip and a second accumulator O_r = P V_r of RP columns; neither
-// scales to any rank.  Here no buffer and no accumulator grows with R:
-//   * a key block's K and V tiles are rebuilt on chip, rank chunk by
-//     chunk: only one chunk's K_r (or V_r) columns, BK x 64, and B_k (or
-//     B_v) rows, 64 x D, are in shared memory at a time;
-//   * K_r . B_k is linear in the rank, so the MMA chain runs on over the
-//     chunks through f32 sums X (BK x D) in shared memory: each thread
-//     reloads its own accumulator elements from X, adds the chunk's
-//     products, and stores them back (the same elements every chunk, so
-//     the chain is the one a single instance of RP = R would run); after
-//     the last chunk K = bf16(K_b + RoPE(X)), as rebuild_k rounds;
-//   * V is rebuilt the same way, V = bf16(V_b + V_r . B_v) (the plain
-//     version's reconstruct rounds there too), so P . V needs no O_r and
-//     the split-K decodes' partials and combines carry no rank columns.
-// Bound: each key block costs 4 BK R D MMA flops of rebuild per query
-// tile against 4 BK rows D for QK and PV, and rereads B_k and B_v (2 R D
-// bf16) per block, from L2 after the first tile; the rank's columns of
-// K_r and V_r are read once per block.  A simple kernel first: one stage,
-// every chunk waited for, no copy overlapped with the MMAs.
+// Hopper (sm_90a).  Ranks up to 64 keep their RP 16/32/64 instances, which
+// hold B_k and B_v of RP rows on chip and a second accumulator O_r = P V_r
+// of RP columns; neither scales to any rank.  Here no buffer and no
+// accumulator grows with R: a key block's K and V tiles are rebuilt on
+// chip rank chunk by chunk, K = bf16(K_b + RoPE(sum_c K_r,c . B_k,c)) and
+// V = bf16(V_b + sum_c V_r,c . B_v,c) with the sums in f32 (rebuild_k's
+// rounding; the plain version's reconstruct rounds V there too), so P . V
+// needs no O_r and the split-K decodes' partials and combines carry no
+// rank columns.  Two forms:
+//   * ``chunk_block``: the key-block rebuild of the decodes' chunked
+//     instances, #2's paged_decode_res_chunk_kernel
+//     (paged_residual_disagg.cu) and #8's
+//     residual_attention_decode_chunk_kernel (residual_attention.cu).  One
+//     chunk of K_r (V_r) columns, BK x 64, and of B_k (B_v) rows, 64 x D,
+//     in shared memory at a time; the f32 sums X (BK x D) in shared memory
+//     between chunks (each thread reloads and stores back its own
+//     accumulator elements); one stage, every chunk waited for.
+//   * ``ChunkPipe``: the prefill tile of #7's residual_attention_chunk_
+//     kernel and of #5's and #1's paged_prefill_res_chunk_kernel (below).
+// Bound: a key block costs 4 BK R D MMA flops of rebuild against 4 BK rows
+// D for QK and PV per query tile, and reads B_k and B_v (2 R D bf16) per
+// block, from L2 after the first tile; the rank's columns of K_r and V_r
+// once per block.
 #pragma once
+
+#include <cuda_runtime.h>
+
+#include <climits>
 
 #include "flash_tile.cuh"
 
 namespace flash {
 
-// Shared memory of a key block of BK keys, from its base: bf16 K and V
-// tiles (BK x DS each, V right after K), sin and cos rows (BK x HS), one
-// chunk of K_r or V_r (BK x RS), one chunk of B_k or B_v rows (64 x DS);
-// then the f32 sums X (BK x D) and, for int8 pages, the block's K and V
-// codes (2 BK x D bytes) and their scales (2 BK f32).
+// ``chunk_block``'s shared memory of a key block of BK keys, from its
+// base: bf16 K and V tiles (BK x DS each, V right after K), sin and cos
+// rows (BK x HS), one chunk of K_r or V_r (BK x RS), one chunk of B_k or
+// B_v rows (64 x DS); then the f32 sums X (BK x D) and, for int8 pages,
+// the block's K and V codes (2 BK x D bytes) and their scales (2 BK f32).
 template <int D, int BK, bool INT8>
 struct ChunkBlock {
   static constexpr int DS = D + kPad, RS = kRankChunk + kPad,
@@ -294,5 +296,659 @@ __device__ void chunk_block(unsigned char* base, const ChunkSrc& s, int j0,
       __syncthreads();
     }
 }
+
+// ---------------------------------------------------------------------
+// The chunked prefill tile: #7's residual_attention_chunk_kernel and #5's
+// and #1's paged_prefill_res_chunk_kernel.  A CTA holds 128 query rows (tq
+// positions x G heads), as the RP instances' tiles; what changes is who
+// rebuilds a key block and how its rank chunks flow:
+//   * the q tiles of one (row, kv head) run as a thread block cluster of NC
+//     CTAs, the latest tiles first (``chunk_cluster_tile``), and the
+//     cluster rebuilds each key block once, not once per CTA.  It walks
+//     the union of its tiles' key ranges; a CTA takes the scores only of
+//     blocks in its own range (a padding CTA, past the first tile, has
+//     none) but always its share of the rebuild;
+//   * the share: in a cluster the first NC/2 CTAs rebuild K and the others
+//     V, each P = (D/16) / (NC/2) of the tile's n-tile pairs (columns 8 j..
+//     and 8 j + D/2.., which RoPE pairs), and load only what that needs:
+//     the K_r (V_r) chunk, their columns of the B_k (B_v) rows, of K_b
+//     (V_b; int8 pages: every code of the rows and the scales) and of
+//     sin/cos.  A CTA alone (NC 1) rebuilds K, then V;
+//   * the rebuild runs as m16n8k16 MMAs whose f32 sums stay in registers
+//     across the rank chunks, in the order of ``chunk_block``'s chain, so
+//     each key's K and V are the same bits at every cluster size and
+//     chunk width;
+//   * S stages of cp.async carry (block, chunk) steps of W rank columns
+//     (128 where a CTA owns at most 64 tile columns, else 64): chunk
+//     c + S - 1, of this key block or the next, loads while chunk c
+//     multiplies; a pass's last chunk also brings the block's base
+//     columns and sin/cos; a thread takes the same key rows and columns
+//     in every copy, so each index map runs once per row and step;
+//   * after its last chunk a CTA writes its bf16 columns of K (V) into its
+//     own tile and sends them, 16 bytes at a time, to the same place of
+//     every other CTA of the cluster with st.async, each store completing
+//     its bytes on the receiver's ``full`` mbarrier of the buffer; a CTA
+//     takes a block's scores once that barrier completes, then tells
+//     every CTA's ``empty`` mbarrier of the buffer, which a CTA waits on
+//     before it writes the buffer's next block.  No CTA waits for the
+//     whole cluster per block.  With three tile buffers (two, and Q's tile
+//     once Q's fragments are in registers: D <= 128) a CTA rebuilds and
+//     sends block j + 1 before it takes block j's scores, which cover the
+//     stores' flight; at D 256 (Q read per block) two buffers, in turn.
+// Shared memory: the caller's head (Q, positions), two K/V tile pairs,
+// the stages, as many as fit up to kChunkStages
+// (``ChunkPrefill::stages``), and the mbarriers.
+constexpr int kClusterCtas = 4;       // CTAs of a cluster: 1, 2 or 4
+constexpr int kChunkStages = 3;       // the most stages of the chunk ring
+constexpr int kPipeChunk = 128;       // rank columns per stage (``W``)
+constexpr int kSmemPerCta = 232448;   // a CTA's shared memory on the H100
+
+// The cluster size of a tile D wide: a D 256 CTA alone or in pairs has no
+// room for two stages of full-width B rows, base rows and sin/cos.
+constexpr int cluster_ctas(int d) {
+  return d > 128 ? 4 : kClusterCtas;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// mbarriers (shared-memory addresses): init to ``count`` arrivals; this
+// thread's arrival with ``bytes`` of transactions expected; a wait for the
+// phase of ``parity`` to complete (acquire at cluster scope: st.async
+// writes of other CTAs are visible after it); an arrival on the barrier at
+// the same address of the cluster's CTA ``rank`` (release at cluster
+// scope)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// a wait that cannot complete (a fault in the pipe) ends the kernel with
+// an error after ~10 s at the card's clock instead of holding the card
+constexpr long long kWaitCycles = 1ll << 34;
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > kWaitCycles) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) of this CTA's shared memory from ``addr``
+// to the same address of the cluster's CTA ``rank`` by the copy engine,
+// completing them on that CTA's mbarrier at ``bar``
+__device__ __forceinline__ void bulk_to(uint32_t addr, uint32_t bar,
+                                        uint32_t rank, uint32_t bytes) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra, rb;\n"
+      "mapa.shared::cluster.u32 ra, %0, %2;\n"
+      "mapa.shared::cluster.u32 rb, %1, %2;\n"
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [ra], [%0], %3, [rb];\n"
+      "}\n" ::"r"(addr),
+      "r"(bar), "r"(rank), "r"(bytes)
+      : "memory");
+}
+
+// S = Q . K^T (``scores``) and c += P . V (``product``) over group-major
+// K/V tiles: column group g (8 columns) of key t at element 8 (g BK + t),
+// so the 8 keys of an ldmatrix row set are 128 contiguous bytes (no bank
+// conflict without padding) and a CTA's columns are whole runs of groups.
+template <int D, int BK>
+__device__ __forceinline__ void gm_scores(float (&s)[BK / 8][4],
+                                          const uint32_t (&qf)[D / 16][4],
+                                          const bf16* k, int lane) {
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int n2 = 0; n2 < BK / 16; ++n2) {
+      uint32_t b[4];
+      const int t = n2 * 16 + (lane & 7) + (lane >> 4) * 8;
+      ldmatrix_x4(b, k + 8 * ((2 * kk + ((lane >> 3) & 1)) * BK + t));
+      mma(s[2 * n2], qf[kk], b[0], b[1]);
+      mma(s[2 * n2 + 1], qf[kk], b[2], b[3]);
+    }
+}
+
+// the same with Q's rows in shared memory (stride ``qs``), read per block
+template <int D, int BK>
+__device__ __forceinline__ void gm_scores(float (&s)[BK / 8][4],
+                                          const bf16* q, int qs,
+                                          const bf16* k, int lane) {
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, q + (lane & 15) * qs + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int n2 = 0; n2 < BK / 16; ++n2) {
+      uint32_t b[4];
+      const int t = n2 * 16 + (lane & 7) + (lane >> 4) * 8;
+      ldmatrix_x4(b, k + 8 * ((2 * kk + ((lane >> 3) & 1)) * BK + t));
+      mma(s[2 * n2], a, b[0], b[1]);
+      mma(s[2 * n2 + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int BK, int D>
+__device__ __forceinline__ void gm_product(float (&c)[D / 8][4],
+                                           const float (&a)[BK / 8][4],
+                                           const bf16* v, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t af[4] = {
+        pack_bf16(a[2 * kk][0], a[2 * kk][1]),
+        pack_bf16(a[2 * kk][2], a[2 * kk][3]),
+        pack_bf16(a[2 * kk + 1][0], a[2 * kk + 1][1]),
+        pack_bf16(a[2 * kk + 1][2], a[2 * kk + 1][3])};
+    const int t = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int n2 = 0; n2 < D / 16; ++n2) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, v + 8 * ((2 * n2 + (lane >> 4)) * BK + t));
+      mma(c[2 * n2], af, bf[0], bf[1]);
+      mma(c[2 * n2 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// 4 bytes to shared-memory address ``addr`` of this CTA
+__device__ __forceinline__ void st_local(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// The q tile of CTA ``rank`` of cluster ``slot`` of a (row, kv head):
+// slot 0 holds the latest (heaviest) tiles; < 0 is a padding CTA
+__host__ __device__ __forceinline__ int chunk_cluster_tile(int ntiles,
+                                                           int nc, int slot,
+                                                           int rank) {
+  return ntiles - 1 - (slot * nc + rank);
+}
+
+// Bytes of the tiles and of a stage of the chunk ring (BK keys at tile
+// width D); the column share P and the items (m16 key tile x n-tile pair)
+// of a CTA's pass.
+template <int D, int BK, int NC, bool INT8>
+struct ChunkPrefill {
+  static_assert(NC == 1 || NC == 2 || NC == 4, "clusters of 1, 2 or 4");
+  static_assert(BK % 32 == 0, "key rows tid / 8 + 32 k of whole m16 tiles");
+  static constexpr int kPasses = NC == 1 ? 2 : 1;     // K, V in turn alone
+  static constexpr int kPerKind = NC == 1 ? 1 : NC / 2;
+  static constexpr int P = D / 16 / kPerKind;         // n-tile pairs
+  static_assert(P * kPerKind == D / 16, "whole n-tile pairs per CTA");
+  static constexpr int DS = D + kPad;                 // K/V tile rows
+  // rank columns per stage: kPipeChunk up to 4 own pairs (64 columns),
+  // else kRankChunk (a stage's B rows grow with W x own columns: two
+  // stages of 128 rows of 128 columns do not fit)
+  static constexpr int W = P <= 4 ? kPipeChunk : kRankChunk;
+  static_assert(W % 64 == 0, "whole 8-column groups for 8 threads");
+  static constexpr int RS = W + kPad;                 // K_r / V_r chunk
+  static constexpr int CS = 16 * P + kPad;            // own columns
+  static constexpr int TS = 8 * P + kPad;             // own sin/cos
+  static constexpr int kItems = BK / 16 * P;
+  static constexpr int kPerWarp = (kItems + kWarps - 1) / kWarps;
+  // a stage, bytes: the chunk's K_r (V_r) rows, B rows, then (a pass's
+  // last chunk) the base columns (int8: code rows D wide, then scales)
+  // and the sin and cos columns
+  static constexpr int kR = 0, kB = kR + 2 * BK * RS,
+                       kBase = kB + 2 * W * CS,
+                       kSin = kBase + (INT8 ? BK * D + 4 * BK : 2 * BK * CS),
+                       kCos = kSin + 2 * BK * TS, kStage = kCos + 2 * BK * TS;
+  // K, then V, group-major (``gm_scores``): no padding
+  static constexpr int kTile = 2 * 2 * BK * D;
+  static constexpr int kTiles = (NC == 1 ? 1 : 2) * kTile;
+  static constexpr int kBars = 64;     // a cluster's mbarriers, after all
+  static_assert(kStage % 16 == 0 && kTile % 16 == 0, "16-byte rows");
+  // stages that fit beside ``head`` bytes (at least 2)
+  static constexpr int stages(int head) {
+    int s = kChunkStages;
+    while (s > 2 && head + kTiles + s * kStage + kBars > kSmemPerCta) --s;
+    return s;
+  }
+  static constexpr int bytes(int head) {
+    return head + kTiles + stages(head) * kStage + kBars;
+  }
+};
+
+// A cluster launch of NC CTAs along x; a launch the card refuses (no SM
+// group can hold a cluster) returns its error, as any other.
+template <class Kernel, class... Args>
+int launch_cluster(Kernel kernel, int nc, long blocks, size_t smem,
+                   cudaStream_t stream, Args... args) {
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(flash::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The ring and the rebuild of one CTA over its cluster's key blocks
+// [jb0, jb0 + nblocks), keys at or past ``klimit`` zero; ``tok``, ``res``
+// and ``rope`` as for chunk_block.  The caller zeroes the stages first
+// where DR < D (the gap columns are never copied), then calls ``start``
+// after committing its own copies (Q), then ``run``.
+template <int D, int DR, int BK, int NC, int S, bool INT8, bool QBUF,
+          class Tok, class Res, class Rope>
+struct ChunkPipe {
+  using L = ChunkPrefill<D, BK, NC, INT8>;
+  using C = Cols<D, DR>;
+  static constexpr int P = L::P;
+  // a cluster's third tile buffer: the caller's Q tile (QBUF: its bytes,
+  // kRows x DS bf16, hold a K/V tile pair, free once Q is in registers)
+  static constexpr bool kAhead = NC > 1 && QBUF;
+  static constexpr int NB = kAhead ? 3 : 2;          // tile buffers (NC > 1)
+  // transaction bytes a CTA receives per block: every other CTA's columns
+  static constexpr uint32_t kPushBytes = (NC - 1) * BK * 2 * P * 16;
+  static_assert(!QBUF || kRows * (D + kPad) * 2 >= L::kTile,
+                "Q's tile holds a K/V tile pair");
+  unsigned char* tiles;
+  unsigned char* stages;
+  unsigned char* qbuf;
+  ChunkSrc s;
+  int rank, jb0, nblocks, klimit, nch, steps, p0, tid, warp, lane;
+  bool vkind;                   // in a cluster: this CTA rebuilds V
+  Tok tok;
+  Res res;
+  Rope rope;
+
+  __device__ ChunkPipe(unsigned char* tiles_, unsigned char* stages_,
+                       unsigned char* qbuf_, const ChunkSrc& s_, int rank_,
+                       int jb0_, int nblocks_, int klimit_, Tok tok_,
+                       Res res_, Rope rope_)
+      : tiles(tiles_), stages(stages_), qbuf(qbuf_), s(s_), rank(rank_),
+        jb0(jb0_), nblocks(nblocks_), klimit(klimit_), tok(tok_),
+        res(res_), rope(rope_) {
+    nch = (s.R + L::W - 1) / L::W;
+    steps = nblocks * L::kPasses * nch;
+    vkind = NC > 1 && rank >= NC / 2;
+    p0 = NC == 1 ? 0 : (rank % (NC / 2)) * P;
+    if (vkind) {        // a cluster's V CTA reads the V sources as ``k``
+      s.kb = s.vb;
+      s.kb_s = s.vb_s;
+      s.kr = s.vr;
+      s.bk = s.bv;
+    }
+    tid = threadIdx.x;
+    warp = tid >> 5;
+    lane = tid & 31;
+  }
+
+  // the K/V tile pair of block ``blk``: one alone; two in a cluster, or
+  // three with the Q tile (kAhead)
+  __device__ __forceinline__ unsigned char* tile_of(int blk) const {
+    if constexpr (NC == 1) {
+      return tiles;
+    } else if constexpr (kAhead) {
+      const int i = blk % 3;
+      return i == 0 ? qbuf : tiles + (i - 1) * L::kTile;
+    } else {
+      return tiles + (blk & 1) * L::kTile;
+    }
+  }
+
+  // buffer b's mbarriers: ``full`` completes when every other CTA's
+  // columns of the buffer's block have landed (one local arrival with
+  // kPushBytes expected); ``empty`` when every CTA of the cluster has
+  // taken the block's scores (NC arrivals)
+  __device__ __forceinline__ uint32_t full(int blk) const {
+    return smem_addr(stages + S * L::kStage) + 8 * (blk % NB);
+  }
+  __device__ __forceinline__ uint32_t empty(int blk) const {
+    return full(blk) + 8 * NB;
+  }
+
+  // Copies of a step.  Thread tid takes the key rows tid / 8 + 32 k (k <
+  // BK / 32) and, in each, the 8-column group or own-column slots tid % 8,
+  // + 8, ...: the index maps run once per row and step.  A slot is kVec
+  // tile columns of the CTA's own groups (2 P of 8 columns: P in each
+  // half), at compact column 8 u + kVec sub.
+  static constexpr int kSub = 8 / C::kVec;            // slots per group
+  static constexpr int kSlots = 2 * P * kSub;         // per head row
+  static constexpr int kHalfSlots = P * kSub;         // per sin/cos row
+  __device__ __forceinline__ int slot_col(int sl) const {  // tile column
+    const int u = sl / kSub;
+    return 8 * ((u < P ? 0 : D / 16) + p0 + u % P) + sl % kSub * C::kVec;
+  }
+  __device__ __forceinline__ int slot_cc(int sl) const {   // compact
+    return 8 * (sl / kSub) + sl % kSub * C::kVec;
+  }
+
+  __device__ void issue(int step) const {
+    const int per = L::kPasses * nch, blk = step / per;
+    const int pass = step % per / nch, c = step % nch;
+    const bool v = NC == 1 ? pass == 1 : vkind;
+    const bool vsrc = NC == 1 && v;      // else the ``k`` sources hold V's
+    const bool last = c == nch - 1;
+    unsigned char* st = stages + (step % S) * L::kStage;
+    bf16* rch = reinterpret_cast<bf16*>(st + L::kR);
+    bf16* bch = reinterpret_cast<bf16*>(st + L::kB);
+    const int j0 = (jb0 + blk) * BK, r0 = c * L::W, R = s.R;
+    const int slot = tid & 7;
+    const bf16* r = vsrc ? s.vr : s.kr;
+    const bf16* b = vsrc ? s.bv : s.bk;
+    // rank rows r0 + tid / 8 + 32 k of B_k (B_v), own slots as above
+#pragma unroll 1
+    for (int sl = slot; sl < kSlots; sl += 8) {
+      const int el = C::elem(slot_col(sl)), cc = slot_cc(sl);
+      if (el < 0) continue;
+#pragma unroll
+      for (int k = 0; k < L::W / 32; ++k) {
+        const int rr = (tid >> 3) + 32 * k;
+        const bool ok = r0 + rr < R;
+        C::copy(bch + rr * L::CS + cc,
+                b + (ok ? (long)(r0 + rr) * s.hd + el : 0), ok);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < BK / 32; ++k) {
+      const int t = (tid >> 3) + 32 * k, kpos = j0 + t;
+      const bool ok = kpos < klimit;
+      // columns r0 + 8 g of the key's K_r (V_r) row, g = slot, + 8, ...
+      const long row = ok ? res(kpos) * R : 0;
+#pragma unroll
+      for (int g = slot; g < L::W / 8; g += 8) {
+        if (R % 8 == 0) {
+          const bool okr = ok && r0 + 8 * g < R;
+          cp_async16(rch + t * L::RS + 8 * g, r + (okr ? row + r0 + 8 * g : 0),
+                     okr);
+        } else {        // rows of R elements are not 16-byte aligned
+#pragma unroll
+          for (int cc = 8 * g; cc < 8 * g + 8; ++cc)
+            rch[t * L::RS + cc] = ok && r0 + cc < R ? r[row + r0 + cc]
+                                                    : __float2bfloat16(0.f);
+        }
+      }
+      if (!last) continue;
+      // the pass's last chunk: the key's base columns and sin/cos
+      unsigned char* base = st + L::kBase;
+      const long tk = ok ? tok(kpos) : 0;
+      if constexpr (!INT8) {
+        const bf16* kb = static_cast<const bf16*>(vsrc ? s.vb : s.kb);
+        bf16* dst = reinterpret_cast<bf16*>(base) + t * L::CS;
+        for (int sl = slot; sl < kSlots; sl += 8) {
+          const int el = C::elem(slot_col(sl));
+          if (el < 0) continue;
+          C::copy(dst + slot_cc(sl), kb + (ok ? tk * DR + el : 0), ok);
+        }
+      } else {
+        const int8_t* kb = static_cast<const int8_t*>(vsrc ? s.vb : s.kb);
+        for (int i = slot; i < C::kCodeRow; i += 8)
+          C::codes(base + t * D, kb + tk * DR, i, ok);
+        if (slot == 0)
+          cp_async4(reinterpret_cast<float*>(base + BK * D) + t,
+                    (vsrc ? s.vb_s : s.kb_s) + tk, ok);
+      }
+      if (v) continue;
+      const long rp = ok ? rope(kpos) * (DR / 2) : 0;
+      bf16* sn = reinterpret_cast<bf16*>(st + L::kSin) + t * L::TS;
+      bf16* cs = reinterpret_cast<bf16*>(st + L::kCos) + t * L::TS;
+      for (int sl = slot; sl < kHalfSlots; sl += 8) {
+        const int col = slot_col(sl);               // first half
+        if (col >= DR / 2) continue;                // a gap column
+        C::copy(sn + slot_cc(sl), s.sin + rp + col, ok);
+        C::copy(cs + slot_cc(sl), s.cos + rp + col, ok);
+      }
+    }
+  }
+
+  // the mbarriers; the S - 1 first steps; the caller's earlier copies (Q)
+  // landed, then ``ready`` (Q's fragments into registers); then the
+  // cluster's CTAs all running, their mbarriers ready and done with Q,
+  // before any writes to a peer
+  template <class Ready>
+  __device__ void start(Ready ready) const {
+    if (NC > 1 && tid == 0) {
+      for (int b = 0; b < NB; ++b) {
+        mbar_init(full(b), 1);
+        mbar_init(empty(b), NC);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) {
+      if (i < steps) issue(i);
+      cp_async_commit();
+    }
+    cp_async_wait<S - 1>();
+    __syncthreads();
+    ready();
+    if constexpr (NC > 1) cluster_sync();
+  }
+
+  // chunk ``step``'s MMAs into the sums of the warp's items
+  __device__ __forceinline__ void multiply(
+      int step, float (&acc)[L::kPerWarp][2][4]) const {
+    const unsigned char* st = stages + (step % S) * L::kStage;
+    const bf16* rch = reinterpret_cast<const bf16*>(st + L::kR);
+    const bf16* bch = reinterpret_cast<const bf16*>(st + L::kB);
+#pragma unroll
+    for (int u = 0; u < L::kPerWarp; ++u) {
+      const int item = warp + kWarps * u;
+      if (item >= L::kItems) break;
+      const int mt = item / P, jj = item % P;
+#pragma unroll
+      for (int kk = 0; kk < L::W / 16; ++kk) {
+        uint32_t af[4], bf[2];
+        ldmatrix_x4(af, rch + (mt * 16 + (lane & 15)) * L::RS + kk * 16 +
+                            (lane >> 4) * 8);
+        const bf16* brow =
+            bch + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * L::CS +
+            8 * jj;
+        ldmatrix_x2_trans(bf, brow);
+        mma(acc[u][0], af, bf[0], bf[1]);
+        ldmatrix_x2_trans(bf, brow + 8 * P);
+        mma(acc[u][1], af, bf[0], bf[1]);
+      }
+    }
+  }
+
+  // K = bf16(K_b + RoPE(sums)) (V = bf16(V_b + sums)) of the warp's items
+  // into this CTA's K (V) tile of block ``blk``
+  __device__ __forceinline__ void finish(int step, int blk, bool v,
+                                         const float (&acc)[L::kPerWarp][2]
+                                                           [4]) const {
+    const unsigned char* st = stages + (step % S) * L::kStage;
+    const unsigned char* base = st + L::kBase;
+    const bf16* sn = reinterpret_cast<const bf16*>(st + L::kSin);
+    const bf16* cs = reinterpret_cast<const bf16*>(st + L::kCos);
+    const uint32_t tile = smem_addr(tile_of(blk)) + (v ? 2 * BK * D : 0);
+#pragma unroll
+    for (int u = 0; u < L::kPerWarp; ++u) {
+      const int item = warp + kWarps * u;
+      if (item >= L::kItems) break;
+      const int mt = item / P, jj = item % P;
+      const int ci = 8 * jj + 2 * (lane & 3);         // compact column
+      const int i = 8 * (p0 + jj) + 2 * (lane & 3);  // tile column
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int t = mt * 16 + (lane >> 2) + 8 * hh;
+        float2 b1, b2;
+        if constexpr (!INT8) {
+          const bf16* row = reinterpret_cast<const bf16*>(base) + t * L::CS;
+          b1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(row + ci));
+          b2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(row + 8 * P + ci));
+        } else {         // bf16(code * scale), as dequantize_cols rounds
+          const unsigned char* codes = base + t * D;
+          const float sc = reinterpret_cast<const float*>(base + BK * D)[t];
+          auto deq = [&](int c) {
+            const int e = C::elem(c);
+            if (e < 0) return make_float2(0.f, 0.f);
+            return __bfloat1622float2(__floats2bfloat162_rn(
+                __fmul_rn((float)(int8_t)codes[e], sc),
+                __fmul_rn((float)(int8_t)codes[e + 1], sc)));
+          };
+          b1 = deq(i);
+          b2 = deq(i + D / 2);
+        }
+        const float x1a = acc[u][0][2 * hh], x1b = acc[u][0][2 * hh + 1];
+        const float x2a = acc[u][1][2 * hh], x2b = acc[u][1][2 * hh + 1];
+        uint32_t k1, k2;
+        if (!v) {
+          const float2 s2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(sn + t * L::TS + ci));
+          const float2 c2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(cs + t * L::TS + ci));
+          // rebuild_k's f32 operations, uncontracted
+          k1 = pack_bf16(b1.x + rot(x1a, c2.x, x2a, -s2.x),
+                         b1.y + rot(x1b, c2.y, x2b, -s2.y));
+          k2 = pack_bf16(b2.x + rot(x2a, c2.x, x1a, s2.x),
+                         b2.y + rot(x2b, c2.y, x1b, s2.y));
+        } else {
+          k1 = pack_bf16(__fadd_rn(b1.x, x1a), __fadd_rn(b1.y, x1b));
+          k2 = pack_bf16(__fadd_rn(b2.x, x2a), __fadd_rn(b2.y, x2b));
+        }
+        // group-major: column i of key t at 16 (i / 8 BK + t) + 2 (i % 8)
+        const uint32_t a1 = tile + 16 * ((i >> 3) * BK + t) + 2 * (i & 7);
+        st_local(a1, k1);
+        st_local(a1 + 2 * BK * D / 2, k2);            // column i + D/2
+      }
+    }
+  }
+
+  // This CTA's columns of block ``blk``'s K (V) tile into the same place
+  // of every other CTA of the cluster: its groups are two runs of P BK
+  // 16-byte rows in the group-major tile, each one bulk copy per peer,
+  // completing its bytes on the peer's ``full`` barrier (after a CTA
+  // barrier over ``finish``'s writes, made visible to the copy engine)
+  __device__ __forceinline__ void push(int blk) const {
+    if (tid != 0) return;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const uint32_t tile = smem_addr(tile_of(blk)) + (vkind ? 2 * BK * D : 0);
+#pragma unroll
+    for (int k = 1; k < NC; ++k)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        bulk_to(tile + 16 * BK * (h * D / 16 + p0), full(blk),
+                (rank + k) % NC, 16 * BK * P);
+  }
+
+  // Block ``blk``'s steps from step ``t``: per step wait for its chunk,
+  // issue step + S - 1 into the stage the previous step left, multiply;
+  // after a pass's last chunk write this CTA's tile columns.  The sums
+  // live through one pass, so never across attend.  Returns the next step.
+  __device__ int rebuild(int blk, int t) const {
+    for (int pass = 0; pass < L::kPasses; ++pass) {
+      float acc[L::kPerWarp][2][4];
+#pragma unroll
+      for (int u = 0; u < L::kPerWarp; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          acc[u][h][0] = acc[u][h][1] = acc[u][h][2] = acc[u][h][3] = 0.f;
+      for (int c = 0; c < nch; ++c, ++t) {
+        cp_async_wait<S - 2>();
+        __syncthreads();
+        if (t + S - 1 < steps) issue(t + S - 1);
+        cp_async_commit();
+        multiply(t, acc);
+      }
+      // in a cluster the buffer is free once every CTA has taken the
+      // scores of its block before (NB back)
+      if (NC > 1 && blk >= NB) mbar_wait(empty(blk), (blk / NB - 1) & 1);
+      finish(t - 1, blk, NC == 1 ? pass == 1 : vkind, acc);
+    }
+    return t;
+  }
+
+  // Every block: rebuild, make its tiles whole, attend(blk, K tile, V
+  // tile).  Alone: a CTA barrier between.  In a cluster: this CTA's
+  // columns written and pushed, block blk's scores once its ``full``
+  // barrier completes, then every CTA's ``empty`` barrier of the buffer
+  // told.  With kAhead, block blk + 1 is rebuilt and pushed before block
+  // blk's scores, so the pushes' flight is covered by them.
+  template <class Attend>
+  __device__ void run(Attend attend) const {
+    auto scores = [&](int blk) {
+      if constexpr (NC > 1) mbar_wait(full(blk), (blk / NB) & 1);
+      const bf16* k = reinterpret_cast<const bf16*>(tile_of(blk));
+      attend(blk, k, k + BK * D);
+      if constexpr (NC > 1) {
+        __syncthreads();                     // every warp's reads done
+        if (tid < NC && blk + NB < nblocks) mbar_arrive_at(empty(blk), tid);
+      }
+    };
+    auto whole = [&](int blk, int t) {
+      t = rebuild(blk, t);
+      __syncthreads();
+      if constexpr (NC > 1) {
+        if (tid == 0) mbar_expect(full(blk), kPushBytes);
+        push(blk);
+      }
+      return t;
+    };
+    int t = 0;
+    if constexpr (kAhead) {
+      if (nblocks > 0) t = whole(0, t);
+      for (int blk = 0; blk < nblocks; ++blk) {
+        if (blk + 1 < nblocks) t = whole(blk + 1, t);
+        scores(blk);
+      }
+    } else {
+      for (int blk = 0; blk < nblocks; ++blk) {
+        t = whole(blk, t);
+        scores(blk);
+      }
+    }
+    cp_async_wait<0>();
+    // no CTA leaves while a peer may still write to it
+    if constexpr (NC > 1) cluster_sync();
+  }
+};
 
 }  // namespace flash

@@ -696,37 +696,53 @@ int launch_mma(const Args& a, int bsz, cudaStream_t stream) {
 }
 
 // The chunked instance of the bf16 prefill: ranks above kRankChunk
-// (rank_chunk.cuh).  The CTAs, 128 rows (every warp with query rows, also
-// at D 256: one stage and no B_k/B_v of the whole rank leave room), masks
-// and positions of residual_attention_mma_kernel; per key block K and V
-// are rebuilt rank chunk by chunk on chip (flash::chunk_block), so the key
-// loop is O += P V with no O_r and no B_v epilogue.
-template <int D, int BK, int DR>
+// (rank_chunk.cuh's ChunkPipe).  The CTAs, 128 rows (every warp with query
+// rows, also at D 256), masks and positions of
+// residual_attention_mma_kernel, with the q tiles of a (row, kv head) in
+// clusters of NC CTAs that rebuild each key block once between them; per
+// block K and V come whole from the cluster, so the key loop is O += P V
+// with no O_r and no B_v epilogue.
+template <int D, int BK, int DR, int NC>
+struct DenseChunk {
+  using L = flash::ChunkPrefill<D, BK, NC, false>;
+  // the cluster's tile ranges (NC x 4 ints, 64 bytes), row positions
+  // (kRows ints), Q (kRows x DS bf16)
+  static constexpr int kRowpos = 64, kQ = kRowpos + 4 * flash::kRows,
+                       kHead = kQ + 2 * flash::kRows * L::DS;
+  static constexpr int S = L::stages(kHead);
+  static constexpr int kBytes = L::bytes(kHead);
+  static_assert(kBytes <= flash::kSmemPerCta,
+                "a CTA's shared memory on the H100");
+  static_assert(4 * NC * sizeof(int) <= kRowpos, "the tile ranges");
+};
+
+template <int D, int BK, int DR, int NC>
 __global__ void __launch_bounds__(flash::kThreads, 1)
 residual_attention_chunk_kernel(Args a, int bsz) {
   using flash::bf16;
-  using L = flash::ChunkBlock<D, BK, false>;
+  using T = DenseChunk<D, BK, DR, NC>;
+  using L = typename T::L;
   using C = flash::Cols<D, DR>;
   constexpr int DS = L::DS, ROWS = flash::kRows;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* rowpos = reinterpret_cast<int*>(smem_raw);
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + ROWS * sizeof(int));
-  unsigned char* blk =
-      smem_raw + ROWS * sizeof(int) + ROWS * DS * sizeof(bf16);
-  const bf16* Ks = reinterpret_cast<const bf16*>(blk) + L::kK;
-  const bf16* Vs = reinterpret_cast<const bf16*>(blk) + L::kV;
+  int* rng = reinterpret_cast<int*>(smem_raw);
+  int* rowpos = reinterpret_cast<int*>(smem_raw + T::kRowpos);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + T::kQ);
+  unsigned char* tiles = smem_raw + T::kHead;
+  unsigned char* stages = tiles + L::kTiles;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = a.hq / a.hkv, R = a.r;
   const int ntiles = (a.sq + a.tq - 1) / a.tq;
   const int per_tile = a.hkv * bsz;
-  const int tile = ntiles - 1 - (int)(blockIdx.x / per_tile);
-  const int h = (int)(blockIdx.x % per_tile) % a.hkv;
-  const int b = (int)(blockIdx.x % per_tile) / a.hkv;
+  const int cl = (int)(blockIdx.x / NC), rank = (int)(blockIdx.x % NC);
+  const int slot = cl / per_tile;
+  const int h = cl % per_tile % a.hkv, b = cl % per_tile / a.hkv;
+  const int tile = flash::chunk_cluster_tile(ntiles, NC, slot, rank);
   const long sk = a.sk;
   const int kvlen = a.kv_len ? min(max(a.kv_len[b], 0), a.sk) : a.sk;
   const int q0 = tile * a.tq;
-  const int nq = min(a.tq, a.sq - q0);
+  const int nq = tile < 0 ? 0 : min(a.tq, a.sq - q0);   // 0: padding CTA
   const int nrows = nq * G;                         // row = qi * G + g
   const long out_tile = ((long)b * a.sq + q0) * a.hq + (long)h * G;
   const long hd = (long)a.hkv * DR;
@@ -741,21 +757,53 @@ residual_attention_chunk_kernel(Args a, int bsz) {
   }
   flash::cp_async_commit();
   C::zero_gaps(Qs, ROWS, DS, tid, flash::kThreads);
-  flash::chunk_zero_gaps<D, DR, BK, false>(blk, tid, flash::kThreads);
-  int qlo = INT_MAX, qhi = INT_MIN;
-  for (int i = 0; i < nq; ++i) {
-    const int p = a.qpos ? a.qpos[(long)b * a.sq + q0 + i] : kvlen - 1;
-    qlo = min(qlo, p);
-    qhi = max(qhi, p);
+  if constexpr (C::kGap > 0)       // the gap columns, never copied
+    for (int e = tid; e < T::S * L::kStage / 16; e += flash::kThreads)
+      reinterpret_cast<uint4*>(stages)[e] = make_uint4(0, 0, 0, 0);
+  // the key blocks of the cluster's tiles: warp w < NC takes the tile of
+  // rank w (qlo, qhi, first and last block; an empty range when first >
+  // last)
+  if (warp < NC) {
+    const int tw = flash::chunk_cluster_tile(ntiles, NC, slot, warp);
+    const int q0w = tw * a.tq, nqw = tw < 0 ? 0 : min(a.tq, a.sq - q0w);
+    int qlo = INT_MAX, qhi = INT_MIN;
+    for (int i = lane; i < nqw; i += 32) {
+      const int p = a.qpos ? a.qpos[(long)b * a.sq + q0w + i] : kvlen - 1;
+      qlo = min(qlo, p);
+      qhi = max(qhi, p);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      qlo = min(qlo, __shfl_xor_sync(0xffffffffu, qlo, o));
+      qhi = max(qhi, __shfl_xor_sync(0xffffffffu, qhi, o));
+    }
+    if (lane == 0) {
+      const int last_k = a.causal ? min(kvlen - 1, qhi) : kvlen - 1;
+      const int first_k = a.window > 0 ? max(qlo - (a.window - 1), 0) : 0;
+      const bool live = nqw > 0 && last_k >= 0 && last_k / BK >= first_k / BK;
+      rng[4 * warp] = qlo;
+      rng[4 * warp + 1] = qhi;
+      rng[4 * warp + 2] = live ? first_k / BK : 1;
+      rng[4 * warp + 3] = live ? last_k / BK : 0;
+    }
   }
-  for (int r = tid; r < ROWS; r += flash::kThreads) {
-    const int i = min(r, nrows - 1) / G;
-    rowpos[r] = a.qpos ? a.qpos[(long)b * a.sq + q0 + i] : kvlen - 1;
-  }
-  const int last_k = a.causal ? min(kvlen - 1, qhi) : kvlen - 1;
-  const int first_k = a.window > 0 ? max(qlo - (a.window - 1), 0) : 0;
-  const int jb0 = first_k / BK;
-  const int nblocks = last_k >= 0 ? max(0, last_k / BK - jb0 + 1) : 0;
+  if (nq > 0)
+    for (int r = tid; r < ROWS; r += flash::kThreads) {
+      const int i = min(r, nrows - 1) / G;
+      rowpos[r] = a.qpos ? a.qpos[(long)b * a.sq + q0 + i] : kvlen - 1;
+    }
+  __syncthreads();
+  int jlo = INT_MAX, jhi = -1;
+#pragma unroll
+  for (int w = 0; w < NC; ++w)
+    if (rng[4 * w + 2] <= rng[4 * w + 3]) {
+      jlo = min(jlo, rng[4 * w + 2]);
+      jhi = max(jhi, rng[4 * w + 3]);
+    }
+  const int jb0 = jhi >= 0 ? jlo : 0, nblocks = jhi >= 0 ? jhi - jlo + 1 : 0;
+  const int qlo = rng[4 * rank], qhi = rng[4 * rank + 1];
+  const int own_lo = rng[4 * rank + 2] - jb0, own_hi = rng[4 * rank + 3] - jb0;
+
   const long tok0 = (long)b * sk;                   // row b's first key
   const long b0 = (long)b * R * hd + (long)h * DR;
   const flash::ChunkSrc src{
@@ -763,8 +811,13 @@ residual_attention_chunk_kernel(Args a, int bsz) {
       static_cast<const bf16*>(a.vr), static_cast<const bf16*>(a.bk) + b0,
       static_cast<const bf16*>(a.bv) + b0, hd,
       static_cast<const bf16*>(a.sin), static_cast<const bf16*>(a.cos), R};
-  auto tok = [&](int kpos) { return (tok0 + kpos) * a.hkv + h; };
-  auto res = [&](int kpos) { return tok0 + kpos; };
+  auto tok = [=](int kpos) { return (tok0 + kpos) * a.hkv + h; };
+  auto res = [=](int kpos) { return tok0 + kpos; };
+  constexpr bool kQInRegisters = D <= 128;
+  flash::ChunkPipe<D, DR, BK, NC, T::S, false, kQInRegisters, decltype(tok),
+                   decltype(res), decltype(res)>
+      pipe(tiles, stages, reinterpret_cast<unsigned char*>(Qs), src, rank,
+           jb0, nblocks, kvlen, tok, res, res);
 
   float o[D / 8][4], m[2], l[2];
 #pragma unroll
@@ -773,24 +826,22 @@ residual_attention_chunk_kernel(Args a, int bsz) {
   l[0] = l[1] = 0.f;
   const float scale_log2 = a.scale * flash::kLog2e;
 
-  flash::cp_async_wait<0>();
-  __syncthreads();                                  // Q and rowpos
+  const bf16* Qw = Qs + warp * 16 * DS;
+  uint32_t qf[kQInRegisters ? D / 16 : 1][4];
+  pipe.start([&] {                                  // Q and rowpos landed
+    if constexpr (kQInRegisters) flash::load_q<D>(qf, Qw, DS, lane);
+  });
   const int pos[2] = {rowpos[warp * 16 + (lane >> 2)],
                       rowpos[warp * 16 + (lane >> 2) + 8]};
-  const bf16* Qw = Qs + warp * 16 * DS;
-  constexpr bool kQInRegisters = D <= 128;
-  uint32_t qf[kQInRegisters ? D / 16 : 1][4];
-  if constexpr (kQInRegisters) flash::load_q<D>(qf, Qw, DS, lane);
 
-  for (int it = 0; it < nblocks; ++it) {
-    const int j0 = (jb0 + it) * BK;
-    flash::chunk_block<D, DR, BK, flash::kWarps, false>(
-        blk, src, j0, 0, kvlen, tok, res, res, tid, warp, lane);
+  pipe.run([&](int blk, const bf16* Ks, const bf16* Vs) {
+    if (blk < own_lo || blk > own_hi) return;       // not this tile's keys
+    const int j0 = (jb0 + blk) * BK;
     float s[BK / 8][4], alpha[2];
     if constexpr (kQInRegisters)
-      flash::scores<D, BK>(s, qf, Ks, DS, lane);
+      flash::gm_scores<D, BK>(s, qf, Ks, lane);
     else
-      flash::scores<D, BK>(s, Qw, DS, Ks, DS, lane);
+      flash::gm_scores<D, BK>(s, Qw, DS, Ks, lane);
     const bool full = j0 + BK <= kvlen &&
                       (!a.causal || j0 + BK - 1 <= qlo) &&
                       (a.window <= 0 || j0 > qhi - a.window);
@@ -798,9 +849,9 @@ residual_attention_chunk_kernel(Args a, int bsz) {
       flash::mask<BK>(s, j0, pos, kvlen, a.causal != 0, a.window, lane);
     flash::softmax_step<BK>(s, m, l, alpha, scale_log2);
     flash::rescale<D / 8>(o, alpha);
-    flash::product<BK, D>(o, s, Vs, DS, lane);
-    __syncthreads();                  // the tiles are refilled next block
-  }
+    flash::gm_product<BK, D>(o, s, Vs, lane);
+  });
+  if (nq == 0) return;
 
   flash::finish_rowsum(l);
   bf16* out = static_cast<bf16*>(a.out);
@@ -816,19 +867,13 @@ residual_attention_chunk_kernel(Args a, int bsz) {
 
 template <int D, int BK, int DR>
 int launch_chunk(const Args& a, int bsz, cudaStream_t stream) {
-  constexpr size_t smem = flash::kRows * (sizeof(int) +
-                                          (D + flash::kPad) * 2) +
-                          flash::ChunkBlock<D, BK, false>::kBytes;
-  static_assert(smem <= 232448, "a CTA's shared memory on the H100");
-  auto kernel = residual_attention_chunk_kernel<D, BK, DR>;
+  constexpr int NC = flash::cluster_ctas(D);
+  using T = DenseChunk<D, BK, DR, NC>;
   if (a.tq * (a.hq / a.hkv) > flash::kRows) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long blocks = (long)((a.sq + a.tq - 1) / a.tq) * a.hkv * bsz;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, flash::kThreads, smem, stream>>>(a, bsz);
-  return (int)cudaGetLastError();
+  const long clusters = (long)((a.sq + a.tq - 1) / a.tq + NC - 1) / NC;
+  return flash::launch_cluster(residual_attention_chunk_kernel<D, BK, DR, NC>,
+                               NC, clusters * a.hkv * bsz * NC, T::kBytes,
+                               stream, a, bsz);
 }
 
 // RP: the smallest instance (16, 32, 64) that holds the rank; above 64 the

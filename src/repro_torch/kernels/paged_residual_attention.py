@@ -50,8 +50,12 @@ RP 16, 32 and 64 padded rank columns; every rank above it the chunked
 instances of #5/#1, #2 and the template (``csrc/rank_chunk.cuh``; counted
 as ``<counter>_rchunk``), which rebuild a key block's K and V on chip one
 rank chunk at a time, so no buffer or accumulator grows with the rank;
-#2's then walks its CTA's shares in 64-key blocks with all four warps,
-and its combine applies no B_v (V carries it).
+#5/#1's runs the q tiles of a (row, kv head) as thread block clusters
+that rebuild each key block once between them
+(``residual_attention.chunk_prefill_map``; launched with a cluster
+dimension, a launch the card refuses raising as any other); #2's walks
+its CTA's shares in 64-key blocks with all four warps, and its combine
+applies no B_v (V carries it).
 
 Head dims 32, 64, 120 and 128 are taken.  At 120 (h2o-danube-3-4b's) the
 bf16 tiles (#6, #3, #5, #1) and #2's group tile run D 128's columns in the

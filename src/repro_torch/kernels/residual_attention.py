@@ -49,9 +49,12 @@ which hold B_k and B_v and an accumulator O_r of RP columns on chip;
 above it the chunked instances (``rank_chunked``, counted as
 ``<counter>_rchunk``, ``csrc/rank_chunk.cuh``) rebuild each key block's
 K and V on chip one rank chunk of 64 at a time, so nothing on chip grows
-with the rank.  The scalar kernel's chunked instance (chunks of 32) also
-takes a group whose rows its layout at rank R cannot hold, as 32 heads at
-D 256 and rank 64 (``scalar_chunked``).
+with the rank; the prefill's runs the q tiles of a (row, kv head) as
+thread block clusters of ``CLUSTER_CTAS`` that rebuild each key block once
+between them (``chunk_prefill_map``, ``chunk_prefill_smem``).  The scalar
+kernel's chunked instance (chunks of 32) also takes a group whose rows its
+layout at rank R cannot hold, as 32 heads at D 256 and rank 64
+(``scalar_chunked``).
 Unlike the Pallas prefill, which pads Sq and Sk to multiples of 128 with
 copies, the kernel takes any Sq and Sk and masks the ragged edge itself.
 """
@@ -184,6 +187,107 @@ def chunk_block_smem(d: int, bk: int, int8: bool = False) -> int:
     ds, hs, rs = d + 8, d // 2 + 8, RANK_CHUNK + 8
     elems = 2 * bk * ds + 2 * bk * hs + bk * rs + RANK_CHUNK * ds
     return 2 * elems + 4 * bk * d + ((2 * bk * d + 8 * bk) if int8 else 0)
+
+
+# The chunked prefill tile of #7 and of #5/#1 (``flash::ChunkPipe`` in
+# ``csrc/rank_chunk.cuh``): the q tiles of a (row, kv head) run as thread
+# block clusters of CLUSTER_CTAS CTAs (4 at tile width 256), which rebuild
+# each key block once between them, through a ring of up to CHUNK_STAGES
+# stages of rank chunks.
+CLUSTER_CTAS = 4
+CHUNK_STAGES = 3
+# rank columns per stage of the ring where a CTA owns at most 4 n-tile
+# pairs (64 columns), else RANK_CHUNK (``ChunkPrefill::W``)
+PIPE_CHUNK = 128
+
+
+def chunk_cluster_ctas(d: int) -> int:
+    """CTAs per cluster of the chunked prefill tile at head_dim ``d``
+    (``flash::cluster_ctas``): ``CLUSTER_CTAS``, and 4 at tile width 256,
+    where one CTA or two have no room for two stages."""
+    return 4 if tile_dim(d) > 128 else CLUSTER_CTAS
+
+
+def chunk_cluster_tile(ntiles: int, nc: int, slot: int,
+                       rank: int) -> Optional[int]:
+    """The q tile of CTA ``rank`` of cluster ``slot`` of a (row, kv head)
+    (``flash::chunk_cluster_tile``): slot 0 holds the latest tiles, the
+    heaviest under a causal mask; None for a padding CTA."""
+    tile = ntiles - 1 - (slot * nc + rank)
+    return tile if tile >= 0 else None
+
+
+def chunk_prefill_map(ntiles: int, hkv: int, bsz: int, nc: int):
+    """(b, kv head, q tile or None, cluster rank) of every CTA of a launch
+    of the chunked prefill tile, by block index, as the kernels read
+    ``blockIdx.x``: cluster-major (``nc`` consecutive blocks form a
+    cluster), the clusters of every (row, kv head) at one slot before the
+    next slot's."""
+    per = hkv * bsz
+    grid = -(-ntiles // nc) * per * nc
+    out = []
+    for blk in range(grid):
+        cl, rank = divmod(blk, nc)
+        slot, bh = divmod(cl, per)
+        b, h = divmod(bh, hkv)
+        out.append((b, h, chunk_cluster_tile(ntiles, nc, slot, rank), rank))
+    return out
+
+
+def chunk_rebuild_share(d: int, nc: int, rank: int):
+    """What CTA ``rank`` of a cluster of ``nc`` rebuilds of a key block at
+    head_dim ``d``: its kinds ("k", "v"; both, in turn, alone) and the
+    n-tile pairs j (tile columns 8j.. and 8j + D/2..) it owns."""
+    d = tile_dim(d)
+    per_kind = 1 if nc == 1 else nc // 2
+    p = d // 16 // per_kind
+    kinds = ("k", "v") if nc == 1 else (("k",) if rank < nc // 2 else ("v",))
+    p0 = 0 if nc == 1 else (rank % (nc // 2)) * p
+    return kinds, tuple(range(p0, p0 + p))
+
+
+def chunk_prefill_smem(d: int, dense: bool, int8: bool = False,
+                       nc: Optional[int] = None,
+                       stages: Optional[int] = None) -> int:
+    """Shared-memory bytes of one CTA of the chunked prefill tile
+    (``ChunkPrefill`` with the kernels' heads in the source): the head (#7:
+    the cluster's tile ranges in 64 bytes, 128 row positions; both: Q of
+    128 rows), the K/V tiles of a block (unpadded; two buffers in a
+    cluster), ``stages`` stages (default: as many as fit, up
+    to ``CHUNK_STAGES``) of a rank chunk's K_r (V_r) rows (``PIPE_CHUNK``
+    columns where the CTA owns at most 64 columns, else ``RANK_CHUNK``), B
+    rows of the CTA's own columns, and its base columns (int8 pages: code
+    rows and scales) and sin/cos columns, and 64 bytes of mbarriers.  Keys
+    per block: 32 at tile width 256 (#7), else 64; rows padded by 8
+    elements."""
+    d = tile_dim(d)
+    nc = chunk_cluster_ctas(d) if nc is None else nc
+    bk = 32 if d > 128 else 64
+    per_kind = 1 if nc == 1 else nc // 2
+    p = d // 16 // per_kind
+    w = PIPE_CHUNK if p <= 4 else RANK_CHUNK
+    ds, rs, cs, ts = d + 8, w + 8, 16 * p + 8, 8 * p + 8
+    stage = 2 * bk * rs + 2 * w * cs + (
+        bk * d + 4 * bk if int8 else 2 * bk * cs) + 4 * bk * ts
+    tiles = (1 if nc == 1 else 2) * 4 * bk * d      # group-major, no pad
+    head = 2 * MMA_ROWS * ds + (64 + 4 * MMA_ROWS if dense else 0)
+    bars = 64
+    if stages is None:
+        stages = CHUNK_STAGES
+        while stages > 2 and head + tiles + stages * stage + bars > \
+                SMEM_PER_CTA:
+            stages -= 1
+    return head + tiles + stages * stage + bars
+
+
+def chunk_prefill_stages(d: int, dense: bool, int8: bool = False,
+                         nc: Optional[int] = None) -> int:
+    """Stages of the chunked prefill tile's ring: the most up to
+    ``CHUNK_STAGES`` that fit the CTA (``ChunkPrefill::stages``), at
+    least 2."""
+    base = chunk_prefill_smem(d, dense, int8, nc, stages=0)
+    per = chunk_prefill_smem(d, dense, int8, nc, stages=1) - base
+    return max(2, min(CHUNK_STAGES, (SMEM_PER_CTA - base) // per))
 
 
 def scalar_smem(rows: int, tq: int, d: int, r: int,
