@@ -1295,10 +1295,11 @@ def dense_work(c):
 def compare_dense(ra, ref, c, tol):
     """The dense kernel against its plain version on ``c``; raises on a
     non-finite output or an error past ``tol`` (f32: absolute; bf16: a
-    share of the plain version's max |value|).  Every row of these cases
-    sees a key.  A bf16 prefill must have run the tensor-core kernel and a
-    bf16 decode the split-K decode (whose plan the record carries), an f32
-    launch the scalar kernel.  Returns the record to log."""
+    share of the plain version's max |value|).  A decode row at kv_len 0
+    must come back 0 and is not compared.  A bf16 prefill must have run
+    the tensor-core kernel and a bf16 decode the split-K decode (whose
+    plan the record carries), an f32 launch the scalar kernel.  Returns
+    the record to log."""
     before = dict(ra.LAUNCHES)
     got = dense_kernel_call(ra, c)()
     want = dense_plain_call(ref, c)()
@@ -1313,6 +1314,15 @@ def compare_dense(ra, ref, c, tol):
                              f"{launched(ra, before)}, not {kernel}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name} {c['label']}: non-finite output")
+    if c["kv_len"] is not None and c["decode"] and \
+            not torch.all(c["kv_len"] > 0):
+        # a decode row at kv_len 0 sees no key: the kernel gives 0, the
+        # plain version averages V there
+        live = c["kv_len"] > 0
+        if got[~live].abs().max().item() != 0.0:
+            raise AssertionError(f"{name} {c['label']}: a row at kv_len 0 "
+                                 f"is not 0")
+        got, want = got[live], want[live]
     err = (got.float() - want.float()).abs().max().item()
     ref_max = want.float().abs().max().item()
     limit = tol * ref_max if c["dtype"] == torch.bfloat16 else tol
@@ -1939,9 +1949,10 @@ RCHUNK_DENSE_EDGES = [
     ("D 120 3 tiles", (32, 8, D120, 128), 70, 100, [30, 0], [100, 70],
      True),
 ]
-# bf16 ms per launch before this redesign of the chunked prefills, on the
-# timed cases (rank 64: the RP 64 instances, PR 24 run B; ranks 128 and
-# 256: the chunked instances, PR 25 run B; NVIDIA H100 80GB HBM3, 700 W)
+# bf16 ms per launch before the redesigns of the chunked prefills and
+# decodes, on the timed cases (rank 64: the RP 64 instances; ranks 128 and
+# 256: the first chunked instances, K and V rebuilt per key block; NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md names the runs)
 RCHUNK_WAS_MS = {
     "paged_residual_attention_mixed": {64: 0.2818, 128: 0.6911, 256: 1.2665},
     "paged_residual_attention_decode": {64: 0.0682, 128: 0.2737,
@@ -1985,6 +1996,80 @@ def check_rchunk_edges(pra, ref, ra, quantize):
         log("dense_kernel_rchunk_edge", **rec, rank=heads[3], ok=True)
         n += 1
         del c
+    torch.cuda.empty_cache()
+    return n
+
+
+# The chunked decodes at the edges of their rank route (``DecodePipe`` in
+# csrc/rank_chunk.cuh), bf16, windows 0 and 300: rows at kv_len 0, 1, 17,
+# 64, 65 and 2128 (several CTAs per row: share and block boundaries) and
+# at 0, 1, 17 and 64 over a table of 64 keys (one CTA per row; #8's
+# one-range epilogue, no combine), #2 with bf16 and int8 pages at
+# Llama3-8B's, h2o-danube-3-4b's and D 32's heads and at D 64 with a
+# group of 16, #8 at D 128, 256, 120, 32 and at D 64 with a group of 32
+# (two head tiles), ranks 65, 128 and 256, and 512 (above the route: the
+# rebuild instance) at D 128.  A row at kv_len 0 must come back exactly 0
+# (the plain versions average V there; not compared).
+RDECODE_KV = {"several CTAs": [0, 1, 17, 64, 65, 2128],
+              "one CTA": [0, 1, 17, 64]}
+RDECODE_PAGED = [("D 128", LLAMA_GEOM, (65, 128, 256, 512)),
+                 ("D 120", DANUBE_GEOM, (65, 128, 256)),
+                 ("D 32", D32_GEOMS["D 32 G 4"], (65, 128, 256)),
+                 ("D 64 G 16", dict(hq=32, hkv=2, d=64, r=16, page=16),
+                  (65, 128, 256))]
+RDECODE_DENSE = [("D 128", (32, 8, 128), (65, 128, 256, 512)),
+                 ("D 256", (16, 1, 256), (65, 128, 256)),
+                 ("D 120", (32, 8, D120), (65, 128, 256)),
+                 ("D 32", (8, 2, 32), (65, 128, 256)),
+                 ("D 64 G 32", (32, 1, 64), (65, 128, 256))]
+
+
+def check_rchunk_decode_edges(pra, ref, ra, quantize):
+    """The chunked decodes at ``RDECODE_KV`` (``RDECODE_PAGED``,
+    ``RDECODE_DENSE``), bf16, windows 0 and 300, each against its plain
+    version and naming the ``_splitk_rchunk`` instance that ran (with the
+    plan's n_split); returns the cases run."""
+    n = 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (glabel, geom, ranks), (rows, kvl), window, quant in \
+            itertools.product(RDECODE_PAGED, RDECODE_KV.items(), (0, 300),
+                              (False, True)):
+        width = -(-max(kvl) // geom["page"])
+        for r in ranks:
+            name = "paged_residual_attention_decode" + (
+                "_int8" if quant else "")
+            c = make_case("decode", torch.bfloat16, window, seed=400 + r,
+                          quantize=quantize if quant else None,
+                          geom=dict(geom, r=r),
+                          start=[max(k - 1, 0) for k in kvl],
+                          qlen=[int(k > 0) for k in kvl], sq=1, width=width)
+            rec = compare(pra, ref, name, c, BF16_RTOL,
+                          f"decode edge {rows} rank {r} {glabel}")
+            if not rec["ran"].endswith("_splitk_rchunk"):
+                raise AssertionError(f"{name} rank {r}: ran {rec['ran']}")
+            rec["n_split"] = pra.res_split_plan(
+                len(kvl), geom["hq"], geom["hkv"], geom["d"], r, width,
+                geom["page"], quant, sms)["n_split"]
+            log("kernel_rchunk_decode_edge", **rec, rank=r, ok=True)
+            n += 1
+            del c
+    for (hl, heads, ranks), (rows, kvl), window in itertools.product(
+            RDECODE_DENSE, RDECODE_KV.items(), (0, 300)):
+        for r in ranks:
+            c = make_dense_case(f"decode edge {rows} {hl} R {r}",
+                                heads + (r,), 1, max(kvl),
+                                [max(k - 1, 0) for k in kvl], kvl,
+                                dtype=torch.bfloat16, window=window,
+                                seed=420 + r)
+            rec = compare_dense(ra, ref, c, BF16_RTOL)
+            if not rec["ran"].endswith("_splitk_rchunk"):
+                raise AssertionError(f"{c['label']}: ran {rec['ran']}")
+            rec["n_split"] = ra.decode_split_plan(
+                len(kvl), heads[0], heads[1], heads[2], r, max(kvl), window,
+                sms)["n_split"]
+            log("dense_kernel_rchunk_decode_edge", **rec, rank=r, ok=True)
+            n += 1
+            del c
     torch.cuda.empty_cache()
     return n
 
@@ -2042,6 +2127,7 @@ def check_rank_chunks(pra, ref, ra, quantize):
         del c
     torch.cuda.empty_cache()
     n += check_rchunk_edges(pra, ref, ra, quantize)
+    n += check_rchunk_decode_edges(pra, ref, ra, quantize)
     timed = []
     for r in (64,) + RCHUNK_RANKS[1:]:
         g = dict(LLAMA_GEOM, r=r)

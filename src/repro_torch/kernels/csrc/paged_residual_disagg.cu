@@ -9,8 +9,10 @@
 // paged_prefill_res_mma_kernel (bound by operations for long prefill rows;
 // #1 gives each row's q_len, #5 derives it); an f32 launch the scalar
 // template (paged_template.cuh).  Every launch of #2 runs a split-K
-// decode, in bf16 paged_decode_res_split_kernel (bound by bytes), in f32
-// the template share by share, then paged_decode_res_combine_kernel.
+// decode, in bf16 paged_decode_res_split_kernel (bound by bytes; above
+// rank 64 paged_decode_res_chunk_kernel on the rank route of
+// rank_chunk.cuh, above flash::kDecodeRankMax the rebuild instance), in
+// f32 the template share by share, then paged_decode_res_combine_kernel.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -973,20 +975,20 @@ paged_decode_res_split_kernel(Args a) {
   }
 }
 
-// The chunked instance of the split-K decode (#2): ranks above kRankChunk
-// (rank_chunk.cuh).  The grid, shares and workspace of the split kernel
-// above, but the CTA's 4 warps walk the union of their shares in 64-key
-// blocks together: per block all 128 threads rebuild K and V rank chunk by
-// chunk (flash::chunk_block; the warps share each B_k and B_v chunk, which
-// warps on shares of their own could not), then warp w takes keys 16 w ..
-// 16 w + 15 of the block: S = Q K^T for the 16 heads, the online softmax,
-// O += P V.  A warp's partial covers its keys of every block rather than
-// its own share; the combine needs only that the partials split the row's
-// keys, and V is rebuilt, so they carry no acc_r and the combine runs
-// with no rank (B_v is in V already).
+// The rebuild instance of the split-K decode (#2): ranks above
+// flash::kDecodeRankMax (rank_chunk.cuh).  The grid, shares and workspace
+// of the split kernel above, but the CTA's 4 warps walk the union of their
+// shares in 64-key blocks together: per block all 128 threads rebuild K
+// and V rank chunk by chunk (flash::chunk_block; the warps share each B_k
+// and B_v chunk, which warps on shares of their own could not), then warp
+// w takes keys 16 w .. 16 w + 15 of the block: S = Q K^T for the 16 heads,
+// the online softmax, O += P V.  A warp's partial covers its keys of every
+// block rather than its own share; the combine needs only that the
+// partials split the row's keys, and V is rebuilt, so they carry no acc_r
+// and the combine runs with no rank (B_v is in V already).
 template <int D, int DR, bool INT8>
 __global__ void __launch_bounds__(kThreads, 1)
-paged_decode_res_chunk_kernel(Args a) {
+paged_decode_res_rebuild_kernel(Args a) {
   using flash::bf16;
   constexpr int BK = kWarps * kKeys;
   using L = flash::ChunkBlock<D, BK, INT8>;
@@ -1091,16 +1093,109 @@ paged_decode_res_chunk_kernel(Args a) {
   }
 }
 
+// The chunked instance of the split-K decode (#2): ranks from kRankChunk
+// + 1 to flash::kDecodeRankMax, on flash::DecodePipe (rank_chunk.cuh).  The
+// grid and shares of the split kernel above; the CTA walks the union of
+// its kWarps shares in 64-key blocks, K rebuilt by keys with the sums in
+// registers, O and acc_r split by columns; no V tile is rebuilt and B_v is
+// never read here.  The CTA's partial (m, l, O, acc_r) goes to its first
+// share's row of the workspace and its other shares are written empty (l
+// 0), so the combine, which applies B_v at any rank, is unchanged in kind.
+template <int D, int DR, bool INT8, bool HOLD, int S>
+__global__ void __launch_bounds__(kThreads, 1)
+paged_decode_res_chunk_kernel(Args a) {
+  using flash::bf16;
+  using L = flash::DecodeChunk<D, INT8, HOLD, S>;
+  using C = flash::Cols<D, DR>;
+  constexpr int DS = L::DS;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  bf16* Qs = reinterpret_cast<bf16*>(dyn + L::kQ);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int b = blockIdx.z, G = a.hq / a.hkv, R = a.r, page = a.page;
+  const int nht = (G + kHeads - 1) / kHeads;
+  const int h = blockIdx.y / nht;
+  const int g0 = (blockIdx.y % nht) * kHeads;
+  const int ng = min(kHeads, G - g0);
+  const long head0 = (long)b * a.hq + (long)h * G + g0;
+  const long hd = (long)a.hkv * DR;
+  const int kvlen = a.kv_len[b];
+  const int first_share = (int)blockIdx.x * kWarps;
+  const Share cta(kvlen, a.w, page, a.window, a.n_split, first_share);
+  const int c_lo = cta.lo;
+  const int c_hi = min(cta.lo + kWarps * cta.per, min(kvlen, a.w * page));
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int e = tid; e < kHeads * C::kRow; e += kThreads) {
+    const int r = e / C::kRow, i = e % C::kRow;
+    const bool ok = r < ng;
+    C::row(Qs + r * DS, ok ? q + (head0 + r) * DR : q, i, ok);
+  }
+  const int* bt = a.bt_b + (long)b * a.w;
+  const int* btr = a.bt_r + (long)b * a.w;
+  const long b0 = (long)b * R * hd + (long)h * DR;
+  const flash::ChunkSrc src{
+      a.kb, a.vb, a.kb_s, a.vb_s, static_cast<const bf16*>(a.kr),
+      static_cast<const bf16*>(a.vr), static_cast<const bf16*>(a.bk) + b0,
+      static_cast<const bf16*>(a.bv) + b0, hd,
+      static_cast<const bf16*>(a.sin), static_cast<const bf16*>(a.cos), R};
+  auto tok = [&](int kpos) {
+    return ((long)bt[kpos / page] * page + kpos % page) * a.hkv + h;
+  };
+  auto res = [&](int kpos) {
+    return (long)btr[kpos / page] * page + kpos % page;
+  };
+  auto rope = [&](int kpos) { return (long)kpos; };
+  const flash::DecodePipe<D, DR, INT8, HOLD, S, decltype(tok),
+                          decltype(res), decltype(rope)>
+      pipe(dyn, src, c_lo, c_hi, tok, res, rope);
+  pipe.issue_held();
+  flash::cp_async_commit();
+  C::zero_gaps(Qs, kHeads, DS, tid, kThreads);
+  pipe.zero_gaps();
+  pipe.start();
+  flash::cp_async_wait<L::S - 1>();     // Q landed
+  __syncthreads();
+  uint32_t qf[D / 16][4];               // the CTA's 16 heads, every warp
+  flash::load_q<D>(qf, Qs, DS, lane);
+  auto qfrag = [&](int kk, uint32_t (&f)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = qf[kk][i];
+  };
+  float o[L::QD / 8][4], accr[2 * L::kNch][4], m[2], l[2], lsum[2];
+  pipe.run(o, accr, m, l, a.scale * flash::kLog2e, qfrag);
+
+  // the combine may launch now; it still waits for this grid to finish
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  pipe.row_sums(l, lsum);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = (lane >> 2) + 8 * hh;
+    if (r >= ng) continue;
+    const long row = (head0 + r) * a.n_split + first_share;
+    pipe.store_partial(o, accr, m, lsum, hh, row, a.ws_m, a.ws_l, a.ws_acc,
+                       a.ws_accr);
+    if (tid < 32 && (lane & 3) == 0)    // the CTA's other shares: weight 0
+      for (int k = 1; k < kWarps; ++k) {
+        a.ws_m[row + k] = flash::kNegInit;
+        a.ws_l[row + k] = 0.f;
+      }
+  }
+}
+
 // out[b, head] = (sum_s w_s acc_s + (sum_s w_s acc_r,s) . B_v[b, :, head's
 // kv head]) / max(sum_s w_s l_s, 1e-20), w_s = 2^(m_s - M) over the shares
-// with l_s > 0: one CTA per (row, head), threads over R, then over D.
+// with l_s > 0: one CTA per (row, head); the rank in chunks of kRankChunk
+// (threads over the chunk's merged acc_r in shared memory, then each
+// thread's output columns, kept in registers across chunks).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_res_combine_kernel(Args a) {
   // wait for the split kernel's grid and its writes
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  // a.r <= kRankChunk: the chunked instances launch it with no rank
-  __shared__ float accr[flash::kRankChunk];
+  __shared__ float merged[flash::kRankChunk];
+  constexpr int kCols = 2;                      // columns per thread a pass
   const long row = blockIdx.x;                  // b * Hq + head
   const int b = (int)(row / a.hq), head = (int)(row % a.hq);
   const int h = head / (a.hq / a.hkv);
@@ -1112,27 +1207,49 @@ paged_decode_res_combine_kernel(Args a) {
   float lsum = 0.f;
   for (int s = 0; s < a.n_split; ++s)
     if (l[s] > 0.f) lsum = fmaf(exp2f(m[s] - mx), l[s], lsum);
-  for (int rr = threadIdx.x; rr < a.r; rr += kThreads) {
-    float o = 0.f;
-    for (int s = 0; s < a.n_split; ++s)
-      if (l[s] > 0.f)
-        o = fmaf(exp2f(m[s] - mx),
-                 a.ws_accr[(row * a.n_split + s) * a.r + rr], o);
-    accr[rr] = o;
-  }
-  __syncthreads();
   const T* bv = static_cast<const T*>(a.bv) + (long)b * a.r * a.hkv * a.d +
                 (long)h * a.d;
-  for (int col = threadIdx.x; col < a.d; col += kThreads) {
-    float o = 0.f;
-    for (int s = 0; s < a.n_split; ++s)
-      if (l[s] > 0.f)
-        o = fmaf(exp2f(m[s] - mx),
-                 a.ws_acc[(row * a.n_split + s) * a.d + col], o);
-    for (int rr = 0; rr < a.r; ++rr)
-      o = fmaf(accr[rr], to_f32(bv[(long)rr * a.hkv * a.d + col]), o);
-    static_cast<T*>(a.out)[row * a.d + col] =
-        from_f32<T>(o / fmaxf(lsum, 1e-20f));
+  for (int cb = 0; cb < a.d; cb += kCols * kThreads) {
+    float o[kCols];
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int col = cb + threadIdx.x + i * kThreads;
+      o[i] = 0.f;
+      if (col < a.d)
+        for (int s = 0; s < a.n_split; ++s)
+          if (l[s] > 0.f)
+            o[i] = fmaf(exp2f(m[s] - mx),
+                        a.ws_acc[(row * a.n_split + s) * a.d + col], o[i]);
+    }
+    for (int r0 = 0; r0 < a.r; r0 += flash::kRankChunk) {
+      const int n = min(flash::kRankChunk, a.r - r0);
+      __syncthreads();                          // the chunk before read
+      for (int rr = threadIdx.x; rr < n; rr += kThreads) {
+        float v = 0.f;
+        for (int s = 0; s < a.n_split; ++s)
+          if (l[s] > 0.f)
+            v = fmaf(exp2f(m[s] - mx),
+                     a.ws_accr[(row * a.n_split + s) * a.r + r0 + rr], v);
+        merged[rr] = v;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int col = cb + threadIdx.x + i * kThreads;
+        if (col < a.d)
+          for (int rr = 0; rr < n; ++rr)
+            o[i] = fmaf(merged[rr],
+                        to_f32(bv[(long)(r0 + rr) * a.hkv * a.d + col]),
+                        o[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int col = cb + threadIdx.x + i * kThreads;
+      if (col < a.d)
+        static_cast<T*>(a.out)[row * a.d + col] =
+            from_f32<T>(o[i] / fmaxf(lsum, 1e-20f));
+    }
   }
 }
 
@@ -1173,12 +1290,13 @@ int launch(const Args& a, cudaStream_t stream) {
   return launch_combine<__nv_bfloat16>(a, stream);
 }
 
-// the chunked instance and the combine with no rank (V carries B_v)
+// the rebuild instance (above flash::kDecodeRankMax) and the combine with
+// no rank (V carries B_v)
 template <int D, int DR, bool INT8>
-int launch_chunk(const Args& a, cudaStream_t stream) {
+int launch_rebuild(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = (size_t)kHeads * (D + flash::kPad) * 2 +
                           flash::ChunkBlock<D, kWarps * kKeys, INT8>::kBytes;
-  auto kernel = paged_decode_res_chunk_kernel<D, DR, INT8>;
+  auto kernel = paged_decode_res_rebuild_kernel<D, DR, INT8>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1191,6 +1309,39 @@ int launch_chunk(const Args& a, cudaStream_t stream) {
   Args c = a;
   c.r = 0;
   return launch_combine<__nv_bfloat16>(c, stream);
+}
+
+// the chunked instance on the rank route and the combine with the rank
+template <int D, int DR, bool INT8, class L>
+int launch_route(const Args& a, cudaStream_t stream) {
+  const size_t smem = (size_t)L::kBytes + (size_t)L::held(a.r);
+  auto kernel = paged_decode_res_chunk_kernel<D, DR, INT8, L::kHold, L::S>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int G = a.hq / a.hkv;
+  const dim3 grid(a.n_split / kWarps, a.hkv * ((G + kHeads - 1) / kHeads),
+                  a.bsz);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_combine<__nv_bfloat16>(a, stream);
+}
+
+// ranks above kRankChunk: the rank route up to flash::kDecodeRankMax,
+// two CTAs per SM with 2 stages, B_k held where they still fit
+// (flash::kPagedTwoPerSm); the rebuild instance above
+template <int D, int DR, bool INT8>
+int launch_chunk(const Args& a, cudaStream_t stream) {
+  if (a.r > flash::kDecodeRankMax)
+    return launch_rebuild<D, DR, INT8>(a, stream);
+  if constexpr (flash::kDecodeHoldBk) {
+    using L = flash::DecodeChunkFor<D, INT8, true, 2>;
+    if (L::kBytes + L::held(a.r) <= flash::kPagedTwoPerSm)
+      return launch_route<D, DR, INT8, L>(a, stream);
+  }
+  return launch_route<D, DR, INT8, flash::DecodeChunkFor<D, INT8, false, 2>>(
+      a, stream);
 }
 
 // RP: the smallest instance (16, 32, 64) that holds the rank; above 64 the

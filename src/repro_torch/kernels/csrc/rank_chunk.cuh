@@ -1,27 +1,30 @@
 // LoRA ranks above kRankChunk (64) in the bf16 residual kernels for NVIDIA
 // Hopper (sm_90a).  Ranks up to 64 keep their RP 16/32/64 instances, which
 // hold B_k and B_v of RP rows on chip and a second accumulator O_r = P V_r
-// of RP columns; neither scales to any rank.  Here no buffer and no
-// accumulator grows with R: a key block's K and V tiles are rebuilt on
-// chip rank chunk by chunk, K = bf16(K_b + RoPE(sum_c K_r,c . B_k,c)) and
-// V = bf16(V_b + sum_c V_r,c . B_v,c) with the sums in f32 (rebuild_k's
-// rounding; the plain version's reconstruct rounds V there too), so P . V
-// needs no O_r and the split-K decodes' partials and combines carry no
-// rank columns.  Two forms:
-//   * ``chunk_block``: the key-block rebuild of the decodes' chunked
-//     instances, #2's paged_decode_res_chunk_kernel
+// of RP columns; neither scales to any rank.  Three forms:
+//   * ``chunk_block``: a key block's K and V tiles rebuilt on chip rank
+//     chunk by chunk, K = bf16(K_b + RoPE(sum_c K_r,c . B_k,c)) and V =
+//     bf16(V_b + sum_c V_r,c . B_v,c) with the sums in f32 (rebuild_k's
+//     rounding; the plain version's reconstruct rounds V there too), so P
+//     . V needs no O_r.  One chunk of K_r (V_r) columns, BK x 64, and of
+//     B_k (B_v) rows, 64 x D, in shared memory at a time; the f32 sums X
+//     (BK x D) in shared memory between chunks; one stage, every chunk
+//     waited for.  It serves the split-K decodes' chunked instances only
+//     above kDecodeRankMax, as #2's paged_decode_res_rebuild_kernel
 //     (paged_residual_disagg.cu) and #8's
-//     residual_attention_decode_chunk_kernel (residual_attention.cu).  One
-//     chunk of K_r (V_r) columns, BK x 64, and of B_k (B_v) rows, 64 x D,
-//     in shared memory at a time; the f32 sums X (BK x D) in shared memory
-//     between chunks (each thread reloads and stores back its own
-//     accumulator elements); one stage, every chunk waited for.
+//     residual_attention_decode_rebuild_kernel (residual_attention.cu),
+//     whose combines take no rank.
 //   * ``ChunkPipe``: the prefill tile of #7's residual_attention_chunk_
 //     kernel and of #5's and #1's paged_prefill_res_chunk_kernel (below).
-// Bound: a key block costs 4 BK R D MMA flops of rebuild against 4 BK rows
-// D for QK and PV per query tile, and reads B_k and B_v (2 R D bf16) per
-// block, from L2 after the first tile; the rank's columns of K_r and V_r
-// once per block.
+//   * ``DecodePipe``: the decodes' rank route up to kDecodeRankMax, #2's
+//     paged_decode_res_chunk_kernel and #8's
+//     residual_attention_decode_chunk_kernel (at the end): only K is
+//     rebuilt, acc_r carries V's rank columns to the combine.
+// Bound: a prefill's key block costs 4 BK R D MMA flops of rebuild against
+// 4 BK rows D for QK and PV per query tile; a decode's block 2 BK R D of
+// K's rebuild against 2 BK 16 (2 D + R) for QK, P V_b and P V_r of the 16
+// head rows.  B_k (and in chunk_block B_v) is read per block, from L2
+// after the first; the rank's columns of K_r and V_r once per block.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -948,6 +951,602 @@ struct ChunkPipe {
     cp_async_wait<0>();
     // no CTA leaves while a peer may still write to it
     if constexpr (NC > 1) cluster_sync();
+  }
+};
+
+// ---------------------------------------------------------------------
+// The chunked split-K decodes' rank route: #2's paged_decode_res_chunk_
+// kernel and #8's residual_attention_decode_chunk_kernel, ranks from
+// kRankChunk + 1 to kDecodeRankMax.  A decode has one query row per head,
+// so V is never rebuilt: O += P V_b and acc_r += P V_r (R columns), and
+// the combine (or #8's one-range epilogue) applies B_v once per row, as
+// the RP instances do.  A CTA is 4 warps over 16 query heads of one kv
+// head and walks its keys in blocks of 64:
+//   * K = bf16(K_b + RoPE(sum_c K_r,c . B_k,c)) is rebuilt by keys: warp w
+//     owns keys 16 w .. 16 w + 15 of the block, their f32 sums of all D
+//     columns in registers across the rank chunks (``chunk_block``'s
+//     chain: the same bits), and after the last chunk the rebuilt K pairs
+//     are the B fragments of S = Q K^T at once (the RP kernels' trick);
+//   * the warps' row maxima meet in shared memory, each warp writes its
+//     P (bf16) there, and O and acc_r are split by columns: warp w owns
+//     columns [w D/4, (w + 1) D/4) of O and columns 64 c + 16 w .. + 15 of
+//     acc_r for every rank chunk c, so no accumulator grows with R beyond
+//     R/8 registers a thread;
+//   * a cp.async ring of S stages carries (block, step) steps: a block's
+//     K steps bring a K_r chunk (BK x 64) and, streamed, the B_k chunk (64
+//     x D; HOLD: all of B_k stays on chip for the CTA's range), then its V
+//     steps one V_r chunk each; the block's K_b, sin and cos (``kbuf``)
+//     ride with its first K step and its V_b (``vbuf``) with its first V
+//     step, so each lands behind the steps before it.  Each thread copies
+//     the same key row (tid / 2) in every copy: the index maps run once
+//     per row and step.
+// The copies, not the MMAs, set the time (scripts/rank_chunk_variants.py
+// decode: issuing them is 44-53% of a CTA's cycles, K's MMAs 16-22%), so
+// each family takes what moves fewest bytes for its rows: #2 (ragged
+// rows, whose longest set the time through the splits per row) keeps two
+// CTAs per SM and holds B_k where they still fit (kPagedTwoPerSm), else
+// streams it, with 2 stages; #8 (even rows: the bytes per key set the
+// time) holds B_k with 3 stages wherever a CTA fits, else streams it with
+// 2 (``decode_chunk_plan`` in residual_attention.py mirrors both).
+// Shared memory: Q, P, the warps' maxima, the ring, kbuf, vbuf; held B_k
+// (whole chunks of rows) last.
+constexpr int kDecodeRankMax = 256;    // the largest rank of the route
+constexpr int kDecodeStages = 0;       // 0: each family's; else at most
+constexpr bool kDecodeHoldBk = true;   // B_k held where the family's rule
+                                       // lets it
+// a paged CTA's budget for two per SM: half an SM's 233,472 bytes, less
+// the card's 1 KB per CTA and the plan's 2 KB of block-table slices
+constexpr int kPagedTwoPerSm = 233472 / 2 - 1024 - 2048;
+
+template <int D, bool INT8, bool HOLD, int S_>
+struct DecodeChunk {
+  static constexpr int S = S_;                   // ring stages
+  static constexpr bool kHold = HOLD;           // B_k held on chip
+  static constexpr int BK = 64;                  // keys per block
+  static constexpr int kHeads = 16;              // query heads per CTA
+  static constexpr int NW = 4;                   // warps
+  static constexpr int kNch = kDecodeRankMax / kRankChunk;
+  static constexpr int DS = D + kPad, RS = kRankChunk + kPad,
+                       HS = D / 2 + kPad, PS = BK + kPad;
+  static constexpr int QD = D / NW;              // O columns per warp
+  // bytes
+  static constexpr int kQ = 0, kP = kQ + 2 * kHeads * DS,
+                       kMx = kP + 2 * kHeads * PS,
+                       kRing = kMx + 4 * NW * kHeads;
+  static constexpr int kStageB = 2 * BK * RS;    // a stage's B_k chunk
+  static constexpr int kStage = kStageB + (HOLD ? 0 : 2 * kRankChunk * DS);
+  // kbuf: the K_b tile (int8: codes, then scales), sin, cos; vbuf: the
+  // V_b tile (int8: codes, scales, then the bf16 tile they make)
+  static constexpr int kKb = INT8 ? BK * D + 4 * BK : 2 * BK * DS;
+  static constexpr int kTab = 2 * BK * HS;
+  static constexpr int kVb = INT8 ? BK * D + 4 * BK + 2 * BK * DS
+                                  : 2 * BK * DS;
+  static constexpr int bytes_at(int s) {
+    return kRing + s * kStage + kKb + 2 * kTab + kVb;
+  }
+  // at most ``want`` stages (kDecodeStages where set), as many as fit
+  static constexpr int stages(int want) {
+    int s = kDecodeStages ? kDecodeStages : want;
+    while (s > 1 && bytes_at(s) > kSmemPerCta) --s;
+    return s;
+  }
+  static constexpr int kKbuf = kRing + S * kStage, kSin = kKbuf + kKb,
+                       kCos = kSin + kTab, kVbuf = kCos + kTab,
+                       kVtile = kVbuf + (INT8 ? BK * D + 4 * BK : 0),
+                       kBytes = kVbuf + kVb;
+  // #8's one-range epilogue: acc_r in bf16 (16 x AS) over the ring, one
+  // B_v chunk (64 x DS) over kbuf
+  static constexpr int AS = kDecodeRankMax + kPad;
+  static_assert(S >= 1 && S <= 3, "a K step's kbuf lands behind S - 1 "
+                "steps of the block before (nch >= 2)");
+  static_assert(kBytes <= kSmemPerCta, "a CTA's shared memory");
+  static_assert(2 * kHeads * AS <= S * kStage, "acc_r over the ring");
+  static_assert(2 * kRankChunk * DS <= kKb + 2 * kTab, "B_v over kbuf");
+  static_assert(kKbuf % 16 == 0 && kVbuf % 16 == 0 && kVtile % 16 == 0 &&
+                    kBytes % 16 == 0,
+                "16-byte rows");
+  // the held B_k's bytes at rank R (rows padded to whole chunks)
+  static constexpr long held(int R) {
+    return HOLD ? 2l * ((R + kRankChunk - 1) / kRankChunk) * kRankChunk * DS
+                : 0;
+  }
+};
+
+// the instance with at most WANT stages (kDecodeStages where set), as many
+// as fit a CTA
+template <int D, bool INT8, bool HOLD, int WANT>
+using DecodeChunkFor =
+    DecodeChunk<D, INT8, HOLD, DecodeChunk<D, INT8, HOLD, 1>::stages(WANT)>;
+
+// c += A . B for one warp with A (16 x K) given as bf16 A fragments, B (K
+// x N) row-major in shared memory (``flash::product``'s B side)
+template <int K, int N>
+__device__ __forceinline__ void product_a(float (&c)[N / 8][4],
+                                          const uint32_t (&a)[K / 16][4],
+                                          const bf16* b, int bs, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const bf16* row =
+        b + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * bs;
+#pragma unroll
+    for (int n2 = 0; n2 < N / 16; ++n2) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, row + (lane >> 4) * 8 + n2 * 16);
+      mma(c[2 * n2], a[kk], bf[0], bf[1]);
+      mma(c[2 * n2 + 1], a[kk], bf[2], bf[3]);
+    }
+    if constexpr (N % 16 == 8) {
+      uint32_t bf[2];
+      ldmatrix_x2_trans(bf, row + N - 8);
+      mma(c[N / 8 - 1], a[kk], bf[0], bf[1]);
+    }
+  }
+}
+
+// the A fragments of a 16 x K bf16 tile in shared memory (stride ``as``)
+template <int K>
+__device__ __forceinline__ void load_a(uint32_t (&a)[K / 16][4],
+                                       const bf16* t, int as, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    ldmatrix_x4(a[kk], t + (lane & 15) * as + kk * 16 + (lane >> 4) * 8);
+}
+
+// One CTA's walk over its keys [lo, hi) of one (row, kv head); ``tok``,
+// ``res`` and ``rope`` as for chunk_block.  The caller commits its own
+// copies (Q, held B_k) first, zeroes the gap columns (``zero_gaps``),
+// then calls ``start`` and ``run``.
+template <int D, int DR, bool INT8, bool HOLD, int S_, class Tok, class Res,
+          class Rope>
+struct DecodePipe {
+  using L = DecodeChunk<D, INT8, HOLD, S_>;
+  using C = Cols<D, DR>;
+  static constexpr int S = L::S, BK = L::BK, DS = L::DS, RS = L::RS,
+                       HS = L::HS, PS = L::PS, QD = L::QD, kNch = L::kNch;
+  unsigned char* sm;
+  ChunkSrc s;
+  int lo, hi, nblocks, nch, steps, tid, warp, lane;
+  Tok tok;
+  Res res;
+  Rope rope;
+
+  __device__ DecodePipe(unsigned char* sm_, const ChunkSrc& s_, int lo_,
+                        int hi_, Tok tok_, Res res_, Rope rope_)
+      : sm(sm_), s(s_), lo(lo_), hi(hi_), tok(tok_), res(res_),
+        rope(rope_) {
+    nch = (s.R + kRankChunk - 1) / kRankChunk;
+    nblocks = lo < hi ? (hi - lo + BK - 1) / BK : 0;
+    steps = nblocks * 2 * nch;
+    tid = threadIdx.x;
+    warp = tid >> 5;
+    lane = tid & 31;
+  }
+
+  __device__ __forceinline__ bf16* held() const {
+    return reinterpret_cast<bf16*>(sm + L::kBytes);
+  }
+
+  // B_k's rows (HOLD), zero from R to the whole chunk
+  __device__ void issue_held() const {
+    if constexpr (HOLD) {
+      bf16* bk = held();
+      for (int e = tid; e < nch * kRankChunk * C::kRow; e += 32 * L::NW) {
+        const int rr = e / C::kRow, i = e % C::kRow;
+        const bool ok = rr < s.R;
+        C::row(bk + rr * DS, s.bk + (ok ? (long)rr * s.hd : 0), i, ok);
+      }
+    }
+  }
+
+  // the gap columns (DR < D) of every tile a copy never fills
+  __device__ void zero_gaps() const {
+    constexpr int NT = 32 * L::NW;
+    if constexpr (!HOLD)
+      for (int st = 0; st < S; ++st)
+        C::zero_gaps(reinterpret_cast<bf16*>(sm + L::kRing + st * L::kStage +
+                                             L::kStageB),
+                     kRankChunk, DS, tid, NT);
+    else
+      C::zero_gaps(held(), nch * kRankChunk, DS, tid, NT);
+    if constexpr (!INT8)
+      C::zero_gaps(reinterpret_cast<bf16*>(sm + L::kKbuf), BK, DS, tid, NT);
+    C::zero_gaps(reinterpret_cast<bf16*>(sm + L::kVtile), BK, DS, tid, NT);
+    C::zero_table_gaps(reinterpret_cast<bf16*>(sm + L::kSin), BK, HS, tid,
+                       NT);
+    C::zero_table_gaps(reinterpret_cast<bf16*>(sm + L::kCos), BK, HS, tid,
+                       NT);
+  }
+
+  // K_b (V_b when V) rows of key row t of block j0 into its buffer
+  template <bool V>
+  __device__ __forceinline__ void issue_base(int t, int kpos, bool ok,
+                                             int half) const {
+    unsigned char* buf = sm + (V ? L::kVbuf : L::kKbuf);
+    const long tk = ok ? tok(kpos) : 0;
+    if constexpr (!INT8) {
+      const bf16* kb = static_cast<const bf16*>(V ? s.vb : s.kb);
+      bf16* dst = reinterpret_cast<bf16*>(buf) + t * DS;
+      for (int i = half; i < C::kRow; i += 2)
+        C::row(dst, kb + tk * DR, i, ok);
+    } else {
+      const int8_t* kb = static_cast<const int8_t*>(V ? s.vb : s.kb);
+      for (int i = half; i < C::kCodeRow; i += 2)
+        C::codes(buf + t * D, kb + tk * DR, i, ok);
+      if (half == 0)
+        cp_async4(reinterpret_cast<float*>(buf + BK * D) + t,
+                  (V ? s.vb_s : s.kb_s) + tk, ok);
+    }
+  }
+
+  // Copies of step ``step``: block step / (2 nch), then K step c < nch or
+  // V step c - nch.  Thread tid takes key row tid / 2 (and B row tid / 2)
+  // and every other copy of it.
+  __device__ void issue(int step) const {
+    const int per = 2 * nch, blk = step / per, k = step % per;
+    const bool v = k >= nch;
+    const int c = v ? k - nch : k;
+    const int j0 = lo + blk * BK, r0 = c * kRankChunk, R = s.R;
+    unsigned char* st = sm + L::kRing + (step % S) * L::kStage;
+    bf16* rch = reinterpret_cast<bf16*>(st);
+    const int t = tid >> 1, half = tid & 1, kpos = j0 + t;
+    const bool ok = kpos < hi;
+    const bf16* r = v ? s.vr : s.kr;
+    const long row = ok ? res(kpos) * R : 0;
+    if (R % 8 == 0) {
+#pragma unroll
+      for (int g = half; g < kRankChunk / 8; g += 2) {
+        const bool okr = ok && r0 + 8 * g < R;
+        cp_async16(rch + t * RS + 8 * g, r + (okr ? row + r0 + 8 * g : 0),
+                   okr);
+      }
+    } else {            // rows of R elements are not 16-byte aligned
+      for (int cc = half * 32; cc < half * 32 + 32; ++cc)
+        rch[t * RS + cc] = ok && r0 + cc < R ? r[row + r0 + cc]
+                                             : __float2bfloat16(0.f);
+    }
+    if (!HOLD && !v) {  // rows r0 + t of B_k
+      bf16* bch = reinterpret_cast<bf16*>(st + L::kStageB) + t * DS;
+      const bool okb = r0 + t < R;
+      const bf16* src = s.bk + (okb ? (long)(r0 + t) * s.hd : 0);
+      for (int i = half; i < C::kRow; i += 2) C::row(bch, src, i, okb);
+    }
+    if (k == 0) {       // the block's K_b, sin and cos
+      issue_base<false>(t, kpos, ok, half);
+      const long rp = ok ? rope(kpos) * (DR / 2) : 0;
+      bf16* sn = reinterpret_cast<bf16*>(sm + L::kSin) + t * HS;
+      bf16* cs = reinterpret_cast<bf16*>(sm + L::kCos) + t * HS;
+      for (int i = half; i < C::kHalf; i += 2) {
+        C::half(sn, s.sin + rp, i, ok);
+        C::half(cs, s.cos + rp, i, ok);
+      }
+    }
+    if (k == nch) issue_base<true>(t, kpos, ok, half);
+  }
+
+  // the S - 1 first steps
+  __device__ void start() const {
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) {
+      if (i < steps) issue(i);
+      cp_async_commit();
+    }
+  }
+
+  // step ``t``'s copies landed and the stage the step before read free;
+  // step t + S - 1 issued into it
+  __device__ __forceinline__ void advance(int t) const {
+    if constexpr (S == 1) {
+      __syncthreads();
+      issue(t);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      cp_async_wait<S - 2>();
+      __syncthreads();
+      if (t + S - 1 < steps) issue(t + S - 1);
+      cp_async_commit();
+    }
+  }
+
+  // K step ``t`` (chunk c): the warp's 16 keys' sums of n-tile pairs (j, j
+  // + D/16) += K_r,c . B_k,c, the rank in order (chunk_block's chain)
+  __device__ __forceinline__ void multiply(int t, int c,
+                                           float (&x1)[D / 16][4],
+                                           float (&x2)[D / 16][4]) const {
+    const unsigned char* st = sm + L::kRing + (t % S) * L::kStage;
+    const bf16* rch = reinterpret_cast<const bf16*>(st) + 16 * warp * RS;
+    const bf16* bch =
+        HOLD ? held() + c * kRankChunk * DS
+             : reinterpret_cast<const bf16*>(st + L::kStageB);
+#pragma unroll
+    for (int kk = 0; kk < kRankChunk / 16; ++kk) {
+      uint32_t af[4];
+      ldmatrix_x4(af, rch + (lane & 15) * RS + kk * 16 + (lane >> 4) * 8);
+      const bf16* row =
+          bch + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DS +
+          (lane >> 4) * 8;
+#pragma unroll
+      for (int n2 = 0; n2 < D / 32; ++n2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, row + 16 * n2);
+        mma(x1[2 * n2], af, b[0], b[1]);
+        mma(x1[2 * n2 + 1], af, b[2], b[3]);
+        ldmatrix_x4_trans(b, row + D / 2 + 16 * n2);
+        mma(x2[2 * n2], af, b[0], b[1]);
+        mma(x2[2 * n2 + 1], af, b[2], b[3]);
+      }
+    }
+  }
+
+  // K = bf16(K_b + RoPE(sums)) of the warp's keys as the B fragments of S
+  // = Q K^T (16 heads x 16 keys), 4 n-tiles at a time
+  template <class QFrag>
+  __device__ __forceinline__ void scores(float (&sc)[2][4],
+                                         const float (&x1)[D / 16][4],
+                                         const float (&x2)[D / 16][4],
+                                         QFrag qfrag) const {
+    const bf16* sn = reinterpret_cast<const bf16*>(sm + L::kSin);
+    const bf16* cs = reinterpret_cast<const bf16*>(sm + L::kCos);
+    const unsigned char* kb = sm + L::kKbuf;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      uint32_t kf[4][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * i + jj;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int t = 16 * warp + (lane >> 2) + 8 * hh;
+          const int col = 8 * j + 2 * (lane & 3);
+          const float2 s2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(sn + t * HS + col));
+          const float2 c2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(cs + t * HS + col));
+          float2 b1, b2;
+          if constexpr (INT8) {
+            const unsigned char* codes = kb + t * D;
+            const float scl = reinterpret_cast<const float*>(kb + BK * D)[t];
+            // bf16(code * scale), as dequantize_cols rounds; zero in a gap
+            auto deq = [&](int cc) {
+              const int e = C::elem(cc);
+              if (e < 0) return make_float2(0.f, 0.f);
+              return __bfloat1622float2(__floats2bfloat162_rn(
+                  __fmul_rn((float)(int8_t)codes[e], scl),
+                  __fmul_rn((float)(int8_t)codes[e + 1], scl)));
+            };
+            b1 = deq(col);
+            b2 = deq(col + D / 2);
+          } else {
+            const bf16* row = reinterpret_cast<const bf16*>(kb) + t * DS;
+            b1 = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(row + col));
+            b2 = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(row + col + D / 2));
+          }
+          // rebuild_k's f32 operations, uncontracted
+          kf[jj][hh] = pack_bf16(
+              b1.x + rot(x1[j][2 * hh], c2.x, x2[j][2 * hh], -s2.x),
+              b1.y + rot(x1[j][2 * hh + 1], c2.y, x2[j][2 * hh + 1], -s2.y));
+          kf[2 + jj][hh] = pack_bf16(
+              b2.x + rot(x2[j][2 * hh], c2.x, x1[j][2 * hh], s2.x),
+              b2.y + rot(x2[j][2 * hh + 1], c2.y, x1[j][2 * hh + 1], s2.y));
+        }
+      }
+      uint32_t qa[4];
+      qfrag(i, qa);
+      mma(sc[0], qa, kf[0][0], kf[1][0]);
+      mma(sc[1], qa, kf[0][1], kf[1][1]);
+      qfrag(i + D / 32, qa);
+      mma(sc[0], qa, kf[2][0], kf[3][0]);
+      mma(sc[1], qa, kf[2][1], kf[3][1]);
+    }
+  }
+
+  // The whole range: O (the warp's QD columns), acc_r (the warp's 16
+  // columns of each rank chunk), the running max m (the same in every
+  // warp) and the thread's partial row sums l (over the warp's keys).
+  template <class QFrag>
+  __device__ void run(float (&o)[QD / 8][4], float (&accr)[2 * kNch][4],
+                      float (&m)[2], float (&l)[2], float scale_log2,
+                      QFrag qfrag) const {
+#pragma unroll
+    for (int n = 0; n < QD / 8; ++n)
+      o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+    for (int n = 0; n < 2 * kNch; ++n)
+      accr[n][0] = accr[n][1] = accr[n][2] = accr[n][3] = 0.f;
+    m[0] = m[1] = kNegInit;
+    l[0] = l[1] = 0.f;
+    float* mxs = reinterpret_cast<float*>(sm + L::kMx);
+    bf16* ps = reinterpret_cast<bf16*>(sm + L::kP);
+    const int c0 = warp * QD;
+    int t = 0;
+    for (int blk = 0; blk < nblocks; ++blk) {
+      float x1[D / 16][4], x2[D / 16][4];
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x1[j][e] = x2[j][e] = 0.f;
+      for (int c = 0; c < nch; ++c, ++t) {
+        advance(t);
+        multiply(t, c, x1, x2);
+      }
+      float sc[2][4];
+      scores(sc, x1, x2, qfrag);
+      const int k0 = lo + blk * BK + 16 * warp;
+      if (k0 + 16 > hi) {
+        const int pos[2] = {0, 0};              // not read: no causal mask
+        mask<16>(sc, k0, pos, hi, false, 0, lane);
+      }
+      // the block's row maxima over the 4 warps, then softmax_step's
+      // arithmetic with them
+      float mx[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = -CUDART_INF_F;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          mx[h] = fmaxf(mx[h], fmaxf(sc[n][2 * h], sc[n][2 * h + 1]));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        if ((lane & 3) == 0) mxs[warp * 16 + (lane >> 2) + 8 * h] = mx[h];
+      }
+      __syncthreads();
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (lane >> 2) + 8 * h;
+        float bm = -CUDART_INF_F;
+#pragma unroll
+        for (int w = 0; w < L::NW; ++w) bm = fmaxf(bm, mxs[w * 16 + r]);
+        const float m_new = fmaxf(m[h], bm * scale_log2);
+        alpha[h] = exp2f(m[h] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(fmaf(sc[n][2 * h + e], scale_log2, -m_new));
+            sc[n][2 * h + e] = p;
+            sum += p;
+          }
+        l[h] = l[h] * alpha[h] + sum;
+        m[h] = m_new;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          *reinterpret_cast<uint32_t*>(ps + r * PS + 16 * warp + 8 * n +
+                                       2 * (lane & 3)) =
+              pack_bf16(sc[n][2 * h], sc[n][2 * h + 1]);
+      }
+      rescale<QD / 8>(o, alpha);
+      rescale<2 * kNch>(accr, alpha);
+      // V steps: O += P V_b at the first, acc_r += P V_r,c at each
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int c = 0; c < kNch; ++c) {
+        if (c >= nch) break;
+        advance(t);
+        if (c == 0) {
+          if constexpr (INT8) {     // bf16(code * scale) into the V tile
+            dequantize_cols<D, DR>(
+                sm + L::kVbuf,
+                reinterpret_cast<const float*>(sm + L::kVbuf + BK * D),
+                reinterpret_cast<bf16*>(sm + L::kVtile), DS, BK, tid,
+                32 * L::NW);
+            __syncthreads();
+          }
+          load_a<BK>(pa, ps, PS, lane);
+          product_a<BK, QD>(o, pa,
+                            reinterpret_cast<const bf16*>(sm + L::kVtile) +
+                                c0,
+                            DS, lane);
+        }
+        const bf16* vr = reinterpret_cast<const bf16*>(
+                             sm + L::kRing + (t % S) * L::kStage) +
+                         16 * warp;
+        float pr[2][4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pr[0][e] = accr[2 * c][e];
+          pr[1][e] = accr[2 * c + 1][e];
+        }
+        product_a<BK, 16>(pr, pa, vr, RS, lane);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          accr[2 * c][e] = pr[0][e];
+          accr[2 * c + 1][e] = pr[1][e];
+        }
+        ++t;
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // sum_w l_w of the thread's two rows (after ``run``; uses the maxima's
+  // buffer)
+  __device__ void row_sums(float (&l)[2], float (&lsum)[2]) const {
+    float* buf = reinterpret_cast<float*>(sm + L::kMx);
+    finish_rowsum(l);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if ((lane & 3) == 0) buf[warp * 16 + (lane >> 2) + 8 * h] = l[h];
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lsum[h] = 0.f;
+#pragma unroll
+      for (int w = 0; w < L::NW; ++w)
+        lsum[h] += buf[w * 16 + (lane >> 2) + 8 * h];
+    }
+  }
+
+  // The partial of head row r of this CTA into the workspace row ``row``:
+  // m, l (from lane % 4 == 0 of warp 0), the warp's DR-real O columns and
+  // its acc_r columns below R
+  __device__ void store_partial(const float (&o)[QD / 8][4],
+                                const float (&accr)[2 * kNch][4],
+                                const float (&m)[2], const float (&lsum)[2],
+                                int hh, long row, float* ws_m, float* ws_l,
+                                float* ws_acc, float* ws_accr) const {
+    if (warp == 0 && (lane & 3) == 0) {
+      ws_m[row] = m[hh];
+      ws_l[row] = lsum[hh];
+    }
+#pragma unroll
+    for (int n = 0; n < QD / 8; ++n) {
+      // a pair never straddles a gap
+      const int e = C::elem(warp * QD + 8 * n + 2 * (lane & 3));
+      if (e >= 0)
+        *reinterpret_cast<float2*>(ws_acc + row * DR + e) =
+            make_float2(o[n][2 * hh], o[n][2 * hh + 1]);
+    }
+#pragma unroll
+    for (int c = 0; c < kNch; ++c)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c * kRankChunk + 16 * warp + 8 * n +
+                          2 * (lane & 3) + e;
+          if (col < s.R) ws_accr[row * s.R + col] = accr[2 * c + n][2 * hh + e];
+        }
+  }
+
+  // #8's one range: O + bf16(acc_r) . B_v over the warp's QD columns, the
+  // rank in chunks of 64 (B_v rows through kbuf), as the MMA's f32 sums
+  __device__ void apply_bv(float (&o)[QD / 8][4],
+                           const float (&accr)[2 * kNch][4]) const {
+    bf16* ar = reinterpret_cast<bf16*>(sm + L::kRing);
+    bf16* bv = reinterpret_cast<bf16*>(sm + L::kKbuf);
+#pragma unroll
+    for (int c = 0; c < kNch; ++c)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<uint32_t*>(
+              ar + ((lane >> 2) + 8 * hh) * L::AS + c * kRankChunk +
+              16 * warp + 8 * n + 2 * (lane & 3)) =
+              pack_bf16(accr[2 * c + n][2 * hh], accr[2 * c + n][2 * hh + 1]);
+    C::zero_gaps(bv, kRankChunk, DS, tid, 32 * L::NW);
+    for (int c = 0; c < nch; ++c) {
+      __syncthreads();                  // the chunk before read
+      const int t = tid >> 1, half = tid & 1, rr = c * kRankChunk + t;
+      const bool ok = rr < s.R;
+      const bf16* src = s.bv + (ok ? (long)rr * s.hd : 0);
+      for (int i = half; i < C::kRow; i += 2)
+        C::row(bv + t * DS, src, i, ok);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      uint32_t af[kRankChunk / 16][4];
+      load_a<kRankChunk>(af, ar + c * kRankChunk, L::AS, lane);
+      product_a<kRankChunk, QD>(o, af, bv + warp * QD, DS, lane);
+    }
   }
 };
 

@@ -1371,11 +1371,13 @@ residual_attention_decode_split_kernel(Args a) {
 
 // out[b, head] = (sum_s w_s acc_s + bf16(sum_s w_s acc_r,s) . B_v[b, :,
 // head's kv head]) / max(sum_s w_s l_s, 1e-20), w_s = 2^(m_s - M) over the
-// ranges with l_s > 0: one CTA per (row, head), threads over R, then D.
+// ranges with l_s > 0: one CTA per (row, head); the rank in chunks of
+// kRankChunk (threads over the chunk's merged acc_r in shared memory,
+// then each thread's output columns, kept in registers across chunks).
 __global__ void __launch_bounds__(kThreads)
 residual_attention_decode_combine_kernel(Args a) {
-  // a.r <= kRankChunk: the chunked instance launches it with no rank
-  __shared__ float accr[flash::kRankChunk];
+  __shared__ float merged[flash::kRankChunk];
+  constexpr int kCols = 2;                      // D <= kCols * kThreads
   const long row = blockIdx.x;                  // b * Hq + head
   const int b = (int)(row / a.hq), head = (int)(row % a.hq);
   const int h = head / (a.hq / a.hkv);
@@ -1387,43 +1389,63 @@ residual_attention_decode_combine_kernel(Args a) {
   float lsum = 0.f;
   for (int s = 0; s < a.n_split; ++s)
     if (l[s] > 0.f) lsum = fmaf(exp2f(m[s] - mx), l[s], lsum);
-  for (int rr = threadIdx.x; rr < a.r; rr += kThreads) {
-    float o = 0.f;
-    for (int s = 0; s < a.n_split; ++s)
-      if (l[s] > 0.f)
-        o = fmaf(exp2f(m[s] - mx),
-                 a.ws_accr[(row * a.n_split + s) * a.r + rr], o);
-    accr[rr] = __bfloat162float(__float2bfloat16(o));
-  }
-  __syncthreads();
   const __nv_bfloat16* bv = static_cast<const __nv_bfloat16*>(a.bv) +
                             (long)b * a.r * a.hkv * a.d + (long)h * a.d;
-  for (int col = threadIdx.x; col < a.d; col += kThreads) {
-    float o = 0.f;
-    for (int s = 0; s < a.n_split; ++s)
-      if (l[s] > 0.f)
-        o = fmaf(exp2f(m[s] - mx),
-                 a.ws_acc[(row * a.n_split + s) * a.d + col], o);
-    for (int rr = 0; rr < a.r; ++rr)
-      o = fmaf(accr[rr], __bfloat162float(bv[(long)rr * a.hkv * a.d + col]),
-               o);
-    static_cast<__nv_bfloat16*>(a.out)[row * a.d + col] =
-        __float2bfloat16(o / fmaxf(lsum, 1e-20f));
+  float o[kCols];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const int col = threadIdx.x + i * kThreads;
+    o[i] = 0.f;
+    if (col < a.d)
+      for (int s = 0; s < a.n_split; ++s)
+        if (l[s] > 0.f)
+          o[i] = fmaf(exp2f(m[s] - mx),
+                      a.ws_acc[(row * a.n_split + s) * a.d + col], o[i]);
+  }
+  for (int r0 = 0; r0 < a.r; r0 += flash::kRankChunk) {
+    const int n = min(flash::kRankChunk, a.r - r0);
+    __syncthreads();                            // the chunk before read
+    for (int rr = threadIdx.x; rr < n; rr += kThreads) {
+      float v = 0.f;
+      for (int s = 0; s < a.n_split; ++s)
+        if (l[s] > 0.f)
+          v = fmaf(exp2f(m[s] - mx),
+                   a.ws_accr[(row * a.n_split + s) * a.r + r0 + rr], v);
+      merged[rr] = __bfloat162float(__float2bfloat16(v));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int col = threadIdx.x + i * kThreads;
+      if (col < a.d)
+        for (int rr = 0; rr < n; ++rr)
+          o[i] = fmaf(merged[rr],
+                      __bfloat162float(bv[(long)(r0 + rr) * a.hkv * a.d +
+                                          col]),
+                      o[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const int col = threadIdx.x + i * kThreads;
+    if (col < a.d)
+      static_cast<__nv_bfloat16*>(a.out)[row * a.d + col] =
+          __float2bfloat16(o[i] / fmaxf(lsum, 1e-20f));
   }
 }
 
-// The chunked instance of the split-K decode: ranks above kRankChunk
-// (rank_chunk.cuh).  The grid, ranges and workspace of the split kernel
-// above; the CTA walks its range in 64-key blocks, all 4 warps rebuilding
-// K and V of a block rank chunk by chunk (flash::chunk_block), then warp w
-// takes keys 16 w .. 16 w + 15 of it (the split kernel's steps w, w + 4,
-// ...): S for the 16 heads, the online softmax, O += P V.  The warps'
-// partials merge in shared memory as above, with no O_r: V is rebuilt, so
-// one range finishes as O / max(l, 1e-20), and several go to the
-// workspace for the combine, launched with no rank.
+// The rebuild instance of the split-K decode: ranks above
+// flash::kDecodeRankMax (rank_chunk.cuh).  The grid, ranges and workspace
+// of the split kernel above; the CTA walks its range in 64-key blocks, all
+// 4 warps rebuilding K and V of a block rank chunk by chunk
+// (flash::chunk_block), then warp w takes keys 16 w .. 16 w + 15 of it
+// (the split kernel's steps w, w + 4, ...): S for the 16 heads, the online
+// softmax, O += P V.  The warps' partials merge in shared memory as above,
+// with no O_r: V is rebuilt, so one range finishes as O / max(l, 1e-20),
+// and several go to the workspace for the combine, launched with no rank.
 template <int D, int DR>
 __global__ void __launch_bounds__(kThreads, 1)
-residual_attention_decode_chunk_kernel(Args a) {
+residual_attention_decode_rebuild_kernel(Args a) {
   using flash::bf16;
   constexpr int BK = kRangeKeys;
   using L = flash::ChunkBlock<D, BK, false>;
@@ -1549,15 +1571,108 @@ residual_attention_decode_chunk_kernel(Args a) {
   }
 }
 
+// The chunked instance of the split-K decode: ranks from kRankChunk + 1 to
+// flash::kDecodeRankMax, on flash::DecodePipe (rank_chunk.cuh).  The grid,
+// ranges and workspace of the split kernel above; the CTA walks its range
+// in 64-key blocks, K rebuilt by keys with the sums in registers, O and
+// acc_r split by columns, no V tile rebuilt and B_v never read per block.
+// One range (n_split 1) finishes here as the RP kernel does: O +
+// bf16(acc_r) . B_v as MMAs (B_v rows by rank chunk) over max(l, 1e-20);
+// several write the CTA's partial to the workspace for the combine.
+template <int D, int DR, bool HOLD, int S>
+__global__ void __launch_bounds__(kThreads, 1)
+residual_attention_decode_chunk_kernel(Args a) {
+  using flash::bf16;
+  using L = flash::DecodeChunk<D, false, HOLD, S>;
+  using C = flash::Cols<D, DR>;
+  constexpr int DS = L::DS;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  bf16* Qs = reinterpret_cast<bf16*>(dyn + L::kQ);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.z, G = a.hq / a.hkv, R = a.r;
+  const int nht = (G + kHeads - 1) / kHeads;
+  const int h = blockIdx.y / nht;
+  const int g0 = (blockIdx.y % nht) * kHeads;
+  const int ng = min(kHeads, G - g0);
+  const long head0 = (long)b * a.hq + (long)h * G + g0;
+  const long hd = (long)a.hkv * DR;
+  const Range range(a, b, blockIdx.x);
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int e = tid; e < kHeads * C::kRow; e += kThreads) {
+    const int r = e / C::kRow, i = e % C::kRow;
+    const bool ok = r < ng;
+    C::row(Qs + r * DS, ok ? q + (head0 + r) * DR : q, i, ok);
+  }
+  const long tok0 = (long)b * a.sk;                 // row b's first key
+  const long b0 = (long)b * R * hd + (long)h * DR;
+  const flash::ChunkSrc src{
+      a.kb, a.vb, nullptr, nullptr, static_cast<const bf16*>(a.kr),
+      static_cast<const bf16*>(a.vr), static_cast<const bf16*>(a.bk) + b0,
+      static_cast<const bf16*>(a.bv) + b0, hd,
+      static_cast<const bf16*>(a.sin), static_cast<const bf16*>(a.cos), R};
+  auto tok = [&](int kpos) { return (tok0 + kpos) * a.hkv + h; };
+  auto res = [&](int kpos) { return tok0 + kpos; };
+  const flash::DecodePipe<D, DR, false, HOLD, S, decltype(tok),
+                          decltype(res), decltype(res)>
+      pipe(dyn, src, range.lo, range.hi, tok, res, res);
+  pipe.issue_held();
+  flash::cp_async_commit();
+  C::zero_gaps(Qs, kHeads, DS, tid, kThreads);
+  pipe.zero_gaps();
+  pipe.start();
+  flash::cp_async_wait<L::S - 1>();                 // Q landed
+  __syncthreads();
+  // Q's A fragments: in registers up to D 128, else read per use
+  constexpr bool kQRegs = D <= 128;
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  if constexpr (kQRegs) flash::load_q<D>(qf, Qs, DS, lane);
+  auto qfrag = [&](int kk, uint32_t (&f)[4]) {
+    if constexpr (kQRegs) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[i] = qf[kk][i];
+    } else {
+      flash::ldmatrix_x4(f, Qs + (lane & 15) * DS + kk * 16 + (lane >> 4) * 8);
+    }
+  };
+  float o[L::QD / 8][4], accr[2 * L::kNch][4], m[2], l[2], lsum[2];
+  pipe.run(o, accr, m, l, a.scale * flash::kLog2e, qfrag);
+  pipe.row_sums(l, lsum);
+
+  if (a.n_split == 1) {
+    pipe.apply_bv(o, accr);
+    bf16* out = static_cast<bf16*>(a.out);
+    bf16* dst[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = (lane >> 2) + 8 * hh;
+      dst[hh] = r < ng ? out + (head0 + r) * DR : nullptr;
+    }
+    flash::store_cols<L::QD, D, DR>(o, lsum, dst, warp * L::QD, lane);
+    return;
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = (lane >> 2) + 8 * hh;
+    if (r >= ng) continue;
+    pipe.store_partial(o, accr, m, lsum, hh,
+                       (head0 + r) * a.n_split + blockIdx.x, a.ws_m, a.ws_l,
+                       a.ws_acc, a.ws_accr);
+  }
+}
+
+// the rebuild instance (above flash::kDecodeRankMax) and the combine with
+// no rank (V carries B_v)
 template <int D, int DR>
-int launch_chunk(const Args& a, cudaStream_t stream) {
+int launch_rebuild(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = (size_t)kHeads * (D + flash::kPad) * 2 +
                           flash::ChunkBlock<D, kRangeKeys, false>::kBytes;
   static_assert(smem <= 232448, "a CTA's shared memory on the H100");
   static_assert(4 * kWarps * (2 * kHeads + kHeads * D) <=
                     flash::ChunkBlock<D, kRangeKeys, false>::kBytes,
                 "the warps' partials fit over the key block");
-  auto kernel = residual_attention_decode_chunk_kernel<D, DR>;
+  auto kernel = residual_attention_decode_rebuild_kernel<D, DR>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1571,6 +1686,40 @@ int launch_chunk(const Args& a, cudaStream_t stream) {
   residual_attention_decode_combine_kernel<<<(unsigned)((long)a.bsz * a.hq),
                                              kThreads, 0, stream>>>(c);
   return (int)cudaGetLastError();
+}
+
+// the chunked instance on the rank route and the combine with the rank
+template <int D, int DR, class L>
+int launch_route(const Args& a, cudaStream_t stream) {
+  const size_t smem = (size_t)L::kBytes + (size_t)L::held(a.r);
+  auto kernel = residual_attention_decode_chunk_kernel<D, DR, L::kHold,
+                                                       L::S>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int G = a.hq / a.hkv;
+  const dim3 grid(a.n_split, a.hkv * ((G + kHeads - 1) / kHeads), a.bsz);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return (int)err;
+  residual_attention_decode_combine_kernel<<<(unsigned)((long)a.bsz * a.hq),
+                                             kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ranks above kRankChunk: the rank route up to flash::kDecodeRankMax, B_k
+// held with 3 stages where a CTA fits, else streamed with 2; the rebuild
+// instance above
+template <int D, int DR>
+int launch_chunk(const Args& a, cudaStream_t stream) {
+  if (a.r > flash::kDecodeRankMax) return launch_rebuild<D, DR>(a, stream);
+  if constexpr (flash::kDecodeHoldBk) {
+    using L = flash::DecodeChunkFor<D, false, true, 3>;
+    if (L::kBytes + L::held(a.r) <= flash::kSmemPerCta)
+      return launch_route<D, DR, L>(a, stream);
+  }
+  return launch_route<D, DR, flash::DecodeChunkFor<D, false, false, 2>>(
+      a, stream);
 }
 
 template <int D, int RP, int DR>

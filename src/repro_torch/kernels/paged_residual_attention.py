@@ -409,10 +409,13 @@ def res_split_smem(d: int, r: int, int8: bool) -> int:
     ``splitk_res`` in the source): B_k (RP rows), and per warp two stages
     of 16 keys' K, V, K_r, V_r and RoPE rows (+ a bf16 V tile for int8
     pages).  Rows are padded by 8 elements; at the tile's width
-    (``residual_attention.tile_dim``).  Above ``RANK_CHUNK``: Q's 16 rows
-    and one 64-key block of the chunked instance
-    (``residual_attention.chunk_block_smem``)."""
+    (``residual_attention.tile_dim``).  Above ``RANK_CHUNK``: the rank
+    route (``residual_attention.decode_chunk_plan``) up to
+    ``DECODE_RANK_MAX``, above it Q's 16 rows and one 64-key block of the
+    rebuild instance (``residual_attention.chunk_block_smem``)."""
     d = ra.tile_dim(d)
+    if ra.decode_route(r):
+        return ra.decode_chunk_plan(d, r, int8, dense=False)["bytes"]
     if ra.rank_chunked(r):
         return 2 * RES_SPLIT_HEADS * (d + 8) + ra.chunk_block_smem(
             d, RES_SPLIT_KEYS * RES_SPLIT_WARPS, int8)

@@ -179,14 +179,89 @@ def rank_chunked(r: int) -> bool:
 
 
 def chunk_block_smem(d: int, bk: int, int8: bool = False) -> int:
-    """Shared-memory bytes of the chunked instances' key block of ``bk``
-    keys at tile width ``d`` (``flash::ChunkBlock``): bf16 K and V tiles,
+    """Shared-memory bytes of the decodes' rebuild instances' key block of
+    ``bk`` keys at tile width ``d`` (``flash::ChunkBlock``, ranks above
+    DECODE_RANK_MAX): bf16 K and V tiles,
     sin and cos rows, one chunk of K_r or V_r and one of B_k or B_v rows
     (rows padded by 8), the f32 sums (bk x d), and for int8 pages the
     block's codes and scales."""
     ds, hs, rs = d + 8, d // 2 + 8, RANK_CHUNK + 8
     elems = 2 * bk * ds + 2 * bk * hs + bk * rs + RANK_CHUNK * ds
     return 2 * elems + 4 * bk * d + ((2 * bk * d + 8 * bk) if int8 else 0)
+
+
+# The split-K decodes' rank route above RANK_CHUNK (``flash::DecodePipe`` in
+# ``csrc/rank_chunk.cuh``), up to DECODE_RANK_MAX: K rebuilt by keys with
+# the sums in registers, P through shared memory, O and acc_r split by
+# columns (R/8 f32 registers a thread at most); a ring of rank chunks.
+# Its copies set the time, so each family moves what fewest bytes its rows
+# allow (``decode_chunk_plan``): #2 keeps two CTAs per SM (2 stages; B_k
+# held on chip where they still fit, PAGED_TWO_PER_SM, else streamed
+# through the ring), #8 holds B_k with 3 stages wherever a CTA fits, else
+# streams it with 2.  DECODE_STAGES, where not 0, caps both;
+# DECODE_HOLD_BK False streams B_k everywhere.  Above DECODE_RANK_MAX the
+# rebuild instance (``chunk_block_smem``).
+DECODE_RANK_MAX = 256
+DECODE_STAGES = 0
+DECODE_HOLD_BK = True
+DECODE_BLOCK_KEYS = 64
+PAGED_TWO_PER_SM = SMEM_PER_SM // 2 - SMEM_PER_CTA_RESERVED - 2048
+
+
+def decode_route(r: int) -> bool:
+    """Whether rank ``r`` runs the decodes' rank route (above RANK_CHUNK,
+    up to DECODE_RANK_MAX); above it, the rebuild instance."""
+    return rank_chunked(r) and r <= DECODE_RANK_MAX
+
+
+def decode_chunk_layout(d: int, int8: bool = False, hold: bool = False,
+                        want: int = 2) -> Dict[str, int]:
+    """``flash::DecodeChunk`` at tile width ``d``: the ring's ``stages``
+    (at most ``want``, or DECODE_STAGES where set, as many as fit a CTA),
+    one stage's bytes and the CTA's ``bytes`` without a held B_k: Q and P
+    (16 rows), the warps' maxima, the stages (a K_r or V_r chunk of 64
+    keys and, streamed, 64 rows of B_k), the block's K_b with sin and
+    cos, and its V_b (int8 pages: codes and scales, and V's bf16 tile).
+    Rows padded by 8."""
+    bk, ds, rs, hs = DECODE_BLOCK_KEYS, d + 8, RANK_CHUNK + 8, d // 2 + 8
+    ring = 2 * SPLIT_HEADS * ds + 2 * SPLIT_HEADS * (bk + 8) + \
+        4 * SPLIT_WARPS * SPLIT_HEADS
+    stage = 2 * bk * rs + (0 if hold else 2 * RANK_CHUNK * ds)
+    kb = bk * d + 4 * bk if int8 else 2 * bk * ds
+    vb = bk * d + 4 * bk + 2 * bk * ds if int8 else 2 * bk * ds
+    rest = kb + 2 * (2 * bk * hs) + vb
+    stages = DECODE_STAGES or want
+    while stages > 1 and ring + stages * stage + rest > SMEM_PER_CTA:
+        stages -= 1
+    return dict(stages=stages, stage=stage,
+                bytes=ring + stages * stage + rest)
+
+
+def decode_chunk_plan(d: int, r: int, int8: bool = False,
+                      dense: bool = True) -> Dict[str, object]:
+    """What the rank route runs at tile width ``d`` and rank ``r``
+    (``launch_chunk`` of #8, ``dense``, or of #2): ``hold`` (B_k's whole
+    chunks of rows on chip), ``stages`` and the CTA's ``bytes``.  #8 holds
+    B_k with 3 stages where a CTA fits; #2 with 2 where two CTAs still fit
+    an SM (PAGED_TWO_PER_SM); else B_k streams through 2 stages."""
+    if DECODE_HOLD_BK:
+        lay = decode_chunk_layout(d, int8, True, 3 if dense else 2)
+        held = 2 * -(-r // RANK_CHUNK) * RANK_CHUNK * (d + 8)
+        if lay["bytes"] + held <= (SMEM_PER_CTA if dense
+                                   else PAGED_TWO_PER_SM):
+            return dict(hold=True, stages=lay["stages"],
+                        bytes=lay["bytes"] + held)
+    lay = decode_chunk_layout(d, int8, False, 2)
+    return dict(hold=False, stages=lay["stages"], bytes=lay["bytes"])
+
+
+def decode_rank_max(d: int) -> int:
+    """The largest rank the rank route takes at head_dim ``d``: its acc_r
+    registers are sized for DECODE_RANK_MAX at every width, and where a
+    held B_k does not fit it streams, which needs no memory that grows
+    with R."""
+    tile_dim(d)
+    return DECODE_RANK_MAX
 
 
 # The chunked prefill tile of #7 and of #5/#1 (``flash::ChunkPipe`` in
@@ -412,9 +487,12 @@ def decode_split_smem(d: int, r: int) -> int:
     ``splitk`` in the source): Q (16 rows), B_k and B_v (RP rows), and per
     warp two stages (one at D 256) of 16 keys' K, V, K_r, V_r, sin and cos
     rows, all bf16, rows padded by 8 elements; at the tile's width
-    (``tile_dim``).  Above ``RANK_CHUNK``: Q and one 64-key block of the
-    chunked instance (``chunk_block_smem``)."""
+    (``tile_dim``).  Above ``RANK_CHUNK``: the rank route
+    (``decode_chunk_plan``) up to DECODE_RANK_MAX, above it Q and one
+    64-key block of the rebuild instance (``chunk_block_smem``)."""
     d = tile_dim(d)
+    if decode_route(r):
+        return decode_chunk_plan(d, r)["bytes"]
     if rank_chunked(r):
         return 2 * SPLIT_HEADS * (d + 8) + chunk_block_smem(
             d, SPLIT_KEYS * SPLIT_WARPS)

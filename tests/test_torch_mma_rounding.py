@@ -593,7 +593,8 @@ def test_paged_res_mixed_algorithm_matches_jax_in_f32(pages, heads, window):
 
 
 # ------------------------------------ ranks above 64: the chunked plan
-# The chunked instances (``csrc/rank_chunk.cuh``) rebuild a key block's K
+# The chunked prefills (``csrc/rank_chunk.cuh``; the split-K decodes only
+# above rank 256) rebuild a key block's K
 # and V on chip one rank chunk of 64 at a time: each chunk's products in
 # f32, added to the f32 sums in order; K = bf16(K_b + RoPE(sums)) and V =
 # bf16(V_b + sums), rounded once (the plain version's reconstruct rounds
@@ -626,7 +627,9 @@ def rebuild_chunked(base, res, b, lowp, sin=None, cos=None):
 
 
 def emulate_dense_chunked(t, window, lowp):
-    """#7's and #8's chunked instances, in the tile's layout."""
+    """#7's chunked instance (the prefill; #8's decode rebuilds V this way
+    only above rank 256, and below takes the rank route of
+    ``tests/test_torch_rank_chunk_decode.py``), in the tile's layout."""
     d = t["q"].shape[-1]
     t = tile_layout(t)
     k = rebuild_chunked(t["k_base"], t["k_res"], t["b_k"], lowp, t["sin"],
