@@ -973,7 +973,7 @@ def check_serving_shapes(pra, ref, recorded, quantize, geom=None):
                               qlen=list(qlen), sq=sq, width=width,
                               quantize=quant, geom=geom)
                 rec = compare(pra, ref, name, c, tol, case)
-                rec.update(start=list(start), q_len=list(qlen))
+                rec.update(start=list(start), q_len=list(qlen), width=width)
                 if dtype == torch.bfloat16:
                     measure(pra, ref, name, c, rec)
                     if launch is heaviest:
@@ -982,6 +982,32 @@ def check_serving_shapes(pra, ref, recorded, quantize, geom=None):
                 del c
                 torch.cuda.empty_cache()
     return results
+
+
+# the decode-only entry beside each mixed entry (#2 beside #1, #4 beside #3)
+DECODE_TWIN = {"paged_residual_attention_mixed":
+               "paged_residual_attention_decode",
+               "paged_attention_mixed_base": "paged_attention_decode_base"}
+
+
+def verify_as_decode(pra, ref, name, rec):
+    """Phase 6: the rows of the verify launch ``rec`` (a mixed entry's
+    heaviest verify geometry) as one decode row each over the same keys
+    (kv_len = start + q_len; a q_len 0 row stays empty), through the
+    decode-only twin in bf16: checked against its plain version and
+    timed.  Returns the fields to add to ``rec``."""
+    twin = DECODE_TWIN[name]
+    start = [s + n - 1 if n else 0 for s, n in zip(rec["start"],
+                                                   rec["q_len"])]
+    qlen = [1 if n else 0 for n in rec["q_len"]]
+    c = make_case("decode", torch.bfloat16, rec["window"], seed=5,
+                  start=start, qlen=qlen, sq=1, width=rec["width"])
+    dec = compare(pra, ref, twin, c, BF16_RTOL, "verify rows as decode")
+    dec["kernel_ms"] = time_ms(kernel_call(pra, twin, c))
+    log("kernel", **dec, ok=True)
+    del c
+    return dict(decode_kernel=dec["ran"], decode_ms=dec["kernel_ms"],
+                verify_over_decode=rec["kernel_ms"] / dec["kernel_ms"])
 
 
 # ------------------------------------------------------ dense kernels
@@ -3154,6 +3180,42 @@ def serve_fanout(server, vocab, ctx_len, adapters, instr_len, max_new, seed,
     return (outs,) + drained_metrics(server, t0)
 
 
+def serve_rerun(server, vocab, ctx_len, n_adapters, instr_len, max_new,
+                seed, sampling_cls):
+    """The staggered serve with every agent step run twice: one pinned
+    session of ``ctx_len`` tokens, one greedy fork per adapter, the second
+    half submitted once a fork of the first half decodes (as ``serve``),
+    and each fork run again (same adapter, same instruction) as soon as
+    it has finished, while the later forks still decode: a retry or a
+    self-consistency sample of the same step.  Returns (outputs: the first
+    runs, then the re-runs; metrics; seconds)."""
+    rng = np.random.default_rng(seed)
+    ctx = [int(t) for t in rng.integers(0, vocab, ctx_len)]
+    instrs = [[int(t) for t in rng.integers(0, vocab, instr_len)]
+              for _ in range(n_adapters)]
+    sp = sampling_cls(max_new_tokens=max_new)
+    t0 = time.perf_counter()
+    with server.session(ctx, adapter_id=0) as sess:
+        half = n_adapters // 2
+        first = [sess.fork(i, instrs[i], sp) for i in range(half)]
+        eng = server.engine
+        while eng.waiting or eng.running:       # until one fork decodes
+            if any(r.state == "decode" for r in eng.running):
+                break
+            server.poll()
+        first += [sess.fork(i, instrs[i], sp)
+                  for i in range(half, n_adapters)]
+        again = {}
+        while len(again) < n_adapters:
+            for i, h in enumerate(first):
+                if h.done and i not in again:
+                    again[i] = sess.fork(i, instrs[i], sp)
+            if len(again) < n_adapters:
+                server.poll()
+        outs = server.wait(first + [again[i] for i in range(n_adapters)])
+    return (outs,) + drained_metrics(server, t0)
+
+
 def drained_metrics(server, t0):
     """(metrics, seconds since ``t0``) once the device is idle, with the
     pool's free pages after every tree page is evicted."""
@@ -3406,7 +3468,8 @@ SERVE_LINE = re.compile(r"^serving mode=\S+ admission=\S+ on "
 def cli_http_drain(ForkClient, HttpError, extra=(), timeout=300):
     """Phase 4, the CLI: start the launcher with ``--http --port 0``
     (``extra`` flags appended), parse its port line, open a 128-token
-    stream and, once a token has arrived, send SIGTERM: a fresh request
+    stream and, once a token has arrived, read the served configuration
+    from ``/v1/metrics`` and send SIGTERM: a fresh request
     must get 503 with ``finish_reason="draining"``, the open stream must
     finish to length, ``watchdog_trips`` must stay 0 (read from /healthz
     while the process lives) and the process must exit 0.  The process is
@@ -3452,6 +3515,7 @@ def cli_http_drain(ForkClient, HttpError, extra=(), timeout=300):
             time.sleep(0.005)
         if not events or events[0].get("finished"):
             raise AssertionError(f"no token before the drain: {events}")
+        served = client.metrics()
         proc.send_signal(signal.SIGTERM)
         trips, state = 0, None
         while state != "draining" and time.perf_counter() < deadline:
@@ -3486,11 +3550,33 @@ def cli_http_drain(ForkClient, HttpError, extra=(), timeout=300):
         return dict(cmd=" ".join(cmd[1:]), ready_s=ready_s, port=port,
                     stream_tokens=len(final["tokens"]), exit_code=rc,
                     watchdog_trips=trips, refused=503,
-                    drain_lines=[ln for ln in lines if "drain" in ln])
+                    drain_lines=[ln for ln in lines if "drain" in ln],
+                    **{k: served[k] for k in ("admission", "speculate",
+                                              "spec_proposer",
+                                              "spec_steps")})
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def cli_stats_line(extra, timeout=300):
+    """Phase 4, the CLI: the launcher's workflow run (one workflow of two
+    agents, ``tiny_serving_model()`` on the card) with ``--stats`` and
+    ``extra`` flags appended, as a process of its own; returns its
+    speculation stats line, which must read ``speculate=on``."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--workflows",
+           "1", "--agents", "2", "--stats", *extra]
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
+                                                  PYTHONPATH=str(SRC)),
+                          capture_output=True, text=True, timeout=timeout)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("speculate=")]
+    if proc.returncode != 0 or not lines or \
+            not lines[0].startswith("speculate=on "):
+        raise AssertionError(f"launcher exit {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return lines[0]
 
 
 def reset_counts(*mods):
@@ -3840,6 +3926,317 @@ def persist_restore(tiny, tfm, Engine, Request, ServeConfig):
     log("persist_restore", kv_quant="int8", pages=n, tokens=want,
         tier_hits=m["tier_hits"], prefilled_tokens=req.prefilled_tokens,
         ok=True)
+
+
+# ------------------------------------ speculation, chaos, fair share (§15-17)
+# (label, tiny_serving_model settings, adapters) of the speculative serves:
+# the defaults (head_dim 32, G 2) and small_model_card_vs_cpu's 2-layer
+# model (head_dim 64, G 2)
+SPEC_MODELS = (
+    ("tiny_d32", {}, 8),
+    ("small_d64", dict(rank=16, num_layers=2, d_model=256, num_heads=4,
+                       num_kv_heads=2, vocab_size=512), 4),
+)
+SPEC_PROPOSERS = ("prompt_lookup", "ngram_cache")
+SPEC_K = 4
+# a verify-only plan pads its q tile to pow2(k + 1); every other plan of
+# a mixed launch to at least 32 (the executor's floors)
+VERIFY_TILE = 8
+# the entry each mode's mixed plans (and so its verify rows) run
+MIXED_ENTRY = {"forkkv": "paged_residual_attention_mixed",
+               "prefix": "paged_attention_mixed_base",
+               "full_reuse": "paged_attention_mixed_base"}
+SPEC_KEYS = ("spec_steps", "spec_proposed_tokens", "spec_accepted_tokens",
+             "spec_committed_tokens")
+SPEC_LINE_KEYS = SPEC_KEYS + ("spec_step_share", "spec_acceptance_rate")
+# the re-run serve's instruction length: a context of 2048 tokens and a
+# 64-token instruction fill whole pages, and a whole-page prompt hit in
+# full (a re-run's) decodes one position past the pages admission gives it
+# (ROADMAP Queue 3); with 65 a re-run prefills its last token
+RERUN_INSTR = 65
+# the launcher's flags for speculation and fair-share admission
+SPEC_FLAGS = ("--speculate", "--admission", "fairshare")
+
+
+def serve_replayed(server, vocab, max_new, sampling_cls):
+    """The speculative axis of the reference's parity matrix
+    (tests/test_parity_matrix.py:72-125): one pinned 40-token context, two
+    staggered forks (adapters 1 and 2) whose instructions quote the
+    context, then a replay of the first fork, which the ngram cache,
+    warmed when the first finished, drafts whole.  Returns (outputs,
+    metrics, seconds)."""
+    rng = np.random.default_rng(7)
+    ctx = [int(t) for t in rng.integers(0, vocab, 40)]
+    sp = sampling_cls(max_new_tokens=max_new)
+    t0 = time.perf_counter()
+    with server.session(ctx, adapter_id=0) as sess:
+        handles = [sess.fork(1, ctx[:5], sp)]
+        for _ in range(3):                 # the first fork reaches decode
+            server.poll()
+        handles.append(sess.fork(2, ctx[:6], sp))
+        outs = server.wait(handles)
+        outs += server.wait([sess.fork(1, ctx[:5], sp)])
+    return (outs,) + drained_metrics(server, t0)
+
+
+def verify_launches(shapes):
+    """{mixed entry: launches} of the launches ``shapes`` recorded whose
+    query tile is a verify-only plan's (at most ``VERIFY_TILE`` wide)."""
+    out = {}
+    for name, _, sq, *_ in shapes.raw:
+        if ALL_KERNELS[name][0] == "mixed" and sq <= VERIFY_TILE:
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def spec_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig, SamplingParams,
+                     pra):
+    """Phase 4, speculative decoding (DESIGN.md §16): each model of
+    ``SPEC_MODELS`` (f32) served in forkkv, prefix and full_reuse under
+    the mixed loop with ``speculate=True``, ``spec_k`` 4, fixed k, with
+    each proposer: greedy tokens equal on the card, on the CPU and on the
+    card with speculation off; the speculation real on both devices with
+    the same counters; no gather; both pools back to baseline after close
+    and evict; on the card the mode's mixed entry (#1 forkkv, #3 prefix
+    and full_reuse) launched at a verify plan's q tile.  Returns
+    {(model, mode, proposer): spec counters}."""
+    got = {}
+    for label, kw, n_adapters in SPEC_MODELS:
+        cfg = tiny(**kw)
+        params = tfm.init_params(cfg, 0, device="cpu")
+        lora = tfm.init_lora_stacks(cfg, 1, n_adapters, device="cpu")
+        weights = {dev: tuple(tree_map(lambda t: t.to(dev), x)
+                              for x in (params, lora))
+                   for dev in ("cuda", "cpu")}
+        for mode in MIXED_ENTRY:
+            kernel = pra.kernel_name(MIXED_ENTRY[mode], torch.float32, False,
+                                     cfg.lora.rank)
+            for proposer in SPEC_PROPOSERS:
+                toks, counters = {}, {}
+                for dev, spec in (("cuda", True), ("cpu", True),
+                                  ("cuda", False)):
+                    sc = ServeConfig(page_size=16, max_pages=96, max_batch=4,
+                                     max_prefill_tokens=48,
+                                     max_pages_per_req=8, mode=mode,
+                                     speculate=spec, spec_k=SPEC_K,
+                                     spec_adaptive=False,
+                                     spec_proposer=proposer)
+                    srv = ForkServer(cfg, *weights[dev], sc, device=dev)
+                    reset_counts(pra)
+                    with LaunchShapes(pra) as shapes:
+                        outs, m, _ = serve_replayed(srv, cfg.vocab_size, 8,
+                                                    SamplingParams)
+                    check_serving(outs, m, 8)
+                    if spec:
+                        counters[dev] = {k: m[k] for k in SPEC_KEYS}
+                        if not all(counters[dev].values()):
+                            raise AssertionError(
+                                f"{label} {mode} {proposer} on {dev}: no "
+                                f"accepted draft: {counters[dev]}")
+                    elif m["spec_steps"]:
+                        raise AssertionError("speculation off ran "
+                                             "verify steps")
+                    if dev == "cuda" and spec:
+                        verify = verify_launches(shapes).get(MIXED_ENTRY[mode],
+                                                             0)
+                        if not verify or not pra.LAUNCHES[kernel]:
+                            raise AssertionError(
+                                f"{label} {mode} {proposer}: {kernel} ran "
+                                f"{pra.LAUNCHES[kernel]} times, {verify} "
+                                f"at a verify q tile")
+                    toks[(dev, spec)] = [o.tokens for o in outs]
+                if len({str(t) for t in toks.values()}) != 1 or \
+                        counters["cuda"] != counters["cpu"]:
+                    raise AssertionError(f"{label} {mode} {proposer}: "
+                                         f"tokens {toks}, counters "
+                                         f"{counters}")
+                got[(label, mode, proposer)] = counters["cuda"]
+                log("spec_card_vs_cpu", model=label,
+                    head_dim=cfg.resolved_head_dim, mode=mode,
+                    proposer=proposer, spec_k=SPEC_K, launched=kernel,
+                    verify_launches=verify, **counters["cuda"],
+                    tokens=toks[("cuda", True)], ok=True)
+    return got
+
+
+# (plan, seed, requests (prompt length, max_new, adapter), drain_after,
+# max_pages) of tests/test_chaos.py:105-130
+CHAOS_SCHEDULES = {
+    "preempt_quarantine": ("nan_logits:r3", 5,
+                           [(40, 12, 1), (40, 6, 2), (36, 6, 3), (38, 6, 4)],
+                           None, 10),
+    "drain_mid_flight": ("", 6, [(40, 10, 1), (40, 10, 2), (40, 10, 3)], 2,
+                         10),
+    "executor_storm": ("executor:c2,c5;pool_alloc:c5,c6", 7,
+                       [(40, 8, 1), (38, 8, 2), (36, 8, 3)], None, 12),
+}
+TERMINAL = {"stop", "length", "rejected", "stalled", "timeout", "error",
+            "draining"}
+CHAOS_KEYS = ("exec_errors", "quarantined", "faults_fired",
+              "preempted_requests", "restored_requests", "steps", "drained")
+
+
+def chaos_schedule(ForkServer, ServeConfig, SamplingParams, cfg, params,
+                   lora, device, plan, seed, req_specs, drain_after,
+                   max_pages):
+    """tests/test_chaos.py's ``run_schedule`` on ``device``: submit the
+    requests under the fault plan (a small pool, ``preempt_after_steps``
+    1), poll to quiescence, calling drain() after ``drain_after`` polls or
+    at quiescence, whichever comes first, and hold its invariants: every
+    request terminal, drained when drained, no page leaked once the trees
+    let go, counters moved only by fired faults, no gather — and every
+    executor failure an injected one (``exec_errors ==
+    faults_fired["fault_executor"]``), so a failing kernel cannot hide
+    among them.  Returns what the two devices must agree on."""
+    sc = ServeConfig(page_size=16, max_pages=max_pages, max_batch=4,
+                     max_prefill_tokens=64, mode="forkkv",
+                     max_pages_per_req=8, preempt_after_steps=1,
+                     fault_plan=plan, fault_seed=seed)
+    server = ForkServer(cfg, params, lora, sc, device=device)
+    eng = server.engine
+    rng = np.random.default_rng(seed)
+    handles = [server.generate(aid, [int(t) for t in rng.integers(
+        0, cfg.vocab_size, plen)], SamplingParams(max_new_tokens=max_new))
+        for plen, max_new, aid in req_specs]
+    polls, drained_at = 0, None
+    while True:
+        quiet = not (eng.waiting or eng.running)
+        if drain_after is not None and drained_at is None and (
+                polls == drain_after or quiet):
+            server.drain()
+            drained_at = polls
+        if quiet:
+            break
+        server.poll()
+        polls += 1
+        if polls >= 2000:
+            raise AssertionError(f"{plan}: no quiescence in 2000 polls")
+    outs = [h.result() for h in handles]
+    bad = [o.finish_reason for o in outs
+           if o.finish_reason not in TERMINAL or
+           (o.finish_reason == "error" and not o.error)]
+    if bad or (drained_at is not None and not eng.drained):
+        raise AssertionError(f"{plan}: finish reasons {bad}, drained "
+                             f"{eng.drained}")
+    eng.dual.base.evict(eng.sc.max_pages)
+    eng.dual.residual.evict(eng.res_pool.num_pages)
+    if eng.base_pool.free_pages != eng.sc.max_pages - 1 or \
+            eng.res_pool.free_pages != eng.res_pool.num_pages - 1:
+        raise AssertionError(f"{plan}: pages leaked")
+    m = server.metrics()
+    fired = m["faults_fired"]
+    if (m["quarantined"] and not fired.get("fault_nan_logits", 0)) or \
+            m["exec_errors"] != fired.get("fault_executor", 0) or \
+            m["restored_requests"] > m["preempted_requests"] or \
+            m["fallback_gather_calls"]:
+        raise AssertionError(f"{plan}: counters "
+                             f"{ {k: m[k] for k in CHAOS_KEYS} }")
+    return dict(reasons=[o.finish_reason for o in outs],
+                tokens=[list(o.tokens) for o in outs], polls=polls,
+                drained_at=drained_at, **{k: m[k] for k in CHAOS_KEYS})
+
+
+def chaos_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig, SamplingParams,
+                      pra):
+    """Phase 4, fault tolerance (DESIGN.md §17): the three deterministic
+    schedules of tests/test_chaos.py on the card and on the CPU, the
+    test's model (``tiny_serving_model(rank=8)``, head_dim 32, f32):
+    ``chaos_schedule``'s invariants on each device, and the same finish
+    reasons, greedy tokens, polls and counters on both; on the card the
+    forkkv kernels launched."""
+    cfg = tiny(rank=8)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    lora = tfm.init_lora_stacks(cfg, 1, 16, device="cpu")
+    for name, schedule in CHAOS_SCHEDULES.items():
+        got = {}
+        for dev in ("cuda", "cpu"):
+            p, lo = (tree_map(lambda t: t.to(dev), x) for x in (params, lora))
+            reset_counts(pra)
+            got[dev] = chaos_schedule(ForkServer, ServeConfig,
+                                      SamplingParams, cfg, p, lo, dev,
+                                      *schedule)
+            if dev == "cuda":
+                ran = sorted(k for k, v in pra.LAUNCHES.items() if v)
+        want = {pra.kernel_name(e, torch.float32, False, cfg.lora.rank)
+                for e in LLAMA_SERVES[0][3]}
+        if not want <= set(ran):
+            raise AssertionError(f"chaos {name} launched {ran}")
+        if got["cuda"] != got["cpu"]:
+            raise AssertionError(f"chaos {name}: card {got['cuda']} != CPU "
+                                 f"{got['cpu']}")
+        log("chaos_card_vs_cpu", schedule=name, plan=schedule[0],
+            seed=schedule[1], launched=ran, **got["cuda"], ok=True)
+
+
+# two tenants, the heavier-weighted first, over 16 pages (room for three or
+# four of these requests at a time): (tenant, prompt length) in
+# submission order
+FAIR_REQUESTS = (("a", 40), ("a", 56), ("a", 48), ("a", 64), ("a", 44),
+                 ("b", 52), ("b", 36), ("b", 60))
+FAIR_SC = dict(page_size=16, max_pages=16, max_batch=4,
+               max_prefill_tokens=64, max_pages_per_req=8, mode="forkkv",
+               admission="fairshare", tenant_weights=(("a", 3.0),
+                                                      ("b", 1.0)),
+               fair_aging_tokens_per_s=0.0)
+
+
+def fairshare_card_vs_cpu(tiny, tfm, ForkServer, ServeConfig, SamplingParams,
+                          pra):
+    """Phase 4, fair-share admission (DESIGN.md §15): eight requests of
+    two tenants weighted 3:1 (``FAIR_REQUESTS``), submitted together to a
+    pool that holds three or four, on the card and on the CPU
+    (``tiny_serving_model()``, f32).  Aging is off, so each decision
+    depends on the served tokens only, not on the host's clock.  The
+    admission order (the requests admitted at each poll), the greedy
+    tokens and the per-tenant admission counters must be equal, the queue
+    must really have waited, and on the card #1 and #2 launched."""
+    cfg = tiny()
+    params = tfm.init_params(cfg, 0, device="cpu")
+    lora = tfm.init_lora_stacks(cfg, 1, 8, device="cpu")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p, lo = (tree_map(lambda t: t.to(dev), x) for x in (params, lora))
+        server = ForkServer(cfg, p, lo, ServeConfig(**FAIR_SC), device=dev)
+        eng = server.engine
+        rng = np.random.default_rng(13)
+        handles = [server.generate(i % 4, [int(t) for t in rng.integers(
+            0, cfg.vocab_size, plen)], SamplingParams(max_new_tokens=4),
+            tenant=tenant) for i, (tenant, plen) in enumerate(FAIR_REQUESTS)]
+        reqs = list(eng.waiting)
+        reset_counts(pra)
+        order, polls, seen = [], 0, set()
+        while eng.waiting or eng.running:
+            server.poll()
+            polls += 1
+            new = sorted(r.rid for r in reqs
+                         if r.admitted_at and r.rid not in seen)
+            if new:
+                order.append((polls, new))
+                seen.update(new)
+            if polls >= 2000:
+                raise AssertionError("fair share: no quiescence")
+        outs = [h.result() for h in handles]
+        m = server.metrics()
+        if any(o.finish_reason != "length" for o in outs) or \
+                m["exec_errors"] or len(order) < 2:
+            raise AssertionError(f"fair share on {dev}: "
+                                 f"{[o.finish_reason for o in outs]}, "
+                                 f"order {order}")
+        if dev == "cuda":
+            ran = sorted(k for k, v in pra.LAUNCHES.items() if v)
+        got[dev] = dict(order=order, tokens=[list(o.tokens) for o in outs],
+                        tenants=m["tenants"], steps=m["steps"],
+                        preemptions=m["preemptions"])
+    if got["cuda"] != got["cpu"]:
+        raise AssertionError(f"fair share: card {got['cuda']} != CPU "
+                             f"{got['cpu']}")
+    want = {pra.kernel_name(e, torch.float32, False, cfg.lora.rank)
+            for e in LLAMA_SERVES[0][3]}
+    if not want <= set(ran):
+        raise AssertionError(f"fair share launched {ran}")
+    log("fairshare_card_vs_cpu", weights=dict(FAIR_SC["tenant_weights"]),
+        submitted=[t for t, _ in FAIR_REQUESTS], launched=ran,
+        **got["cuda"], ok=True)
 
 
 # ------------------------------------------------------------------ zoo
@@ -4347,6 +4744,24 @@ def main() -> int:
     persist_restore(tiny_serving_model, tfm, Engine, Request, ServeConfig)
     # (d) the serve launcher's HTTP drain, as a process of its own
     log("cli_http_drain", **cli_http_drain(ForkClient, HttpError), ok=True)
+    # (m) speculative decoding, the chaos fault schedules and fair-share
+    # admission, card vs CPU; the launcher's drain and stats line with
+    # both switched on
+    for phase, fn in (("spec_card_vs_cpu", spec_card_vs_cpu),
+                      ("chaos_card_vs_cpu", chaos_card_vs_cpu),
+                      ("fairshare_card_vs_cpu", fairshare_card_vs_cpu)):
+        t0 = time.perf_counter()
+        fn(tiny_serving_model, tfm, ForkServer, ServeConfig, SamplingParams,
+           pra)
+        log("phase_seconds", name=phase, seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rec = cli_http_drain(ForkClient, HttpError, extra=SPEC_FLAGS)
+    if not rec["speculate"] or rec["admission"] != "fairshare":
+        raise AssertionError(f"{SPEC_FLAGS}: the server runs {rec}")
+    log("cli_http_drain", **rec, stats_line=cli_stats_line(SPEC_FLAGS),
+        ok=True)
+    log("phase_seconds", name="cli_http_drain speculative",
+        seconds=time.perf_counter() - t0)
 
     # 5. Llama3-8B, full width and depth, bf16, random weights
     cfg = LLAMA3_8B
@@ -4365,14 +4780,17 @@ def main() -> int:
     cfg8 = dataclasses.replace(cfg, kv_quant="int8")
 
     def run(label, sc, drive, expect, model=cfg, record=True, stacks=None,
-            recorder=None):
+            recorder=None, count=True, note=None, instr=64):
         """One serve of ``model`` (with ``stacks``, else the phase's LoRA
         stacks) with the counts zeroed just before it and read just after
         (its launches recorded for phase 6, by ``recorder`` if given, unless
-        not ``record``): each entry of ``expect`` must have launched the
+        not ``record``; added to the kernels line's counts if ``count``):
+        each entry of ``expect`` must have launched the
         kernel it runs for ``model`` (``pra.kernel_name`` at its rank), and
-        an int8 model int8 variants only.  Returns its outputs and
-        metrics."""
+        an int8 model int8 variants only.  The serve line carries the
+        speculation counters of a speculative serve and ``note(outputs,
+        metrics)``; ``instr`` is the drive's instruction length.  Returns
+        its outputs and metrics."""
         server = ForkServer(model, params, lora if stacks is None else stacks,
                             sc)
         torch.cuda.reset_peak_memory_stats()
@@ -4389,7 +4807,7 @@ def main() -> int:
         if int8 and not all("_int8" in k for k in ran):
             raise AssertionError(f"{label}: a full-precision kernel ran on "
                                  f"int8 pages: {ran}")
-        for k, v in ran.items():
+        for k, v in ran.items() if count else ():
             launches[k] = launches.get(k, 0) + v
         gen = sum(len(o.tokens) for o in outs)
         m["tokens_per_s"] = gen / seconds
@@ -4402,7 +4820,7 @@ def main() -> int:
             host_tier_bytes=sc.host_tier_bytes,
             mixed_batching=sc.mixed_batching,
             broadcast_fork=sc.broadcast_fork, forks=len(outs),
-            context=2048, instr=64, new_tokens=16, seconds=seconds,
+            context=2048, instr=instr, new_tokens=16, seconds=seconds,
             tokens_per_s=gen / seconds, ttft_p50_ms=m["ttft_p50_ms"],
             tpot_p50_ms=m["tpot_p50_ms"], steps=m["steps"],
             mixed_steps=m["mixed_steps"], decode_steps=m["decode_steps"],
@@ -4420,6 +4838,8 @@ def main() -> int:
                                  "promoted_pages", "evicted_pages",
                                  "preemptions")},
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            **({k: m[k] for k in SPEC_LINE_KEYS} if sc.speculate else {}),
+            **(note(outs, m) if note else {}),
             tokens=[o.tokens for o in outs[:2]], ok=True)
         del server
         torch.cuda.empty_cache()
@@ -4428,6 +4848,10 @@ def main() -> int:
     def staggered(server):
         return serve(server, cfg.vocab_size, 2048, 8, 4, 64, 16, seed=11,
                      sampling_cls=SamplingParams)
+
+    def rerun(server):
+        return serve_rerun(server, cfg.vocab_size, 2048, 4, RERUN_INSTR, 16,
+                           seed=11, sampling_cls=SamplingParams)
 
     def fanout(server):
         return serve_fanout(server, cfg.vocab_size, 2048, FANOUT, 64, 16,
@@ -4517,6 +4941,43 @@ def main() -> int:
     del server
     torch.cuda.empty_cache()
 
+    # (m) speculative decoding on the re-run traffic (adaptive k; the
+    # ngram cache drafts a re-run from its first run: the prompt-lookup
+    # default finds nothing to draft in random weights' outputs, which do
+    # not repeat), each mode beside its serve of the same traffic with
+    # speculation off; the verify launches recorded apart, for phase 6
+    t0 = time.perf_counter()
+    spec_shapes = LaunchShapes(pra)
+    spec_launches = {}
+    for mode, expect in (("forkkv", LLAMA_SERVES[0][3]),
+                         ("prefix", LLAMA_SERVES[1][3])):
+        outs, m = run(f"{mode} re-run", ServeConfig(mode=mode, **big), rerun,
+                      expect, record=False, count=False, instr=RERUN_INSTR)
+        check_serving(outs, m, 16)
+        plain = [o.tokens for o in outs]
+        beside = {f"plain_{k}": m[k] for k in ("tokens_per_s", "ttft_p50_ms",
+                                               "tpot_p50_ms")}
+
+        def agree(outs, m, plain=plain, beside=beside):
+            same = sum(a == b for o, p in zip(outs, plain)
+                       for a, b in zip(o.tokens, p))
+            return dict(beside, agree_share=same / sum(map(len, plain)))
+
+        before = verify_launches(spec_shapes).get(MIXED_ENTRY[mode], 0)
+        outs, m = run(f"{mode} speculative", ServeConfig(
+            mode=mode, speculate=True, spec_k=SPEC_K,
+            spec_proposer="ngram_cache", **big), rerun, (MIXED_ENTRY[mode],),
+            recorder=spec_shapes, count=False, note=agree, instr=RERUN_INSTR)
+        check_serving(outs, m, 16)
+        n_verify = verify_launches(spec_shapes).get(MIXED_ENTRY[mode], 0) - \
+            before
+        if not (m["spec_steps"] >= 1 and n_verify >= 1):
+            raise AssertionError(f"{mode} speculative: {m['spec_steps']} "
+                                 f"verify steps, {n_verify} verify launches")
+        spec_launches[MIXED_ENTRY[mode]] = n_verify
+    log("phase_seconds", name="llama speculative",
+        seconds=time.perf_counter() - t0)
+
     # (l) launch/steps.py's prefill and serve steps on the 1x1 mesh
     built = built_steps_llama(cfg, params, tfm, tsteps, tmesh, troof, tana,
                               ShapeConfig, mods, card)
@@ -4586,6 +5047,20 @@ def main() -> int:
     measured.update({f"{n}_r128": rec for n, rec in check_serving_shapes(
         pra, ref, shapes128.launches(), tfm.quantize_kv,
         geom=dict(LLAMA_GEOM, r=128)).items()})
+    # the speculative serves' verify launches of #1 and #3, the heaviest
+    # timed ("_spec") beside a decode-only launch of its rows
+    spec_recorded = {n: [k for k in v if k[1] <= VERIFY_TILE]
+                     for n, v in spec_shapes.launches().items()
+                     if n in DECODE_TWIN}
+    log("serve_launches_spec", geometries={
+        n: sorted({k[:4] for k in v}) for n, v in spec_recorded.items()})
+    for n, rec in check_serving_shapes(pra, ref, spec_recorded,
+                                       tfm.quantize_kv).items():
+        rec.update(verify_as_decode(pra, ref, n, rec))
+        log("spec_vs_decode", kernel=n, **{k: rec[k] for k in (
+            "ran", "case", "start", "q_len", "kernel_ms", "bound_ms",
+            "decode_kernel", "decode_ms", "verify_over_decode")}, ok=True)
+        measured[f"{n}_spec"] = rec
     measured["rg_lru_scan"] = check_scan_main_path(rg, ref, scans.cases)
     measured["rg_lru_scan_bwd"] = check_scan_bwd_main_path(rg, ref,
                                                            bwd_first.case)
@@ -4614,6 +5089,12 @@ def main() -> int:
         name = pra.kernel_name(n, torch.bfloat16, False, 128)
         entries.append((name, f"{n}_r128", launches[name], KERNELS[n][1],
                         DISAGG_SOURCE, "llama3-8b, LoRA rank 128"))
+    for n, launches_spec in spec_launches.items():  # speculative verify
+        name = pra.kernel_name(n, torch.bfloat16, False)
+        entries.append((f"{name}_spec", f"{n}_spec", launches_spec,
+                        KERNELS[n][1], DISAGG_SOURCE if
+                        n.startswith("paged_residual") else PAGED_SOURCE,
+                        "llama3-8b, speculative verify"))
     for n, r in DENSE_KERNELS.items():
         name = ra.prefill_kernel(torch.bfloat16) \
             if n == "residual_attention_prefill" else \

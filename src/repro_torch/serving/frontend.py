@@ -78,7 +78,8 @@ import queue
 import random
 import threading
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Set,
+                    Tuple)
 
 from repro_torch.serving.api import AgentSession, ForkServer, \
     GenerationHandle
@@ -152,6 +153,10 @@ class HttpFrontend:
         self.port = port
         self._ops: "queue.Queue[Callable[[], None]]" = queue.Queue()
         self._streams: Dict[int, _Stream] = {}
+        # requests whose HTTP response is not fully written yet: a stream
+        # leaves ``_streams`` once its terminal event is queued to the
+        # event loop, before the loop has written it
+        self._undelivered: Set[int] = set()
         self._sessions: Dict[str, AgentSession] = {}
         self._session_ids = itertools.count(1)
         self._stop = threading.Event()
@@ -216,7 +221,7 @@ class HttpFrontend:
         """True once draining AND the engine is empty AND every SSE
         stream has delivered its terminal event."""
         return self._draining and self.server.engine.drained \
-            and not self._streams
+            and not self._streams and not self._undelivered
 
     async def _amain(self) -> None:
         self._loop = asyncio.get_running_loop()
@@ -416,6 +421,7 @@ class HttpFrontend:
         event can slip between creation and registration."""
         self._streams[handle.rid] = _Stream(handle, aq,
                                             self._loop)  # type: ignore
+        self._undelivered.add(handle.rid)
 
     async def _refuse_if_draining(self,
                                   writer: asyncio.StreamWriter) -> bool:
@@ -534,11 +540,21 @@ class HttpFrontend:
     # ------------------------------------------------------------ delivery
     async def _deliver(self, handle: GenerationHandle, aq: asyncio.Queue,
                        stream: bool, writer: asyncio.StreamWriter) -> None:
-        """Forward one request's events: SSE when streaming, one JSON
-        document otherwise.  The FIRST event decides the HTTP status —
-        a request refused before any token (shed / too long / deadline)
-        becomes a real error status even in stream mode, since no SSE
-        bytes have been written yet."""
+        """Forward one request's events (``_write_events``), then count
+        its response as written, however the writing ended: ``drained``
+        waits for it."""
+        try:
+            await self._write_events(handle, aq, stream, writer)
+        finally:
+            self._undelivered.discard(handle.rid)
+
+    async def _write_events(self, handle: GenerationHandle,
+                            aq: asyncio.Queue, stream: bool,
+                            writer: asyncio.StreamWriter) -> None:
+        """SSE when streaming, one JSON document otherwise.  The FIRST
+        event decides the HTTP status — a request refused before any
+        token (shed / too long / deadline) becomes a real error status
+        even in stream mode, since no SSE bytes have been written yet."""
         first = await aq.get()
         if first["finished"] and first["index"] == 0:
             out = await self._call(handle.result)

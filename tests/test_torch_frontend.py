@@ -15,6 +15,7 @@ launcher's own weights serves the reference's greedy tokens, refuses to
 pick the CPU on its own, and ``main`` prints the reference's ``--json``
 report keys.
 """
+import asyncio
 import concurrent.futures
 import json
 import math
@@ -37,7 +38,8 @@ from repro_torch import bridge
 from repro_torch.configs.paper_models import tiny_serving_model as ttiny
 from repro_torch.core.config import ServeConfig as TServeConfig
 from repro_torch.launch import serve as tserve
-from repro_torch.serving.api import ForkServer, SamplingParams
+from repro_torch.serving.api import (ForkServer, GenerationHandle,
+                                     SamplingParams)
 from repro_torch.serving.frontend import ForkClient, HttpError, HttpFrontend
 
 torch.set_num_threads(2)
@@ -324,6 +326,46 @@ def test_http_drain_503_and_inflight_completion(model):
         assert fe.drained
     finally:
         fe.shutdown()
+
+
+def test_drained_only_after_the_terminal_event_is_written(model,
+                                                         monkeypatch):
+    """A drained front end has written every response.  The launcher shuts
+    it down as soon as it reports drained, and the shut-down pump runs no
+    more work: a stream whose terminal event was queued to the event loop
+    but not yet written would never get it.  The event loop is made late
+    (0.5 s) to ask the pump for the finished request's result, the front
+    end is shut down the moment it reports drained, and the open stream
+    must still end with its terminal event."""
+    server, cfg = make_server(model)
+    call = HttpFrontend._call
+
+    async def late_result(self, fn):
+        if getattr(fn, "__name__", "") == "result":
+            await asyncio.sleep(0.5)
+        return await call(self, fn)
+
+    monkeypatch.setattr(HttpFrontend, "_call", late_result)
+    fe = HttpFrontend(server).start_background()
+    client = ForkClient(port=fe.port, timeout=15)
+    events = []
+    reader = threading.Thread(target=lambda: events.extend(
+        client.stream_completion(prompt_tokens(cfg, 40, seed=72),
+                                 max_new_tokens=8)), daemon=True)
+    try:
+        reader.start()
+        deadline = time.time() + 30
+        while not events and time.time() < deadline:
+            time.sleep(0.005)
+        fe.begin_drain()
+        while not fe.drained and time.time() < deadline:
+            time.sleep(0.005)
+        assert fe.drained
+    finally:
+        fe.shutdown()                   # as the launcher does once drained
+    reader.join(timeout=20)
+    assert events[-1].get("finished"), events[-1]
+    assert len(events[-1]["tokens"]) == 8
 
 
 def test_client_retry_backoff_on_503(model):
